@@ -9,21 +9,46 @@ flat ``.npz`` the PyTorch port reads:
 
 Keys are the ``'/'``-joined flax paths of every leaf, under ``tacotron/``
 and ``waveglow/`` (see ``text2speech_tpu_torch/convert.py``).  This script
-is the one place where the two packages meet outside the tests.
+is the one place where the two packages meet outside the tests.  Each
+package is handed its own config dataclasses: the JAX package's restore the
+checkpoints, and the port's, rebuilt from the same field values
+(:func:`port_configs`), check that every array the port's modules need is
+in the exported tree.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from text2speech_tpu.config import HParams, WaveGlowConfig
-from text2speech_tpu_torch.convert import flatten_tree, save_npz
+from text2speech_tpu_torch import config as port_config
+from text2speech_tpu_torch.convert import (flatten_tree, save_npz, sub_tree,
+                                           tacotron_state_dict,
+                                           waveglow_state_dict)
 
 
 def export_variables(taco_variables, wg_variables) -> dict:
     """flax variable trees -> the flat ``{path: np.ndarray}`` of the file."""
     return flatten_tree({"tacotron": taco_variables,
                          "waveglow": wg_variables})
+
+
+def port_configs(hp: HParams, wg_cfg: WaveGlowConfig):
+    """The port's ``(HParams, WaveGlowConfig)`` with the field values of the
+    JAX package's: values cross between the packages, classes do not."""
+    return (port_config.HParams(**dataclasses.asdict(hp)),
+            port_config.WaveGlowConfig(**dataclasses.asdict(wg_cfg)))
+
+
+def check_loads_into_port(flat: dict, hp: HParams, wg_cfg: WaveGlowConfig,
+                          num_speakers: int) -> None:
+    """Map the exported tree onto the port's modules' state dicts; a leaf
+    the port needs and the tree lacks raises ``KeyError`` here, not at
+    synthesis time on the GPU."""
+    port_hp, port_wg = port_configs(hp, wg_cfg)
+    tacotron_state_dict(sub_tree(flat, "tacotron"), port_hp, num_speakers)
+    waveglow_state_dict(sub_tree(flat, "waveglow"), port_wg)
 
 
 def main(argv=None) -> None:
@@ -48,6 +73,7 @@ def main(argv=None) -> None:
                              args.waveglow_checkpoint, use_denoiser=False,
                              num_speakers=args.num_speakers)
     flat = export_variables(synth.taco_variables, synth.wg_variables)
+    check_loads_into_port(flat, hp, wg_cfg, args.num_speakers)
     save_npz(args.out, flat)
     print(f"wrote {args.out}: {len(flat)} arrays")
 

@@ -5,6 +5,7 @@ weights, prenet masks and vocoder noise.  Plus the port's two promises
 about its surroundings: it imports with JAX blocked, and its CUDA entry
 raises without ``nvcc`` instead of falling back."""
 
+import json
 import os
 import subprocess
 import sys
@@ -188,10 +189,13 @@ def test_synthesize_to_files_writes_pcm16(pair, tmp_path):
 
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a process where ``import jax``
-    (and flax, optax, orbax, triton) fails."""
+    (and flax, optax, orbax, triton) fails, and so does any import of the
+    JAX package ``text2speech_tpu``: the port keeps its own ``config`` and
+    ``text``."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'triton'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'triton',\n"
+        "          'text2speech_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import text2speech_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
@@ -205,7 +209,7 @@ def test_port_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    assert int(out.stdout.strip()) >= 22
 
 
 def test_cuda_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -246,9 +250,27 @@ def test_exported_npz_loads_into_the_port(pair, tmp_path, monkeypatch):
 
     monkeypatch.setattr("text2speech_tpu.infer.load_synthesizer", fake_load)
     out = str(tmp_path / "model.npz")
+    # the exporter checks the tree against the port's modules at the
+    # widths it is told, so it is told the tiny models' widths
+    HP.save(str(tmp_path / "hp.json"))
+    (tmp_path / "wg.json").write_text(json.dumps({"waveglow_config": {
+        "n_mel_channels": WG.n_mel_channels, "n_flows": WG.n_flows,
+        "n_group": WG.n_group, "n_early_every": WG.n_early_every,
+        "n_early_size": WG.n_early_size,
+        "upsample_kernel": WG.upsample_kernel,
+        "upsample_stride": WG.upsample_stride,
+        "WN_config": {"n_layers": WG.wn_n_layers,
+                      "n_channels": WG.wn_n_channels}}}))
     exp.main(["--taco_checkpoint", "t_dir", "--waveglow_checkpoint", "w_dir",
-              "--out", out, "--num_speakers", "1"])
+              "--out", out, "--num_speakers", "1",
+              "--hparams", str(tmp_path / "hp.json"),
+              "--waveglow_config", str(tmp_path / "wg.json")])
     assert seen == {"taco": "t_dir", "wg": "w_dir", "n": 1}
+    port_hp, port_wg = exp.port_configs(HP, WG)
+    assert type(port_hp) is not type(HP) and port_hp.__dict__ == HP.__dict__
+    assert port_wg.__dict__ == WG.__dict__
+    with pytest.raises(KeyError):      # a tree that lacks what the port needs
+        exp.check_loads_into_port({}, HP, WG, 1)
 
     loaded = load_synthesizer(HP, out, WG, use_denoiser=False,
                               use_fused_vocoder=True, device="cpu")
@@ -273,7 +295,12 @@ def test_cli_raises_without_gpu():
             "--num_speakers", "2", "--sample_rate", "22050"]
     args = inference.build_parser().parse_args(argv)
     assert args.fused_vocoder and args.random_init == 0
+    assert not args.int8_vocoder
+    argv8 = ["--random_init", "1", "--int8_vocoder", "--max_steps", "10"]
+    args8 = inference.build_parser().parse_args(argv8)
+    assert args8.int8_vocoder and not args8.fused_vocoder
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible")
-    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
-        inference.main(argv)
+    for a in (argv, argv8):
+        with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+            inference.main(a)

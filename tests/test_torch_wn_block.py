@@ -70,7 +70,12 @@ def test_first_layer_plain_matches_pallas(n_half, T, n_valid, d):
              "b_cond", "w_rs", "b_rs"]
     ja, ta = _both(k, names)
     want_x, want_s = jwb.wn_layer_stream2_first(*ja, d, n_valid=n_valid)
-    got_x, got_s = twb.wn_layer_first(*ta, d, n_valid=n_valid)
+    # the port folds the start projection onto the taps once, outside the
+    # wrapper (the JAX wrapper folds on every call)
+    x0, spect, start_k, start_b, w_in, b_in = ta[:6]
+    fold = twb.fold_first_taps(start_k, start_b, w_in, b_in)
+    got_x, got_s = twb.wn_layer_first(x0, spect, start_k, start_b, *fold,
+                                      *ta[6:], d, n_valid=n_valid)
     np.testing.assert_allclose(got_x.numpy(), np.asarray(want_x), atol=ATOL)
     # skip rows past n_valid are unused by the path (the coupling output
     # is cut there); compare the valid rows
@@ -103,7 +108,11 @@ def test_final_layer_plain_matches_pallas(d, E, n_valid):
              "b_rs", "acc", "w_end", "b_end"]
     ja, ta = _both(k, names)
     want = jwb.wn_layer_stream2_final(*ja, d, n_valid=n_valid)
-    got = twb.wn_layer_final(*ta, d, n_valid=n_valid)
+    # the port folds w_rs @ w_end once, outside the wrapper
+    w_rs, b_rs, acc, w_end, b_end = ta[6:]
+    w_eff, b_eff = twb.fold_end(w_rs, b_rs, w_end, b_end)
+    got = twb.wn_layer_final(*ta[:6], w_eff, acc, w_end, b_eff, d,
+                             n_valid=n_valid)
     np.testing.assert_allclose(got.numpy()[:, :n_valid],
                                np.asarray(want)[:, :n_valid], atol=ATOL)
 

@@ -18,6 +18,11 @@ Layout rules (``text2speech_tpu/convert.py:9-18`` run in reverse):
   ``waveglow_fused.py:89 _fold``; WN convs keep the ``[k, in, out]``
   layout, and each flow's fused cond kernel [1, M, 2C * L] is cut into
   contiguous per-layer [M, 2C] blocks (``waveglow_fused.py:488``).
+* The int8 vocoder's weights derive from the same ``WaveGlow`` module
+  (``models/waveglow_fused.py::prepare_fused_int8``), so the file carries
+  nothing more for them.  :func:`fused_int8_from_qparams` takes the JAX
+  package's already-quantized tree instead, for holding the two
+  quantizers against each other on bit-identical weights.
 """
 
 from __future__ import annotations
@@ -27,10 +32,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from text2speech_tpu.config import HParams, WaveGlowConfig
+from .config import HParams, WaveGlowConfig
 
 from .models.tacotron2 import Tacotron2
 from .models.waveglow import WaveGlow, fold_weightnorm
+from .models.waveglow_fused import FusedWaveGlowInt8
+from .ops.wn_block import fold_end, fold_first_taps
+from .ops.wn_block_int8 import to_output_major
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
@@ -170,3 +178,46 @@ def load_waveglow(variables: Mapping, cfg: WaveGlowConfig,
     model = WaveGlow(cfg, device=device)
     model.load_state_dict(waveglow_state_dict(variables, cfg))
     return model.eval()
+
+
+def fused_int8_from_qparams(qparams: Mapping, cfg: WaveGlowConfig,
+                            dtype: torch.dtype = torch.bfloat16,
+                            device=None) -> FusedWaveGlowInt8:
+    """The JAX package's ``quantize_waveglow_int8`` tree (nested dict of
+    numpy arrays; bf16 leaves as ``ml_dtypes`` bf16 or already f32) -> the
+    port's prepared int8 weights: the same int8 payloads (transposed to
+    output-major), scales and biases, with the first layer's taps and the
+    end projection folded as ``prepare_fused_int8`` folds them."""
+    f = _as_flat(qparams)
+    L = cfg.wn_n_layers
+
+    def cw(key):
+        return _t(f[key]).to(device=device, dtype=dtype).contiguous()
+
+    def cf(key):
+        return _t(f[key]).to(device).contiguous()
+
+    def triple(key):
+        q = torch.from_numpy(np.array(f[f"{key}/q"], dtype=np.int8))
+        return (to_output_major(q).to(device), cf(f"{key}/s"),
+                cf(f"{key}/b"))
+
+    flows = []
+    for k in range(cfg.n_flows):
+        w = f"wn{k}"
+        start_k, start_b = cw(f"{w}/start_k"), cf(f"{w}/start_b")
+        end_w = cw(f"{w}/end/w")
+        flows.append({
+            "start_k": start_k, "start_b": start_b,
+            "first": fold_first_taps(start_k, start_b, cw(f"{w}/w_in0"),
+                                     cf(f"{w}/b_in0")),
+            "cond": [triple(f"{w}/cond{li}") for li in range(L)],
+            "in": [None] + [triple(f"{w}/in{li}") for li in range(1, L)],
+            "rs": [triple(f"{w}/rs{li}") for li in range(L - 1)],
+            "final": fold_end(cw(f"{w}/rs_last/w"), cf(f"{w}/rs_last/b"),
+                              end_w, cf(f"{w}/end/b")),
+            "end_w": end_w,
+            "w_inv": torch.linalg.inv(cf(f"convinv{k}/W")),
+        })
+    return FusedWaveGlowInt8(cfg, dtype, cw("upsample/kernel"),
+                             cf("upsample/bias"), flows)

@@ -22,10 +22,10 @@
 // x rows outside [0, n_valid) read as zero (the conv's zero padding at the
 // true length), so nothing past n_valid reaches a valid row.  FIRST takes
 // the rank-n_half audio half x0 in place of x: the start projection is
-// composed onto its taps by the wrapper (K = n_half <= 4, plain FMAs) and
+// composed onto its taps once per checkpoint (K = n_half <= 4, plain FMAs) and
 // the residual base is x0[t] start_k + start_b, computed here.  FINAL
 // emits acts W_rs' + skip_acc W_end + b' with W_rs' = W_rs W_end [C, E<=8]
-// folded by the wrapper: the (b, log_s) coupling terms in f32.
+// folded once per checkpoint: the (b, log_s) coupling terms in f32.
 //
 // Design.  The TPU kernels walk T in order and carry the previous tile in
 // a two-slot VMEM ring for the left halo.  CUDA blocks run in no order, so
@@ -40,7 +40,9 @@
 // (65 KB at C=512).  The res/skip GEMM [BM, C] x [C, rs_out] then reads its
 // A operand from that tile, with the residual and skip epilogue fused.
 // Matrix products are bf16 mma.sync.m16n8k16 with f32 accumulation, fed by
-// ldmatrix from a 3-stage cp.async pipeline.
+// ldmatrix from a 3-stage cp.async pipeline.  The block shape and the
+// helpers shared with the int8 family (wn_block_int8.cu) are in
+// wn_common.cuh.
 //
 // What bounds it on an H100.  Every block streams the whole layer's
 // weights: w_in (3 MB) + w_cond (1.3 MB) + w_rs (1 MB) per 64 rows, from L2
@@ -55,25 +57,15 @@
 // d, n_valid, n_half and E are runtime arguments: no kernel is specialised
 // per utterance length or per flow.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "wn_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;           // rows per block
 constexpr int BK = 32;           // k per pipeline stage
-constexpr int HALF = 64;         // gate-pair chunk: 64 tanh + 64 sigmoid cols
-constexpr int BN = 2 * HALF;     // columns per GEMM chunk (both GEMMs)
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;     // 8 warps: 2 (rows) x 4 (cols)
 constexpr int A_LD = BK + 8;     // padded smem strides (bf16 elements):
 constexpr int B_LD = BN + 8;     // ldmatrix rows land in distinct banks
 constexpr int A_STAGE = BM * A_LD;
 constexpr int B_STAGE = BK * B_LD;
-constexpr int MAX_E = 8;
 
 enum Role { FIRST = 0, STD = 1, FINAL = 2 };
 
@@ -97,58 +89,6 @@ struct Args {
   bf16* skip_out;        // STD/FIRST: [B,T,C]; STD may alias acc
   float* out;            // FINAL: [B,T,E]
 };
-
-__device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned r[4], const bf16* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4],
-                                                  const bf16* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
-  __nv_bfloat162 v;
-  v.x = __float2bfloat16(a);
-  v.y = __float2bfloat16(b);
-  *reinterpret_cast<__nv_bfloat162*>(p) = v;
-}
 
 // --- in-act GEMM: [BM, K] x [K, 64 tanh + 64 sigmoid cols] ---------------
 
@@ -258,48 +198,6 @@ __device__ void inact_chunk(const Args& a, int b, int t0, int c0, bf16* sA,
   __syncthreads();
 }
 
-// FIRST only.  The rank-n_half composed taps are plain FMAs over two small
-// shared-memory tables: sX [BM][3][4], the block's tap inputs x0[t+(j-1)d]
-// (zero outside [0, n_valid) and past n_half), staged once per block; and
-// sW [3][4][BN], the chunk's columns of the composed weights wp, staged
-// once per chunk.
-constexpr int FIRST_SX = BM * 3 * 4;
-constexpr int FIRST_SW = 3 * 4 * BN;
-
-__device__ void stage_first_x(const Args& a, int b, int t0, bf16* sX) {
-  for (int idx = threadIdx.x; idx < FIRST_SX; idx += THREADS) {
-    const int r = idx / 12, j = (idx / 4) % 3, i = idx % 4;
-    const int t = t0 + r, src = t + (j - 1) * a.d;
-    const bool ok = t < a.T && src >= 0 && src < a.n_valid && i < a.n_half;
-    sX[idx] = ok ? a.x[((size_t)b * a.T + src) * a.n_half + i]
-                 : __float2bfloat16(0.f);
-  }
-}
-
-__device__ void stage_first_w(const Args& a, int c0, bf16* sW) {
-  for (int idx = threadIdx.x; idx < FIRST_SW; idx += THREADS) {
-    const int col = idx % BN, ji = idx / BN, j = ji / 4, i = ji % 4;
-    const int gcol = col < HALF ? c0 + col : a.C + c0 + col - HALF;
-    sW[idx] = i < a.n_half
-                  ? a.w_in[((size_t)j * a.n_half + i) * 2 * a.C + gcol]
-                  : __float2bfloat16(0.f);
-  }
-}
-
-// Composed taps of row `row` for tile column `cl` (global column col),
-// plus the folded-bias edge corrections (wn_block.py:140).
-__device__ __forceinline__ float first_taps(const Args& a, const bf16* sX,
-                                            const bf16* sW, int row, int t,
-                                            int cl, int col) {
-  float s = 0.f;
-#pragma unroll
-  for (int ji = 0; ji < 12; ++ji)
-    s += bf2f(sX[row * 12 + ji]) * bf2f(sW[ji * BN + cl]);
-  if (t < a.d) s -= a.b_edge[col];
-  if (t >= a.n_valid - a.d) s -= a.b_edge[2 * a.C + col];
-  return s;
-}
-
 // Gate one chunk in f32 and store it as bf16 into the [BM, C] smem tile.
 template <int ROLE>
 __device__ __forceinline__ void gate_store(const Args& a, int b, int t0,
@@ -325,10 +223,12 @@ __device__ __forceinline__ void gate_store(const Args& a, int b, int t0,
           float as = acc[mi][ni + 2][jp * 2 + e] + a.b_in[cs] + a.b_cond[cs];
           if (ROLE == FIRST && t < a.T) {
             const int cl = wn * 16 + ni * 8 + 2 * tq + e;
-            at += first_taps(a, sX, sW, row, t, cl, ct);
-            as += first_taps(a, sX, sW, row, t, HALF + cl, cs);
+            at += first_taps(sX, sW, a.b_edge, a.C, a.d, a.n_valid, row, t,
+                             cl, ct);
+            as += first_taps(sX, sW, a.b_edge, a.C, a.d, a.n_valid, row, t,
+                             HALF + cl, cs);
           }
-          v[e] = tanhf(at) * (1.f / (1.f + expf(-as)));
+          v[e] = gate_f32(at, as);
         }
         store_bf16x2(sG + row * G_LD + c, v[0], v[1]);
       }
@@ -421,14 +321,8 @@ __device__ void rs_phase(const Args& a, int b, int t0, bf16* sB,
             if (t < a.n_valid) {
               float base0, base1;
               if (ROLE == FIRST) {  // xh = x0[t] @ start_k + start_b
-                base0 = a.start_b[n];
-                base1 = a.start_b[n + 1];
-                const bf16* xr = a.x + ((size_t)b * a.T + t) * a.n_half;
-                for (int i = 0; i < a.n_half; ++i) {
-                  const float xv = bf2f(xr[i]);
-                  base0 += xv * bf2f(a.start_k[(size_t)i * a.C + n]);
-                  base1 += xv * bf2f(a.start_k[(size_t)i * a.C + n + 1]);
-                }
+                first_base(a.x, a.start_k, a.start_b, b, a.T, a.C, a.n_half,
+                           t, n, base0, base1);
               } else {
                 base0 = bf2f(a.x[rowo + n]);
                 base1 = bf2f(a.x[rowo + n + 1]);
@@ -459,41 +353,6 @@ __device__ void rs_phase(const Args& a, int b, int t0, bf16* sB,
   }
 }
 
-// FINAL: (acts @ w_rs' + skip_acc @ w_end + b') as plain FMAs, N = E <= 8.
-__device__ void final_phase(const Args& a, int b, int t0, const bf16* sG,
-                            int G_LD) {
-  const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
-  const int t = t0 + r;
-  float s1[MAX_E], s2[MAX_E];
-#pragma unroll
-  for (int e = 0; e < MAX_E; ++e) s1[e] = s2[e] = 0.f;
-  if (t < a.T) {
-    const bf16* accr = a.acc + ((size_t)b * a.T + t) * a.C;
-    for (int c = q; c < a.C; c += 4) {
-      const float gv = bf2f(sG[r * G_LD + c]);
-      const float av = bf2f(accr[c]);
-#pragma unroll
-      for (int e = 0; e < MAX_E; ++e) {
-        if (e < a.E) {
-          s1[e] += gv * bf2f(a.w_rs[(size_t)c * a.E + e]);
-          s2[e] += av * bf2f(a.w_end[(size_t)c * a.E + e]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < MAX_E; ++e) {
-    s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], 1);
-    s1[e] += __shfl_xor_sync(0xffffffffu, s1[e], 2);
-    s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], 1);
-    s2[e] += __shfl_xor_sync(0xffffffffu, s2[e], 2);
-  }
-  if (q == 0 && t < a.T) {
-    float* o = a.out + ((size_t)b * a.T + t) * a.E;
-    for (int e = 0; e < a.E; ++e) o[e] = s1[e] + s2[e] + a.b_end[e];
-  }
-}
-
 template <int ROLE>
 __global__ void __launch_bounds__(THREADS) wn_layer_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -507,12 +366,13 @@ __global__ void __launch_bounds__(THREADS) wn_layer_kernel(const Args a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3;
 
-  if (ROLE == FIRST) stage_first_x(a, b, t0, sX);
+  if (ROLE == FIRST)
+    stage_first_x(a.x, b, a.T, a.n_valid, a.d, a.n_half, t0, sX);
   for (int c0 = 0; c0 < a.C; c0 += HALF) {
     float acc[2][4][4];
     if (ROLE == FIRST) {  // the previous chunk's gate_store has read sW
       __syncthreads();
-      stage_first_w(a, c0, sW);
+      stage_first_w(a.w_in, a.C, a.n_half, c0, sW);
     }
     // the mainloop's barriers publish sX/sW before gate_store reads them
     inact_chunk<ROLE>(a, b, t0, c0, sA, sB, acc, wm, wn, lane);
@@ -520,7 +380,8 @@ __global__ void __launch_bounds__(THREADS) wn_layer_kernel(const Args a) {
   }
   __syncthreads();
   if (ROLE == FINAL)
-    final_phase(a, b, t0, sG, G_LD);
+    final_phase(a.acc, a.w_rs, a.w_end, a.b_end, a.out, b, a.T, a.C, a.E, t0,
+                sG, G_LD);
   else
     rs_phase<ROLE>(a, b, t0, sB, sG, G_LD, wm, wn, lane);
 }

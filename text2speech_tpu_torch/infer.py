@@ -1,6 +1,7 @@
 """End-to-end synthesis: text -> mel (Tacotron-2) -> waveform (WaveGlow) ->
 denoiser -> PCM16 WAV (counterpart of ``text2speech_tpu/infer.py:325-700``,
-the offline path).
+the offline path: single-pass and chunked long-form vocoding over the
+plain, fused bf16 and fused int8 vocoders).
 
 Seeds: ``text_to_mel`` draws the prenet dropout masks from a
 ``torch.Generator`` seeded with ``seed``, ``mel_to_audio`` the vocoder noise
@@ -16,14 +17,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from text2speech_tpu.config import HParams, WaveGlowConfig
-from text2speech_tpu.text import N_SYMBOLS, encode_batch
+from .config import HParams, WaveGlowConfig
+from .text import N_SYMBOLS, encode_batch
 
 from .dsp.audio import save_wav
+from .models.chunked import draw_noise, infer_long
 from .models.denoiser import make_denoiser_programs
 from .models.tacotron2 import Tacotron2
 from .models.waveglow import WaveGlow
-from .models.waveglow_fused import infer_fused, prepare_fused
+from .models.waveglow_fused import prepare_fused, prepare_fused_int8
 
 
 def speaker_ids_array(speaker_id, batch: int, num_speakers: int):
@@ -54,8 +56,10 @@ class Synthesizer:
 
     ``use_fused_vocoder`` vocodes through the fused WN-layer kernels in
     bf16 (:func:`..models.waveglow_fused.infer_fused`, weights prepared
-    once into :attr:`fused`); otherwise through the plain f32
-    :meth:`WaveGlow.infer`.
+    once into :attr:`fused`); ``int8_vocoder`` through the int8 WN-layer
+    kernels (:func:`..models.waveglow_fused.infer_fused_int8`; it implies
+    the fused path, and :attr:`fused` then holds the quantized weights);
+    otherwise the plain f32 :meth:`WaveGlow.infer` runs.
     ``use_denoiser`` builds the bias-spectrum denoiser
     (``denoiser_kwargs`` override its STFT size)."""
 
@@ -65,12 +69,19 @@ class Synthesizer:
     waveglow: WaveGlow
     use_denoiser: bool = True
     use_fused_vocoder: bool = False
+    int8_vocoder: bool = False
     denoiser_kwargs: dict | None = None
 
     def __post_init__(self):
         self.device = self.waveglow.upsample_k.device
-        self.fused = (prepare_fused(self.waveglow, torch.bfloat16)
-                      if self.use_fused_vocoder else None)
+        if self.int8_vocoder:
+            self.fused = prepare_fused_int8(self.waveglow, torch.bfloat16)
+        elif self.use_fused_vocoder:
+            self.fused = prepare_fused(self.waveglow, torch.bfloat16)
+        else:
+            self.fused = None
+        # what vocodes: the three share ``cfg`` and ``infer``'s signature
+        self.vocoder = self.waveglow if self.fused is None else self.fused
         self._denoise = None
         if self.use_denoiser:
             bias_fn, denoise, _ = make_denoiser_programs(
@@ -103,16 +114,47 @@ class Synthesizer:
                      seed: int = 0, denoiser_strength: float = 0.0,
                      noise: tuple | None = None) -> torch.Tensor:
         """mel [B, n_mel, T] -> audio [B, T * upsample_stride] f32."""
-        gen = self._generator(seed + 1)
-        if self.fused is not None:
-            audio = infer_fused(self.fused, mel, sigma, noise=noise,
-                                generator=gen)
-        else:
-            audio = self.waveglow.infer(mel, sigma, noise=noise,
-                                        generator=gen)
-        if denoiser_strength > 0 and self._denoise is not None:
-            audio = self._denoise(audio, denoiser_strength)
+        audio = self.vocoder.infer(mel, sigma, noise=noise,
+                                   generator=self._generator(seed + 1))
+        return self._denoised(audio, denoiser_strength)
+
+    @torch.inference_mode()
+    def mel_to_audio_long(self, mel: torch.Tensor, sigma: float = 0.666,
+                          seed: int = 0, denoiser_strength: float = 0.0,
+                          chunk_frames: int = 256,
+                          overlap_frames: int | None = None,
+                          noise: tuple | None = None) -> torch.Tensor:
+        """Frame-axis chunked vocoding for arbitrarily long mels
+        (:func:`..models.chunked.infer_long`): bounded activation memory
+        per window, all windows in one batched pass through the configured
+        vocoder.  The noise is drawn once at full length (from ``seed +
+        1``, or given) and sliced per window."""
+        if noise is None:
+            gpf = self.wg_cfg.upsample_stride // self.wg_cfg.n_group
+            noise = draw_noise(self.wg_cfg, self._generator(seed + 1),
+                               mel.shape[0], mel.shape[2] * gpf)
+        audio = infer_long(self.vocoder, mel, sigma, chunk_frames,
+                           overlap_frames, noise=noise)
+        return self._denoised(audio, denoiser_strength)
+
+    def _denoised(self, audio, strength: float):
+        if strength > 0 and self._denoise is not None:
+            return self._denoise(audio, strength)
         return audio
+
+    def _synthesize(self, vocode, texts, seed, max_steps, speaker_id,
+                    keep_masks) -> list:
+        """text -> mel -> ``vocode(mel [B, n_mel, T_max])`` -> float32 numpy
+        waveforms, each cut to its utterance's length (out_length *
+        upsample_stride samples)."""
+        mel_post, out_lengths = self.text_to_mel(
+            texts, seed, max_steps, speaker_id=speaker_id,
+            keep_masks=keep_masks)
+        lens = out_lengths.cpu().numpy()
+        T = int(lens.max())
+        audio = vocode(mel_post[:, :, :T].contiguous()).cpu().numpy()
+        hop = self.wg_cfg.upsample_stride
+        return [audio[i, : int(lens[i]) * hop] for i in range(len(lens))]
 
     def synthesize(self, texts, sigma: float = 0.666, seed: int = 0,
                    denoiser_strength: float = 0.0,
@@ -120,17 +162,27 @@ class Synthesizer:
                    keep_masks: torch.Tensor | None = None,
                    noise: tuple | None = None) -> list:
         """list[str] -> list of float32 numpy waveforms, each cut to its
-        utterance's length (out_length * upsample_stride samples)."""
-        mel_post, out_lengths = self.text_to_mel(
-            texts, seed, max_steps, speaker_id=speaker_id,
-            keep_masks=keep_masks)
-        lens = out_lengths.cpu().numpy()
-        T = int(lens.max())
-        audio = self.mel_to_audio(mel_post[:, :, :T].contiguous(), sigma,
-                                  seed, denoiser_strength, noise=noise)
-        audio = audio.cpu().numpy()
-        hop = self.wg_cfg.upsample_stride
-        return [audio[i, : int(lens[i]) * hop] for i in range(len(lens))]
+        utterance's length."""
+        return self._synthesize(
+            lambda mel: self.mel_to_audio(mel, sigma, seed, denoiser_strength,
+                                          noise=noise),
+            texts, seed, max_steps, speaker_id, keep_masks)
+
+    def synthesize_long(self, texts, sigma: float = 0.666, seed: int = 0,
+                        denoiser_strength: float = 0.0,
+                        max_steps: int | None = None,
+                        chunk_frames: int = 256,
+                        overlap_frames: int | None = None, speaker_id=None,
+                        keep_masks: torch.Tensor | None = None,
+                        noise: tuple | None = None) -> list:
+        """Like :meth:`synthesize`, vocoding through the chunked long-form
+        path: for utterances whose mels exceed comfortable single-pass
+        activation memory."""
+        return self._synthesize(
+            lambda mel: self.mel_to_audio_long(
+                mel, sigma, seed, denoiser_strength, chunk_frames,
+                overlap_frames, noise=noise),
+            texts, seed, max_steps, speaker_id, keep_masks)
 
     def synthesize_to_files(self, texts, paths, sample_rate=None, **kw):
         sr = sample_rate or self.wg_cfg.sampling_rate
@@ -143,6 +195,7 @@ class Synthesizer:
 def load_synthesizer(hp: HParams, weights_npz: str, wg_cfg: WaveGlowConfig,
                      use_denoiser: bool = True, num_speakers: int = 1,
                      use_fused_vocoder: bool = False,
+                     int8_vocoder: bool = False,
                      device: str | torch.device = "cuda") -> Synthesizer:
     """Build a Synthesizer from the ``.npz`` that ``export_torch_weights.py``
     writes (``tacotron/...`` and ``waveglow/...`` flax paths)."""
@@ -153,7 +206,8 @@ def load_synthesizer(hp: HParams, weights_npz: str, wg_cfg: WaveGlowConfig,
                          num_speakers, device=device)
     wg = load_waveglow(sub_tree(flat, "waveglow"), wg_cfg, device=device)
     return Synthesizer(hp, taco, wg_cfg, wg, use_denoiser=use_denoiser,
-                       use_fused_vocoder=use_fused_vocoder)
+                       use_fused_vocoder=use_fused_vocoder,
+                       int8_vocoder=int8_vocoder)
 
 
 @torch.no_grad()
@@ -177,7 +231,8 @@ def random_weights_(module: torch.nn.Module, generator: torch.Generator,
 def random_synthesizer(hp: HParams, wg_cfg: WaveGlowConfig, seed: int = 0,
                        device: str | torch.device = "cuda",
                        num_speakers: int = 1, use_denoiser: bool = True,
-                       use_fused_vocoder: bool = True) -> Synthesizer:
+                       use_fused_vocoder: bool = True,
+                       int8_vocoder: bool = False) -> Synthesizer:
     """A Synthesizer on seeded random weights at any width (for runs when
     no checkpoint exists).  The WaveGlow ``end`` convs, zero at a real
     init, get small random values so the audio depends on the mel.  The
@@ -206,4 +261,5 @@ def random_synthesizer(hp: HParams, wg_cfg: WaveGlowConfig, seed: int = 0,
             wn.end_b.mul_(0.02)
     return Synthesizer(hp, taco.eval(), wg_cfg, wg.eval(),
                        use_denoiser=use_denoiser,
-                       use_fused_vocoder=use_fused_vocoder)
+                       use_fused_vocoder=use_fused_vocoder,
+                       int8_vocoder=int8_vocoder)

@@ -3,6 +3,7 @@
     python -m text2speech_tpu_torch.inference --weights model.npz \\
         --text "이 것은 제작되고 있는 중입니다." --out out.wav --fused_vocoder
     python -m text2speech_tpu_torch.inference --random_init 0 --fused_vocoder
+    python -m text2speech_tpu_torch.inference --random_init 0 --int8_vocoder
 
 ``--weights`` is the ``.npz`` written by ``export_torch_weights.py`` from the
 JAX package's checkpoints; ``--random_init SEED`` synthesizes from seeded
@@ -16,7 +17,7 @@ import argparse
 
 import torch
 
-from text2speech_tpu.config import HParams, WaveGlowConfig
+from .config import HParams, WaveGlowConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -32,6 +33,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--denoiser_strength", "-d", type=float, default=0.0)
     p.add_argument("--fused_vocoder", action="store_true",
                    help="vocode through the hand-written WN-layer kernels")
+    p.add_argument("--int8_vocoder", action="store_true",
+                   help="vocode through the int8 WN-layer kernels (implies "
+                   "the fused path)")
     p.add_argument("--speaker_id", type=int, default=None)
     p.add_argument("--num_speakers", type=int, default=1)
     p.add_argument("--sample_rate", type=int, default=22050)
@@ -61,14 +65,16 @@ def main(argv=None) -> None:
         synth = load_synthesizer(
             hp, args.weights, wg_cfg, use_denoiser=use_denoiser,
             num_speakers=args.num_speakers,
-            use_fused_vocoder=args.fused_vocoder, device="cuda")
+            use_fused_vocoder=args.fused_vocoder,
+            int8_vocoder=args.int8_vocoder, device="cuda")
     else:
         from .infer import random_synthesizer
 
         synth = random_synthesizer(
             hp, wg_cfg, args.random_init, device="cuda",
             num_speakers=args.num_speakers, use_denoiser=use_denoiser,
-            use_fused_vocoder=args.fused_vocoder)
+            use_fused_vocoder=args.fused_vocoder,
+            int8_vocoder=args.int8_vocoder)
     (wav,) = synth.synthesize_to_files(
         [args.text], [args.out], sample_rate=args.sample_rate,
         sigma=args.sigma,

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from text2speech_tpu.config import HParams
+from ..config import HParams
 
 from ..ops.lstm import BiLSTM, LSTMCell
 

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from text2speech_tpu.config import WaveGlowConfig
+from ..config import WaveGlowConfig
 
 F32 = torch.float32
 

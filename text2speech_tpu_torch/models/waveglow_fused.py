@@ -1,14 +1,22 @@
 """Fused WaveGlow inference, the serving path (counterpart of
-``text2speech_tpu/models/waveglow_fused.py::infer_fused`` with
-``composed_cond=None``).
+``text2speech_tpu/models/waveglow_fused.py``: ``infer_fused`` with
+``composed_cond=None``, ``quantize_waveglow_int8`` and
+``infer_fused_int8``).
 
-Each flow's WN net runs as three fused layer kernels
-(:mod:`..ops.wn_block`): the first layer with the start projection composed
-onto its taps, L - 2 standard layers, and the last layer with the end
-projection folded in; 12 / 72 / 12 launches per vocode at the reference
-config.  Upsample, grouping, the affine coupling ``(x1 - b) exp(-s)``
-(f32), the inverse 1x1 convs (f32) and the early-noise injection are plain
-PyTorch.
+Each flow's WN net runs as three fused layer kernels: the first layer with
+the start projection composed onto its taps, L - 2 standard layers, and
+the last layer with the end projection folded in; 12 / 72 / 12 launches
+per vocode at the reference config.  :func:`infer_fused` runs them in bf16
+(:mod:`..ops.wn_block`), :func:`infer_fused_int8` with the three large
+product families (dilated taps, conditioning, res/skip) in int8
+(:mod:`..ops.wn_block_int8`).  Upsample, grouping, the affine coupling
+``(x1 - b) exp(-s)`` (f32), the inverse 1x1 convs (f32) and the early-noise
+injection are plain PyTorch and shared by both.
+
+Everything that depends only on the checkpoint is prepared once
+(:func:`prepare_fused`, :func:`prepare_fused_int8`): casts, the first
+layer's composed taps, the final layer's folded end projection, the
+inverted 1x1 convs and, for int8, the quantized weights.
 
 Length: the port does not pad.  The JAX path rounds the time axis up to
 its 512-row tile and masks; here every buffer is exactly ``T_g`` groups
@@ -24,21 +32,26 @@ from dataclasses import dataclass
 
 import torch
 
-from text2speech_tpu.config import WaveGlowConfig
-
+from ..config import WaveGlowConfig
 from ..ops import wn_block as wb
+from ..ops import wn_block_int8 as wq
 from .waveglow import WaveGlow, noise_shapes, upsample_group
 
 F32 = torch.float32
 KERNELS = (wb.wn_layer_first, wb.wn_layer, wb.wn_layer_final)
 PLAIN = (wb.wn_layer_first_plain, wb.wn_layer_plain, wb.wn_layer_final_plain)
+KERNELS_INT8 = (wq.wn_layer_first_int8, wq.wn_layer_int8,
+                wq.wn_layer_final_int8)
+PLAIN_INT8 = (wq.wn_layer_first_int8_plain, wq.wn_layer_int8_plain,
+              wq.wn_layer_final_int8_plain)
 
 
 @dataclass
 class FusedWaveGlow:
     """Serving weights prepared once from a :class:`WaveGlow`: WN weights,
     upsample kernel and noise in ``dtype``, biases and the inverted 1x1
-    convs in f32, per-layer conditioning blocks contiguous."""
+    convs in f32, per-layer conditioning blocks contiguous, the first
+    layer's taps and the final layer's end projection folded."""
 
     cfg: WaveGlowConfig
     dtype: torch.dtype
@@ -49,45 +62,107 @@ class FusedWaveGlow:
     def noise_shapes(self, B: int, Tg: int) -> list:
         return noise_shapes(self.cfg, B, Tg)
 
+    def infer(self, spect, sigma: float = 1.0, **kw) -> torch.Tensor:
+        """:func:`infer_fused` on these weights (the signature of
+        ``WaveGlow.infer``, so callers can hold any of the vocoders)."""
+        return infer_fused(self, spect, sigma, **kw)
 
-def prepare_fused(model: WaveGlow,
-                  dtype: torch.dtype = torch.bfloat16) -> FusedWaveGlow:
+
+@dataclass
+class FusedWaveGlowInt8(FusedWaveGlow):
+    """As :class:`FusedWaveGlow`, with the taps of layers 1.., every
+    layer's conditioning projection and the res/skip of layers ..L-2 as
+    ``(int8 output-major, f32 column scale, f32 bias)`` triples (see
+    prepare_fused_int8)."""
+
+    def infer(self, spect, sigma: float = 1.0, **kw) -> torch.Tensor:
+        """:func:`infer_fused_int8` on these weights."""
+        return infer_fused_int8(self, spect, sigma, **kw)
+
+
+def _casters(dtype):
     def cw(t):
         return t.detach().to(dtype).contiguous()
 
     def cf(t):
         return t.detach().to(F32).contiguous()
 
+    return cw, cf
+
+
+def prepare_fused(model: WaveGlow,
+                  dtype: torch.dtype = torch.bfloat16) -> FusedWaveGlow:
+    cw, cf = _casters(dtype)
+    L = model.cfg.wn_n_layers
     flows = []
     for k, wn in enumerate(model.wn):
-        flows.append({
+        w = {
             "start_k": cw(wn.start_k), "start_b": cf(wn.start_b),
             "in_w": [cw(w) for w in wn.in_w], "in_b": [cf(b) for b in wn.in_b],
             "cond_w": [cw(w) for w in wn.cond_w],
             "cond_b": [cf(b) for b in wn.cond_b],
             "rs_w": [cw(w) for w in wn.rs_w], "rs_b": [cf(b) for b in wn.rs_b],
-            "end_w": cw(wn.end_w), "end_b": cf(wn.end_b),
+            "end_w": cw(wn.end_w),
             "w_inv": torch.linalg.inv(cf(model.convinv[k])),
-        })
+        }
+        if L >= 2:   # (wp, b_all, b_edge)
+            w["first"] = wb.fold_first_taps(w["start_k"], w["start_b"],
+                                            w["in_w"][0], w["in_b"][0])
+        # (w_eff, b_eff)
+        w["final"] = wb.fold_end(w["rs_w"][L - 1], w["rs_b"][L - 1],
+                                 w["end_w"], cf(wn.end_b))
+        flows.append(w)
     return FusedWaveGlow(model.cfg, dtype, cw(model.upsample_k),
                          cf(model.upsample_b), flows)
 
 
-def infer_fused(fw: FusedWaveGlow, spect: torch.Tensor, sigma: float = 1.0,
-                noise: tuple | None = None,
-                generator: torch.Generator | None = None,
-                plain: bool = False) -> torch.Tensor:
-    """mel [B, n_mel, frames] -> audio [B, samples] f32.
-
-    ``noise``: the standard-normal draws at the true length, in
-    ``WaveGlow.noise_shapes`` order; otherwise drawn from ``generator``.
-    ``plain=True`` runs the layers' plain PyTorch versions instead of the
-    kernels (the comparison path on a GPU; CPU tensors take the plain
-    versions anyway)."""
-    cfg, dt = fw.cfg, fw.dtype
-    first, std, final = PLAIN if plain else KERNELS
+def prepare_fused_int8(model: WaveGlow, dtype: torch.dtype = torch.bfloat16
+                       ) -> FusedWaveGlowInt8:
+    """Quantize once per checkpoint (``waveglow_fused.py:98
+    quantize_waveglow_int8``): static per-output-column int8 for the
+    dilated taps of layers 1..L-1, every layer's conditioning block and
+    the res/skip of layers 0..L-2, each from the f32 folded weights.  What
+    stays in ``dtype``: layer 0's taps (composed onto the rank-n_half start
+    projection), the last res/skip and the end projection (folded to
+    [C, E <= 8]; the coupling terms want the precision), the upsample
+    kernel.  Biases and the inverted 1x1 convs stay f32."""
+    cfg = model.cfg
     L = cfg.wn_n_layers
-    cond = upsample_group(spect, fw.up_k, fw.up_b, cfg, dtype=dt).contiguous()
+    if L < 2:
+        raise ValueError("the int8 path needs wn_n_layers >= 2 (a first and "
+                         "a final layer kernel)")
+    cw, cf = _casters(dtype)
+
+    def quant(w, b):
+        q, s = wq.quantize_cols(w.detach())
+        return wq.to_output_major(q), s.contiguous(), cf(b)
+
+    flows = []
+    for k, wn in enumerate(model.wn):
+        start_k, start_b, end_w = cw(wn.start_k), cf(wn.start_b), cw(wn.end_w)
+        flows.append({
+            "start_k": start_k, "start_b": start_b,
+            "first": wb.fold_first_taps(start_k, start_b, cw(wn.in_w[0]),
+                                        cf(wn.in_b[0])),
+            "cond": [quant(wn.cond_w[li], wn.cond_b[li]) for li in range(L)],
+            "in": [None] + [quant(wn.in_w[li], wn.in_b[li])
+                            for li in range(1, L)],
+            "rs": [quant(wn.rs_w[li], wn.rs_b[li]) for li in range(L - 1)],
+            "final": wb.fold_end(cw(wn.rs_w[L - 1]), cf(wn.rs_b[L - 1]),
+                                 end_w, cf(wn.end_b)),
+            "end_w": end_w,
+            "w_inv": torch.linalg.inv(cf(model.convinv[k])),
+        })
+    return FusedWaveGlowInt8(cfg, dtype, cw(model.upsample_k),
+                             cf(model.upsample_b), flows)
+
+
+def _reverse_flows(fw: FusedWaveGlow, cond: torch.Tensor, wn_net, sigma,
+                   noise, generator) -> torch.Tensor:
+    """The flow's reverse pass around the WN nets: noise, coupling, inverse
+    1x1 convs, early-noise injection.  ``wn_net(w, x0) -> [B, T_g, 2 *
+    n_half]`` f32 is one flow's coupling net on the audio half ``x0``."""
+    cfg, dt = fw.cfg, fw.dtype
     B, Tg, _ = cond.shape
     shapes = fw.noise_shapes(B, Tg)
     draws = iter(noise) if noise is not None else None
@@ -110,23 +185,7 @@ def infer_fused(fw: FusedWaveGlow, spect: torch.Tensor, sigma: float = 1.0,
         n_half = audio.shape[-1] // 2
         x0 = audio[..., :n_half].contiguous()
         x1 = audio[..., n_half:]
-        if L >= 2:
-            xh, skip = first(x0, cond, w["start_k"], w["start_b"],
-                             w["in_w"][0], w["in_b"][0], w["cond_w"][0],
-                             w["cond_b"][0], w["rs_w"][0], w["rs_b"][0], 1,
-                             n_valid=Tg)
-        else:
-            xh = (x0 @ w["start_k"] + w["start_b"].to(dt)).contiguous()
-            skip = torch.zeros_like(xh)
-        for li in range(1, L - 1):
-            xh, skip = std(xh, cond, w["in_w"][li], w["in_b"][li],
-                           w["cond_w"][li], w["cond_b"][li], w["rs_w"][li],
-                           w["rs_b"][li], skip, 2 ** li, n_valid=Tg)
-        li = L - 1
-        wn_out = final(xh, cond, w["in_w"][li], w["in_b"][li],
-                       w["cond_w"][li], w["cond_b"][li], w["rs_w"][li],
-                       w["rs_b"][li], skip, w["end_w"], w["end_b"], 2 ** li,
-                       n_valid=Tg)
+        wn_out = wn_net(w, x0)
         x1 = ((x1.to(F32) - wn_out[..., :n_half])
               * torch.exp(-wn_out[..., n_half:])).to(dt)
         audio = torch.cat([x0, x1], dim=-1)
@@ -135,3 +194,77 @@ def infer_fused(fw: FusedWaveGlow, spect: torch.Tensor, sigma: float = 1.0,
             audio = torch.cat([next_noise(n_draw), audio], dim=-1)
             n_draw += 1
     return audio.reshape(B, Tg * cfg.n_group).to(F32)
+
+
+def infer_fused(fw: FusedWaveGlow, spect: torch.Tensor, sigma: float = 1.0,
+                noise: tuple | None = None,
+                generator: torch.Generator | None = None,
+                plain: bool = False) -> torch.Tensor:
+    """mel [B, n_mel, frames] -> audio [B, samples] f32.
+
+    ``noise``: the standard-normal draws at the true length, in
+    ``WaveGlow.noise_shapes`` order; otherwise drawn from ``generator``.
+    ``plain=True`` runs the layers' plain PyTorch versions instead of the
+    kernels (the comparison path on a GPU; CPU tensors take the plain
+    versions anyway)."""
+    cfg, dt = fw.cfg, fw.dtype
+    first, std, final = PLAIN if plain else KERNELS
+    L = cfg.wn_n_layers
+    cond = upsample_group(spect, fw.up_k, fw.up_b, cfg, dtype=dt).contiguous()
+    Tg = cond.shape[1]
+
+    def wn_net(w, x0):
+        if L >= 2:
+            xh, skip = first(x0, cond, w["start_k"], w["start_b"],
+                             *w["first"], w["cond_w"][0], w["cond_b"][0],
+                             w["rs_w"][0], w["rs_b"][0], 1, n_valid=Tg)
+        else:
+            xh = (x0 @ w["start_k"] + w["start_b"].to(dt)).contiguous()
+            skip = torch.zeros_like(xh)
+        for li in range(1, L - 1):
+            xh, skip = std(xh, cond, w["in_w"][li], w["in_b"][li],
+                           w["cond_w"][li], w["cond_b"][li], w["rs_w"][li],
+                           w["rs_b"][li], skip, 2 ** li, n_valid=Tg)
+        li = L - 1
+        w_eff, b_eff = w["final"]
+        return final(xh, cond, w["in_w"][li], w["in_b"][li], w["cond_w"][li],
+                     w["cond_b"][li], w_eff, skip, w["end_w"], b_eff,
+                     2 ** li, n_valid=Tg)
+
+    return _reverse_flows(fw, cond, wn_net, sigma, noise, generator)
+
+
+def infer_fused_int8(fw: FusedWaveGlowInt8, spect: torch.Tensor,
+                     sigma: float = 1.0, noise: tuple | None = None,
+                     generator: torch.Generator | None = None,
+                     plain: bool = False) -> torch.Tensor:
+    """mel [B, n_mel, frames] -> audio [B, samples] f32 with int8 WN
+    layers (``waveglow_fused.py:168 infer_fused_int8``); ``noise``,
+    ``generator`` and ``plain`` as :func:`infer_fused`.
+
+    The grouped conditioning is quantized per row ONCE per call and serves
+    all ``L * n_flows`` layers.  The hidden state travels between the
+    layers of a flow as (int8, per-row f32 scale); the audio, the coupling
+    and the 1x1 convs are those of the bf16 path."""
+    cfg = fw.cfg
+    first, std, final = PLAIN_INT8 if plain else KERNELS_INT8
+    L = cfg.wn_n_layers
+    cond = upsample_group(spect, fw.up_k, fw.up_b, cfg, dtype=fw.dtype)
+    Tg = cond.shape[1]
+    qspect, sspect = wq.quantize_rows(cond)
+    qspect, sspect = qspect.contiguous(), sspect.contiguous()
+
+    def wn_net(w, x0):
+        qx, sx, skip = first(x0, qspect, sspect, w["start_k"], w["start_b"],
+                             *w["first"], *w["cond"][0], *w["rs"][0], 1,
+                             n_valid=Tg)
+        for li in range(1, L - 1):
+            qx, sx, skip = std(qx, sx, qspect, sspect, *w["in"][li],
+                               *w["cond"][li], *w["rs"][li], skip, 2 ** li,
+                               n_valid=Tg)
+        li = L - 1
+        w_eff, b_eff = w["final"]
+        return final(qx, sx, qspect, sspect, *w["in"][li], *w["cond"][li],
+                     w_eff, skip, w["end_w"], b_eff, 2 ** li, n_valid=Tg)
+
+    return _reverse_flows(fw, cond, wn_net, sigma, noise, generator)

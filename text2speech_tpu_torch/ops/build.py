@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
-use into ``build/t2s_torch/lib<name>.so`` under the checkout root, for
-``sm_90a`` (Hopper).  Nothing is compiled when a module is imported, and
+Each ``csrc/<name>.cu`` exposes a plain C interface (shared device helpers
+are in ``csrc/*.cuh``, included by path) and is compiled at first use into
+``build/t2s_torch/lib<name>.so`` under the checkout root, for ``sm_90a``
+(Hopper).  Nothing is compiled when a module is imported, and
 nothing falls back: without ``nvcc`` the build raises.
 """
 
@@ -81,10 +82,12 @@ class CudaLibrary:
 
     def get(self) -> ctypes.CDLL:
         """The loaded library, built first when the ``.so`` is missing or
-        older than its source."""
+        older than its source or a shared header (``csrc/*.cuh``)."""
         if self._lib is None:
-            stale = (not self.path.exists() or self.path.stat().st_mtime
-                     < self.source.stat().st_mtime)
+            newest = max(f.stat().st_mtime
+                         for f in (self.source, *CSRC_DIR.glob("*.cuh")))
+            stale = (not self.path.exists()
+                     or self.path.stat().st_mtime < newest)
             if stale:
                 self.build()
             lib = ctypes.CDLL(str(self.path))

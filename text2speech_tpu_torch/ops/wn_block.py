@@ -81,20 +81,40 @@ def _gate(in_act: torch.Tensor, dtype) -> torch.Tensor:
             * torch.sigmoid(in_act[..., C:])).to(dtype)
 
 
-def fold_first_taps(start_k, start_b, w_in):
+def _edge_bias_suppress(in_act, b_edge, d: int, n_valid: int):
+    """Take the folded start bias back where the left (t < d) or right
+    (t >= n_valid - d) tap reads the conv's zero padding."""
+    rows = torch.arange(in_act.shape[1], device=in_act.device)[None, :, None]
+    in_act = in_act - torch.where(rows < d, b_edge[0], 0.0)
+    return in_act - torch.where(rows >= n_valid - d, b_edge[1], 0.0)
+
+
+def _end_projection(acts, w_eff, skip_acc, w_end, b_eff):
+    """acts @ w_eff + skip_acc @ w_end + b_eff in f32."""
+    return (acts.to(F32) @ w_eff.to(F32) + skip_acc.to(F32) @ w_end.to(F32)
+            + b_eff)
+
+
+def fold_first_taps(start_k, start_b, w_in, b_in):
     """Compose the start 1x1 projection onto layer 0's taps (rank n_half),
-    as ``wn_block.py:151 _fold_first_taps``:
-    (wp [3, n_half, 2C], b_extra [2C], b_edge [2, 2C]), all f32."""
+    as ``wn_block.py:151 _fold_first_taps`` and the wrapper lines after it:
+    (wp [3, n_half, 2C] in ``start_k``'s dtype, b_all = b_in + folded tap
+    bias [2C] f32, b_edge [2, 2C] f32: the tap bias to take back where the
+    left or right tap reads past an edge).  Done once per checkpoint."""
     wp = torch.einsum("nc,tco->tno", start_k.to(F32), w_in.to(F32))
     tap_bias = torch.einsum("c,tco->to", start_b.to(F32), w_in.to(F32))
-    return wp, tap_bias.sum(0), torch.stack([tap_bias[0], tap_bias[2]])
+    return (wp.to(start_k.dtype).contiguous(),
+            (b_in.to(F32) + tap_bias.sum(0)).contiguous(),
+            torch.stack([tap_bias[0], tap_bias[2]]).contiguous())
 
 
 def fold_end(w_rs, b_rs, w_end, b_end):
     """Fold the last res/skip matmul into the rank-E end projection, as
-    ``wn_block.py:558-562``: (w_rs @ w_end in w_rs's dtype, f32 bias)."""
+    ``wn_block.py:558-562``: (w_eff = w_rs @ w_end in w_rs's dtype, b_eff =
+    b_rs @ w_end + b_end in f32).  Done once per checkpoint."""
     w_eff = (w_rs.to(F32) @ w_end.to(F32)).to(w_rs.dtype)
-    return w_eff, b_rs.to(F32) @ w_end.to(F32) + b_end.to(F32)
+    b_eff = b_rs.to(F32) @ w_end.to(F32) + b_end.to(F32)
+    return w_eff.contiguous(), b_eff.contiguous()
 
 
 def wn_layer_plain(x, spect, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
@@ -116,21 +136,19 @@ def wn_layer_plain(x, spect, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
     return x_out, skip_acc + skip.to(skip_acc.dtype)
 
 
-def wn_layer_first_plain(x0, spect, start_k, start_b, w_in, b_in, w_cond,
-                         b_cond, w_rs, b_rs, dilation: int,
+def wn_layer_first_plain(x0, spect, start_k, start_b, wp, b_all, b_edge,
+                         w_cond, b_cond, w_rs, b_rs, dilation: int,
                          n_valid: int | None = None):
     """Start projection + layer 0 -> (x_hidden, skip), equal to
     ``wn_layer_plain(x0 @ start_k + start_b, ...)`` with a zero skip sum,
-    at rank-n_half tap cost (``wn_block.py:281``)."""
+    at rank-n_half tap cost (``wn_block.py:281``).  ``wp``, ``b_all``,
+    ``b_edge`` come from :func:`fold_first_taps`."""
     T, C = x0.shape[1], start_k.shape[-1]
     n_valid = T if n_valid is None else n_valid
     d = dilation
-    wp, b_extra, b_edge = fold_first_taps(start_k, start_b, w_in)
-    in_act = (_taps(x0, wp.to(x0.dtype), d, n_valid)
-              + (b_in.to(F32) + b_extra) + _cond(spect, w_cond, b_cond))
-    rows = torch.arange(T, device=x0.device)[None, :, None]
-    in_act = in_act - torch.where(rows < d, b_edge[0], 0.0)
-    in_act = in_act - torch.where(rows >= n_valid - d, b_edge[1], 0.0)
+    in_act = (_taps(x0, wp, d, n_valid) + b_all
+              + _cond(spect, w_cond, b_cond))
+    in_act = _edge_bias_suppress(in_act, b_edge, d, n_valid)
     rs = _gate(in_act, x0.dtype).to(F32) @ w_rs.to(F32) + b_rs.to(F32)
     xh = x0.to(F32) @ start_k.to(F32) + start_b.to(F32)
     x_out = torch.where(_valid_rows(T, n_valid, x0.device),
@@ -138,17 +156,17 @@ def wn_layer_first_plain(x0, spect, start_k, start_b, w_in, b_in, w_cond,
     return x_out, rs[..., C:].to(spect.dtype)
 
 
-def wn_layer_final_plain(x, spect, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
-                         skip_acc, w_end, b_end, dilation: int,
+def wn_layer_final_plain(x, spect, w_in, b_in, w_cond, b_cond, w_eff,
+                         skip_acc, w_end, b_eff, dilation: int,
                          n_valid: int | None = None):
     """Last layer + folded end projection -> (b, log_s) terms [B, T, E]
-    f32 (``wn_block.py:325``, ``fold_rs=True``)."""
+    f32 (``wn_block.py:325``, ``fold_rs=True``).  ``w_eff``, ``b_eff``
+    come from :func:`fold_end`."""
     n_valid = x.shape[1] if n_valid is None else n_valid
-    w_eff, b_eff = fold_end(w_rs, b_rs, w_end, b_end)
     in_act = (_taps(x, w_in, dilation, n_valid) + b_in.to(F32)
               + _cond(spect, w_cond, b_cond))
-    return (_gate(in_act, w_in.dtype).to(F32) @ w_eff.to(F32)
-            + skip_acc.to(F32) @ w_end.to(F32) + b_eff)
+    return _end_projection(_gate(in_act, w_in.dtype), w_eff, skip_acc, w_end,
+                           b_eff)
 
 
 # ---------------------------------------------------------------------------
@@ -180,10 +198,11 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype) -> None:
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
-def _check_dims(C: int, M: int, T: int, n_valid: int, d: int) -> None:
-    if C % 128 or M % 32 or C <= 0 or M <= 0:
-        raise ValueError(f"kernel needs C % 128 == 0 and M % 32 == 0, got "
-                         f"C={C}, M={M}")
+def _check_dims(C: int, M: int, T: int, n_valid: int, d: int,
+                m_multiple: int = 32) -> None:
+    if C % 128 or M % m_multiple or C <= 0 or M <= 0:
+        raise ValueError(f"kernel needs C % 128 == 0 and M % {m_multiple} "
+                         f"== 0, got C={C}, M={M}")
     if T < 1 or not 0 <= n_valid <= T or d < 0:
         raise ValueError(f"bad T={T}, n_valid={n_valid}, dilation={d}")
 
@@ -198,19 +217,21 @@ def _run(fn, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
 
 
-def wn_layer_first(x0, spect, start_k, start_b, w_in, b_in, w_cond, b_cond,
-                   w_rs, b_rs, dilation: int, n_valid: int | None = None):
+def wn_layer_first(x0, spect, start_k, start_b, wp, b_all, b_edge, w_cond,
+                   b_cond, w_rs, b_rs, dilation: int,
+                   n_valid: int | None = None):
     """Fused start projection + first WN layer -> (x_hidden, skip).
 
     CUDA: bf16 ``x0`` [B, T, n_half <= 4], ``spect`` [B, T, M], ``start_k``
-    [n_half, C], ``w_in`` [3, C, 2C], ``w_cond`` [M, 2C], ``w_rs`` [C, 2C];
-    f32 biases.  The fold of the start projection onto the taps
-    (:func:`fold_first_taps`) runs here, as it does in the JAX wrapper."""
-    if _on_cpu(x0, spect, start_k, start_b, w_in, b_in, w_cond, b_cond,
-               w_rs, b_rs):
-        return wn_layer_first_plain(x0, spect, start_k, start_b, w_in, b_in,
-                                    w_cond, b_cond, w_rs, b_rs, dilation,
-                                    n_valid)
+    [n_half, C], ``wp`` [3, n_half, 2C], ``w_cond`` [M, 2C], ``w_rs``
+    [C, 2C]; f32 biases, ``b_edge`` [2, 2C].  ``wp``, ``b_all``, ``b_edge``
+    are :func:`fold_first_taps` of the layer's weights, folded once per
+    checkpoint by the caller."""
+    if _on_cpu(x0, spect, start_k, start_b, wp, b_all, b_edge, w_cond,
+               b_cond, w_rs, b_rs):
+        return wn_layer_first_plain(x0, spect, start_k, start_b, wp, b_all,
+                                    b_edge, w_cond, b_cond, w_rs, b_rs,
+                                    dilation, n_valid)
     B, T, n_half = x0.shape
     C, M = start_k.shape[-1], spect.shape[-1]
     n_valid = T if n_valid is None else int(n_valid)
@@ -221,15 +242,12 @@ def wn_layer_first(x0, spect, start_k, start_b, w_in, b_in, w_cond, b_cond,
     for name, t, shape, dt in (
         ("x0", x0, (B, T, n_half), bf), ("spect", spect, (B, T, M), bf),
         ("start_k", start_k, (n_half, C), bf), ("start_b", start_b, (C,), F32),
-        ("w_in", w_in, (3, C, 2 * C), bf), ("b_in", b_in, (2 * C,), F32),
+        ("wp", wp, (3, n_half, 2 * C), bf), ("b_all", b_all, (2 * C,), F32),
+        ("b_edge", b_edge, (2, 2 * C), F32),
         ("w_cond", w_cond, (M, 2 * C), bf), ("b_cond", b_cond, (2 * C,), F32),
         ("w_rs", w_rs, (C, 2 * C), bf), ("b_rs", b_rs, (2 * C,), F32),
     ):
         _check(name, t, shape, dt)
-    wp, b_extra, b_edge = fold_first_taps(start_k, start_b, w_in)
-    wp = wp.to(bf).contiguous()
-    b_all = (b_in.to(F32) + b_extra).contiguous()
-    b_edge = b_edge.contiguous()
     x_out = torch.empty((B, T, C), dtype=bf, device=x0.device)
     skip = torch.empty((B, T, C), dtype=bf, device=x0.device)
     wn_layer_first.launches += 1
@@ -285,19 +303,18 @@ def wn_layer(x, spect, w_in, b_in, w_cond, b_cond, w_rs, b_rs, skip_acc,
     return x_out, skip_acc
 
 
-def wn_layer_final(x, spect, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
-                   skip_acc, w_end, b_end, dilation: int,
-                   n_valid: int | None = None):
+def wn_layer_final(x, spect, w_in, b_in, w_cond, b_cond, w_eff, skip_acc,
+                   w_end, b_eff, dilation: int, n_valid: int | None = None):
     """Last WN layer + folded end projection -> [B, T, E] f32.
 
-    CUDA: as :func:`wn_layer` with ``w_rs`` [C, C], plus ``w_end`` [C, E <= 8]
-    bf16 and ``b_end`` [E] f32.  The fold ``w_rs @ w_end``
-    (:func:`fold_end`) runs here, as it does in the JAX wrapper."""
-    if _on_cpu(x, spect, w_in, b_in, w_cond, b_cond, w_rs, b_rs, skip_acc,
-               w_end, b_end):
+    CUDA: as :func:`wn_layer`, with ``w_eff`` [C, E <= 8] bf16 and
+    ``b_eff`` [E] f32 in place of the res/skip weights (:func:`fold_end`,
+    folded once per checkpoint by the caller) and ``w_end`` [C, E] bf16."""
+    if _on_cpu(x, spect, w_in, b_in, w_cond, b_cond, w_eff, skip_acc, w_end,
+               b_eff):
         return wn_layer_final_plain(x, spect, w_in, b_in, w_cond, b_cond,
-                                    w_rs, b_rs, skip_acc, w_end, b_end,
-                                    dilation, n_valid)
+                                    w_eff, skip_acc, w_end, b_eff, dilation,
+                                    n_valid)
     B, T, C = x.shape
     M, E = spect.shape[-1], w_end.shape[-1]
     n_valid = T if n_valid is None else int(n_valid)
@@ -309,13 +326,10 @@ def wn_layer_final(x, spect, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
         ("x", x, (B, T, C), bf), ("spect", spect, (B, T, M), bf),
         ("w_in", w_in, (3, C, 2 * C), bf), ("b_in", b_in, (2 * C,), F32),
         ("w_cond", w_cond, (M, 2 * C), bf), ("b_cond", b_cond, (2 * C,), F32),
-        ("w_rs", w_rs, (C, C), bf), ("b_rs", b_rs, (C,), F32),
-        ("skip_acc", skip_acc, (B, T, C), bf), ("w_end", w_end, (C, E), bf),
-        ("b_end", b_end, (E,), F32),
+        ("w_eff", w_eff, (C, E), bf), ("skip_acc", skip_acc, (B, T, C), bf),
+        ("w_end", w_end, (C, E), bf), ("b_eff", b_eff, (E,), F32),
     ):
         _check(name, t, shape, dt)
-    w_eff, b_eff = fold_end(w_rs, b_rs, w_end, b_end)
-    w_eff, b_eff = w_eff.contiguous(), b_eff.contiguous()
     out = torch.empty((B, T, E), dtype=F32, device=x.device)
     wn_layer_final.launches += 1
     _run(LIB.get().t2s_wn_layer_final, x.device, x.data_ptr(),
