@@ -6,8 +6,9 @@
 Phases, each of which passes or raises (the script then exits non-zero):
 
 1. require CUDA; print the card's name and power limit; turn TF32 off;
-2. build the hand-written WN-layer kernels from ``csrc/`` (bf16 and int8
-   libraries, one ``nvcc`` each, started together) and print the times;
+2. build the hand-written kernels from ``csrc/`` (the bf16 and int8
+   WN-layer libraries, the gated activation and the k=3 conv backward, one
+   ``nvcc`` each, all started together) and print the times;
 3. compare each of the six kernels with its plain PyTorch version on the
    card at the reference width (C=512, M=640) over batch sizes, dilations,
    valid lengths and flow widths; time both with CUDA events at one
@@ -25,7 +26,27 @@ Phases, each of which passes or raises (the script then exits non-zero):
    launch counts (the windows are one batch) and agreement with the single
    pass;
 7. run the port's CLI (``python -m text2speech_tpu_torch.inference``) on
-   random weights with ``--fused_vocoder`` and with ``--int8_vocoder``.
+   random weights with ``--fused_vocoder`` and with ``--int8_vocoder``;
+8. training kernels: the gated activation's forward and backward kernel
+   and the k=3 dilated conv's backward kernel against their plain versions
+   (the last also against autograd of ``F.conv1d``) at the training shapes
+   and at odd ones, f32 and bf16; times, bounds and the library's time;
+   then the conv backward's own path, a chain of calls down the WN
+   dilation ladder (it is a probe beside the trainer, as in the JAX
+   package, and no training step launches it);
+9. one WaveGlow training step at full width (12 flows, 8 layers, C=512,
+   batch 3 x 16,000 samples) through the gated kernels against the same
+   step with the plain gated activation: loss and gradient norm;
+10. the trainer through its CLI entry (``waveglow_train.main``) on
+    synthetic wavs written from a numpy seed: 12 steps from the real
+    initialisation, every loss finite, 96 + 96 gated launches per step, the
+    loss on one fixed batch lower than before, a checkpoint; ``python -m
+    text2speech_tpu_torch.waveglow_train`` in a process of its own resumes
+    from it; ``--remat`` (192 + 96 launches per step), ``--bf16`` and
+    ``--grad_accum 3`` each resume and take steps; step rates and peak
+    device memory are printed;
+11. the trained parameters through ``variables_from_trainable`` ->
+    ``load_waveglow`` -> the fused bf16 vocoder of a ``Synthesizer``.
 
 The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -34,6 +55,7 @@ last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -73,10 +95,17 @@ KERNELS = {
     "wn_layer_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:268"),
     "wn_layer_final_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:510"),
 }
+# the training kernels, same columns
+TRAIN_KERNELS = {
+    "gated_fwd": ("gated.cu", PALLAS + "gated.py:64"),
+    "gated_bwd": ("gated.cu", PALLAS + "gated.py:76"),
+    "conv_k3_bwd": ("wn_backward.cu", PALLAS + "wn_backward.py:83"),
+}
 CSRC = "text2speech_tpu_torch/csrc/"
 
-# NVIDIA's data sheet for the H100 SXM: dense tensor-core rates and HBM3
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+# NVIDIA's data sheet for the H100 SXM: dense tensor-core rates, the f32
+# rate outside the tensor cores (TF32 is off here) and HBM3
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -384,18 +413,24 @@ def sync_time(fn):
 
 
 def all_counts() -> dict:
+    """Launch counts of the serving kernels and the gated activation (the
+    conv backward keeps its own, read on its own path)."""
+    from text2speech_tpu_torch.ops import gated
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
-    return {**wb.launch_counts(), **wq.launch_counts()}
+    return {**wb.launch_counts(), **wq.launch_counts(),
+            **gated.launch_counts()}
 
 
 def reset_counts() -> None:
+    from text2speech_tpu_torch.ops import gated
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
     wb.reset_launch_counts()
     wq.reset_launch_counts()
+    gated.reset_launch_counts()
 
 
 def want_counts(wg_cfg, int8: bool) -> dict:
@@ -405,7 +440,8 @@ def want_counts(wg_cfg, int8: bool) -> dict:
            wg_cfg.n_flows)
     names = list(KERNELS)
     mine, other = (names[3:], names[:3]) if int8 else (names[:3], names[3:])
-    return {**dict(zip(mine, per)), **dict.fromkeys(other, 0)}
+    return {**dict(zip(mine, per)), **dict.fromkeys(other, 0),
+            "gated_fwd": 0, "gated_bwd": 0}
 
 
 def main_path(tag: str, int8: bool, rel32_bf16: float | None = None) -> dict:
@@ -573,6 +609,446 @@ def cli_run(flag: str) -> None:
             raise RuntimeError(f"CLI failed:\n{r.stderr}")
 
 
+# ---------------------------------------------------------------------------
+# training: the gated activation and conv backward kernels, one step, the CLI
+# ---------------------------------------------------------------------------
+
+# Gated kernels against their plain versions: the same f32 arithmetic on the
+# same rounded sum, with the card's tanhf / expf against the library's (last
+# bits): 1e-6 on the f32 forward (|out| < 1), 1e-5 on the f32 backward
+# (cotangents of a few units); in bf16 one step of the output's type, which
+# is at most 2^-7 of the value.
+GATED_F32_ATOL = {"fwd": 1e-6, "bwd": 1e-5}
+BF16_STEP = 2.0 ** -7
+# Conv backward against its plain version and against autograd of F.conv1d:
+# f32 sums of 6C (dx) and B * T (dW) products in another order.  f32 dx to
+# 1e-4 absolute, dW to 2e-5 of its peak; a bf16 dx is rounded once more, one
+# bf16 step of its peak.
+CONV_DX_F32_ATOL = 1e-4
+CONV_DW_REL = 2e-5
+# One training step through the gated kernels against the same step with
+# the plain gated activation (f32, TF32 off): 96 activations and 96 of
+# their backwards differ in the last bits of tanhf / expf.  The loss is a
+# sum of per-element terms of about 0.1: 1e-6 absolute; the gradient's
+# global norm 1e-4 relative.
+STEP_LOSS_ATOL = 1e-6
+STEP_GNORM_RTOL = 1e-4
+TRAIN_STEPS = 12
+N_WAVS = 8
+
+
+def gated_counts() -> dict:
+    from text2speech_tpu_torch.ops import gated
+
+    return gated.launch_counts()
+
+
+def check_train_kernels() -> dict:
+    """Phase 8, first half: kernels 16-18 against their plain versions,
+    then kernel, plain and library times and the card's bound at the
+    training shapes ([3, 2000, 1024] pairs; B=3, T=2000, C=512)."""
+    import torch.nn.functional as F
+
+    from text2speech_tpu_torch.ops import gated
+    from text2speech_tpu_torch.ops import wn_backward as twb
+
+    dev = torch.device("cuda")
+    rec = {n: {"max_abs_err": 0.0} for n in TRAIN_KERNELS}
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def gated_inputs(shape, dtype, strided, seed, L=8):
+        """a, b [..., 2C], cotangent [..., C]; ``strided``: b is layer 3's
+        column slice of the fused [..., 2C * L] projection."""
+        g = torch.Generator().manual_seed(seed)
+        C2 = shape[-1]
+        a = torch.randn(*shape, generator=g).to(dev, dtype)
+        fused = torch.randn(*shape[:-1], L * C2, generator=g).to(dev, dtype)
+        b = fused[..., 3 * C2: 4 * C2]
+        cot = torch.randn(*shape[:-1], C2 // 2, generator=g).to(dev, dtype)
+        return a, (b if strided else b.contiguous()), cot
+
+    seed = 0
+    for dtype in (f32, bf16):
+        for shape in ((3, 2000, 1024), (2, 37, 6), (1, 5, 48)):
+            for strided in (False, True):
+                seed += 1
+                a, b, cot = gated_inputs(shape, dtype, strided, seed)
+                pairs = {
+                    "fwd": (gated.gated_fwd(a, b), gated.gated_plain(a, b)),
+                    "bwd": (gated.gated_bwd(a, b, cot),
+                            gated.gated_bwd_plain(a, b, cot))}
+                for which, (got, want) in pairs.items():
+                    got, want = got.float(), want.float()
+                    err = (got - want).abs().max().item()
+                    bound = (GATED_F32_ATOL[which] if dtype == f32 else
+                             BF16_STEP * max(want.abs().max().item(), 1.0))
+                    tag = (f"gated_{which} {str(dtype)[6:]} {shape} "
+                           f"b {'strided' if strided else 'dense'}")
+                    print(f"  {tag}: max_abs_err={err:.4g} (bound "
+                          f"{bound:.4g})")
+                    if not torch.isfinite(got).all() or err > bound:
+                        raise RuntimeError(f"{tag}: kernel disagrees with "
+                                           f"its plain version")
+                    r = rec[f"gated_{which}"]
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    def conv_inputs(B, T, C, dtype, seed):
+        g = torch.Generator().manual_seed(seed)
+        x = torch.randn(B, T, C, generator=g).to(dev, dtype)
+        w = (torch.randn(3, C, 2 * C, generator=g) * (3 * C) ** -0.5)
+        cot = torch.randn(B, T, 2 * C, generator=g).to(dev, dtype)
+        return x, cot, w.to(dev, dtype)
+
+    for dtype in (bf16, f32):
+        for B, T, C, d in ((3, 2000, 512, 1), (3, 2000, 512, 8),
+                           (3, 2000, 512, 128), (2, 77, 128, 3),
+                           (2, 50, 24, 5)):
+            seed += 1
+            x, cot, w = conv_inputs(B, T, C, dtype, seed)
+            dx, dw = twb.conv_k3_bwd(x, cot, w, d)
+            dx2, dw2 = twb.conv_k3_bwd(x, cot, w, d)
+            if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+                raise RuntimeError("conv_k3_bwd: two runs differ")
+            xr = x.float().requires_grad_()
+            wr = w.float().requires_grad_()
+            F.conv1d(xr.transpose(1, 2), wr.permute(2, 1, 0), padding=d,
+                     dilation=d).transpose(1, 2).backward(cot.float())
+            refs = {"plain": twb.conv_k3_bwd_plain(x, cot, w, d),
+                    "autograd": (xr.grad, wr.grad)}
+            for ref, (want_dx, want_dw) in refs.items():
+                want_dx = want_dx.float()
+                e_x = (dx.float() - want_dx).abs().max().item()
+                e_w = (dw - want_dw).abs().max().item()
+                b_x = CONV_DX_F32_ATOL + (
+                    0.0 if dtype == f32
+                    else BF16_STEP * want_dx.abs().max().item())
+                b_w = CONV_DW_REL * max(want_dw.abs().max().item(), 1.0)
+                tag = (f"conv_k3_bwd {str(dtype)[6:]} B={B} T={T} C={C} "
+                       f"d={d} vs {ref}")
+                print(f"  {tag}: dx max_abs_err={e_x:.4g} (bound {b_x:.4g}) "
+                      f"dW {e_w:.4g} (bound {b_w:.4g})")
+                ok = torch.isfinite(dx.float()).all() and \
+                    torch.isfinite(dw).all()
+                if not ok or e_x > b_x or e_w > b_w:
+                    raise RuntimeError(f"{tag}: kernel disagrees")
+                if ref == "plain":
+                    r = rec["conv_k3_bwd"]
+                    r["max_abs_err"] = max(r["max_abs_err"], e_x, e_w)
+
+    # times at the training shapes.  The gated pair as a WN layer gives it:
+    # f32, b a column slice of the fused projection.
+    for dtype in (f32, bf16):
+        a, b, cot = gated_inputs((3, 2000, 1024), dtype, True, 90)
+        out, dx = gated.gated_fwd(a, b), gated.gated_bwd(a, b, cot)
+        n = out.numel()
+        timed = {
+            "gated_fwd": (lambda: gated.gated_fwd(a, b),
+                          lambda: gated.gated_plain(a, b),
+                          {"f32": 8 * n}, (a, b, out)),
+            "gated_bwd": (lambda: gated.gated_bwd(a, b, cot),
+                          lambda: gated.gated_bwd_plain(a, b, cot),
+                          {"f32": 18 * n}, (a, b, cot, dx))}
+        for name, (kern, plain, ops, tensors) in timed.items():
+            t = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+                 "library_ms": None}   # no one PyTorch call: plain_ms is
+            #                            the eager chain
+            t["bound_ms"], t["bound_by"] = bound_ms(ops, tensors)
+            print(f"  {name} {str(dtype)[6:]} [3, 2000, 1024] b strided: "
+                  f"kernel {t['ms']:.4f} ms, plain (the eager chain) "
+                  f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                  f"(by {t['bound_by']})")
+            if dtype == f32:
+                rec[name].update(t)
+    B, T, C = 3, 2000, 512
+    for dtype, kind in ((bf16, "bf16"), (f32, "f32")):
+        for d in (1, 8, 128):
+            x, cot, w = conv_inputs(B, T, C, dtype, 91)
+            dx, dw = twb.conv_k3_bwd(x, cot, w, d)
+
+            def library():
+                return torch.ops.aten.convolution_backward(
+                    cot.transpose(1, 2), x.transpose(1, 2),
+                    w.permute(2, 1, 0), None, [1], [d], [d], False, [0], 1,
+                    [True, True, False])
+
+            t = {"ms": time_ms(lambda: twb.conv_k3_bwd(x, cot, w, d)),
+                 "plain_ms": time_ms(
+                     lambda: twb.conv_k3_bwd_plain(x, cot, w, d)),
+                 "library_ms": time_ms(library)}
+            t["bound_ms"], t["bound_by"] = bound_ms(
+                {kind: 12 * B * T * C * 2 * C}, (x, cot, w, dx, dw))
+            print(f"  conv_k3_bwd {kind} B={B} T={T} C={C} d={d}: kernel "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                  f"aten.convolution_backward {t['library_ms']:.4f} ms, "
+                  f"bound {t['bound_ms']:.4f} ms (by {t['bound_by']})")
+            if dtype == bf16 and d == 8:
+                rec["conv_k3_bwd"].update(t)
+    return rec
+
+
+def conv_backward_path() -> int:
+    """Phase 8, second half: the conv backward kernel's own path.  It is a
+    probe beside the trainer (whose convs differentiate through the
+    library): a chain of calls down the WN dilation ladder at the training
+    shape, each call's dx the next one's x.  Returns its launch count."""
+    from text2speech_tpu_torch.ops import wn_backward as twb
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(3, 2000, 512, generator=g).to("cuda", torch.bfloat16)
+    cot = torch.randn(3, 2000, 1024, generator=g).to("cuda", torch.bfloat16)
+    w = (torch.randn(3, 512, 1024, generator=g) * 1536 ** -0.5).to(
+        "cuda", torch.bfloat16)
+    twb.reset_launch_counts()
+    for i in range(8):
+        x, dw = twb.conv_k3_bwd(x, cot, w, 2 ** i)
+    launches = twb.launch_counts()["conv_k3_bwd"]
+    if not (torch.isfinite(x.float()).all() and torch.isfinite(dw).all()):
+        raise RuntimeError("conv backward chain: non-finite")
+    if launches != 8:
+        raise RuntimeError(f"conv backward chain: {launches} launches")
+    print(f"[train] conv_k3_bwd chain over dilations 1..128: {launches} "
+          f"launches, |dx| peak {x.float().abs().max().item():.4g}")
+    return launches
+
+
+def write_corpus(root: str, cfg) -> str:
+    """N_WAVS synthetic wavs (tones in noise, ~1.5 s) and their file list,
+    from a numpy seed."""
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(0)
+    names = []
+    for i in range(N_WAVS):
+        n = 30000 + 1000 * i
+        t = np.arange(n) / cfg.sampling_rate
+        sig = (0.3 * np.sin(2 * np.pi * (150 + 35 * i) * t)
+               + 0.1 * np.sin(2 * np.pi * (900 + 110 * i) * t)
+               + 0.02 * rng.randn(n))
+        names.append(f"u{i}.wav")
+        wavfile.write(os.path.join(root, names[-1]), cfg.sampling_rate,
+                      (sig * 32767).astype(np.int16))
+    path = os.path.join(root, "files.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(names))
+    return path
+
+
+def train_step_check(cfg, batch) -> None:
+    """Phase 9: one optimizer step at full width through the gated kernels
+    against the same step with the plain gated activation, from the same
+    parameters (the seeded initialisation with the zero ``end`` convs
+    perturbed, so that the WN layers carry gradient)."""
+    from text2speech_tpu_torch.models.waveglow import TrainableWaveGlow
+    from text2speech_tpu_torch.ops.gated import gated_activation, gated_plain
+    from text2speech_tpu_torch.train.state import create_train_state
+    from text2speech_tpu_torch.train.waveglow import make_wg_train_step
+
+    results = {}
+    for tag, fn in (("kernels", gated_activation), ("plain", gated_plain)):
+        model = TrainableWaveGlow(
+            cfg, gated=fn, generator=torch.Generator().manual_seed(cfg.seed),
+            device="cuda")
+        g = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for name, p in sorted(model.params.items()):
+                if "/end/" in name:
+                    p.add_(0.01 * torch.randn(p.shape, generator=g).cuda())
+        state = create_train_state(model.params, cfg.learning_rate)
+        step = make_wg_train_step(model, cfg.sigma)
+        reset_counts()
+        _, m = step(state, batch)
+        results[tag] = (m["loss"].item(), m["grad_norm"].item(),
+                        gated_counts())
+        del model, state, step
+        torch.cuda.empty_cache()
+    (l_k, g_k, c_k), (l_p, g_p, c_p) = results["kernels"], results["plain"]
+    n = cfg.n_flows * cfg.wn_n_layers
+    print(f"[train] one f32 step, kernels vs plain gated activation: loss "
+          f"{l_k:.8g} vs {l_p:.8g} (bound {STEP_LOSS_ATOL}), grad norm "
+          f"{g_k:.8g} vs {g_p:.8g} (bound {STEP_GNORM_RTOL} relative); "
+          f"launches {c_k} vs {c_p}")
+    if c_k != {"gated_fwd": n, "gated_bwd": n} or any(c_p.values()):
+        raise RuntimeError("train step: wrong gated launch counts")
+    if not (np.isfinite(l_k) and np.isfinite(g_k)):
+        raise RuntimeError("train step: non-finite loss or gradient")
+    if abs(l_k - l_p) > STEP_LOSS_ATOL or \
+            abs(g_k - g_p) > STEP_GNORM_RTOL * g_p:
+        raise RuntimeError("train step: kernels disagree with the plain "
+                           "gated activation")
+
+
+def fixed_batch_loss(model, cfg, batch) -> float:
+    from text2speech_tpu_torch.models.losses import waveglow_loss
+
+    with torch.no_grad():
+        return waveglow_loss(*model(batch.mel, batch.audio),
+                             cfg.sigma).item()
+
+
+def cli_train(files: str, out: str, num_steps: int, *flags):
+    """``waveglow_train.main`` with the CLI's arguments, in this process (so
+    that the launch counts can be read); returns (trainer, gated launch
+    counts, seconds, peak device bytes, [(step, loss, grad norm)])."""
+    from text2speech_tpu_torch import waveglow_train
+
+    argv = ["--training_files", files, "--output_directory", out,
+            "--num_steps", str(num_steps), *flags]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = waveglow_train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = gated_counts()
+    other = {k: v for k, v in all_counts().items() if k not in counts and v}
+    if other:
+        raise RuntimeError(f"training launched serving kernels: {other}")
+    losses = [(s, m["loss"].item(), m["grad_norm"].item())
+              for s, m in trainer.recent]
+    if not losses or not all(np.isfinite(v) for _, *vs in losses for v in vs):
+        raise RuntimeError(f"training {flags}: no or non-finite losses "
+                           f"{losses}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train] waveglow_train {' '.join(argv[4:])}: steps "
+          f"{losses[0][0]}..{losses[-1][0]} in {seconds:.2f} s (model build, "
+          f"data and checkpoint included); losses "
+          f"{[round(l, 6) for _, l, _ in losses]}; launches {counts}; peak "
+          f"device memory {peak / 1e9:.3f} GB")
+    return trainer, counts, seconds, peak, losses
+
+
+def keep_newest(out: str) -> None:
+    """Delete all but the newest checkpoint in ``out`` (each holds the
+    parameters and both Adam moments, 3.3 GB at full width)."""
+    names = sorted(f for f in os.listdir(out) if f.endswith(".pt"))
+    for name in names[:-1]:
+        os.unlink(os.path.join(out, name))
+
+
+def step_rate(trainer, batch, n: int = 4) -> float:
+    """Seconds per optimizer step of ``trainer`` on one batch already on
+    the card, warm, the host clock around ``n`` steps and a synchronise."""
+    trainer._train_step(trainer.state, batch)
+    _, t = sync_time(lambda: [trainer._train_step(trainer.state, batch)
+                              for _ in range(n)])
+    return t / n
+
+
+def train_path(synth, mel: torch.Tensor) -> dict:
+    """Phases 9-11.  Returns the gated launch counts of the main training
+    run."""
+    from text2speech_tpu_torch.config import WaveGlowConfig
+    from text2speech_tpu_torch.convert import (load_waveglow,
+                                               variables_from_trainable)
+    from text2speech_tpu_torch.data.mel2samp import Mel2Samp, files_to_list
+    from text2speech_tpu_torch.infer import Synthesizer
+    from text2speech_tpu_torch.models.waveglow import TrainableWaveGlow
+
+    cfg = WaveGlowConfig()
+    n = cfg.n_flows * cfg.wn_n_layers
+    samples = cfg.batch_size * cfg.segment_length
+    with tempfile.TemporaryDirectory() as d:
+        files = write_corpus(d, cfg)
+        paths = files_to_list(files)
+        data = Mel2Samp(paths, cfg, device="cuda")
+        batch = data.make_batch(paths[: cfg.batch_size],
+                                list(range(cfg.batch_size)))
+        if batch.audio.shape != (cfg.batch_size, cfg.segment_length) or \
+                batch.mel.shape != (cfg.batch_size, cfg.n_mel_channels,
+                                    cfg.segment_length // cfg.hop_length + 1):
+            raise RuntimeError(f"batch shapes {batch.audio.shape} "
+                               f"{batch.mel.shape}")
+        train_step_check(cfg, batch)
+
+        fresh = TrainableWaveGlow(
+            cfg, generator=torch.Generator().manual_seed(cfg.seed),
+            device="cuda")
+        loss0 = fixed_batch_loss(fresh, cfg, batch)
+        del fresh
+        torch.cuda.empty_cache()
+
+        out = os.path.join(d, "ckpt")
+        trainer, counts, _, peak, losses = cli_train(files, out, TRAIN_STEPS)
+        if trainer.state.step != TRAIN_STEPS or len(losses) != TRAIN_STEPS:
+            raise RuntimeError(f"trainer at step {trainer.state.step}")
+        if counts != {"gated_fwd": n * TRAIN_STEPS,
+                      "gated_bwd": n * TRAIN_STEPS}:
+            raise RuntimeError(f"gated launches {counts}, want {n} + {n} per "
+                               f"step")
+        if trainer.ckpt.all_steps() != [TRAIN_STEPS]:
+            raise RuntimeError(f"checkpoints {trainer.ckpt.all_steps()}")
+        loss1 = fixed_batch_loss(trainer.model, cfg, batch)
+        print(f"[train] loss on one fixed batch: {loss0:.6f} at the "
+              f"initialisation, {loss1:.6f} after {TRAIN_STEPS} steps")
+        if not loss1 < loss0:
+            raise RuntimeError("training did not lower the fixed batch's loss")
+        s = step_rate(trainer, batch)
+        print(f"[train] f32 step (warm, batch on the card): {s * 1e3:.1f} ms "
+              f"= {1 / s:.3f} steps/s = {samples / s:.6g} samples/s; peak "
+              f"device memory of the run {peak / 1e9:.3f} GB")
+
+        # the trained parameters serve: convert -> load_waveglow -> fused
+        flat = variables_from_trainable(trainer.model)
+        del trainer
+        torch.cuda.empty_cache()
+        served = Synthesizer(synth.hp, synth.taco, cfg,
+                             load_waveglow(flat, cfg, device="cuda"),
+                             use_denoiser=False, use_fused_vocoder=True)
+        reset_counts()
+        audio = served.mel_to_audio(mel, SIGMA, seed=0)
+        want = (mel.shape[0], mel.shape[2] * cfg.upsample_stride)
+        print(f"[train] trained weights through load_waveglow and the fused "
+              f"vocoder: audio {tuple(audio.shape)}, peak "
+              f"{audio.abs().max().item():.4g}, launches {all_counts()}")
+        if tuple(audio.shape) != want or not torch.isfinite(audio).all() \
+                or audio.std().item() < 1e-6:
+            raise RuntimeError(f"served audio {tuple(audio.shape)}, want "
+                               f"{want}, finite and not silent")
+        if all_counts() != want_counts(cfg, False):
+            raise RuntimeError("served vocode: wrong launch counts")
+        del served, flat
+        torch.cuda.empty_cache()
+
+        # a process of its own resumes from the checkpoint
+        cmd = [sys.executable, "-m", "text2speech_tpu_torch.waveglow_train",
+               "--training_files", files, "--output_directory", out,
+               "--num_steps", str(TRAIN_STEPS + 2)]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        print(f"[train] {' '.join(cmd[1:4])} ... --num_steps "
+              f"{TRAIN_STEPS + 2} -> rc {r.returncode}: "
+              f"{' | '.join(r.stdout.strip().splitlines()[-3:])}")
+        if r.returncode != 0:
+            raise RuntimeError(f"training CLI failed:\n{r.stderr}")
+        if f"Resumed WaveGlow from step {TRAIN_STEPS}" not in r.stdout or \
+                not os.path.exists(os.path.join(
+                    out, f"ckpt_{TRAIN_STEPS + 2:08d}.pt")):
+            raise RuntimeError("the CLI did not resume from the checkpoint")
+        keep_newest(out)
+
+        # the options: each resumes at step 14 and takes two steps
+        at = TRAIN_STEPS + 2
+        per_step = {"--remat": (2 * n, n), "--bf16": (n, n),
+                    "--grad_accum": (3 * n, 3 * n)}
+        for flags in (("--remat",), ("--bf16",), ("--grad_accum", "3")):
+            at += 2
+            trainer, c, _, peak, losses = cli_train(files, out, at, *flags)
+            fwd, bwd = per_step[flags[0]]
+            if [s_ for s_, _, _ in losses] != [at - 1, at]:
+                raise RuntimeError(f"{flags}: steps {losses}")
+            if c != {"gated_fwd": 2 * fwd, "gated_bwd": 2 * bwd}:
+                raise RuntimeError(f"{flags}: gated launches {c}, want "
+                                   f"{fwd} + {bwd} per step")
+            s = step_rate(trainer, batch, n=2)
+            print(f"[train] {' '.join(flags)} step (warm): {s * 1e3:.1f} ms "
+                  f"= {1 / s:.3f} steps/s = {samples / s:.6g} samples/s; "
+                  f"peak device memory of the run {peak / 1e9:.3f} GB")
+            del trainer
+            torch.cuda.empty_cache()
+            keep_newest(out)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -585,11 +1061,12 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
+    from text2speech_tpu_torch.ops import gated, wn_backward
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
     t0 = time.perf_counter()
-    libs = (wb.LIB, wq.LIB)
+    libs = (wb.LIB, wq.LIB, gated.LIB, wn_backward.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
@@ -597,7 +1074,7 @@ def main() -> int:
         lib.get()
         print(f"[build] {lib.source.name}: nvcc {lib.build_seconds:.2f} s")
         print(lib.build_log.strip())
-    print(f"[build] both libraries built and loaded in "
+    print(f"[build] {len(libs)} libraries built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
 
     print("[kernels] kernel vs plain at C=512, M=640")
@@ -606,20 +1083,33 @@ def main() -> int:
     int8 = main_path("int8", int8=True, rel32_bf16=bf16["rel32"])
     print(f"[e2e] vocode+denoise, batch {len(TEXTS)} x {MAX_STEPS} frames: "
           f"bf16 {bf16['vocode_ms']:.3f} ms, int8 {int8['vocode_ms']:.3f} ms")
+    int8_launches = int8["launches"]
     long_form(int8["synth"], int8["mel"], "int8", int8=True)
     long_form(bf16["synth"], bf16["mel"], "bf16", int8=False)
     cli_run("--fused_vocoder")
     cli_run("--int8_vocoder")
 
+    print("[kernels] training kernels vs plain")
+    rec.update(check_train_kernels())
+    chain_launches = conv_backward_path()
+    del int8
+    torch.cuda.empty_cache()
+    trained = train_path(bf16["synth"], bf16["mel"])
+
     launches = {**{n: bf16["launches"][n] for n in list(KERNELS)[:3]},
-                **{n: int8["launches"][n] for n in list(KERNELS)[3:]}}
+                **{n: int8_launches[n] for n in list(KERNELS)[3:]},
+                **trained, "conv_k3_bwd": chain_launches}
+    if not all(launches.values()):
+        raise RuntimeError(f"a kernel was launched on no path: {launches}")
     kernels = [{
         "name": n, "route": "cuda", "source": CSRC + src, "replaces": repl,
         "launches": launches[n], "max_abs_err": rec[n]["max_abs_err"],
         "ms": rec[n]["ms"], "plain_ms": rec[n]["plain_ms"],
         "bound_ms": rec[n]["bound_ms"], "bound_by": rec[n]["bound_by"],
-        "library_ms": None,   # no one PyTorch call computes a fused WN layer
-    } for n, (src, repl) in KERNELS.items()]
+        # no one PyTorch call computes a fused WN layer or the gated
+        # activation; the conv backward has aten.convolution_backward
+        "library_ms": rec[n].get("library_ms"),
+    } for n, (src, repl) in {**KERNELS, **TRAIN_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,16 @@
 #!/usr/bin/env python
 """Where the time goes in the PyTorch port on one NVIDIA GPU.
 
-    python3 profile_torch.py [--batch 3] [--steps 200]
+    python3 profile_torch.py [--batch 3] [--steps 200] [--stages serve train]
 
 Builds the reference-width synthesizers on seeded random weights (bf16 fused
 and int8 vocoders, as ``chip_smoke.py`` does) and runs each stage of the
 main paths once warm and once under ``torch.profiler``: decode, vocode with
 and without the denoiser through either vocoder, and long-form vocoding of
-a 712-frame mel.  For each stage it prints the wall time of the profiled
+a 712-frame mel.  The ``train`` stages are one WaveGlow optimizer step at
+reference width (batch 3 x 16,000 samples of seeded noise, the seeded
+initialisation with live ``end`` convs) in f32, f32 with remat, and bf16,
+each with its peak device memory.  For each stage it prints the wall time of the profiled
 call, the device-busy time (the union of the kernels' intervals in the
 trace), the idle share (1 - busy / wall), the number of kernels and the
 kernels that took most of the device time.  One JSON line per stage, then
@@ -52,7 +55,9 @@ def busy_us(kernels: list) -> float:
     return busy
 
 
-def profile_stage(name: str, fn) -> dict:
+def profile_stage(name: str, fn, also: tuple = ()) -> dict:
+    """``also``: substrings of kernel names whose calls and time are
+    reported under "named" whether or not they are among the top."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()                                   # warm
@@ -72,7 +77,7 @@ def profile_stage(name: str, fn) -> dict:
     for kname, _, dur in kernels:
         n, t = by_name.get(kname, (0, 0.0))
         by_name[kname] = (n + 1, t + dur)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
     busy_ms = busy_us(kernels) / 1e3
     walls = []
     for _ in range(3):                     # unprofiled walls
@@ -81,6 +86,8 @@ def profile_stage(name: str, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         walls.append(round((time.perf_counter() - t0) * 1e3, 3))
+    named = {k[:60]: {"calls": n, "ms": round(t / 1e3, 3)}
+             for k, (n, t) in by_name.items() if any(a in k for a in also)}
     return {
         "stage": name, "wall_ms_profiled": round(wall_ms, 3),
         "device_busy_ms": round(busy_ms, 3),
@@ -88,11 +95,50 @@ def profile_stage(name: str, fn) -> dict:
         "kernels": len(kernels), "wall_ms_unprofiled": walls,
         "top": [{"name": k[:60], "calls": n, "ms": round(t / 1e3, 3)}
                 for k, (n, t) in top],
+        **({"named": named} if also else {}),
     }
+
+
+def train_stages() -> list:
+    """(name, build) for one optimizer step in each training mode;
+    ``build()`` makes the model, its optimizer and the step function, so
+    the caller holds one model at a time (each keeps its parameters,
+    gradients and Adam moments on the card)."""
+    from text2speech_tpu_torch.config import WaveGlowConfig
+    from text2speech_tpu_torch.data.mel2samp import VocoderBatch
+    from text2speech_tpu_torch.dsp.mel import MelFrontend
+    from text2speech_tpu_torch.models.waveglow import TrainableWaveGlow
+    from text2speech_tpu_torch.train.state import create_train_state
+    from text2speech_tpu_torch.train.waveglow import make_wg_train_step
+
+    cfg = WaveGlowConfig()
+    g = torch.Generator().manual_seed(0)
+    audio = (0.2 * torch.randn(cfg.batch_size, cfg.segment_length,
+                               generator=g)).cuda()
+    batch = VocoderBatch(MelFrontend().mel_spectrogram(audio), audio)
+
+    def build(bf16: bool, remat: bool):
+        model = TrainableWaveGlow(
+            cfg, compute_dtype=torch.bfloat16 if bf16 else torch.float32,
+            remat=remat, generator=torch.Generator().manual_seed(cfg.seed),
+            device="cuda")
+        with torch.no_grad():
+            for name, p in sorted(model.params.items()):
+                if "/end/" in name:
+                    p.add_(0.01 * torch.randn(p.shape, generator=g).cuda())
+        state = create_train_state(model.params, cfg.learning_rate)
+        step = make_wg_train_step(model, cfg.sigma)
+        return lambda: step(state, batch)
+
+    return [("train step f32", lambda: build(False, False)),
+            ("train step f32 remat", lambda: build(False, True)),
+            ("train step bf16", lambda: build(True, False))]
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--stages", nargs="+", default=["serve", "train"],
+                   choices=("serve", "train"))
     p.add_argument("--batch", type=int, default=3, choices=range(1, 5))
     p.add_argument("--steps", type=int, default=200,
                    help="decoder steps = mel frames per utterance")
@@ -103,6 +149,29 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if "serve" in args.stages:
+        serve_stages(args)
+    if "train" in args.stages:
+        print("WaveGlow training, reference width, batch 3 x 16000")
+        for name, build in train_stages():
+            fn = build()
+            fn()                           # first call: cuDNN picks its plans
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rec = profile_stage(name, fn, also=("gated_",))
+            rec["peak_memory_gb"] = round(
+                torch.cuda.max_memory_allocated() / 1e9, 3)
+            print(json.dumps(rec, ensure_ascii=False))
+            del fn
+            torch.cuda.empty_cache()
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip())
+    return 0
+
+
+def serve_stages(args) -> None:
     from text2speech_tpu_torch.config import HParams, WaveGlowConfig
     from text2speech_tpu_torch.infer import random_synthesizer
 
@@ -132,11 +201,6 @@ def main(argv=None) -> int:
     print(f"batch {len(texts)} x {args.steps} frames, reference width")
     for name, fn in stages:
         print(json.dumps(profile_stage(name, fn), ensure_ascii=False))
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip())
-    return 0
 
 
 if __name__ == "__main__":

@@ -44,6 +44,7 @@ def dev():
     except RuntimeError as e:
         pytest.skip(str(e))
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -335,3 +336,177 @@ def test_infer_fused_int8_launches_each_kernel_and_matches_plain(dev):
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 32 * 2.0 ** -8 * want.abs().max()
     assert ((got - want).norm() / want.norm()).item() < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# training kernels: the gated activation (forward, backward) and the k=3
+# conv backward
+# ---------------------------------------------------------------------------
+
+
+def _gated_inputs(dev, shape, dtype, strided, seed):
+    """a, b [..., 2C] and g [..., C]; ``strided`` makes b the middle column
+    slice of a fused [..., 3 * 2C] projection (row stride 6C)."""
+    g = torch.Generator().manual_seed(seed)
+    C2 = shape[-1]
+    a = torch.randn(*shape, generator=g).to(dev, dtype)
+    fused = torch.randn(*shape[:-1], 3 * C2, generator=g).to(dev, dtype)
+    b = fused[..., C2: 2 * C2] if strided else fused[..., C2: 2 * C2].clone()
+    cot = (2 * torch.randn(*shape[:-1], C2 // 2, generator=g)).to(dev, dtype)
+    return a, b, cot
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 500, 1024), (2, 37, 6), (1, 5, 48)])
+def test_gated_kernels_match_plain(dev, shape, dtype, strided):
+    """Forward and backward kernel against their plain versions (the
+    vectorised path at C % 4 / 8 == 0 and aligned rows, the scalar one
+    otherwise).  Both do the same f32 arithmetic on the same rounded sum;
+    the card's tanhf / expf differ from the library's in the last bits: 1e-6
+    (1e-5 on dx, whose cotangents reach a few units) in f32, one bf16 step
+    of the value (at most 2^-7 of it) in bf16."""
+    from text2speech_tpu_torch.ops import gated
+
+    a, b, cot = _gated_inputs(dev, shape, dtype, strided, 1)
+    f32 = dtype == torch.float32
+    gated.reset_launch_counts()
+    out = gated.gated_fwd(a, b)
+    dx = gated.gated_bwd(a, b, cot)
+    assert gated.launch_counts() == {"gated_fwd": 1, "gated_bwd": 1}
+    assert out.dtype == dx.dtype == dtype
+    assert out.is_contiguous() and dx.is_contiguous()
+    want_out, want_dx = gated.gated_plain(a, b), gated.gated_bwd_plain(a, b, cot)
+    assert (out.float() - want_out.float()).abs().max().item() \
+        <= (1e-6 if f32 else 2.0 ** -8)
+    assert (dx.float() - want_dx.float()).abs().max().item() \
+        <= (1e-5 if f32 else 2.0 ** -7 * want_dx.abs().max().item())
+
+
+def test_gated_function_on_the_card_matches_autograd(dev):
+    """The autograd Function through the kernels against autograd of the
+    plain expression, with ``b`` a column slice: gradients reach ``a`` and
+    the whole fused projection; under ``torch.utils.checkpoint`` the
+    forward kernel runs twice."""
+    from torch.utils.checkpoint import checkpoint
+
+    from text2speech_tpu_torch.ops import gated
+
+    g = torch.Generator().manual_seed(2)
+    a0 = torch.randn(2, 300, 256, generator=g).to(dev)
+    f0 = torch.randn(2, 300, 768, generator=g).to(dev)
+    cot = torch.randn(2, 300, 128, generator=g).to(dev)
+    grads = []
+    for fn in (gated.gated_activation, gated.gated_plain):
+        a, f = a0.clone().requires_grad_(), f0.clone().requires_grad_()
+        sum(fn(a, c) for c in f.split(256, dim=-1)).backward(cot)
+        grads.append((a.grad, f.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    a, f = a0.clone().requires_grad_(), f0.clone().requires_grad_()
+    gated.reset_launch_counts()
+    checkpoint(gated.gated_activation, a, f[..., :256],
+               use_reentrant=False).backward(cot)
+    assert gated.launch_counts() == {"gated_fwd": 2, "gated_bwd": 1}
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        gated.gated_fwd(a0, f0[..., :256].cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,C,d", [(3, 500, 512, 1), (2, 300, 128, 8),
+                                     (2, 77, 128, 128), (2, 50, 24, 5)])
+def test_conv_k3_bwd_kernel_matches_plain_and_autograd(dev, dtype, B, T, C, d):
+    """Kernel 18 against its plain version and against autograd of
+    ``F.conv1d`` (bf16 at C % 128 == 0 takes the tensor-core path, the rest
+    the f32 FMA path).  Sums of 6C (dx) and B*T (dW) f32 products in another
+    order: f32 dx to 1e-4 and dW to 2e-5 of its peak; bf16 dx additionally
+    rounds to bf16, one step (at most 2^-7) of its peak."""
+    import torch.nn.functional as F
+
+    from text2speech_tpu_torch.ops import wn_backward as twb
+
+    g = torch.Generator().manual_seed(d)
+    x = torch.randn(B, T, C, generator=g).to(dev, dtype)
+    w = (torch.randn(3, C, 2 * C, generator=g) * (3 * C) ** -0.5).to(dev, dtype)
+    cot = torch.randn(B, T, 2 * C, generator=g).to(dev, dtype)
+    twb.reset_launch_counts()
+    dx, dw = twb.conv_k3_bwd(x, cot, w, d)
+    assert twb.launch_counts() == {"conv_k3_bwd": 1}
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    dx2, dw2 = twb.conv_k3_bwd(x, cot, w, d)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)   # no atomics
+    xr = x.float().requires_grad_()
+    wr = w.float().requires_grad_()
+    F.conv1d(xr.transpose(1, 2), wr.permute(2, 1, 0), padding=d,
+             dilation=d).transpose(1, 2).backward(cot.float())
+    px, pw = twb.conv_k3_bwd_plain(x, cot, w, d)
+    for want_dx, want_dw in ((px, pw), (xr.grad, wr.grad)):
+        want_dx = want_dx.float()
+        peak_x, peak_w = want_dx.abs().max().item(), want_dw.abs().max().item()
+        tol_x = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * peak_x + 1e-4
+        assert (dx.float() - want_dx).abs().max().item() <= tol_x
+        assert (dw - want_dw).abs().max().item() <= 2e-5 * max(peak_w, 1.0)
+
+
+def test_conv_k3_bwd_rejects_on_the_card(dev):
+    from text2speech_tpu_torch.ops import wn_backward as twb
+
+    x = torch.zeros(1, 10, 8, device=dev)
+    g = torch.zeros(1, 10, 16, device=dev)
+    w = torch.zeros(3, 8, 16, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        twb.conv_k3_bwd(x, g, w.transpose(0, 1).contiguous().transpose(0, 1),
+                        1)
+    with pytest.raises(ValueError, match="dtype"):
+        twb.conv_k3_bwd(x, g.bfloat16(), w, 1)
+
+
+def _tiny_trainable(dev, **kw):
+    from text2speech_tpu_torch.models.waveglow import TrainableWaveGlow
+
+    cfg = WaveGlowConfig(n_mel_channels=16, n_flows=4, n_group=8,
+                         n_early_every=2, n_early_size=2, wn_n_layers=3,
+                         wn_n_channels=128, upsample_kernel=64,
+                         upsample_stride=16, segment_length=2048)
+    model = TrainableWaveGlow(cfg, generator=torch.Generator().manual_seed(0),
+                              device=dev, **kw)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():     # live end convs: every gradient leaf non-zero
+        for name, p in model.params.items():
+            p.add_(0.01 * torch.randn(p.shape, generator=g).to(dev))
+    mel = torch.randn(2, 16, 129, generator=g).to(dev)
+    audio = (0.1 * torch.randn(2, 2048, generator=g)).to(dev)
+    return cfg, model, mel, audio
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_through_the_kernels_matches_plain_gated(dev, dtype, remat):
+    """One WaveGlow training step with the gated kernels against the same
+    step with ``gated=gated_plain``: 12 forward and 12 backward launches
+    (24 forward under remat); loss and gradient norm agree (f32: 1e-5
+    relative on the norm, 1e-6 absolute on a loss of 1e-2 terms; bf16: a
+    gated value can differ by one bf16 step, carried through 4 flows)."""
+    from text2speech_tpu_torch.ops import gated
+    from text2speech_tpu_torch.train.state import create_train_state
+    from text2speech_tpu_torch.train.waveglow import make_wg_train_step
+    from text2speech_tpu_torch.data.mel2samp import VocoderBatch
+
+    metrics = []
+    for fn in (gated.gated_activation, gated.gated_plain):
+        cfg, model, mel, audio = _tiny_trainable(dev, compute_dtype=dtype,
+                                                 remat=remat, gated=fn)
+        state = create_train_state(model.params, 1e-4)
+        gated.reset_launch_counts()
+        _, m = make_wg_train_step(model, 1.0)(state, VocoderBatch(mel, audio))
+        counts = gated.launch_counts()
+        if fn is gated.gated_activation:
+            assert counts == {"gated_fwd": 24 if remat else 12,
+                              "gated_bwd": 12}
+        else:
+            assert counts == {"gated_fwd": 0, "gated_bwd": 0}
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    (l0, g0), (l1, g1) = metrics
+    f32 = dtype == torch.float32
+    assert abs(l0 - l1) <= (1e-6 if f32 else 1e-3)
+    assert abs(g0 - g1) <= (1e-5 if f32 else 2e-2) * g1

@@ -23,6 +23,12 @@ Layout rules (``text2speech_tpu/convert.py:9-18`` run in reverse):
   nothing more for them.  :func:`fused_int8_from_qparams` takes the JAX
   package's already-quantized tree instead, for holding the two
   quantizers against each other on bit-identical weights.
+* The trainable WaveGlow keeps the flax names and layouts, weight norm
+  unfolded: :func:`trainable_waveglow_from_variables` copies a tree in,
+  :func:`variables_from_trainable` writes the flat ``params/...`` keys that
+  :func:`waveglow_state_dict` and :func:`load_waveglow` read.  Prefixed
+  with ``waveglow/`` they are the vocoder half of the ``.npz`` that
+  ``infer.load_synthesizer`` reads.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import torch
 from .config import HParams, WaveGlowConfig
 
 from .models.tacotron2 import Tacotron2
-from .models.waveglow import WaveGlow, fold_weightnorm
+from .models.waveglow import TrainableWaveGlow, WaveGlow, fold_weightnorm
 from .models.waveglow_fused import FusedWaveGlowInt8
 from .ops.wn_block import fold_end, fold_first_taps
 from .ops.wn_block_int8 import to_output_major
@@ -178,6 +184,37 @@ def load_waveglow(variables: Mapping, cfg: WaveGlowConfig,
     model = WaveGlow(cfg, device=device)
     model.load_state_dict(waveglow_state_dict(variables, cfg))
     return model.eval()
+
+
+def trainable_waveglow_from_variables(variables: Mapping,
+                                      cfg: WaveGlowConfig, device=None,
+                                      **model_kwargs) -> TrainableWaveGlow:
+    """WaveGlow flax variables (nested tree or flat ``params/...`` keys) ->
+    the trainable module, weight norm left unfolded.  ``model_kwargs`` go
+    to :class:`TrainableWaveGlow` (``compute_dtype``, ``remat``,
+    ``gated``).  Raises when the tree's names or shapes are not the
+    model's."""
+    f = sub_tree(_as_flat(variables), "params")
+    model = TrainableWaveGlow(cfg, device=device, **model_kwargs)
+    if set(f) != set(model.params.keys()):
+        odd = sorted(set(f) ^ set(model.params.keys()))
+        raise ValueError(f"variables do not match the model's parameters: "
+                         f"{odd[:8]}")
+    with torch.no_grad():
+        for name, p in model.params.items():
+            value = _t(f[name])
+            if value.shape != p.shape:
+                raise ValueError(f"{name}: shape {tuple(value.shape)}, the "
+                                 f"model's is {tuple(p.shape)}")
+            p.copy_(value)
+    return model
+
+
+def variables_from_trainable(model: TrainableWaveGlow) -> dict:
+    """The trainable module's parameters as flat ``params/<flax path>``
+    numpy arrays (f32)."""
+    return {f"params/{name}": p.detach().to("cpu", torch.float32).numpy()
+            for name, p in model.params.items()}
 
 
 def fused_int8_from_qparams(qparams: Mapping, cfg: WaveGlowConfig,

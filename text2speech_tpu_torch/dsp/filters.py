@@ -1,5 +1,5 @@
-"""Windowed real-DFT bases and the window sum-square envelope (host-side
-numpy, computed once).
+"""Windowed real-DFT bases, the window sum-square envelope and the Slaney
+mel filterbank (host-side numpy, computed once).
 
 A copy of the numpy functions the port needs from
 ``text2speech_tpu/dsp/filters.py``: importing that module would run
@@ -21,6 +21,65 @@ def pad_center(window: np.ndarray, size: int) -> np.ndarray:
     """Zero-pad a window symmetrically to ``size`` (librosa.util.pad_center)."""
     lpad = (size - len(window)) // 2
     return np.pad(window, (lpad, size - len(window) - lpad))
+
+
+def hz_to_mel_slaney(f):
+    f = np.asanyarray(f, dtype=np.float64)
+    f_sp = 200.0 / 3
+    mels = f / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_region = f >= min_log_hz
+    mels = np.where(
+        log_region,
+        min_log_mel + np.log(np.maximum(f, 1e-10) / min_log_hz) / logstep,
+        mels,
+    )
+    return mels
+
+
+def mel_to_hz_slaney(m):
+    m = np.asanyarray(m, dtype=np.float64)
+    f_sp = 200.0 / 3
+    freqs = m * f_sp
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    log_region = m >= min_log_mel
+    freqs = np.where(
+        log_region, min_log_hz * np.exp(logstep * (m - min_log_mel)), freqs
+    )
+    return freqs
+
+
+def mel_filterbank(
+    sample_rate: int,
+    n_fft: int,
+    n_mels: int,
+    fmin: float = 0.0,
+    fmax: float | None = None,
+) -> np.ndarray:
+    """Slaney-normalized triangular mel filterbank, [n_mels, 1 + n_fft//2].
+
+    Bit-compatible with ``librosa.filters.mel(sr, n_fft, n_mels, fmin, fmax)``
+    at float64 construction precision.
+    """
+    if fmax is None:
+        fmax = sample_rate / 2.0
+    fft_freqs = np.linspace(0.0, sample_rate / 2.0, 1 + n_fft // 2)
+    mel_pts = mel_to_hz_slaney(
+        np.linspace(hz_to_mel_slaney(fmin), hz_to_mel_slaney(fmax), n_mels + 2)
+    )
+    fdiff = np.diff(mel_pts)
+    ramps = mel_pts[:, None] - fft_freqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    # Slaney area normalization (librosa norm=1 default)
+    enorm = 2.0 / (mel_pts[2 : n_mels + 2] - mel_pts[:n_mels])
+    weights *= enorm[:, None]
+    return weights.astype(np.float32)
 
 
 def fourier_basis(n_fft: int, win_length: int, window: str = "hann") -> np.ndarray:

@@ -50,13 +50,24 @@ def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     return y[:, torch.where(p < T, p, 2 * (T - 1) - p)].unfold(1, n_fft, hop)
 
 
-def stft_mag_phase(y: torch.Tensor, params: STFTParams):
-    """y [B, T] -> (magnitude, phase), each [B, cutoff, n_frames], f32."""
+def stft_real_imag(y: torch.Tensor, params: STFTParams):
+    """y [B, T] -> (real, imag), each [B, cutoff, n_frames], f32."""
     basis = torch.from_numpy(
         _forward_basis(params.filter_length, params.win_length)).to(y.device)
     frames = frame_signal(y.float(), params.filter_length, params.hop_length)
     spec = (frames @ basis).transpose(1, 2)          # [B, 2*cutoff, frames]
-    re, im = spec[:, : params.cutoff], spec[:, params.cutoff:]
+    return spec[:, : params.cutoff], spec[:, params.cutoff:]
+
+
+def stft_magnitude(y: torch.Tensor, params: STFTParams) -> torch.Tensor:
+    """|STFT(y)|: [B, T] -> [B, cutoff, n_frames], f32."""
+    re, im = stft_real_imag(y, params)
+    return torch.sqrt(re * re + im * im)
+
+
+def stft_mag_phase(y: torch.Tensor, params: STFTParams):
+    """y [B, T] -> (magnitude, phase), each [B, cutoff, n_frames], f32."""
+    re, im = stft_real_imag(y, params)
     return torch.sqrt(re * re + im * im), torch.atan2(im, re)
 
 

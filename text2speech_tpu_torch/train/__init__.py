@@ -1,0 +1,1 @@
+"""Training of the port (counterpart of ``text2speech_tpu/train/``)."""
