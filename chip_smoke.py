@@ -9,7 +9,7 @@ Phases, each of which passes or raises (the script then exits non-zero):
 2. build the hand-written kernels from ``csrc/`` (the bf16 and int8
    WN-layer libraries, the gated activation and the k=3 conv backward, one
    ``nvcc`` each, all started together) and print the times;
-3. compare each of the six kernels with its plain PyTorch version on the
+3. compare each of the six projecting kernels with its plain PyTorch version on the
    card at the reference width (C=512, M=640) over batch sizes, dilations,
    valid lengths and flow widths; time both with CUDA events at one
    vocode's shapes and compute the card's bound for the same work;
@@ -46,9 +46,29 @@ Phases, each of which passes or raises (the script then exits non-zero):
     ``--grad_accum 3`` each resume and take steps; step rates and peak
     device memory are printed;
 11. the trained parameters through ``variables_from_trainable`` ->
-    ``load_waveglow`` -> the fused bf16 vocoder of a ``Synthesizer``.
+    ``load_waveglow`` -> the fused bf16 vocoder of a ``Synthesizer``;
+12. the three composed-conditioning (``dcond``) kernels against their plain
+    versions at C=512, L=8: batches 1 and 3, every dilation 1..128,
+    ``n_valid < T``, the first and the last ``cond_index``, flow widths;
+    times and bounds;
+13. the composed vocoder at full width on the main path's mel
+    (``precompute_composed_cond`` once, ``infer_fused(composed_cond=...)``):
+    12/72/12 launches of the ``dcond`` wrappers and none of the projecting
+    ones; audio against its plain path, the in-kernel fused path and the
+    f32 vocoder; wall time beside the in-kernel path's at batch 1 and 3;
+    peak memory;
+14. streaming at full width: ``text_to_mel_stream`` bit-equal to
+    ``text_to_mel`` (200 requested steps in chunks of 64, so 256 decoded);
+    ``synthesize_incremental`` through the bf16 and the int8 vocoder, with
+    and without the denoiser, against the single pass over the final mel
+    with the same noise; ``synthesize_incremental_batch`` row by row; time
+    to the first chunk and in all;
+15. quantized decode: the floating-point ``decode_chunk_serve`` bit-equal
+    to ``decode_chunk``, the int8 mel against it, steps per second of both
+    at batches 1, 8 and 32;
+16. the CLI with ``--stream`` in a process of its own.
 
-The line before the last is a JSON object with one record per kernel; the
+Phases 12-16 run between phases 7 and 8.  The line before the last is a JSON object with one record per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -94,6 +114,12 @@ KERNELS = {
     "wn_layer_first_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:338"),
     "wn_layer_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:268"),
     "wn_layer_final_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:510"),
+}
+# the composed-conditioning flavours (the DCOND instantiations)
+DCOND_KERNELS = {
+    "wn_layer_first_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:100"),
+    "wn_layer_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:43"),
+    "wn_layer_final_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:162"),
 }
 # the training kernels, same columns
 TRAIN_KERNELS = {
@@ -417,30 +443,34 @@ def all_counts() -> dict:
     conv backward keeps its own, read on its own path)."""
     from text2speech_tpu_torch.ops import gated
     from text2speech_tpu_torch.ops import wn_block as wb
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
     return {**wb.launch_counts(), **wq.launch_counts(),
-            **gated.launch_counts()}
+            **wd.launch_counts(), **gated.launch_counts()}
 
 
 def reset_counts() -> None:
     from text2speech_tpu_torch.ops import gated
     from text2speech_tpu_torch.ops import wn_block as wb
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
     wb.reset_launch_counts()
     wq.reset_launch_counts()
+    wd.reset_launch_counts()
     gated.reset_launch_counts()
 
 
-def want_counts(wg_cfg, int8: bool) -> dict:
+def want_counts(wg_cfg, int8: bool, dcond: bool = False) -> dict:
     """Launches of one vocode: 1 / L - 2 / 1 per flow of the path's own
-    wrappers, none of the other family's."""
+    wrappers, none of the other families'."""
     per = (wg_cfg.n_flows, wg_cfg.n_flows * (wg_cfg.wn_n_layers - 2),
            wg_cfg.n_flows)
-    names = list(KERNELS)
-    mine, other = (names[3:], names[:3]) if int8 else (names[:3], names[3:])
-    return {**dict(zip(mine, per)), **dict.fromkeys(other, 0),
+    names = [*KERNELS, *DCOND_KERNELS]
+    first = 6 if dcond else 3 if int8 else 0
+    mine = names[first: first + 3]
+    return {**dict.fromkeys(names, 0), **dict(zip(mine, per)),
             "gated_fwd": 0, "gated_bwd": 0}
 
 
@@ -607,6 +637,481 @@ def cli_run(flag: str) -> None:
               f"{r.stdout.strip()}")
         if r.returncode != 0:
             raise RuntimeError(f"CLI failed:\n{r.stderr}")
+
+
+# ---------------------------------------------------------------------------
+# the composed-conditioning vocoder: kernels 9-11 and their path
+# ---------------------------------------------------------------------------
+
+# Composed path against f32 WaveGlow.infer: cond_all is rounded to bf16 once
+# more than the in-kernel projection's f32 sums, so allow three times the
+# in-kernel path's distance, and no less than 2e-2.
+COMPOSED_REL32_FACTOR = 3.0
+COMPOSED_REL32_FLOOR = 2e-2
+
+
+def dcond_args(k: dict, cond_all: torch.Tensor, li: int, d: int) -> dict:
+    """One layer's inputs -> the argument tuple of its role's dcond wrapper
+    (the same tuple goes to the plain version), folds done here."""
+    from text2speech_tpu_torch.ops import wn_block as wb
+
+    if "x0" in k:
+        fold = wb.fold_first_taps(k["start_k"], k["start_b"], k["w_in"],
+                                  k["b_in"])
+        return {"wn_layer_first_dcond": (
+            k["x0"], cond_all, k["start_k"], k["start_b"], *fold, k["w_rs"],
+            k["b_rs"], d)}
+    if "w_end" in k:
+        w_eff, b_eff = wb.fold_end(k["w_rs"], k["b_rs"], k["w_end"],
+                                   k["b_end"])
+        return {"wn_layer_final_dcond": (
+            k["x"], cond_all, li, k["w_in"], k["b_in"], w_eff, k["skip_acc"],
+            k["w_end"], b_eff, d)}
+    return {"wn_layer_dcond": (k["x"], cond_all, li, k["w_in"], k["b_in"],
+                               k["w_rs"], k["b_rs"], k["skip_acc"], d)}
+
+
+def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
+    """Phase 12: kernels 9-11 against their plain versions at reference
+    width, then kernel and plain times and the card's bound at one
+    main-path shape (B=1, T=6400, cond_all [1, 6400, 8192])."""
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    fns = {n: (getattr(wd, n), getattr(wd, n + "_plain"))
+           for n in DCOND_KERNELS}
+    dev = torch.device("cuda")
+    rec = {n: {"max_abs_err": 0.0} for n in DCOND_KERNELS}
+
+    def cond_for(B, T, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn(B, T, 2 * C * L, generator=g).to(
+            dev, torch.bfloat16)
+
+    def check_pair(name, args, nv, tag):
+        kern, plain = fns[name]
+        std = name == "wn_layer_dcond"
+        got = call_std(kern, args, nv) if std else kern(*args, n_valid=nv)
+        want = call_std(plain, args, nv) if std else plain(*args, n_valid=nv)
+        tag = f"{name} {tag}"
+        r = rec[name]
+        if name == "wn_layer_final_dcond":
+            r["max_abs_err"] = max(r["max_abs_err"], compare(tag, got, want))
+            return
+        if got[0][:, nv:].any():
+            raise RuntimeError(f"{tag}: rows past n_valid are not zero")
+        r["max_abs_err"] = max(
+            r["max_abs_err"], compare(tag + " x", got[0], want[0]),
+            compare(tag + " skip", got[1][:, :nv], want[1][:, :nv]))
+
+    seed = 500
+    for B, T, nv in ((1, 1000, 937), (3, 777, 700)):
+        shape = f"B={B} T={T} n_valid={nv}"
+        cond_all = cond_for(B, T, seed)
+        for n_half in (2, 3, 4):
+            seed += 1
+            k = layer_inputs(B, T, nv, C, 64, seed, dev, n_half=n_half)
+            for name, args in dcond_args(k, cond_all, 0, 1).items():
+                check_pair(name, args, nv, f"{shape} n_half={n_half}")
+        for i in range(8):
+            d = 2 ** i
+            seed += 1
+            k = layer_inputs(B, T, nv, C, 64, seed, dev)
+            if i % 3 == 2:      # a skip-only layer
+                k["w_rs"] = k["w_rs"][:, :C].contiguous()
+                k["b_rs"] = k["b_rs"][:C].contiguous()
+            for li in (0, L - 1) if i % 2 else (L - 1, 3):
+                for name, args in dcond_args(k, cond_all, li, d).items():
+                    check_pair(name, args, nv, f"{shape} d={d} li={li} "
+                               f"rs_out={k['w_rs'].shape[1]}")
+            seed += 1
+            k = layer_inputs(B, T, nv, C, 64, seed, dev, E=(4, 6, 8)[i % 3])
+            li = (0, L - 1)[i % 2]
+            for name, args in dcond_args(k, cond_all, li, d).items():
+                check_pair(name, args, nv, f"{shape} d={d} li={li} "
+                           f"E={k['w_end'].shape[1]}")
+
+    B, T = 1, 6400
+    cond_all = cond_for(B, T, 77)
+    timed = {}
+    timed.update(dcond_args(
+        layer_inputs(B, T, T, C, 64, 96, dev, n_half=4), cond_all, 0, 1))
+    timed.update(dcond_args(layer_inputs(B, T, T, C, 64, 95, dev), cond_all,
+                            3, 64))
+    timed.update(dcond_args(layer_inputs(B, T, T, C, 64, 94, dev, E=8),
+                            cond_all, L - 1, 128))
+    bt = 2 * B * T
+    taps, rs = bt * 3 * C * 2 * C, bt * C * 2 * C
+    ops = {"wn_layer_first_dcond": bt * 3 * 4 * 2 * C + bt * 4 * C + rs,
+           "wn_layer_dcond": taps + rs,
+           "wn_layer_final_dcond": taps + 2 * bt * C * 8}
+    for name in DCOND_KERNELS:
+        kern, plain = fns[name]
+        args = timed[name]
+        outs = kern(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        # the function reads its 2C-wide slice of cond_all, not all of it
+        tensors = [t[..., : 2 * C] if t is cond_all else t
+                   for t in (*args, *outs) if torch.is_tensor(t)]
+        r = rec[name]
+        r["bound_ms"], r["bound_by"] = bound_ms({"bf16": ops[name]}, tensors)
+        r["ms"] = time_ms(lambda: kern(*args))
+        r["plain_ms"] = time_ms(lambda: plain(*args))
+        print(f"  {name} B={B} T={T}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (by "
+              f"{r['bound_by']})")
+    return rec
+
+
+def composed_path(synth, mel: torch.Tensor, rel32_bf16: float) -> dict:
+    """Phase 13: the composed-conditioning vocoder at full width on the
+    main path's mel.  Returns the dcond launch counts of its run."""
+    from text2speech_tpu_torch.models.waveglow_fused import (
+        infer_fused, precompute_composed_cond)
+
+    cfg, fw = synth.wg_cfg, synth.fused
+    B, _, T = mel.shape
+    Tg = T * cfg.upsample_stride // cfg.n_group
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cc, t_pre = sync_time(lambda: precompute_composed_cond(synth.waveglow))
+    held = torch.cuda.memory_allocated() - base
+    Wc, b_eff = cc[0]
+    print(f"[composed] precompute_composed_cond: {len(cc)} flows, Wc "
+          f"{tuple(Wc.shape)} {str(Wc.dtype)[6:]}, b_eff "
+          f"{tuple(b_eff.shape)}, {held / 1e9:.3f} GB held, {t_pre:.2f} s")
+
+    reset_counts()
+    audio, t_main = sync_time(lambda: infer_fused(
+        fw, mel, SIGMA, composed_cond=cc,
+        generator=torch.Generator(device="cuda").manual_seed(1)))
+    launches = all_counts()
+    print(f"[composed] infer_fused(composed_cond=...) batch {B} x {T} "
+          f"frames in {t_main * 1e3:.3f} ms (first call); launches "
+          f"{launches}")
+    if launches != want_counts(cfg, False, dcond=True):
+        raise RuntimeError(f"composed launch counts {launches}, want "
+                           f"{want_counts(cfg, False, dcond=True)}")
+    if tuple(audio.shape) != (B, T * cfg.upsample_stride) or \
+            not torch.isfinite(audio).all() or audio.std().item() < 1e-4:
+        raise RuntimeError(f"composed audio {tuple(audio.shape)}: wrong "
+                           f"shape, not finite or silent")
+
+    gen = torch.Generator(device="cuda").manual_seed(123)
+    noise = tuple(torch.randn(s, generator=gen, device="cuda")
+                  for s in fw.noise_shapes(B, Tg))
+    with torch.inference_mode():
+        got = infer_fused(fw, mel, SIGMA, noise=noise, composed_cond=cc)
+        plain = infer_fused(fw, mel, SIGMA, noise=noise, composed_cond=cc,
+                            plain=True)
+        inkernel = infer_fused(fw, mel, SIGMA, noise=noise)
+        exact = synth.waveglow.infer(mel, SIGMA, noise=noise)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    peak = plain.abs().max().item()
+    err_p, err_k = ((got - plain).abs().max().item(),
+                    (got - inkernel).abs().max().item())
+    rel_p, rel_k, rel32 = rel(got, plain), rel(got, inkernel), rel(got, exact)
+    bound32 = max(COMPOSED_REL32_FACTOR * rel32_bf16, COMPOSED_REL32_FLOOR)
+    print(f"[composed] kernels vs plain dcond layers: max_abs_err="
+          f"{err_p:.6g} (bound {E2E_MAX_ABS_STEPS * peak:.4g}) rel_l2="
+          f"{rel_p:.4g} (bound {E2E_REL_L2}); vs the in-kernel fused path: "
+          f"max_abs_err={err_k:.6g} rel_l2={rel_k:.4g} (same bounds); vs "
+          f"plain f32 WaveGlow.infer: rel_l2={rel32:.4g} (bound max("
+          f"{COMPOSED_REL32_FACTOR:g} x {rel32_bf16:.4g}, "
+          f"{COMPOSED_REL32_FLOOR}) = {bound32:.4g})")
+    if not torch.isfinite(got).all():
+        raise RuntimeError("composed: non-finite audio")
+    if max(err_p, err_k) > E2E_MAX_ABS_STEPS * peak or \
+            max(rel_p, rel_k) > E2E_REL_L2 or rel32 > bound32:
+        raise RuntimeError("composed vocoder disagrees with its plain path, "
+                           "the in-kernel path or the f32 vocoder")
+
+    # wall time and peak memory beside the in-kernel path's, warm, in turns
+    for b in (1, B):
+        m = mel[:b].contiguous()
+        nz = tuple(z[:b].contiguous() for z in noise)
+        runs = {"in-kernel": lambda: infer_fused(fw, m, SIGMA, noise=nz),
+                "composed": lambda: infer_fused(fw, m, SIGMA, noise=nz,
+                                                composed_cond=cc)}
+        times = {k: [] for k in runs}
+        peaks = {}
+        with torch.inference_mode():
+            for name in ("in-kernel", "composed", "composed", "in-kernel",
+                         "in-kernel", "composed"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                _, t = sync_time(runs[name])
+                times[name].append(t * 1e3)
+                peaks[name] = torch.cuda.max_memory_allocated() - before
+        print(f"[composed] vocode batch {b} x {T} frames, wall ms: in-kernel "
+              f"{[round(t, 3) for t in times['in-kernel']]}, composed "
+              f"{[round(t, 3) for t in times['composed']]}; peak memory above "
+              f"the resident weights: in-kernel {peaks['in-kernel'] / 1e9:.3f}"
+              f" GB, composed {peaks['composed'] / 1e9:.3f} GB (+ "
+              f"{held / 1e9:.3f} GB of Wc resident)")
+    del cc
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# streaming synthesis and the quantized decode
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK = 64
+# Streamed mel against text_to_mel after the postnet: the decode is equal bit
+# for bit; the postnet's five convs run on windows of other lengths, where
+# the library may sum in another order.  The JAX package's own bound for the
+# pair (tests/test_streaming.py:41).
+STREAM_MEL_ATOL = 2e-5
+# int8 decode against the floating-point decode over 64 steps on random
+# weights: the JAX package's own bound for the pair
+# (tests/test_quantized_decode.py:98-100), mean |diff| under 0.2 of mean |mel|
+INT8_DECODE_REL_MEAN = 0.2
+
+
+def stream_reference(synth, texts, seed, max_steps):
+    """Replay the chunked mel stream and draw the engine's noise stream
+    (one draw per emitted mel chunk from a generator seeded ``seed + 1``)
+    -> (final mel [B, n_mel, F], noise tuple [B, F * gpf, .], true_len)."""
+    from text2speech_tpu_torch.models.chunked import draw_noise
+
+    cfg = synth.wg_cfg
+    gpf = cfg.upsample_stride // cfg.n_group
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    mels, noise, lens = [], None, None
+    for mel_c, out_len, _final in synth.text_to_mel_stream(
+            texts, chunk_steps=STREAM_CHUNK, seed=seed, max_steps=max_steps):
+        mels.append(mel_c)
+        nz = draw_noise(cfg, gen, mel_c.shape[0], mel_c.shape[-1] * gpf)
+        noise = (list(nz) if noise is None
+                 else [torch.cat([a, z], 1) for a, z in zip(noise, nz)])
+        lens = out_len
+    mel = torch.cat(mels, dim=-1)
+    return mel, noise, np.minimum(lens, mel.shape[-1])
+
+
+def check_stream_audio(tag, got: np.ndarray, want: torch.Tensor, int8: bool):
+    """Streamed audio against the single pass over the final mel with the
+    same noise: the windows are other batch shapes to the library matmuls
+    around the kernels, so the path's own end-to-end bounds hold."""
+    want = want.cpu().numpy()
+    steps, rel_bound = ((E2E_INT8_MAX_ABS_STEPS, E2E_INT8_REL_L2) if int8
+                        else (E2E_MAX_ABS_STEPS, E2E_REL_L2))
+    if got.shape != want.shape:
+        raise RuntimeError(f"{tag}: {got.shape} samples, want {want.shape}")
+    err = np.abs(got - want).max()
+    peak = np.abs(want).max()
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    print(f"[stream] {tag}: {got.shape[0]} samples, max_abs_err={err:.6g} "
+          f"(bound {steps * peak:.4g}) rel_l2={rel:.4g} (bound {rel_bound})")
+    if not np.isfinite(got).all() or err > steps * peak or rel > rel_bound:
+        raise RuntimeError(f"{tag}: streamed audio disagrees with the single "
+                           f"pass")
+
+
+def streaming(synth, tag: str, int8: bool) -> None:
+    """Phase 14 for one vocoder."""
+    cfg = synth.wg_cfg
+    hop = cfg.upsample_stride
+    gpf = hop // cfg.n_group
+    seed = 0
+    if not int8:
+        mel_ref, len_ref = synth.text_to_mel(TEXTS, seed=seed,
+                                             max_steps=MAX_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks, lens = [], None
+        for mel_c, lens, _final in synth.text_to_mel_stream(
+                TEXTS, chunk_steps=STREAM_CHUNK, seed=seed,
+                max_steps=MAX_STEPS):
+            chunks.append(mel_c)
+        torch.cuda.synchronize()
+        t_stream = time.perf_counter() - t0
+        mel_s = torch.cat(chunks, dim=-1)
+        limit = -(-MAX_STEPS // STREAM_CHUNK) * STREAM_CHUNK
+        valid = [int(n) for n in len_ref.tolist()]
+        diff = max((mel_s[b, :, :n] - mel_ref[b, :, :n]).abs().max().item()
+                   for b, n in enumerate(valid))
+        equal = all(torch.equal(mel_s[b, :, :n], mel_ref[b, :, :n])
+                    for b, n in enumerate(valid))
+        print(f"[stream] text_to_mel_stream ({MAX_STEPS} requested steps in "
+              f"chunks of {STREAM_CHUNK}: {limit} decoded) in {t_stream:.3f} "
+              f"s, {len(chunks)} emissions, lengths {lens.tolist()} vs "
+              f"{valid}; against text_to_mel on the valid frames: bit-equal "
+              f"{equal}, max_abs_err={diff:.3g} (bound {STREAM_MEL_ATOL}: "
+              f"the postnet's convs run on windows of other lengths)")
+        if diff > STREAM_MEL_ATOL or lens.tolist() != valid or \
+                mel_s.shape[-1] != MAX_STEPS:
+            raise RuntimeError("the mel stream differs from text_to_mel")
+
+        # the decode itself, before the postnet: bit for bit, with masks
+        # drawn for 256 steps against masks drawn for 200
+        from text2speech_tpu_torch.text import encode_batch
+
+        taco = synth.taco
+        ids, lengths = encode_batch(TEXTS)
+        lengths = torch.from_numpy(lengths).cuda()
+        with torch.inference_mode():
+            memory = taco.encode(torch.from_numpy(ids).long().cuda(),
+                                 text_lengths=lengths)
+            whole = taco.decoder.autoregressive(
+                memory, lengths, MAX_STEPS, generator=synth._generator(seed))
+            masks = taco.decoder.draw_keep_masks(
+                limit, len(TEXTS), synth._generator(seed), "cuda")
+            carry, parts = taco.decoder.initial_carry(memory), []
+            for i in range(0, limit, STREAM_CHUNK):
+                carry, *outs = taco.decode_chunk(
+                    memory, *carry, masks[i: i + STREAM_CHUNK], lengths)
+                parts.append(outs)
+        names = ("mel", "gate", "align")
+        same = {n: torch.equal(
+            torch.cat([p[j] for p in parts], dim=2 if j == 0 else 1)
+            .narrow(2 if j == 0 else 1, 0, MAX_STEPS), whole[j].float())
+            for j, n in enumerate(names)}
+        print(f"[stream] chunked decode ({limit} steps, masks drawn for "
+              f"{limit}) against the batch decode ({MAX_STEPS} steps, masks "
+              f"drawn for {MAX_STEPS}), bit for bit: {same}")
+        if not all(same.values()):
+            raise RuntimeError("chunked decode differs from the batch decode")
+
+    mel, noise, tl = stream_reference(synth, TEXTS[0], seed, MAX_STEPS)
+    n = int(tl[0])
+    nz = tuple(z[:, : n * gpf] for z in noise)
+    for strength in (0.0, DENOISER_STRENGTH):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts, t_first = [], None
+        for chunk in synth.synthesize_incremental(
+                TEXTS[0], sigma=SIGMA, seed=seed, chunk_steps=STREAM_CHUNK,
+                max_steps=MAX_STEPS, denoiser_strength=strength):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            parts.append(chunk)
+        t_all = time.perf_counter() - t0
+        counts = {k: v for k, v in all_counts().items() if v}
+        want = synth.mel_to_audio(mel[:, :, :n].contiguous(), SIGMA,
+                                  noise=nz, denoiser_strength=strength)[0]
+        print(f"[stream] {tag} synthesize_incremental denoiser={strength}: "
+              f"{len(parts)} chunks {[len(p) for p in parts]}, first after "
+              f"{t_first:.3f} s, all after {t_all:.3f} s; launches {counts}")
+        check_stream_audio(f"{tag} incremental denoiser={strength}",
+                           np.concatenate(parts), want, int8)
+
+    mel, noise, tl = stream_reference(synth, TEXTS, seed, MAX_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, t_first = {r: [] for r in range(len(TEXTS))}, None
+    for r, chunk in synth.synthesize_incremental_batch(
+            TEXTS, sigma=SIGMA, seed=seed, chunk_steps=STREAM_CHUNK,
+            max_steps=MAX_STEPS):
+        if t_first is None:
+            t_first = time.perf_counter() - t0
+        rows[r].append(chunk)
+    t_all = time.perf_counter() - t0
+    print(f"[stream] {tag} synthesize_incremental_batch x {len(TEXTS)}: "
+          f"first chunk after {t_first:.3f} s, all after {t_all:.3f} s")
+    for r in rows:
+        n = int(tl[r])
+        want = synth.mel_to_audio(
+            mel[r: r + 1, :, :n].contiguous(), SIGMA,
+            noise=tuple(z[r: r + 1, : n * gpf] for z in noise))[0]
+        check_stream_audio(f"{tag} batch row {r}", np.concatenate(rows[r]),
+                           want, int8)
+
+
+def quantized_decode(synth) -> None:
+    """Phase 15: ``decode_chunk_serve`` in floating point against
+    ``Tacotron2.decode_chunk`` (bit for bit), in int8 against floating
+    point, and the steps per second of both at batches 1, 8 and 32."""
+    from text2speech_tpu_torch.models import tacotron_serve as ts
+    from text2speech_tpu_torch.text import encode_batch
+
+    taco, hp = synth.taco, synth.hp
+    dp = ts.extract_decoder_params(taco)
+    dpq = ts.quantize_decoder_params(dp)
+    quantized = sorted(k for k, v in dpq.items() if isinstance(v, dict))
+    print(f"[qdecode] int8 kernels: {quantized}")
+    if quantized != ["att_hh_w", "att_ih_w", "dec_hh_w", "dec_ih_w"]:
+        raise RuntimeError("expected the four LSTM kernels to be quantized")
+    steps = STREAM_CHUNK
+    rates = {}
+    with torch.inference_mode():
+        for B in (1, 8, 32):
+            texts = [TEXTS[i % len(TEXTS)] for i in range(B)]
+            ids, lengths = encode_batch(texts)
+            lengths = torch.from_numpy(lengths).cuda()
+            memory = taco.encode(torch.from_numpy(ids).long().cuda(),
+                                 text_lengths=lengths)
+            pmem = taco.process_memory(memory)
+            carry = taco.decoder.initial_carry(memory)
+            masks = taco.decoder.draw_keep_masks(
+                steps, B, torch.Generator(device="cuda").manual_seed(B),
+                "cuda")
+            runs = {
+                "module": lambda: taco.decode_chunk(memory, *carry, masks,
+                                                    lengths),
+                "fp": lambda: ts.decode_chunk_serve(
+                    dp, hp, memory, pmem, *carry, masks, lengths),
+                "int8": lambda: ts.decode_chunk_serve(
+                    dpq, hp, memory, pmem, *carry, masks, lengths)}
+            out = {k: fn() for k, fn in runs.items()}     # also the warm-up
+            (st_m, fr_m, fin_m), mel_m, gate_m, align_m, act_m = out["module"]
+            (st_f, fr_f, fin_f), mel_f, gate_f, align_f, act_f = out["fp"]
+            same = (torch.equal(mel_m, mel_f) and torch.equal(gate_m, gate_f)
+                    and torch.equal(align_m, align_f)
+                    and torch.equal(act_m, act_f)
+                    and torch.equal(fin_m, fin_f)
+                    and all(torch.equal(a, b) for a, b in zip(st_m, st_f)))
+            mel_q = out["int8"][1]
+            err = ((mel_q - mel_f).abs().mean()
+                   / (mel_f.abs().mean() + 1e-6)).item()
+            times = {k: [] for k in runs}
+            for name in ("fp", "int8", "module", "int8", "fp", "module"):
+                _, t = sync_time(runs[name])
+                times[name].append(steps / t)
+            rates[B] = {k: max(v) for k, v in times.items()}
+            print(f"[qdecode] batch {B}, {steps} steps: fp serve bit-equal "
+                  f"to decode_chunk: {same}; int8 mel vs fp mean |diff| / "
+                  f"mean |mel| = {err:.4g} (bound {INT8_DECODE_REL_MEAN}); "
+                  f"steps/s (two runs each): module "
+                  f"{[round(v, 1) for v in times['module']]}, fp serve "
+                  f"{[round(v, 1) for v in times['fp']]}, int8 serve "
+                  f"{[round(v, 1) for v in times['int8']]}")
+            if not same:
+                raise RuntimeError("fp decode_chunk_serve differs from "
+                                   "decode_chunk")
+            if not torch.isfinite(mel_q).all() or err > INT8_DECODE_REL_MEAN:
+                raise RuntimeError("int8 decode too far from floating point")
+    wins = [B for B, r in rates.items() if r["int8"] > r["fp"]]
+    print(f"[qdecode] int8 / fp steps/s (best of two): "
+          f"{ {B: round(r['int8'] / r['fp'], 3) for B, r in rates.items()} }"
+          f"; int8 faster at batches {wins}; the port's threshold "
+          f"INT8_DECODE_MIN_BATCH = {ts.INT8_DECODE_MIN_BATCH}")
+
+
+def cli_stream() -> None:
+    """Phase 16: the CLI with --stream writes a WAV on the card."""
+    from scipy.io import wavfile
+
+    with tempfile.TemporaryDirectory() as d:
+        out = f"{d}/stream.wav"
+        cmd = [sys.executable, "-m", "text2speech_tpu_torch.inference",
+               "--random_init", "0", "--int8_vocoder", "-d", "0.1",
+               "--stream", "--stream_chunk_steps", "32", "--max_steps", "150",
+               "--out", out]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        print(f"[cli] {' '.join(cmd[1:])} -> rc {r.returncode}: "
+              f"{' | '.join(r.stdout.strip().splitlines())}")
+        if r.returncode != 0:
+            raise RuntimeError(f"CLI --stream failed:\n{r.stderr}")
+        sr, data = wavfile.read(out)
+        if data.dtype != np.int16 or data.shape[0] < 100 * 256:
+            raise RuntimeError(f"CLI --stream wrote {data.shape} {data.dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -1089,6 +1594,14 @@ def main() -> int:
     cli_run("--fused_vocoder")
     cli_run("--int8_vocoder")
 
+    print("[kernels] composed-conditioning kernels vs plain at C=512, L=8")
+    rec.update(check_dcond_kernels())
+    dcond_launches = composed_path(bf16["synth"], bf16["mel"], bf16["rel32"])
+    streaming(bf16["synth"], "bf16", int8=False)
+    streaming(int8["synth"], "int8", int8=True)
+    quantized_decode(bf16["synth"])
+    cli_stream()
+
     print("[kernels] training kernels vs plain")
     rec.update(check_train_kernels())
     chain_launches = conv_backward_path()
@@ -1098,6 +1611,7 @@ def main() -> int:
 
     launches = {**{n: bf16["launches"][n] for n in list(KERNELS)[:3]},
                 **{n: int8_launches[n] for n in list(KERNELS)[3:]},
+                **{n: dcond_launches[n] for n in DCOND_KERNELS},
                 **trained, "conv_k3_bwd": chain_launches}
     if not all(launches.values()):
         raise RuntimeError(f"a kernel was launched on no path: {launches}")
@@ -1109,7 +1623,8 @@ def main() -> int:
         # no one PyTorch call computes a fused WN layer or the gated
         # activation; the conv backward has aten.convolution_backward
         "library_ms": rec[n].get("library_ms"),
-    } for n, (src, repl) in {**KERNELS, **TRAIN_KERNELS}.items()]
+    } for n, (src, repl) in {**KERNELS, **DCOND_KERNELS,
+                             **TRAIN_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,11 @@
 Builds the reference-width synthesizers on seeded random weights (bf16 fused
 and int8 vocoders, as ``chip_smoke.py`` does) and runs each stage of the
 main paths once warm and once under ``torch.profiler``: decode, vocode with
-and without the denoiser through either vocoder, and long-form vocoding of
-a 712-frame mel.  The ``train`` stages are one WaveGlow optimizer step at
+and without the denoiser through either vocoder, the composed-conditioning
+vocode beside the bf16 one, long-form vocoding of a 712-frame mel, and one
+``synthesize_incremental`` call (``stream``: wall, device busy, idle share
+and the time to the first chunk, at ``--stream_steps`` decoder steps in
+chunks of 64).  The ``train`` stages are one WaveGlow optimizer step at
 reference width (batch 3 x 16,000 samples of seeded noise, the seeded
 initialisation with live ``end`` convs) in f32, f32 with remat, and bf16,
 each with its peak device memory.  For each stage it prints the wall time of the profiled
@@ -142,6 +145,8 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=3, choices=range(1, 5))
     p.add_argument("--steps", type=int, default=200,
                    help="decoder steps = mel frames per utterance")
+    p.add_argument("--stream_steps", type=int, default=600,
+                   help="decoder steps of the stream stage's utterance")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
@@ -174,6 +179,8 @@ def main(argv=None) -> int:
 def serve_stages(args) -> None:
     from text2speech_tpu_torch.config import HParams, WaveGlowConfig
     from text2speech_tpu_torch.infer import random_synthesizer
+    from text2speech_tpu_torch.models.waveglow_fused import (
+        infer_fused, precompute_composed_cond)
 
     texts = TEXTS[: args.batch]
     synths = {
@@ -198,9 +205,41 @@ def serve_stages(args) -> None:
             (f"long-form 712 frames {tag}",
              lambda s=s: s.mel_to_audio_long(long_mel, SIGMA)),
         ]
+    cc = precompute_composed_cond(bf16.waveglow)
+    gen = torch.Generator(device="cuda")
+    stages.insert(2, ("vocode composed", lambda: infer_fused(
+        bf16.fused, mel, SIGMA, generator=gen.manual_seed(1),
+        composed_cond=cc)))
     print(f"batch {len(texts)} x {args.steps} frames, reference width")
     for name, fn in stages:
-        print(json.dumps(profile_stage(name, fn), ensure_ascii=False))
+        also = ("wn_layer_kernel",) if name.startswith("vocode") else ()
+        print(json.dumps(profile_stage(name, fn, also), ensure_ascii=False))
+    del cc
+
+    # one streamed utterance: the first chunk's latency beside the whole
+    first: list = []
+
+    def stream(s):
+        t0 = time.perf_counter()
+        first.clear()
+        for _ in s.synthesize_incremental(
+                texts[0], sigma=SIGMA, seed=0, chunk_steps=64,
+                max_steps=args.stream_steps, denoiser_strength=0.1):
+            if not first:
+                first.append((time.perf_counter() - t0) * 1e3)
+
+    print(f"one utterance of {args.stream_steps} decoder steps, streamed in "
+          f"chunks of 64, denoiser on")
+    for tag, s in synths.items():
+        rec = profile_stage(f"stream {tag}", lambda s=s: stream(s))
+        rec["first_chunk_ms_last_run"] = round(first[0], 3)
+        print(json.dumps(rec, ensure_ascii=False))
+        single = profile_stage(
+            f"single pass {tag}, {args.stream_steps} steps",
+            lambda s=s: s.synthesize(texts[:1], sigma=SIGMA, seed=0,
+                                     max_steps=args.stream_steps,
+                                     denoiser_strength=0.1))
+        print(json.dumps(single, ensure_ascii=False))
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ knife edge.  So int8 payloads agree within 1 count with a mean absolute
 difference under 0.01, row scales to 1e-3 relative, the bf16 skip sum to
 0.09 and the final layer's f32 output to 0.02."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -510,3 +511,219 @@ def test_train_step_through_the_kernels_matches_plain_gated(dev, dtype, remat):
     f32 = dtype == torch.float32
     assert abs(l0 - l1) <= (1e-6 if f32 else 1e-3)
     assert abs(g0 - g1) <= (1e-5 if f32 else 2e-2) * g1
+
+
+# ---------------------------------------------------------------------------
+# the composed-conditioning (dcond) kernels
+# ---------------------------------------------------------------------------
+
+
+def cond_all_for(dev, B, T, C, L, seed):
+    g = torch.Generator().manual_seed(1000 + seed)
+    return torch.randn(B, T, 2 * C * L, generator=g).to(dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n_half,d", [(2, 1), (3, 1), (4, 5)])
+def test_first_dcond_kernel_matches_plain(dev, n_half, d):
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    B, T, nv, C, L = 2, 300, 271, 128, 3
+    k = inputs(dev, B, T, nv, C, 64, n_half, n_half=n_half)
+    cond_all = cond_all_for(dev, B, T, C, L, n_half)
+    fold = wb.fold_first_taps(k["start_k"], k["start_b"], k["w_in"],
+                              k["b_in"])
+    args = (k["x0"], cond_all, k["start_k"], k["start_b"], *fold, k["w_rs"],
+            k["b_rs"], d)
+    gx, gs = wd.wn_layer_first_dcond(*args, n_valid=nv)
+    px, ps = wd.wn_layer_first_dcond_plain(*args, n_valid=nv)
+    close(gx, px)
+    assert not gx[:, nv:].any()
+    close(gs[:, :nv], ps[:, :nv])
+
+
+@pytest.mark.parametrize("d", [1, 64, 128, 400])
+@pytest.mark.parametrize("rs_full,li", [(True, 0), (True, 2), (False, 1)])
+def test_standard_dcond_kernel_matches_plain(dev, d, rs_full, li):
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    B, T, nv, C, L = 2, 333, 300, 128, 3
+    k = inputs(dev, B, T, nv, C, 64, d, rs_out=2 * C if rs_full else C)
+    cond_all = cond_all_for(dev, B, T, C, L, d)
+    args = (k["x"], cond_all, li, k["w_in"], k["b_in"], k["w_rs"], k["b_rs"])
+    px, ps = wd.wn_layer_dcond_plain(*args, k["acc"], d, n_valid=nv)
+    acc = k["acc"].clone()
+    gx, gs = wd.wn_layer_dcond(*args, acc, d, n_valid=nv)
+    assert gs.data_ptr() == acc.data_ptr()     # skip sum updated in place
+    close(gx, px)
+    assert not gx[:, nv:].any()
+    close(gs[:, :nv], ps[:, :nv])
+
+
+@pytest.mark.parametrize("E,d,li", [(4, 1, 0), (6, 64, 1), (8, 128, 2)])
+def test_final_dcond_kernel_matches_plain(dev, E, d, li):
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    B, T, nv, C, L = 1, 257, 250, 256, 3
+    k = inputs(dev, B, T, nv, C, 96, E, rs_out=C, E=E)
+    cond_all = cond_all_for(dev, B, T, C, L, E)
+    w_eff, b_eff = wb.fold_end(k["w_rs"], k["b_rs"], k["w_end"], k["b_end"])
+    args = (k["x"], cond_all, li, k["w_in"], k["b_in"], w_eff, k["acc"],
+            k["w_end"], b_eff, d)
+    close(wd.wn_layer_final_dcond(*args, n_valid=nv),
+          wd.wn_layer_final_dcond_plain(*args, n_valid=nv))
+
+
+def test_dcond_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    B, T, C, L = 1, 64, 128, 2
+    k = inputs(dev, B, T, T, C, 64, 7)
+    cond_all = cond_all_for(dev, B, T, C, L, 7)
+    tail = (k["w_in"], k["b_in"], k["w_rs"], k["b_rs"], k["acc"], 1)
+    with pytest.raises(ValueError, match="cond_index"):
+        wd.wn_layer_dcond(k["x"], cond_all, L, *tail)
+    with pytest.raises(ValueError, match="contiguous"):    # a copied slice
+        wd.wn_layer_dcond(k["x"], cond_all[..., : 2 * C], 0, *tail)
+    with pytest.raises(ValueError, match="dtype"):
+        wd.wn_layer_dcond(k["x"], cond_all.float(), 0, *tail)
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        wd.wn_layer_dcond(k["x"], cond_all.cpu(), 0, *tail)
+
+
+def test_infer_fused_composed_launches_dcond_kernels_and_matches(dev):
+    """One composed vocode: 1 / L-2 / 1 launches per flow of the dcond
+    wrappers and none of the projecting ones; the audio agrees with the
+    composed plain path and, more loosely (cond_all is rounded to bf16
+    once more than the in-kernel projection), with the in-kernel path."""
+    from text2speech_tpu_torch.models.waveglow_fused import (
+        infer_fused, precompute_composed_cond, prepare_fused)
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    model, _ = small_waveglow(dev)
+    fw = prepare_fused(model)
+    cc = precompute_composed_cond(model)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mel = torch.randn(2, 16, 77, generator=gen, device="cuda")
+    noise = tuple(torch.randn(s, generator=gen, device="cuda")
+                  for s in fw.noise_shapes(2, 77 * 2))
+    wb.reset_launch_counts()
+    wd.reset_launch_counts()
+    got = infer_fused(fw, mel, 0.7, noise=noise, composed_cond=cc)
+    assert wd.launch_counts() == {"wn_layer_first_dcond": 4,
+                                  "wn_layer_dcond": 8,
+                                  "wn_layer_final_dcond": 4}
+    assert sum(wb.launch_counts().values()) == 0
+    want = infer_fused(fw, mel, 0.7, noise=noise, plain=True,
+                       composed_cond=cc)
+    inkernel = infer_fused(fw, mel, 0.7, noise=noise)
+    assert got.shape == want.shape == (2, 77 * 16)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 16 * 2.0 ** -8 * want.abs().max()
+    assert ((got - want).norm() / want.norm()).item() < 2e-2
+    assert ((got - inkernel).norm() / inkernel.norm()).item() < 5e-2
+
+
+# ---------------------------------------------------------------------------
+# streaming on the card
+# ---------------------------------------------------------------------------
+
+
+def test_keep_masks_are_prefix_stable_on_a_cuda_generator(dev):
+    """Masks for 200 steps are the first 200 of the masks for 256, drawn
+    from a CUDA generator (a single larger draw need not start alike)."""
+    from text2speech_tpu_torch.config import HParams
+    from text2speech_tpu_torch.models.tacotron2 import Decoder
+
+    dec = Decoder(HParams(), device=dev)
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(3)
+
+    short = dec.draw_keep_masks(200, 3, gen(), dev)
+    long = dec.draw_keep_masks(256, 3, gen(), dev)
+    assert short.shape == (200, 2, 3, 256) and short.is_cuda
+    assert torch.equal(short, long[:200])
+
+
+@pytest.mark.parametrize("rows", [1, 8, 32, 40])
+def test_qdot_int8_product_is_exact_on_the_card(dev, rows):
+    """``_qdot`` through ``torch._int_mm`` with zero-padded rows equals the
+    integer product computed on the CPU, scales applied alike: 1e-6
+    relative (the same float32 operations on the same integers)."""
+    from text2speech_tpu_torch.models import tacotron_serve as ts
+
+    g = torch.Generator().manual_seed(rows)
+    w = torch.randn(256, 96, generator=g) * 0.1
+    x = torch.randn(rows, 96, generator=g)
+    entry = ts.quantize_kernel_int8(w)
+    want = ts._qdot(x, entry, torch.float32)
+    got = ts._qdot(x.to(dev), {k: v.to(dev) for k, v in entry.items()},
+                   torch.float32)
+    assert got.shape == (rows, 256)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_streaming_small_synthesizer_on_the_card(dev):
+    """A small synthesizer on the card: the chunked decode equals the batch
+    decode bit for bit with masks drawn from a CUDA generator, the fp
+    serving decode equals the module's, and the streamed audio (fused bf16
+    kernels, C=128) agrees with the single pass over the final mel with
+    the same noise within the end-to-end bounds of the kernel path."""
+    from text2speech_tpu_torch.config import HParams
+    from text2speech_tpu_torch.infer import random_synthesizer
+    from text2speech_tpu_torch.models import tacotron_serve as ts
+    from text2speech_tpu_torch.models.chunked import draw_noise
+
+    hp = HParams(embedding_size=32, enc_conv_channels=32,
+                 attention_rnn_dim=32, decoder_rnn_dim=32, prenet_dim=16,
+                 attention_dim=16, n_mel_channels=16,
+                 postnet_embedding_dim=32, max_decoder_steps=300)
+    cfg = WaveGlowConfig(n_mel_channels=16, n_flows=4, n_group=8,
+                         n_early_every=2, n_early_size=2, wn_n_layers=4,
+                         wn_n_channels=128, upsample_kernel=64,
+                         upsample_stride=16)
+    synth = random_synthesizer(hp, cfg, 0, device="cuda", use_denoiser=False)
+    texts = ["안녕하세요.", "네."]
+    mel_ref, len_ref = synth.text_to_mel(texts, seed=3, max_steps=100)
+    chunks = [m for m, _, _ in synth.text_to_mel_stream(
+        texts, chunk_steps=32, seed=3, max_steps=100)]
+    mel_s = torch.cat(chunks, dim=-1)
+    assert mel_s.is_cuda and mel_s.shape == mel_ref.shape
+    torch.testing.assert_close(mel_s, mel_ref, rtol=0, atol=2e-5)
+
+    with torch.inference_mode():
+        from text2speech_tpu_torch.text import encode_batch
+
+        ids, lengths = encode_batch(texts)
+        lengths = torch.from_numpy(lengths).to(dev)
+        memory = synth.taco.encode(torch.from_numpy(ids).long().to(dev),
+                                   text_lengths=lengths)
+        carry = synth.taco.decoder.initial_carry(memory)
+        masks = synth.taco.decoder.draw_keep_masks(
+            16, 2, torch.Generator(device="cuda").manual_seed(1), dev)
+        a = synth.taco.decode_chunk(memory, *carry, masks, lengths)
+        b = ts.decode_chunk_serve(
+            ts.extract_decoder_params(synth.taco), hp, memory,
+            synth.taco.process_memory(memory), *carry, masks, lengths)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+    gpf = cfg.upsample_stride // cfg.n_group
+    wb.reset_launch_counts()
+    got = torch.from_numpy(np.concatenate(list(synth.synthesize_incremental(
+        texts[0], sigma=0.7, seed=3, chunk_steps=32, max_steps=100))))
+    assert wb.launch_counts()["wn_layer"] > 0
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    mels, noise = [], None
+    for m, out_len, _ in synth.text_to_mel_stream(
+            texts[0], chunk_steps=32, seed=3, max_steps=100):
+        mels.append(m)
+        nz = draw_noise(cfg, gen, 1, m.shape[-1] * gpf)
+        noise = (list(nz) if noise is None
+                 else [torch.cat([p, z], 1) for p, z in zip(noise, nz)])
+    n = int(out_len[0])
+    want = synth.mel_to_audio(
+        torch.cat(mels, -1)[:, :, :n].contiguous(), 0.7,
+        noise=tuple(z[:, : n * gpf] for z in noise))[0].cpu()
+    assert got.shape == want.shape == (n * cfg.upsample_stride,)
+    assert (got - want).abs().max() <= 16 * 2.0 ** -8 * want.abs().max()
+    assert ((got - want).norm() / want.norm()).item() < 2e-2

@@ -205,7 +205,8 @@ def test_port_imports_with_jax_blocked():
         "importlib.import_module('text2speech_tpu_torch.inference')\n"
         "for n in ('ops.gated', 'ops.wn_backward', 'train.waveglow',\n"
         "          'train.checkpoint', 'data.mel2samp', 'utils.logger',\n"
-        "          'waveglow_train'):\n"
+        "          'waveglow_train', 'ops.wn_block_dcond',\n"
+        "          'models.tacotron_serve'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )

@@ -23,6 +23,14 @@ Layout rules (``text2speech_tpu/convert.py:9-18`` run in reverse):
   nothing more for them.  :func:`fused_int8_from_qparams` takes the JAX
   package's already-quantized tree instead, for holding the two
   quantizers against each other on bit-identical weights.
+* The composed-conditioning weights derive from the ``WaveGlow`` module
+  too (``models/waveglow_fused.py::precompute_composed_cond``), in the JAX
+  dict's own layout.
+* The serving decoder's dict (``models/tacotron_serve.py``) holds the
+  module's own parameters; :func:`decoder_params_from_jax` maps the JAX
+  package's ``extract_decoder_params`` / ``quantize_decoder_params`` dict
+  onto it instead (kernels transposed to ``[out, in]``, int8 payloads
+  carried over bit for bit).
 * The trainable WaveGlow keeps the flax names and layouts, weight norm
   unfolded: :func:`trainable_waveglow_from_variables` copies a tree in,
   :func:`variables_from_trainable` writes the flat ``params/...`` keys that
@@ -258,3 +266,28 @@ def fused_int8_from_qparams(qparams: Mapping, cfg: WaveGlowConfig,
         })
     return FusedWaveGlowInt8(cfg, dtype, cw("upsample/kernel"),
                              cf("upsample/bias"), flows)
+
+
+def decoder_params_from_jax(dp: Mapping, device=None) -> dict:
+    """The JAX package's serving-decoder dict (``tacotron_serve.py``:
+    ``extract_decoder_params``, optionally through
+    ``quantize_decoder_params``; numpy leaves) -> the port's
+    (``models/tacotron_serve.py``): dense kernels [in, out] -> [out, in],
+    the location conv [k, in, out] -> [out, in, k], biases as they are; a
+    quantized kernel ``{"q" int8 [in, out], "s" [out]}`` keeps its payload
+    and scales, transposed."""
+    def dense(w):
+        w = np.asarray(w)
+        if w.ndim == 3:
+            return _t(w.transpose(2, 1, 0)).to(device).contiguous()
+        return _t(w.T if w.ndim == 2 else w).to(device).contiguous()
+
+    out = {}
+    for k, v in dp.items():
+        if isinstance(v, Mapping):
+            q = torch.from_numpy(np.array(v["q"], dtype=np.int8))
+            out[k] = {"q": q.T.contiguous().to(device),
+                      "s": _t(v["s"]).to(device)}
+        else:
+            out[k] = dense(v)
+    return out

@@ -1,7 +1,9 @@
 // WaveGlow WN coupling layer, hand-written for Hopper (sm_90a).
 //
-// Three kernels, one per layer role of the fused serving path, all built
-// from one template (wn_layer_kernel<ROLE>):
+// Six kernels, one per layer role of the fused serving path and per source
+// of the conditioning, all built from one template
+// (wn_layer_kernel<ROLE, DCOND>).  With DCOND = false the conditioning is
+// projected in the kernel (spect[t] Wc + b_cond):
 //
 //   FIRST  replaces text2speech_tpu/ops/pallas/wn_block.py:459
 //          wn_layer_stream2_first (body _kernel_stream2_first, :281)
@@ -9,6 +11,18 @@
 //          wn_layer_stream2 (body _kernel_stream2, :200)
 //   FINAL  replaces text2speech_tpu/ops/pallas/wn_block.py:528
 //          wn_layer_stream2_final (body _kernel_stream2_final, :325)
+//
+// With DCOND = true (the composed-conditioning vocoder) it is read from a
+// column slice of a pre-materialised cond_all [B, T, cond_ld] (bf16, the
+// folded bias already in it), widened to f32 and added in the gate
+// epilogue; the same bodies with project_cond=False on the TPU:
+//
+//   FIRST  replaces text2speech_tpu/ops/pallas/wn_block_dcond.py:100
+//          wn_layer_stream2_first_dcond
+//   STD    replaces text2speech_tpu/ops/pallas/wn_block_dcond.py:43
+//          wn_layer_stream2_dcond
+//   FINAL  replaces text2speech_tpu/ops/pallas/wn_block_dcond.py:162
+//          wn_layer_stream2_final_dcond
 //
 // What one layer computes, for rows t of one utterance (hidden x [T, C],
 // grouped mel spect [T, M], dilation d, valid length n_valid):
@@ -54,8 +68,17 @@
 // wgmma and TMA multicast of the weight tiles across a cluster are the
 // next steps, and are not done here.
 //
-// d, n_valid, n_half and E are runtime arguments: no kernel is specialised
-// per utterance length or per flow.
+// The DCOND kernels.  The in-act GEMM loses its M conditioning rows: K = 3C
+// (1536 of 2176 at C=512, M=640), and FIRST has no GEMM before the gate at
+// all (its taps are FMAs).  In their place each thread reads the two bf16
+// pairs of cond_all that belong to its accumulator pair, at row stride
+// cond_ld and column offset cond_off (both runtime arguments, so a layer
+// reads its slice in place: no copy of a slice is ever made).  That is
+// 2C bf16 per row, 13 MB per call at T=6400: far below the weights' L2
+// stream, so the kernel stays bound by operations.
+//
+// d, n_valid, n_half, E and the cond_all slice are runtime arguments: no
+// kernel is specialised per utterance length, per flow or per layer.
 
 #include "wn_common.cuh"
 
@@ -72,12 +95,14 @@ enum Role { FIRST = 0, STD = 1, FINAL = 2 };
 struct Args {
   int T, n_valid, C, M, d, n_half, E, rs_out;
   const bf16* x;         // STD/FINAL: hidden [B,T,C]; FIRST: x0 [B,T,n_half]
-  const bf16* spect;     // [B,T,M]
+  const bf16* spect;     // [B,T,M] (not DCOND)
+  const bf16* cond_all;  // DCOND: [B,T,cond_ld]; columns [cond_off, +2C) used
+  int cond_ld, cond_off;
   const bf16* w_in;      // STD/FINAL: [3,C,2C]; FIRST: composed wp [3,n_half,2C]
   const float* b_in;     // [2C] (FIRST: b_in + folded tap bias)
   const float* b_edge;   // FIRST: [2,2C] left/right folded-bias corrections
-  const bf16* w_cond;    // [M,2C]
-  const float* b_cond;   // [2C]
+  const bf16* w_cond;    // [M,2C] (not DCOND)
+  const float* b_cond;   // [2C] (not DCOND)
   const bf16* w_rs;      // STD/FIRST: [C,rs_out]; FINAL: w_rs@w_end [C,E]
   const float* b_rs;     // STD/FIRST: [rs_out]
   const bf16* acc;       // STD/FINAL: running skip sum [B,T,C]
@@ -93,8 +118,8 @@ struct Args {
 // --- in-act GEMM: [BM, K] x [K, 64 tanh + 64 sigmoid cols] ---------------
 
 // K rows of the combined weight: [0, KX) are the three taps of w_in
-// (STD/FINAL; KX = 3C), [KX, KX + M) are w_cond.  FIRST has KX = 0: its
-// taps are rank n_half and added by FMA in the gate epilogue.
+// (STD/FINAL; KX = 3C), [KX, KX + M) are w_cond (absent with DCOND).  FIRST
+// has KX = 0: its taps are rank n_half and added by FMA in the gate epilogue.
 template <int ROLE>
 __device__ __forceinline__ void load_inact_stage(const Args& a, int b, int t0,
                                                  int c0, int ks, bf16* sA,
@@ -163,7 +188,7 @@ __device__ __forceinline__ void mma_inact_stage(const bf16* sA,
   }
 }
 
-template <int ROLE>
+template <int ROLE, bool DCOND>
 __device__ void inact_chunk(const Args& a, int b, int t0, int c0, bf16* sA,
                             bf16* sB, float acc[2][4][4], int wm, int wn,
                             int lane) {
@@ -173,7 +198,7 @@ __device__ void inact_chunk(const Args& a, int b, int t0, int c0, bf16* sA,
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-  const int nk = (((ROLE == FIRST) ? 0 : 3 * a.C) + a.M) / BK;
+  const int nk = (((ROLE == FIRST) ? 0 : 3 * a.C) + (DCOND ? 0 : a.M)) / BK;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk)
@@ -199,7 +224,9 @@ __device__ void inact_chunk(const Args& a, int b, int t0, int c0, bf16* sA,
 }
 
 // Gate one chunk in f32 and store it as bf16 into the [BM, C] smem tile.
-template <int ROLE>
+// DCOND: the conditioning of columns (c, c + 1) and (C + c, C + c + 1) of
+// row t comes from cond_all as two bf16 pairs, in place of b_cond.
+template <int ROLE, bool DCOND>
 __device__ __forceinline__ void gate_store(const Args& a, int b, int t0,
                                            int c0, const float acc[2][4][4],
                                            bf16* sG, int G_LD, const bf16* sX,
@@ -216,11 +243,31 @@ __device__ __forceinline__ void gate_store(const Args& a, int b, int t0,
         const int t = t0 + row;
         const int c = c0 + wn * 16 + ni * 8 + 2 * tq;
         float v[2];
+        float cd[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [tanh, sigmoid][e]
+        if (DCOND) {
+          if (t < a.T) {
+            const bf16* cr = a.cond_all +
+                             ((size_t)b * a.T + t) * a.cond_ld + a.cond_off + c;
+            const __nv_bfloat162 vt =
+                *reinterpret_cast<const __nv_bfloat162*>(cr);
+            const __nv_bfloat162 vs =
+                *reinterpret_cast<const __nv_bfloat162*>(cr + a.C);
+            cd[0][0] = __low2float(vt);
+            cd[0][1] = __high2float(vt);
+            cd[1][0] = __low2float(vs);
+            cd[1][1] = __high2float(vs);
+          }
+        } else {
+          cd[0][0] = a.b_cond[c];
+          cd[0][1] = a.b_cond[c + 1];
+          cd[1][0] = a.b_cond[a.C + c];
+          cd[1][1] = a.b_cond[a.C + c + 1];
+        }
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int ct = c + e, cs = a.C + c + e;
-          float at = acc[mi][ni][jp * 2 + e] + a.b_in[ct] + a.b_cond[ct];
-          float as = acc[mi][ni + 2][jp * 2 + e] + a.b_in[cs] + a.b_cond[cs];
+          float at = acc[mi][ni][jp * 2 + e] + a.b_in[ct] + cd[0][e];
+          float as = acc[mi][ni + 2][jp * 2 + e] + a.b_in[cs] + cd[1][e];
           if (ROLE == FIRST && t < a.T) {
             const int cl = wn * 16 + ni * 8 + 2 * tq + e;
             at += first_taps(sX, sW, a.b_edge, a.C, a.d, a.n_valid, row, t,
@@ -353,7 +400,7 @@ __device__ void rs_phase(const Args& a, int b, int t0, bf16* sB,
   }
 }
 
-template <int ROLE>
+template <int ROLE, bool DCOND>
 __global__ void __launch_bounds__(THREADS) wn_layer_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sA = reinterpret_cast<bf16*>(smem_raw);
@@ -375,8 +422,9 @@ __global__ void __launch_bounds__(THREADS) wn_layer_kernel(const Args a) {
       stage_first_w(a.w_in, a.C, a.n_half, c0, sW);
     }
     // the mainloop's barriers publish sX/sW before gate_store reads them
-    inact_chunk<ROLE>(a, b, t0, c0, sA, sB, acc, wm, wn, lane);
-    gate_store<ROLE>(a, b, t0, c0, acc, sG, G_LD, sX, sW, wm, wn, lane);
+    inact_chunk<ROLE, DCOND>(a, b, t0, c0, sA, sB, acc, wm, wn, lane);
+    gate_store<ROLE, DCOND>(a, b, t0, c0, acc, sG, G_LD, sX, sW, wm, wn,
+                            lane);
   }
   __syncthreads();
   if (ROLE == FINAL)
@@ -386,18 +434,20 @@ __global__ void __launch_bounds__(THREADS) wn_layer_kernel(const Args a) {
     rs_phase<ROLE>(a, b, t0, sB, sG, G_LD, wm, wn, lane);
 }
 
-template <int ROLE>
+template <int ROLE, bool DCOND = false>
 int launch(const Args& a, int B, void* stream) {
   const size_t smem =
       (size_t)(STAGES * (A_STAGE + B_STAGE) + BM * (a.C + 8) +
                (ROLE == FIRST ? FIRST_SX + FIRST_SW : 0)) *
       sizeof(bf16);
   cudaError_t e = cudaFuncSetAttribute(
-      wn_layer_kernel<ROLE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wn_layer_kernel<ROLE, DCOND>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.T + BM - 1) / BM, B);
-  wn_layer_kernel<ROLE><<<grid, THREADS, smem, (cudaStream_t)stream>>>(a);
+  wn_layer_kernel<ROLE, DCOND>
+      <<<grid, THREADS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -461,6 +511,65 @@ int t2s_wn_layer_final(const void* x, const void* spect, const void* w_in,
   a.w_end = (const bf16*)w_end; a.b_end = (const float*)b_end;
   a.out = (float*)out;
   return launch<FINAL>(a, B, stream);
+}
+
+// The composed-conditioning family: cond_all [B, T, cond_ld] bf16 in place
+// of spect, w_cond and b_cond; the layer reads columns [cond_off, +2C).
+
+int t2s_wn_layer_first_dcond(const void* x0, const void* cond_all,
+                             const void* wp, const void* b_all,
+                             const void* b_edge, const void* w_rs,
+                             const void* b_rs, const void* start_k,
+                             const void* start_b, void* x_out, void* skip_out,
+                             int B, int T, int n_valid, int C, int cond_ld,
+                             int cond_off, int n_half, int d, void* stream) {
+  Args a = {};
+  a.T = T; a.n_valid = n_valid; a.C = C; a.d = d;
+  a.n_half = n_half; a.rs_out = 2 * C;
+  a.x = (const bf16*)x0; a.cond_all = (const bf16*)cond_all;
+  a.cond_ld = cond_ld; a.cond_off = cond_off;
+  a.spect = a.cond_all;  // a valid address for the zero-size halo copies
+  a.w_in = (const bf16*)wp; a.b_in = (const float*)b_all;
+  a.b_edge = (const float*)b_edge; a.w_rs = (const bf16*)w_rs;
+  a.b_rs = (const float*)b_rs; a.start_k = (const bf16*)start_k;
+  a.start_b = (const float*)start_b; a.x_out = (bf16*)x_out;
+  a.skip_out = (bf16*)skip_out;
+  return launch<FIRST, true>(a, B, stream);
+}
+
+int t2s_wn_layer_dcond(const void* x, const void* cond_all, const void* w_in,
+                       const void* b_in, const void* w_rs, const void* b_rs,
+                       const void* skip_acc, void* x_out, void* skip_out,
+                       int B, int T, int n_valid, int C, int cond_ld,
+                       int cond_off, int rs_out, int d, void* stream) {
+  Args a = {};
+  a.T = T; a.n_valid = n_valid; a.C = C; a.d = d; a.rs_out = rs_out;
+  a.x = (const bf16*)x; a.cond_all = (const bf16*)cond_all;
+  a.cond_ld = cond_ld; a.cond_off = cond_off;
+  a.spect = a.cond_all;  // a valid address for the zero-size halo copies
+  a.w_in = (const bf16*)w_in; a.b_in = (const float*)b_in;
+  a.w_rs = (const bf16*)w_rs; a.b_rs = (const float*)b_rs;
+  a.acc = (const bf16*)skip_acc; a.x_out = (bf16*)x_out;
+  a.skip_out = (bf16*)skip_out;
+  return launch<STD, true>(a, B, stream);
+}
+
+int t2s_wn_layer_final_dcond(const void* x, const void* cond_all,
+                             const void* w_in, const void* b_in,
+                             const void* w_rs_end, const void* skip_acc,
+                             const void* w_end, const void* b_end, void* out,
+                             int B, int T, int n_valid, int C, int cond_ld,
+                             int cond_off, int E, int d, void* stream) {
+  Args a = {};
+  a.T = T; a.n_valid = n_valid; a.C = C; a.d = d; a.E = E;
+  a.x = (const bf16*)x; a.cond_all = (const bf16*)cond_all;
+  a.cond_ld = cond_ld; a.cond_off = cond_off;
+  a.spect = a.cond_all;  // a valid address for the zero-size halo copies
+  a.w_in = (const bf16*)w_in; a.b_in = (const float*)b_in;
+  a.w_rs = (const bf16*)w_rs_end; a.acc = (const bf16*)skip_acc;
+  a.w_end = (const bf16*)w_end; a.b_end = (const float*)b_end;
+  a.out = (float*)out;
+  return launch<FINAL, true>(a, B, stream);
 }
 
 }  // extern "C"

@@ -4,11 +4,15 @@
         --text "이 것은 제작되고 있는 중입니다." --out out.wav --fused_vocoder
     python -m text2speech_tpu_torch.inference --random_init 0 --fused_vocoder
     python -m text2speech_tpu_torch.inference --random_init 0 --int8_vocoder
+    python -m text2speech_tpu_torch.inference --random_init 0 --int8_vocoder \
+        --stream --stream_chunk_steps 64 -d 0.1
 
 ``--weights`` is the ``.npz`` written by ``export_torch_weights.py`` from the
 JAX package's checkpoints; ``--random_init SEED`` synthesizes from seeded
 random weights when no checkpoint exists (noise, but the whole path runs).
-Without a GPU it raises: it never runs on the CPU.
+``--stream`` decodes in chunks and writes each piece of audio as soon as it
+clears the vocoder's receptive field (the first after about one chunk, not
+the whole decode).  Without a GPU it raises: it never runs on the CPU.
 """
 
 from __future__ import annotations
@@ -43,6 +47,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--waveglow_config", default=None)
     p.add_argument("--max_steps", type=int, default=None,
                    help="decoder steps (default: hparams max_decoder_steps)")
+    p.add_argument("--stream", action="store_true",
+                   help="incremental synthesis: decode in chunks and emit "
+                   "audio as soon as each chunk clears the vocoder's "
+                   "receptive field")
+    p.add_argument("--stream_chunk_steps", type=int, default=64)
     return p
 
 
@@ -75,6 +84,29 @@ def main(argv=None) -> None:
             num_speakers=args.num_speakers, use_denoiser=use_denoiser,
             use_fused_vocoder=args.fused_vocoder,
             int8_vocoder=args.int8_vocoder)
+    if args.stream:
+        import time
+
+        import numpy as np
+
+        from .dsp.audio import save_wav
+
+        t0 = time.perf_counter()
+        chunks = []
+        for i, chunk in enumerate(synth.synthesize_incremental(
+                args.text, sigma=args.sigma,
+                chunk_steps=args.stream_chunk_steps,
+                max_steps=args.max_steps,
+                denoiser_strength=args.denoiser_strength,
+                speaker_id=args.speaker_id)):
+            chunks.append(chunk)
+            print(f"chunk {i}: +{len(chunk)} samples at "
+                  f"t={time.perf_counter() - t0:.2f}s")
+        wav = np.concatenate(chunks)
+        save_wav(wav, args.out, args.sample_rate)
+        print(f"wrote {args.out} ({wav.shape[0]} samples at "
+              f"{args.sample_rate} Hz, streamed in {len(chunks)} chunks)")
+        return
     (wav,) = synth.synthesize_to_files(
         [args.text], [args.out], sample_rate=args.sample_rate,
         sigma=args.sigma,

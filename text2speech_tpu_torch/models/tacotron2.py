@@ -3,14 +3,20 @@
 
 Character embedding -> 3 x (conv k5 + BatchNorm + ReLU) -> BiLSTM encoder ->
 location-sensitive attention LSTM decoder -> 5-conv postnet.  Only the
-inference path is ported.  Layouts follow the JAX package: encoder
-activations are channels-last ``[B, T, C]``; mels are ``[B, n_mel, T]``.
+inference path is ported: the whole-utterance decode (:meth:`Tacotron2.
+inference`) and its streaming unit (:meth:`Tacotron2.decode_chunk`, a run
+of decoder steps from an explicit carry).  Layouts follow the JAX package:
+encoder activations are channels-last ``[B, T, C]``; mels are
+``[B, n_mel, T]``.
 
 Three behaviours of the reference that the port keeps:
 
 * prenet dropout is always on, also at inference.  ``autoregressive`` takes
   explicit keep-masks ``[T, 2, B, prenet_dim]`` (so a test can hand it the
-  masks JAX drew) or draws them from a ``torch.Generator``;
+  masks JAX drew) or draws them from a ``torch.Generator``, in blocks of
+  :data:`MASK_BLOCK` steps, so the masks of the first n steps do not depend
+  on how many steps are drawn (a chunked decode that runs past the
+  requested length sees the batch decode's masks);
 * the decoder always runs ``max_steps`` steps and never stops early when
   every row has stopped: the postnet (k=5 x 5 layers) reads ~10 frames past
   each stop frame, so an early stop would change the last valid frames;
@@ -28,6 +34,12 @@ from torch import nn
 from ..config import HParams
 
 from ..ops.lstm import BiLSTM, LSTMCell
+
+
+# Keep-masks are drawn MASK_BLOCK steps at a time: on a CUDA generator a
+# larger draw need not start with a smaller draw's values, equal-shaped
+# draws in sequence do.
+MASK_BLOCK = 64
 
 
 def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -220,11 +232,58 @@ class Decoder(nn.Module):
                         generator: torch.Generator | None,
                         device) -> torch.Tensor:
         """Prenet dropout keep-masks bool [steps, 2, B, prenet_dim], each
-        kept with probability 0.5, drawn on the generator's device."""
+        kept with probability 0.5, drawn on the generator's device in
+        blocks of :data:`MASK_BLOCK` steps: the first n steps' masks are
+        the same for every ``steps >= n``."""
         gdev = generator.device if generator is not None else device
-        shape = (steps, 2, batch, self.hp.prenet_dim)
-        return (torch.rand(shape, generator=generator, device=gdev)
-                < 0.5).to(device)
+        shape = (MASK_BLOCK, 2, batch, self.hp.prenet_dim)
+        blocks = [torch.rand(shape, generator=generator, device=gdev) < 0.5
+                  for _ in range(-(-steps // MASK_BLOCK))]
+        return torch.cat(blocks)[:steps].to(device)
+
+    def draw_keep_masks_per_row(self, steps: int, generators,
+                                device) -> torch.Tensor:
+        """Keep-masks bool [steps, 2, B, prenet_dim] with row b drawn from
+        ``generators[b]`` alone ([steps, 2, prenet_dim] per call), so a
+        row's masks depend neither on the batch size nor on the other rows
+        (the JAX per-row keys, ``tacotron2.py:542-547``): what a server
+        needs to admit a request into any slot.  Each call advances every
+        generator by one chunk."""
+        shape = (steps, 2, self.hp.prenet_dim)
+        rows = [(torch.rand(shape, generator=g, device=g.device) < 0.5)
+                .to(device) for g in generators]
+        return torch.stack(rows, dim=2)
+
+    def run_steps(self, carry, keep_masks: torch.Tensor, memory,
+                  processed_memory, mask):
+        """``keep_masks.shape[0]`` decoder steps from ``carry = (state,
+        frame, finished)`` -> (carry, mel [B, n_mel, n], gate [B, n], align
+        [B, n, T_in], active bool [B, n]).  ``active[b, t]`` marks frames
+        produced at or before row b's stop frame.  The one step loop of the
+        whole-utterance and the chunked decode, so that the two agree bit
+        for bit."""
+        state, frame, finished = carry
+        mels, gates, aligns, actives = [], [], [], []
+        for t in range(keep_masks.shape[0]):
+            pre = self.prenet(frame, keep_masks[t])
+            state, (frame, gate, weights) = self.step(
+                state, pre, memory, processed_memory, mask)
+            actives.append(~finished)
+            finished = finished | (torch.sigmoid(gate)
+                                   > self.hp.gate_threshold)
+            mels.append(frame)
+            gates.append(gate)
+            aligns.append(weights)
+        return ((state, frame, finished), torch.stack(mels, 2),
+                torch.stack(gates, 1), torch.stack(aligns, 1),
+                torch.stack(actives, 1))
+
+    def initial_carry(self, memory: torch.Tensor):
+        """(zero state, zero go-frame, nobody finished)."""
+        B = memory.shape[0]
+        return (self.initial_state(memory),
+                memory.new_zeros((B, self.hp.n_mel_channels)),
+                torch.zeros((B,), dtype=torch.bool, device=memory.device))
 
     def autoregressive(self, memory: torch.Tensor,
                        memory_lengths: torch.Tensor | None = None,
@@ -244,23 +303,10 @@ class Decoder(nn.Module):
                              f"want {(T, 2, B, hp.prenet_dim)}")
         mask = (sequence_mask(memory_lengths.to(memory.device), T_in)
                 if memory_lengths is not None else None)
-        processed_memory = self.attention.process_memory(memory)
-        state = self.initial_state(memory)
-        frame = memory.new_zeros((B, hp.n_mel_channels))
-        finished = torch.zeros((B,), dtype=torch.bool, device=memory.device)
-        mels, gates, aligns, actives = [], [], [], []
-        for t in range(T):
-            pre = self.prenet(frame, keep_masks[t])
-            state, (frame, gate, weights) = self.step(
-                state, pre, memory, processed_memory, mask)
-            actives.append(~finished)
-            finished = finished | (torch.sigmoid(gate) > hp.gate_threshold)
-            mels.append(frame)
-            gates.append(gate)
-            aligns.append(weights)
-        out_lengths = torch.stack(actives, 1).sum(1).to(torch.int32)
-        return (torch.stack(mels, 2), torch.stack(gates, 1),
-                torch.stack(aligns, 1), out_lengths)
+        _, mel, gate, align, active = self.run_steps(
+            self.initial_carry(memory), keep_masks, memory,
+            self.attention.process_memory(memory), mask)
+        return mel, gate, align, active.sum(1).to(torch.int32)
 
 
 class Tacotron2(nn.Module):
@@ -295,6 +341,39 @@ class Tacotron2(nn.Module):
     def encode(self, text_ids, speaker_ids=None, text_lengths=None):
         out = self.encoder(self.embedding(text_ids), text_lengths)
         return self.condition_on_speaker(out, speaker_ids)
+
+    def process_memory(self, memory: torch.Tensor) -> torch.Tensor:
+        """The attention's memory projection [B, T_in, attention_dim],
+        computed once per utterance and handed to the serving decode."""
+        return self.decoder.attention.process_memory(memory)
+
+    def decode_chunk(self, memory: torch.Tensor, state: DecoderState,
+                     frame: torch.Tensor, finished: torch.Tensor,
+                     keep_masks: torch.Tensor,
+                     text_lengths: torch.Tensor | None = None):
+        """``n_steps`` decoder steps from an explicit carry, the streaming
+        unit of :meth:`inference` (``tacotron2.py:521 decode_chunk``).
+
+        ``keep_masks`` bool [n_steps, 2, B, prenet_dim]: consecutive slices
+        of :meth:`Decoder.draw_keep_masks`'s draw make the chunked decode
+        equal to one :meth:`inference` decode bit for bit; masks from
+        :meth:`Decoder.draw_keep_masks_per_row` make each row independent
+        of the batch.  Returns ``((state, frame, finished), mel [B, n_mel,
+        n] f32, gate [B, n] f32, align [B, n, T_in] f32, active bool
+        [B, n])``."""
+        T_in = memory.shape[1]
+        mask = (sequence_mask(text_lengths.to(memory.device), T_in)
+                if text_lengths is not None else None)
+        carry, mel, gate, align, active = self.decoder.run_steps(
+            (state, frame, finished), keep_masks, memory,
+            self.process_memory(memory), mask)
+        return carry, mel.float(), gate.float(), align.float(), active
+
+    def postnet_residual(self, mel: torch.Tensor) -> torch.Tensor:
+        """The postnet's residual for a mel window [B, n_mel, T], f32, for
+        windowed application (one-sided receptive field
+        ``(postnet_kernel_size // 2) * postnet_n_convolutions`` frames)."""
+        return self.postnet(mel).float()
 
     def inference(self, text_ids: torch.Tensor,
                   speaker_ids: torch.Tensor | None = None,

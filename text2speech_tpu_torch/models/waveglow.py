@@ -10,8 +10,8 @@ in the JAX package's layouts: ``[k, in, out]`` convs, channels-last
 activations.  The invertible 1x1 convs are inverted and applied in f32.
 
 This is the oracle of the fused serving path (:mod:`.waveglow_fused`) and
-the denoiser's bias source.  The masked serving pass (``length=``) is not
-ported yet.
+the denoiser's bias source.  ``infer(length=...)`` is the masked serving
+pass: one fixed-width call that equals the exact call at any shorter length.
 
 :class:`TrainableWaveGlow` is the training half: parameters under the flax
 tree's names and layouts with weight norm applied at every call, the
@@ -105,12 +105,20 @@ class WN(nn.Module):
         self.rs_b = nn.ParameterList(p(n) for n in rs)
         self.end_w, self.end_b = p(C, 2 * n_half), p(2 * n_half)
 
-    def forward(self, audio_half: torch.Tensor,
-                spect: torch.Tensor) -> torch.Tensor:
-        """[B, T, n_half], [B, T, n_cond] -> (b, log_s) [B, T, 2 n_half]."""
+    def forward(self, audio_half: torch.Tensor, spect: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        """[B, T, n_half], [B, T, n_cond] -> (b, log_s) [B, T, 2 n_half].
+
+        ``mask``: optional bool [*, T, 1], True at real positions.  The
+        hidden state is then re-zeroed before every dilated conv, so
+        positions past the valid length contribute exactly what the conv's
+        zero padding of an exact-length call would
+        (``waveglow.py:197-201``)."""
         C = self.start_k.shape[1]
         L = len(self.in_w)
         x = audio_half @ self.start_k + self.start_b
+        if mask is not None:
+            x = torch.where(mask, x, 0.0)
         output = torch.zeros_like(x)
         for i in range(L):
             d = 2 ** i
@@ -122,6 +130,8 @@ class WN(nn.Module):
             rs = acts @ self.rs_w[i] + self.rs_b[i]
             if i < L - 1:
                 x = x + rs[..., :C]
+                if mask is not None:
+                    x = torch.where(mask, x, 0.0)
                 output = output + rs[..., C:]
             else:
                 output = output + rs
@@ -157,13 +167,26 @@ class WaveGlow(nn.Module):
 
     def infer(self, spect: torch.Tensor, sigma: float = 1.0,
               noise: tuple | None = None,
-              generator: torch.Generator | None = None) -> torch.Tensor:
+              generator: torch.Generator | None = None,
+              length: int | torch.Tensor | None = None) -> torch.Tensor:
         """mel [B, n_mel, frames] -> audio [B, samples].  ``noise`` gives
         the standard-normal draws explicitly, in :meth:`noise_shapes`
-        order; otherwise they come from ``generator``."""
+        order; otherwise they come from ``generator``.
+
+        ``length``: valid mel frames, an int or a tensor that broadcasts
+        against [B, 1, 1] (``waveglow.py:380-390``).  Mel and noise must be
+        zero past it; every WN hidden state is re-zeroed past it before
+        each dilated conv, so ``infer(padded, length=t)[:, :t * hop]``
+        equals ``infer(exact_t)``: the in-tensor zero tail then stands for
+        the conv's zero padding."""
         cfg = self.cfg
         cond = upsample_group(spect, self.upsample_k, self.upsample_b, cfg)
         B, Tg, _ = cond.shape
+        mask = None
+        if length is not None:
+            gpf = cfg.upsample_stride // cfg.n_group
+            mask = (torch.arange(Tg, device=cond.device)[None, :, None]
+                    < torch.as_tensor(length, device=cond.device) * gpf)
         draws = iter(noise) if noise is not None else None
 
         def next_noise(shape):
@@ -179,7 +202,7 @@ class WaveGlow(nn.Module):
         for k in reversed(range(cfg.n_flows)):
             n_half = x.shape[-1] // 2
             x0, x1 = x[..., :n_half], x[..., n_half:]
-            wn_out = self.wn[k](x0, cond)
+            wn_out = self.wn[k](x0, cond, mask)
             x1 = (x1 - wn_out[..., :n_half]) * torch.exp(-wn_out[..., n_half:])
             x = torch.cat([x0, x1], dim=-1)
             x = x @ torch.linalg.inv(self.convinv[k].float()).T

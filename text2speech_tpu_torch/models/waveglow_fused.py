@@ -1,6 +1,6 @@
 """Fused WaveGlow inference, the serving path (counterpart of
-``text2speech_tpu/models/waveglow_fused.py``: ``infer_fused`` with
-``composed_cond=None``, ``quantize_waveglow_int8`` and
+``text2speech_tpu/models/waveglow_fused.py``: ``infer_fused``,
+``precompute_composed_cond``, ``quantize_waveglow_int8`` and
 ``infer_fused_int8``).
 
 Each flow's WN net runs as three fused layer kernels: the first layer with
@@ -9,7 +9,12 @@ the last layer with the end projection folded in; 12 / 72 / 12 launches
 per vocode at the reference config.  :func:`infer_fused` runs them in bf16
 (:mod:`..ops.wn_block`), :func:`infer_fused_int8` with the three large
 product families (dilated taps, conditioning, res/skip) in int8
-(:mod:`..ops.wn_block_int8`).  Upsample, grouping, the affine coupling
+(:mod:`..ops.wn_block_int8`).  With ``composed_cond=``
+(:func:`precompute_composed_cond`) :func:`infer_fused` takes the
+composed-conditioning path: no upsample and no in-kernel projection; each
+flow materialises its ``cond_all`` [B, T_g, 2C * L] with one matmul over a
+stack of r shifted mel frames and the layers read their column slices of
+it (:mod:`..ops.wn_block_dcond`).  Upsample, grouping, the affine coupling
 ``(x1 - b) exp(-s)`` (f32), the inverse 1x1 convs (f32) and the early-noise
 injection are plain PyTorch and shared by both.
 
@@ -34,12 +39,17 @@ import torch
 
 from ..config import WaveGlowConfig
 from ..ops import wn_block as wb
+from ..ops import wn_block_dcond as wd
 from ..ops import wn_block_int8 as wq
 from .waveglow import WaveGlow, noise_shapes, upsample_group
 
 F32 = torch.float32
 KERNELS = (wb.wn_layer_first, wb.wn_layer, wb.wn_layer_final)
 PLAIN = (wb.wn_layer_first_plain, wb.wn_layer_plain, wb.wn_layer_final_plain)
+KERNELS_DCOND = (wd.wn_layer_first_dcond, wd.wn_layer_dcond,
+                 wd.wn_layer_final_dcond)
+PLAIN_DCOND = (wd.wn_layer_first_dcond_plain, wd.wn_layer_dcond_plain,
+               wd.wn_layer_final_dcond_plain)
 KERNELS_INT8 = (wq.wn_layer_first_int8, wq.wn_layer_int8,
                 wq.wn_layer_final_int8)
 PLAIN_INT8 = (wq.wn_layer_first_int8_plain, wq.wn_layer_int8_plain,
@@ -116,6 +126,46 @@ def prepare_fused(model: WaveGlow,
                          cf(model.upsample_b), flows)
 
 
+@torch.no_grad()
+def precompute_composed_cond(model: WaveGlow,
+                             dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Collapse upsample, grouping and each flow's conditioning projection
+    into per-phase MEL-level weights, once per checkpoint
+    (``waveglow_fused.py:50 precompute_composed_cond``).
+
+    The grouped conditioning of audio group g is a linear image of only
+    r = upsample_kernel / stride mel frames: with u = g // P, ph = g % P
+    (P = stride / n_group),
+
+        cond[g] = sum_q mel[u - q] @ Wc[q, ph] + b_eff
+
+    so the projection's contraction shrinks from n_mel * n_group to
+    r * n_mel at the price of phase-expanded weights.  Returns ``{flow: (Wc
+    [r, P, n_mel, 2C * L] in ``dtype``, b_eff [2C * L] f32)}``; ``b_eff``
+    folds the upsample bias through the projection.  ``Wc`` is stored
+    ``[r, n_mel, P, 2C * L]``-contiguous and returned as a transposed view,
+    so :func:`infer_fused` reads it as one [r * n_mel, P * 2C * L] matrix
+    without a copy."""
+    cfg = model.cfg
+    k, s, G, M = (cfg.upsample_kernel, cfg.upsample_stride, cfg.n_group,
+                  cfg.n_mel_channels)
+    if k % s or s % G:
+        raise ValueError("the composed path needs stride | upsample_kernel "
+                         "and n_group | stride")
+    r, P = k // s, s // G
+    kq5 = model.upsample_k.to(F32).reshape(r, P, G, M, M)  # [q, ph, j, mi, mo]
+    up_b = model.upsample_b.to(F32)
+    out = {}
+    for kf, wn in enumerate(model.wn):
+        cond_k = torch.cat([w.to(F32) for w in wn.cond_w], dim=1)
+        cond_b = torch.cat([b.to(F32) for b in wn.cond_b])
+        wc3 = cond_k.reshape(M, G, -1)                         # [mo, j, o]
+        Wc = torch.einsum("qpjim,mjo->qipo", kq5, wc3).to(dtype).contiguous()
+        b_eff = cond_b + torch.einsum("m,mjo->o", up_b, wc3)
+        out[kf] = (Wc.permute(0, 2, 1, 3), b_eff.contiguous())
+    return out
+
+
 def prepare_fused_int8(model: WaveGlow, dtype: torch.dtype = torch.bfloat16
                        ) -> FusedWaveGlowInt8:
     """Quantize once per checkpoint (``waveglow_fused.py:98
@@ -157,26 +207,24 @@ def prepare_fused_int8(model: WaveGlow, dtype: torch.dtype = torch.bfloat16
                              cf(model.upsample_b), flows)
 
 
-def _reverse_flows(fw: FusedWaveGlow, cond: torch.Tensor, wn_net, sigma,
+def _reverse_flows(fw: FusedWaveGlow, B: int, Tg: int, device, wn_net, sigma,
                    noise, generator) -> torch.Tensor:
     """The flow's reverse pass around the WN nets: noise, coupling, inverse
-    1x1 convs, early-noise injection.  ``wn_net(w, x0) -> [B, T_g, 2 *
-    n_half]`` f32 is one flow's coupling net on the audio half ``x0``."""
+    1x1 convs, early-noise injection.  ``wn_net(k, x0) -> [B, T_g, 2 *
+    n_half]`` f32 is flow ``k``'s coupling net on the audio half ``x0``."""
     cfg, dt = fw.cfg, fw.dtype
-    B, Tg, _ = cond.shape
     shapes = fw.noise_shapes(B, Tg)
     draws = iter(noise) if noise is not None else None
 
     def next_noise(i):
         if draws is None:
-            z = torch.randn(shapes[i], generator=generator,
-                            device=cond.device)
+            z = torch.randn(shapes[i], generator=generator, device=device)
         else:
             z = next(draws)
             if tuple(z.shape) != shapes[i]:
                 raise ValueError(f"noise draw {tuple(z.shape)}, want "
                                  f"{shapes[i]}")
-        return sigma * z.to(cond.device, dt)
+        return sigma * z.to(device, dt)
 
     audio = next_noise(0)
     n_draw = 1
@@ -185,7 +233,7 @@ def _reverse_flows(fw: FusedWaveGlow, cond: torch.Tensor, wn_net, sigma,
         n_half = audio.shape[-1] // 2
         x0 = audio[..., :n_half].contiguous()
         x1 = audio[..., n_half:]
-        wn_out = wn_net(w, x0)
+        wn_out = wn_net(k, x0)
         x1 = ((x1.to(F32) - wn_out[..., :n_half])
               * torch.exp(-wn_out[..., n_half:])).to(dt)
         audio = torch.cat([x0, x1], dim=-1)
@@ -199,39 +247,90 @@ def _reverse_flows(fw: FusedWaveGlow, cond: torch.Tensor, wn_net, sigma,
 def infer_fused(fw: FusedWaveGlow, spect: torch.Tensor, sigma: float = 1.0,
                 noise: tuple | None = None,
                 generator: torch.Generator | None = None,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False,
+                composed_cond: dict | None = None) -> torch.Tensor:
     """mel [B, n_mel, frames] -> audio [B, samples] f32.
 
     ``noise``: the standard-normal draws at the true length, in
     ``WaveGlow.noise_shapes`` order; otherwise drawn from ``generator``.
     ``plain=True`` runs the layers' plain PyTorch versions instead of the
     kernels (the comparison path on a GPU; CPU tensors take the plain
-    versions anyway)."""
+    versions anyway).
+
+    ``composed_cond`` (:func:`precompute_composed_cond` of the same
+    checkpoint, in ``fw``'s dtype) switches to the composed-conditioning
+    path (``waveglow_fused.py:350-359``, ``:404-419``): the upsample and
+    the in-kernel projections disappear; each flow materialises ``cond_all``
+    [B, T_g, 2C * L] in ``fw``'s dtype (f32 accumulation, rounded once, the
+    bias added in that dtype, as the JAX path rounds it) from the stack of
+    r left-shifted mel frames (group u reads frames u, u-1, .., u-r+1), and
+    the ``dcond`` layers read their slices of it in place.  One flow's
+    ``cond_all`` is alive at a time."""
     cfg, dt = fw.cfg, fw.dtype
-    first, std, final = PLAIN if plain else KERNELS
     L = cfg.wn_n_layers
-    cond = upsample_group(spect, fw.up_k, fw.up_b, cfg, dtype=dt).contiguous()
-    Tg = cond.shape[1]
+    B, _, frames = spect.shape
 
-    def wn_net(w, x0):
-        if L >= 2:
-            xh, skip = first(x0, cond, w["start_k"], w["start_b"],
-                             *w["first"], w["cond_w"][0], w["cond_b"][0],
-                             w["rs_w"][0], w["rs_b"][0], 1, n_valid=Tg)
-        else:
-            xh = (x0 @ w["start_k"] + w["start_b"].to(dt)).contiguous()
-            skip = torch.zeros_like(xh)
-        for li in range(1, L - 1):
-            xh, skip = std(xh, cond, w["in_w"][li], w["in_b"][li],
-                           w["cond_w"][li], w["cond_b"][li], w["rs_w"][li],
-                           w["rs_b"][li], skip, 2 ** li, n_valid=Tg)
-        li = L - 1
-        w_eff, b_eff = w["final"]
-        return final(xh, cond, w["in_w"][li], w["in_b"][li], w["cond_w"][li],
-                     w["cond_b"][li], w_eff, skip, w["end_w"], b_eff,
-                     2 ** li, n_valid=Tg)
+    def start(w, x0):       # L == 1: no first-layer kernel
+        xh = (x0 @ w["start_k"] + w["start_b"].to(dt)).contiguous()
+        return xh, torch.zeros_like(xh)
 
-    return _reverse_flows(fw, cond, wn_net, sigma, noise, generator)
+    if composed_cond is None:
+        first, std, final = PLAIN if plain else KERNELS
+        cond = upsample_group(spect, fw.up_k, fw.up_b, cfg,
+                              dtype=dt).contiguous()
+        Tg = cond.shape[1]
+
+        def wn_net(k, x0):
+            w = fw.flows[k]
+            if L >= 2:
+                xh, skip = first(x0, cond, w["start_k"], w["start_b"],
+                                 *w["first"], w["cond_w"][0], w["cond_b"][0],
+                                 w["rs_w"][0], w["rs_b"][0], 1, n_valid=Tg)
+            else:
+                xh, skip = start(w, x0)
+            for li in range(1, L - 1):
+                xh, skip = std(xh, cond, w["in_w"][li], w["in_b"][li],
+                               w["cond_w"][li], w["cond_b"][li],
+                               w["rs_w"][li], w["rs_b"][li], skip, 2 ** li,
+                               n_valid=Tg)
+            li = L - 1
+            w_eff, b_eff = w["final"]
+            return final(xh, cond, w["in_w"][li], w["in_b"][li],
+                         w["cond_w"][li], w["cond_b"][li], w_eff, skip,
+                         w["end_w"], b_eff, 2 ** li, n_valid=Tg)
+    else:
+        first, std, final = PLAIN_DCOND if plain else KERNELS_DCOND
+        r = cfg.upsample_kernel // cfg.upsample_stride
+        Tg = frames * cfg.upsample_stride // cfg.n_group
+        melT = spect.transpose(1, 2).to(dt)                    # [B, F, M]
+        mel_sh = torch.stack(
+            [torch.nn.functional.pad(melT, (0, 0, q, 0))[:, :frames]
+             for q in range(r)], dim=2).reshape(B * frames, -1)
+
+        def wn_net(k, x0):
+            w = fw.flows[k]
+            Wc, b_c = composed_cond[k]
+            _, P, M, O = Wc.shape
+            cond_all = (
+                (mel_sh @ Wc.permute(0, 2, 1, 3).reshape(r * M, P * O))
+                .view(B, frames * P, O) + b_c.to(dt)).contiguous()
+            if L >= 2:
+                xh, skip = first(x0, cond_all, w["start_k"], w["start_b"],
+                                 *w["first"], w["rs_w"][0], w["rs_b"][0], 1,
+                                 n_valid=Tg)
+            else:
+                xh, skip = start(w, x0)
+            for li in range(1, L - 1):
+                xh, skip = std(xh, cond_all, li, w["in_w"][li], w["in_b"][li],
+                               w["rs_w"][li], w["rs_b"][li], skip, 2 ** li,
+                               n_valid=Tg)
+            li = L - 1
+            w_eff, b_eff = w["final"]
+            return final(xh, cond_all, li, w["in_w"][li], w["in_b"][li],
+                         w_eff, skip, w["end_w"], b_eff, 2 ** li, n_valid=Tg)
+
+    return _reverse_flows(fw, B, Tg, spect.device, wn_net, sigma, noise,
+                          generator)
 
 
 def infer_fused_int8(fw: FusedWaveGlowInt8, spect: torch.Tensor,
@@ -254,7 +353,8 @@ def infer_fused_int8(fw: FusedWaveGlowInt8, spect: torch.Tensor,
     qspect, sspect = wq.quantize_rows(cond)
     qspect, sspect = qspect.contiguous(), sspect.contiguous()
 
-    def wn_net(w, x0):
+    def wn_net(k, x0):
+        w = fw.flows[k]
         qx, sx, skip = first(x0, qspect, sspect, w["start_k"], w["start_b"],
                              *w["first"], *w["cond"][0], *w["rs"][0], 1,
                              n_valid=Tg)
@@ -267,4 +367,5 @@ def infer_fused_int8(fw: FusedWaveGlowInt8, spect: torch.Tensor,
         return final(qx, sx, qspect, sspect, *w["in"][li], *w["cond"][li],
                      w_eff, skip, w["end_w"], b_eff, 2 ** li, n_valid=Tg)
 
-    return _reverse_flows(fw, cond, wn_net, sigma, noise, generator)
+    return _reverse_flows(fw, cond.shape[0], Tg, spect.device, wn_net, sigma,
+                          noise, generator)

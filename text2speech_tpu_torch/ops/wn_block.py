@@ -3,7 +3,8 @@ PyTorch versions.
 
 Counterpart of ``text2speech_tpu/ops/pallas/wn_block.py``'s three shipping
 kernels (``wn_layer_stream2_first``, ``wn_layer_stream2``,
-``wn_layer_stream2_final``).  Each role has
+``wn_layer_stream2_final``); the composed-conditioning flavours of the
+same three roles are in :mod:`.wn_block_dcond`.  Each role has
 
 * a plain PyTorch version (``*_plain``), the arithmetic of the Pallas
   kernel in float32 matmuls over the input dtype's values, used for CPU
@@ -36,6 +37,9 @@ LIB = CudaLibrary("wn_block", {
     "t2s_wn_layer_first": [_P] * 13 + [_I] * 7 + [_P],
     "t2s_wn_layer": [_P] * 11 + [_I] * 7 + [_P],
     "t2s_wn_layer_final": [_P] * 11 + [_I] * 7 + [_P],
+    "t2s_wn_layer_first_dcond": [_P] * 11 + [_I] * 8 + [_P],
+    "t2s_wn_layer_dcond": [_P] * 9 + [_I] * 8 + [_P],
+    "t2s_wn_layer_final_dcond": [_P] * 9 + [_I] * 8 + [_P],
 })
 
 F32 = torch.float32
@@ -117,14 +121,13 @@ def fold_end(w_rs, b_rs, w_end, b_end):
     return w_eff.contiguous(), b_eff.contiguous()
 
 
-def wn_layer_plain(x, spect, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
-                   skip_acc, dilation: int, n_valid: int | None = None):
-    """Standard layer -> (x_new, skip_acc + skip).  ``w_rs`` is [C, 2C]
-    (residual + skip) or [C, C] (skip only, hidden state passes through)."""
+def std_body(x, cond, w_in, b_in, w_rs, b_rs, skip_acc, dilation: int,
+             n_valid: int | None):
+    """The standard layer on its conditioning ``cond`` [B, T, 2C] f32,
+    wherever that comes from -> (x_new, skip_acc + skip)."""
     T, C = x.shape[1], x.shape[2]
     n_valid = T if n_valid is None else n_valid
-    in_act = (_taps(x, w_in, dilation, n_valid) + b_in.to(F32)
-              + _cond(spect, w_cond, b_cond))
+    in_act = _taps(x, w_in, dilation, n_valid) + b_in.to(F32) + cond
     rs = _gate(in_act, w_in.dtype).to(F32) @ w_rs.to(F32) + b_rs.to(F32)
     valid = _valid_rows(T, n_valid, x.device)
     if w_rs.shape[-1] == 2 * C:
@@ -136,6 +139,40 @@ def wn_layer_plain(x, spect, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
     return x_out, skip_acc + skip.to(skip_acc.dtype)
 
 
+def first_body(x0, cond, out_dtype, start_k, start_b, wp, b_all, b_edge,
+               w_rs, b_rs, dilation: int, n_valid: int | None):
+    """The first layer on its conditioning ``cond`` [B, T, 2C] f32 ->
+    (x_hidden, skip) in ``out_dtype``."""
+    T, C = x0.shape[1], start_k.shape[-1]
+    n_valid = T if n_valid is None else n_valid
+    d = dilation
+    in_act = _taps(x0, wp, d, n_valid) + b_all + cond
+    in_act = _edge_bias_suppress(in_act, b_edge, d, n_valid)
+    rs = _gate(in_act, x0.dtype).to(F32) @ w_rs.to(F32) + b_rs.to(F32)
+    xh = x0.to(F32) @ start_k.to(F32) + start_b.to(F32)
+    x_out = torch.where(_valid_rows(T, n_valid, x0.device),
+                        (xh + rs[..., :C]).to(out_dtype), 0)
+    return x_out, rs[..., C:].to(out_dtype)
+
+
+def final_body(x, cond, w_in, b_in, w_eff, skip_acc, w_end, b_eff,
+               dilation: int, n_valid: int | None):
+    """The final layer on its conditioning ``cond`` [B, T, 2C] f32 ->
+    [B, T, E] f32."""
+    n_valid = x.shape[1] if n_valid is None else n_valid
+    in_act = _taps(x, w_in, dilation, n_valid) + b_in.to(F32) + cond
+    return _end_projection(_gate(in_act, w_in.dtype), w_eff, skip_acc, w_end,
+                           b_eff)
+
+
+def wn_layer_plain(x, spect, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
+                   skip_acc, dilation: int, n_valid: int | None = None):
+    """Standard layer -> (x_new, skip_acc + skip).  ``w_rs`` is [C, 2C]
+    (residual + skip) or [C, C] (skip only, hidden state passes through)."""
+    return std_body(x, _cond(spect, w_cond, b_cond), w_in, b_in, w_rs, b_rs,
+                    skip_acc, dilation, n_valid)
+
+
 def wn_layer_first_plain(x0, spect, start_k, start_b, wp, b_all, b_edge,
                          w_cond, b_cond, w_rs, b_rs, dilation: int,
                          n_valid: int | None = None):
@@ -143,17 +180,9 @@ def wn_layer_first_plain(x0, spect, start_k, start_b, wp, b_all, b_edge,
     ``wn_layer_plain(x0 @ start_k + start_b, ...)`` with a zero skip sum,
     at rank-n_half tap cost (``wn_block.py:281``).  ``wp``, ``b_all``,
     ``b_edge`` come from :func:`fold_first_taps`."""
-    T, C = x0.shape[1], start_k.shape[-1]
-    n_valid = T if n_valid is None else n_valid
-    d = dilation
-    in_act = (_taps(x0, wp, d, n_valid) + b_all
-              + _cond(spect, w_cond, b_cond))
-    in_act = _edge_bias_suppress(in_act, b_edge, d, n_valid)
-    rs = _gate(in_act, x0.dtype).to(F32) @ w_rs.to(F32) + b_rs.to(F32)
-    xh = x0.to(F32) @ start_k.to(F32) + start_b.to(F32)
-    x_out = torch.where(_valid_rows(T, n_valid, x0.device),
-                        (xh + rs[..., :C]).to(spect.dtype), 0)
-    return x_out, rs[..., C:].to(spect.dtype)
+    return first_body(x0, _cond(spect, w_cond, b_cond), spect.dtype, start_k,
+                      start_b, wp, b_all, b_edge, w_rs, b_rs, dilation,
+                      n_valid)
 
 
 def wn_layer_final_plain(x, spect, w_in, b_in, w_cond, b_cond, w_eff,
@@ -162,11 +191,8 @@ def wn_layer_final_plain(x, spect, w_in, b_in, w_cond, b_cond, w_eff,
     """Last layer + folded end projection -> (b, log_s) terms [B, T, E]
     f32 (``wn_block.py:325``, ``fold_rs=True``).  ``w_eff``, ``b_eff``
     come from :func:`fold_end`."""
-    n_valid = x.shape[1] if n_valid is None else n_valid
-    in_act = (_taps(x, w_in, dilation, n_valid) + b_in.to(F32)
-              + _cond(spect, w_cond, b_cond))
-    return _end_projection(_gate(in_act, w_in.dtype), w_eff, skip_acc, w_end,
-                           b_eff)
+    return final_body(x, _cond(spect, w_cond, b_cond), w_in, b_in, w_eff,
+                      skip_acc, w_end, b_eff, dilation, n_valid)
 
 
 # ---------------------------------------------------------------------------
