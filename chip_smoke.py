@@ -66,19 +66,49 @@ Phases, each of which passes or raises (the script then exits non-zero):
 15. quantized decode: the floating-point ``decode_chunk_serve`` bit-equal
     to ``decode_chunk``, the int8 mel against it, steps per second of both
     at batches 1, 8 and 32;
-16. the CLI with ``--stream`` in a process of its own.
+16. the CLI with ``--stream`` in a process of its own;
+17. the two tensor-parallel partial kernels against their plain versions
+    at C=512, M=640 for p = 2, 4, 8 ranks: batches 1 and 3, every dilation
+    1..128, ``n_valid < T``, ``rs_out`` 2C and C, the layer-0 form (n_half
+    2..4 with the edge-bias rows); the sum of the p partials plus the bias
+    against the whole layer's plain res/skip product; times and bounds at
+    B=1, T=6400 for p = 2 and 4;
+18. the tensor-parallel vocoder at full width on the main path's mel, p = 2
+    and 4, all shards on the one card, bf16 and int8: 96 p launches of the
+    bf16 partial kernel (12 p + 84 p with int8) and none of the whole-layer
+    wrappers; audio against the plain TP path, the single-device fused
+    vocoders and the f32 vocoder; wall beside the single-device vocode; the
+    distributed form on an NCCL group of one rank equal to the local form;
+19. the continuous-batching server at full width over the bf16 and the int8
+    synthesizer (4 slots, chunks of 64, 400 decoder steps): six requests
+    with their own seeds and sigmas, two with the denoiser, three of them
+    joining mid-flight; every session against the single pass over its own
+    mel and noise; one session alone in a one-slot server against the same
+    in the full batch; a second server whose sessions are shorter than one
+    window; ``load_weights`` between two sessions; rounds, time to first
+    audio, audio seconds per wall second, slot occupancy;
+20. the CLI with ``--serve_slots 2 --texts_file`` in a process of its own;
+21. the CLI with ``--serve_slots 2 --http_port 0`` in a process of its own:
+    two concurrent ``POST /synthesize`` clients, header bytes, PCM length,
+    ``/stats``, ``/healthz``, then an interrupt.
 
-Phases 12-16 run between phases 7 and 8.  The line before the last is a JSON object with one record per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Phases 12-21 run between phases 7 and 8.  The line before the last is a
+JSON object with one record per kernel; the last line is ``{"ok": true,
+"device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import http.client
 import json
 import os
+import queue
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -120,6 +150,12 @@ DCOND_KERNELS = {
     "wn_layer_first_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:100"),
     "wn_layer_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:43"),
     "wn_layer_final_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:162"),
+}
+# the tensor-parallel partial layers (one rank's share of a layer)
+PARTIAL_KERNELS = {
+    "wn_layer_partial": ("wn_block.cu", PALLAS + "wn_block.py:642"),
+    "wn_layer_partial_int8": ("wn_block_int8.cu",
+                              PALLAS + "wn_block_int8.py:447"),
 }
 # the training kernels, same columns
 TRAIN_KERNELS = {
@@ -456,10 +492,13 @@ def reset_counts() -> None:
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
+    from text2speech_tpu_torch.parallel import tp
+
     wb.reset_launch_counts()
     wq.reset_launch_counts()
     wd.reset_launch_counts()
     gated.reset_launch_counts()
+    tp.reset_launch_counts()
 
 
 def want_counts(wg_cfg, int8: bool, dcond: bool = False) -> dict:
@@ -1115,6 +1154,569 @@ def cli_stream() -> None:
 
 
 # ---------------------------------------------------------------------------
+# the tensor-parallel vocoder: kernels 4 and 8 and their path
+# ---------------------------------------------------------------------------
+
+# int8 partial against its plain version: the integer products are exact on
+# both sides; a gated value on a rounding knife edge may land one count
+# apart, which moves an output by at most that column's weight scale.  The
+# f32 partial is held to the final int8 layer's bound and to the bf16
+# kernels' relative L2.
+INT8_PARTIAL_ATOL = INT8_FINAL_ATOL
+# TP audio against f32: the hidden state and the skip sum stay f32 between
+# the layers, so the bf16 TP path is held to the fused path's own distance
+# from f32 (3 x, at least 2e-2, as the composed path); the int8 TP path to
+# the JAX package's band for int8 against f32 (5 x the bf16 distance, at
+# least 0.05).
+TP_REL32_FACTOR, TP_REL32_FLOOR = 3.0, 2e-2
+TP_INT8_REL32_FACTOR, TP_INT8_REL32_FLOOR = 5.0, 0.05
+
+
+def rank_share(k: dict, p: int, i: int, int8: bool) -> tuple:
+    """Rank i's weights of a whole layer's inputs ``k`` as the partial
+    wrapper takes them (after x/spect, before the dilation)."""
+    from text2speech_tpu_torch.ops import wn_block_int8 as wq
+    from text2speech_tpu_torch.parallel.tp import pair_cols
+
+    C = k["w_in"].shape[1]
+    Cp = C // p
+    cols = torch.from_numpy(pair_cols(C, p, i)).to(k["w_in"].device)
+    w_in, b_in = k["w_in"][..., cols], k["b_in"][cols].contiguous()
+    w_c, b_c = k["w_cond"][:, cols], k["b_cond"][cols].contiguous()
+    w_rs = k["w_rs"][i * Cp:(i + 1) * Cp]
+    if not int8:
+        return (w_in.contiguous(), b_in, w_c.contiguous(), b_c,
+                w_rs.contiguous())
+
+    def quant(w):
+        q, sc = wq.quantize_cols(w)
+        return wq.to_output_major(q), sc
+
+    return (*quant(w_in), b_in, *quant(w_c), b_c, *quant(w_rs))
+
+
+def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
+    """Phase 17: kernels 4 and 8 against their plain versions at reference
+    width, then kernel and plain times and the card's bound at B=1, T=6400
+    for p = 2 and 4 (the record holds p = 4's)."""
+    from text2speech_tpu_torch.ops import wn_block as wb
+    from text2speech_tpu_torch.ops import wn_block_int8 as wq
+
+    dev = torch.device("cuda")
+    rec = {n: {"max_abs_err": 0.0} for n in PARTIAL_KERNELS}
+
+    def note(name, err):
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+
+    def check_bf16(tag, args, kw, nv):
+        got = wb.wn_layer_partial(*args, n_valid=nv, **kw)
+        want = wb.wn_layer_partial_plain(*args, n_valid=nv, **kw)
+        if got.dtype != torch.float32 or got[:, nv:].any():
+            raise RuntimeError(f"{tag}: not f32, or rows past n_valid not 0")
+        note("wn_layer_partial", compare(f"wn_layer_partial {tag}", got, want))
+        return got
+
+    def check_int8(tag, args, nv):
+        got = wq.wn_layer_partial_int8(*args, n_valid=nv)
+        want = wq.wn_layer_partial_int8_plain(*args, n_valid=nv)
+        err = (got - want).abs().max().item()
+        rel = ((got - want).norm() / want.norm()).item()
+        print(f"  wn_layer_partial_int8 {tag}: max_abs_err={err:.6g} (bound "
+              f"{INT8_PARTIAL_ATOL}) rel_l2={rel:.3g} (bound {KERNEL_REL_L2})")
+        if not torch.isfinite(got).all() or got[:, nv:].any() \
+                or err > INT8_PARTIAL_ATOL or rel > KERNEL_REL_L2:
+            raise RuntimeError(f"wn_layer_partial_int8 {tag}: kernel "
+                               f"disagrees with its plain version")
+        note("wn_layer_partial_int8", err)
+
+    seed = 700
+    for p in (2, 4, 8):
+        for B, T, nv in ((1, 1000, 937), (3, 777, 700)):
+            shape = f"p={p} B={B} T={T} n_valid={nv}"
+            for n_half in (2, 3, 4):      # the layer-0 form, first/last rank
+                seed += 1
+                k = layer_inputs(B, T, nv, C, M, seed, dev, n_half=n_half)
+                for i in (0, p - 1):
+                    w_in, b_in, w_c, b_c, w_rs = rank_share(k, p, i, False)
+                    wp, b_all, b_edge = wb.fold_first_taps(
+                        k["start_k"], k["start_b"], w_in, b_in)
+                    check_bf16(f"{shape} n_half={n_half} rank {i}",
+                               (k["x0"], k["spect"], wp, b_all, w_c, b_c,
+                                w_rs, 1), {"b_edge": b_edge}, nv)
+            for li in range(8):           # every dilation of the WN ladder
+                d = 2 ** li
+                seed += 1
+                k = layer_inputs(B, T, nv, C, M, seed, dev)
+                if li % 3 == 2:           # a skip-only layer: rs_out = C
+                    k["w_rs"] = k["w_rs"][:, :C].contiguous()
+                    k["b_rs"] = k["b_rs"][:C].contiguous()
+                qx, sx = wq.quantize_rows(k["x"])
+                qsp, ssp = wq.quantize_rows(k["spect"])
+                tag = f"{shape} d={d} rs_out={k['w_rs'].shape[1]}"
+                whole = li in (1, 5)      # every rank, and their sum
+                total = None
+                for i in range(p) if whole else (0, p - 1):
+                    got = check_bf16(
+                        f"{tag} rank {i}",
+                        (k["x"], k["spect"], *rank_share(k, p, i, False), d),
+                        {}, nv)
+                    total = got if total is None else total + got
+                    check_int8(f"{tag} rank {i}",
+                               (qx, sx, qsp, ssp,
+                                *rank_share(k, p, i, True), d), nv)
+                if whole:
+                    # sum of the p partials + bias == the whole layer's
+                    # plain res/skip product
+                    in_act = (wb._taps(k["x"], k["w_in"], d, nv) + k["b_in"]
+                              + wb._cond(k["spect"], k["w_cond"],
+                                         k["b_cond"]))
+                    rs = (wb._gate(in_act, torch.bfloat16).float()
+                          @ k["w_rs"].float() + k["b_rs"])
+                    note("wn_layer_partial", compare(
+                        f"sum of {p} partials + bias vs the whole layer {tag}",
+                        (total + k["b_rs"])[:, :nv], rs[:, :nv]))
+
+    B, T, d = 1, 6400, 64
+    k = layer_inputs(B, T, T, C, M, 93, dev)
+    qx, sx = wq.quantize_rows(k["x"])
+    qsp, ssp = wq.quantize_rows(k["spect"])
+    bt = 2 * B * T
+    for p in (2, 4):
+        Cp = C // p
+        ops = bt * (3 * C + M) * 2 * Cp + bt * Cp * 2 * C
+        for name, kern, plain, args, kind in (
+                ("wn_layer_partial", wb.wn_layer_partial,
+                 wb.wn_layer_partial_plain,
+                 (k["x"], k["spect"], *rank_share(k, p, 0, False), d), "bf16"),
+                ("wn_layer_partial_int8", wq.wn_layer_partial_int8,
+                 wq.wn_layer_partial_int8_plain,
+                 (qx, sx, qsp, ssp, *rank_share(k, p, 0, True), d), "int8")):
+            out = kern(*args)
+            tensors = [t for t in (*args, out) if torch.is_tensor(t)]
+            r = {}
+            r["bound_ms"], r["bound_by"] = bound_ms({kind: ops}, tensors)
+            r["ms"] = time_ms(lambda: kern(*args))
+            r["plain_ms"] = time_ms(lambda: plain(*args))
+            print(f"  {name} p={p} B={B} T={T}: kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+                  f"ms (by {r['bound_by']}); {ops / 1e9:.2f} G operations, "
+                  f"{sum(t.numel() * t.element_size() for t in tensors) / 1e6:.1f}"
+                  f" MB")
+            if p == 4:
+                rec[name].update(r)
+    return rec
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def tp_path(bf16_synth, int8_synth, mel: torch.Tensor,
+            rel32_bf16: float) -> dict:
+    """Phase 18: the tensor-parallel vocoder at full width on the main
+    path's mel, every shard on this card.  Returns the partial kernels'
+    launch counts of its p = 2 runs."""
+    import torch.distributed as dist
+
+    from text2speech_tpu_torch.parallel import tp
+
+    wg, cfg = bf16_synth.waveglow, bf16_synth.wg_cfg
+    B, _, T = mel.shape
+    L, F = cfg.wn_n_layers, cfg.n_flows
+    Tg = T * cfg.upsample_stride // cfg.n_group
+    gen = torch.Generator(device="cuda").manual_seed(123)
+    noise = tuple(torch.randn(sh, generator=gen, device="cuda")
+                  for sh in bf16_synth.fused.noise_shapes(B, Tg))
+    with torch.inference_mode():
+        exact = wg.infer(mel, SIGMA, noise=noise)
+        single = {False: bf16_synth.fused.infer(mel, SIGMA, noise=noise),
+                  True: int8_synth.fused.infer(mel, SIGMA, noise=noise)}
+    peak = exact.abs().max().item()
+    launches = {}
+    for p in (2, 4):
+        plain_tp, t_plain = sync_time(lambda: tp.TPWaveGlowServer(
+            wg, p, fused=False)(mel, SIGMA, noise=noise))
+        r_plain = rel_l2(plain_tp, exact)
+        print(f"[tp] p={p} plain TP path (f32, fused=False) vs f32 "
+              f"WaveGlow.infer: rel_l2={r_plain:.4g} (bound 1e-4; "
+              f"{t_plain * 1e3:.1f} ms with the sharding)")
+        if r_plain > 1e-4:
+            raise RuntimeError("plain TP path differs from WaveGlow.infer")
+        for int8 in (False, True):
+            tag = f"p={p} {'int8' if int8 else 'bf16'}"
+            server, t_build = sync_time(lambda: tp.TPWaveGlowServer(
+                wg, p, fused=True, int8=int8))
+            reset_counts()
+            audio, t_first = sync_time(
+                lambda: server(mel, SIGMA, noise=noise))
+            got, other = tp.launch_counts(), all_counts()
+            want = ({"wn_layer_partial": F * p,
+                     "wn_layer_partial_int8": F * (L - 1) * p} if int8 else
+                    {"wn_layer_partial": F * L * p,
+                     "wn_layer_partial_int8": 0})
+            print(f"[tp] {tag}: shards prepared in {t_build:.2f} s; vocode "
+                  f"batch {B} x {T} frames in {t_first * 1e3:.1f} ms (first "
+                  f"call); launches {got}, whole-layer wrappers "
+                  f"{sum(other.values())}")
+            if got != want or any(other.values()):
+                raise RuntimeError(f"TP launch counts {got} (+ {other}), "
+                                   f"want {want} and none other")
+            if p == 2:
+                launches[("wn_layer_partial_int8" if int8
+                          else "wn_layer_partial")] = got[
+                    "wn_layer_partial_int8" if int8 else "wn_layer_partial"]
+            if tuple(audio.shape) != (B, T * cfg.upsample_stride) or \
+                    not torch.isfinite(audio).all():
+                raise RuntimeError(f"TP audio {tuple(audio.shape)}")
+            steps, rel_bound = ((E2E_INT8_MAX_ABS_STEPS, E2E_INT8_REL_L2)
+                                if int8 else (E2E_MAX_ABS_STEPS, E2E_REL_L2))
+            r_tp, r_single, r32 = (rel_l2(audio, plain_tp),
+                                   rel_l2(audio, single[int8]),
+                                   rel_l2(audio, exact))
+            err_single = (audio - single[int8]).abs().max().item()
+            bound32 = (max(TP_INT8_REL32_FACTOR * rel32_bf16,
+                           TP_INT8_REL32_FLOOR) if int8 else
+                       max(TP_REL32_FACTOR * rel32_bf16, TP_REL32_FLOOR))
+            print(f"[tp] {tag}: vs the plain TP path rel_l2={r_tp:.4g}, vs "
+                  f"f32 WaveGlow.infer rel_l2={r32:.4g} (bound {bound32:.4g}; "
+                  f"the single-device fused bf16 path: {rel32_bf16:.4g}); vs "
+                  f"the single-device infer_fused{'_int8' if int8 else ''}: "
+                  f"max_abs_err={err_single:.6g} (bound {steps * peak:.4g}) "
+                  f"rel_l2={r_single:.4g} (bound {rel_bound})")
+            if max(r_tp, r32) > bound32 or err_single > steps * peak \
+                    or r_single > rel_bound:
+                raise RuntimeError(f"TP vocoder {tag}: audio out of bounds")
+            # wall beside the single-device vocode, warm, in turns
+            fw = (int8_synth if int8 else bf16_synth).fused
+            runs = {"tp": lambda: server(mel, SIGMA, noise=noise),
+                    "single": lambda: fw.infer(mel, SIGMA, noise=noise)}
+            times = {n: [] for n in runs}
+            with torch.inference_mode():
+                for n in ("single", "tp", "tp", "single", "single", "tp"):
+                    times[n].append(sync_time(runs[n])[1] * 1e3)
+            print(f"[tp] {tag}: vocode wall ms, TP on one card "
+                  f"{[round(t, 2) for t in times['tp']]}, single-device fused "
+                  f"{[round(t, 2) for t in times['single']]}")
+            del server
+            torch.cuda.empty_cache()
+
+    # the distributed form: an NCCL group of this one rank
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        for int8 in (False, True):
+            grouped = tp.TPWaveGlowServer(wg, group=dist.group.WORLD,
+                                          int8=int8)
+            local = tp.TPWaveGlowServer(wg, 1, int8=int8)
+            a = grouped(mel[:1], SIGMA, noise=tuple(z[:1] for z in noise))
+            b = local(mel[:1], SIGMA, noise=tuple(z[:1] for z in noise))
+            same = torch.equal(a, b)
+            print(f"[tp] NCCL group of 1 rank (int8={int8}): ranks "
+                  f"{grouped.ranks} of {grouped.n_model}, audio equal to the "
+                  f"local form: {same}")
+            if not same or grouped.ranks != [0]:
+                raise RuntimeError("the distributed form differs from the "
+                                   "local form")
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the continuous-batching server, its CLI and its HTTP front end
+# ---------------------------------------------------------------------------
+
+SERVE_SLOTS, SERVE_STEPS = 4, 400
+SERVE_SIGMAS = [0.666, 0.5, 0.8, 0.666, 1.0, 0.6]
+SERVE_STRENGTHS = [None, DENOISER_STRENGTH, None, None, DENOISER_STRENGTH,
+                   None]
+
+
+def session_reference(synth, srv, sid) -> torch.Tensor:
+    """One pass over the session's own final mel with its own noise,
+    pre-scaled by its sigma as the scheduler scales it, then the offline
+    denoiser at its strength."""
+    s = srv.sessions[sid]
+    tl = min(s.out_len, srv.requested)
+    nz = tuple((s.sigma * c[None, : tl * srv.gpf]).contiguous()
+               for c in srv._sess_noise(s, tl))
+    return synth.mel_to_audio(s.post_cat()[None, :, :tl].contiguous(), 1.0,
+                              noise=nz, denoiser_strength=s.den_strength)[0]
+
+
+def drive(srv, waves):
+    """Submit ``waves`` = [(rounds to step first, [submit kwargs])] and step
+    until idle -> ({sid: audio}, {sid: seconds to first audio}, seconds)."""
+    parts, first, t_sub = {}, {}, {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def step():
+        for ev in srv.step():
+            if ev.audio is not None:
+                first.setdefault(ev.sid, time.perf_counter() - t_sub[ev.sid])
+                parts.setdefault(ev.sid, []).append(ev.audio)
+
+    for rounds, requests in waves:
+        for _ in range(rounds):
+            step()
+        for kw in requests:
+            t_sub[srv.submit(**kw)] = time.perf_counter()
+    while not srv.idle:
+        step()
+    torch.cuda.synchronize()
+    return ({sid: np.concatenate(p) for sid, p in parts.items()}, first,
+            time.perf_counter() - t0)
+
+
+def server_path(synth, tag: str, int8: bool) -> None:
+    """Phase 19 for one vocoder."""
+    from text2speech_tpu_torch.server import make_server
+
+    cfg = synth.wg_cfg
+    hop, sr = cfg.upsample_stride, cfg.sampling_rate
+    requests = [dict(request=TEXTS[i % len(TEXTS)], seed=10 + i,
+                     sigma=SERVE_SIGMAS[i],
+                     denoiser_strength=SERVE_STRENGTHS[i]) for i in range(6)]
+    srv = make_server(synth, slots=SERVE_SLOTS, chunk_steps=STREAM_CHUNK,
+                      max_steps=SERVE_STEPS, retain_sessions=True)
+    srv.warm_window_widths()
+    srv.warm_short_pass()
+    reset_counts()
+    # three sessions start; after two rounds three more arrive: one takes
+    # the free slot mid-flight, two wait for slots to free
+    wavs, first, wall = drive(srv, [(0, requests[:3]), (2, requests[3:])])
+    counts = {k: v for k, v in all_counts().items() if v}
+    st = srv.stats
+    seconds = sum(len(w) for w in wavs.values()) / sr
+    joins = sorted((s.sid, s.slot, s.admit_round)
+                   for s in srv.sessions.values())
+    print(f"[serve] {tag}: 6 sessions x {SERVE_STEPS} steps through "
+          f"{SERVE_SLOTS} slots in {st['rounds']} rounds, {wall:.3f} s: "
+          f"{seconds:.2f} s of audio = {seconds / wall:.3f} audio seconds per "
+          f"wall second; slot occupancy "
+          f"{st['active_row_steps'] / st['row_steps']:.3f}; first audio after "
+          f"{ {sid: round(t, 3) for sid, t in sorted(first.items())} } s; "
+          f"(sid, slot, admit round) {joins}; calls: postnet "
+          f"{st['postnet_calls']}, vocoder {st['vocoder_calls']}, denoiser "
+          f"{st['denoiser_calls']}; launches {counts}")
+    mine = list(KERNELS)[3:] if int8 else list(KERNELS)[:3]
+    if sorted(counts) != sorted(mine):
+        raise RuntimeError(f"server {tag}: launches {counts}, want only the "
+                           f"{mine} wrappers")
+    mid_flight = [j for j in joins if j[2] > 0]
+    reused = {j[1] for j in mid_flight} & {j[1] for j in joins if j[2] == 0}
+    if len(mid_flight) != 3 or not reused or sorted(wavs) != list(range(6)):
+        raise RuntimeError(f"server {tag}: sessions did not join mid-flight")
+    if (st["admitted"], st["completed"], st["cancelled"]) != (6, 6, 0) \
+            or st["row_steps"] != st["rounds"] * SERVE_SLOTS * STREAM_CHUNK \
+            or st["emitted_samples"] != sum(len(w) for w in wavs.values()) \
+            or not srv.idle or st["denoiser_calls"] == 0:
+        raise RuntimeError(f"server {tag}: inconsistent stats {st}")
+    for sid, wav in wavs.items():
+        want = session_reference(synth, srv, sid)
+        n = SERVE_STEPS * hop
+        if srv.sessions[sid].den_strength == 0 and len(wav) != n:
+            raise RuntimeError(f"session {sid}: {len(wav)} samples, want {n}")
+        check_stream_audio(f"serve {tag} session {sid} (sigma "
+                           f"{srv.sessions[sid].sigma}, denoiser "
+                           f"{srv.sessions[sid].den_strength})", wav, want,
+                           int8)
+
+    # one (text, seed) alone in a one-slot server against the full batch
+    solo = make_server(synth, slots=1, chunk_steps=STREAM_CHUNK,
+                       max_steps=SERVE_STEPS)
+    alone, first1, wall1 = drive(solo, [(0, [requests[4]])])
+    print(f"[serve] {tag}: session 4 alone in a one-slot server: first audio "
+          f"after {first1[0]:.3f} s, all after {wall1:.3f} s")
+    check_stream_audio(f"serve {tag} session 4 in the batch vs alone",
+                       wavs[4], torch.from_numpy(alone[0]), int8)
+
+    # sessions shorter than one vocoder window: the exact pass
+    short_steps = 150
+    short = make_server(synth, slots=2, chunk_steps=STREAM_CHUNK,
+                        max_steps=short_steps, retain_sessions=True)
+    if short_steps > short.Wv:
+        raise RuntimeError("the short server's sessions span a window")
+    swavs, sfirst, swall = drive(short, [(0, requests[:3])])
+    print(f"[serve] {tag}: 3 sessions x {short_steps} steps (under one window "
+          f"of {short.Wv} frames) through 2 slots: {short.stats['rounds']} "
+          f"rounds, {swall:.3f} s, vocoder calls "
+          f"{short.stats['vocoder_calls']}, first audio after "
+          f"{ {sid: round(t, 3) for sid, t in sorted(sfirst.items())} } s")
+    for sid, wav in swavs.items():
+        check_stream_audio(f"serve {tag} short session {sid}", wav,
+                           session_reference(synth, short, sid), int8)
+
+
+def server_reload(synth, tag: str, int8: bool) -> None:
+    """Phase 19, the live weight swap: ``load_weights`` between two sessions
+    of a running server changes the next session's audio and raises
+    nothing.  Leaves ``synth`` on the new vocoder weights."""
+    from text2speech_tpu_torch.convert import variables_from_trainable
+    from text2speech_tpu_torch.models.waveglow import TrainableWaveGlow
+    from text2speech_tpu_torch.server import make_server
+
+    cfg = synth.wg_cfg
+    srv = make_server(synth, slots=2, chunk_steps=STREAM_CHUNK,
+                      max_steps=SERVE_STEPS, retain_sessions=True)
+    req = dict(request=TEXTS[0], seed=3, denoiser_strength=DENOISER_STRENGTH)
+    before, _, _ = drive(srv, [(0, [req])])
+    fresh = TrainableWaveGlow(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(9),
+        device="cuda")
+    bias0 = synth._denoise_bias.clone()
+    _, t_swap = sync_time(lambda: synth.load_weights(
+        wg_variables=variables_from_trainable(fresh)))
+    del fresh
+    after, _, _ = drive(srv, [(0, [req])])
+    diff = np.abs(after[1] - before[0]).max()
+    want = session_reference(synth, srv, 1)
+    print(f"[serve] {tag}: load_weights (a fresh WaveGlow initialisation) "
+          f"under a running server in {t_swap:.2f} s; the same (text, seed) "
+          f"before and after: max |diff| {diff:.4g}; denoiser bias changed: "
+          f"{not torch.equal(bias0, synth._denoise_bias)}")
+    if diff < 1e-3 or torch.equal(bias0, synth._denoise_bias) \
+            or not np.isfinite(after[1]).all():
+        raise RuntimeError("load_weights did not show on the next session")
+    check_stream_audio(f"serve {tag} session after load_weights", after[1],
+                       want, int8)
+
+
+def cli_serve_batch() -> None:
+    """Phase 20: the CLI serves a texts file through two slots."""
+    from scipy.io import wavfile
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(f"{d}/texts.txt", "w", encoding="utf-8") as f:
+            f.write("\n".join(TEXTS) + "\n")
+        cmd = [sys.executable, "-m", "text2speech_tpu_torch.inference",
+               "--random_init", "0", "--int8_vocoder", "-d", "0.1",
+               "--serve_slots", "2", "--texts_file", f"{d}/texts.txt",
+               "--max_steps", "150", "--out", f"{d}/served.wav"]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        print(f"[cli] {' '.join(cmd[1:])} -> rc {r.returncode}: "
+              f"{' | '.join(r.stdout.strip().splitlines())}")
+        if r.returncode != 0:
+            raise RuntimeError(f"CLI --serve_slots failed:\n{r.stderr}")
+        for sid in range(len(TEXTS)):
+            sr, data = wavfile.read(f"{d}/served_{sid}.wav")
+            if data.dtype != np.int16 or sr != 22050 or \
+                    not 149 * 256 <= data.shape[0] <= 150 * 256:
+                raise RuntimeError(f"served_{sid}.wav: {data.shape} "
+                                   f"{data.dtype} at {sr} Hz")
+        if f"served {len(TEXTS)} sessions through 2 slots" not in r.stdout:
+            raise RuntimeError("CLI --serve_slots: no summary line")
+
+
+def cli_serve_http() -> None:
+    """Phase 21: the CLI's HTTP server in a process of its own, two clients
+    at once, then an interrupt."""
+    from text2speech_tpu_torch.http_serve import wav_stream_header
+
+    steps = 150
+    cmd = [sys.executable, "-u", "-m", "text2speech_tpu_torch.inference",
+           "--random_init", "0", "--int8_vocoder", "--serve_slots", "2",
+           "--http_port", "0", "--max_steps", str(steps),
+           "--http_reload_token", "smoke"]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines: queue.Queue = queue.Queue()
+    errs: list = []
+    readers = [threading.Thread(target=lambda: [lines.put(ln) for ln in
+                                                proc.stdout], daemon=True),
+               threading.Thread(target=lambda: errs.extend(proc.stderr),
+                                daemon=True)]
+    for t in readers:
+        t.start()
+    try:
+        port, seen, deadline = None, [], time.monotonic() + 300
+        while port is None:
+            try:
+                ln = lines.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queue.Empty:
+                raise RuntimeError(f"the HTTP server did not come up: {seen}"
+                                   f"\n{''.join(errs)}") from None
+            seen.append(ln.strip())
+            if "HTTP TTS server on :" in ln:
+                port = int(ln.split(" on :")[1].split()[0])
+            if proc.poll() is not None and port is None:
+                raise RuntimeError(f"the HTTP server exited: {seen}\n"
+                                   f"{''.join(errs)}")
+        print(f"[http] {' '.join(cmd[2:])}: {' | '.join(seen)}")
+
+        def request(method, path, body=None, headers=None):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            conn.request(method, path, body=body, headers=headers or {})
+            resp = conn.getresponse()
+            data = resp.read()
+            conn.close()
+            return resp, data
+
+        results, t0 = {}, time.perf_counter()
+
+        def client(i):
+            resp, data = request("POST", "/synthesize", json.dumps(
+                {"text": TEXTS[i], "seed": 20 + i,
+                 "denoiser_strength": 0.1 if i else None}))
+            results[i] = (resp.status, resp.getheader("Content-Type"),
+                          resp.getheader("X-Session-Id"), data,
+                          time.perf_counter() - t0)
+
+        clients = [threading.Thread(target=client, args=(i,))
+                   for i in range(2)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        header = wav_stream_header(22050)
+        for i in range(2):
+            if i not in results:
+                raise RuntimeError(f"HTTP client {i} did not finish")
+            status, ctype, sid, data, secs = results[i]
+            n_pcm = len(data) - len(header)
+            print(f"[http] client {i}: status {status}, {ctype}, session "
+                  f"{sid}, {n_pcm // 2} samples in {secs:.3f} s")
+            # a denoised stream ends at a whole number of STFT hops
+            lo = (steps - 1) * 256 * 2
+            if status != 200 or ctype != "audio/wav" or sid is None \
+                    or data[: len(header)] != header \
+                    or not lo <= n_pcm <= steps * 256 * 2 or n_pcm % 2 \
+                    or not np.frombuffer(data[len(header):], "<i2").any():
+                raise RuntimeError(f"HTTP client {i}: bad response")
+        resp, data = request("GET", "/stats")
+        stats = json.loads(data)
+        resp_h, data_h = request("GET", "/healthz")
+        resp_b, data_b = request("POST", "/synthesize", b"not json")
+        resp_r, _ = request("POST", "/reload", b"{}")
+        print(f"[http] /stats {stats}; /healthz {resp_h.status} "
+              f"{json.loads(data_h)}; bad JSON -> {resp_b.status}; /reload "
+              f"without its token -> {resp_r.status}")
+        if resp.status != 200 or stats["slots"] != 2 \
+                or stats["completed"] < 2 or stats["open_streams"] != 0 \
+                or resp_h.status != 200 or json.loads(data_h) != {"ok": True} \
+                or resp_b.status != 400 or resp_r.status != 403:
+            raise RuntimeError("HTTP server: bad /stats, /healthz or errors")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+    print(f"[http] the server exited with code {proc.returncode} after the "
+          f"interrupt")
+
+
+# ---------------------------------------------------------------------------
 # training: the gated activation and conv backward kernels, one step, the CLI
 # ---------------------------------------------------------------------------
 
@@ -1602,6 +2204,17 @@ def main() -> int:
     quantized_decode(bf16["synth"])
     cli_stream()
 
+    print("[kernels] tensor-parallel partial kernels vs plain at C=512, "
+          "M=640, p=2,4,8")
+    rec.update(check_partial_kernels())
+    tp_launches = tp_path(bf16["synth"], int8["synth"], bf16["mel"],
+                          bf16["rel32"])
+    server_path(bf16["synth"], "bf16", int8=False)
+    server_path(int8["synth"], "int8", int8=True)
+    server_reload(int8["synth"], "int8", int8=True)
+    cli_serve_batch()
+    cli_serve_http()
+
     print("[kernels] training kernels vs plain")
     rec.update(check_train_kernels())
     chain_launches = conv_backward_path()
@@ -1612,7 +2225,7 @@ def main() -> int:
     launches = {**{n: bf16["launches"][n] for n in list(KERNELS)[:3]},
                 **{n: int8_launches[n] for n in list(KERNELS)[3:]},
                 **{n: dcond_launches[n] for n in DCOND_KERNELS},
-                **trained, "conv_k3_bwd": chain_launches}
+                **tp_launches, **trained, "conv_k3_bwd": chain_launches}
     if not all(launches.values()):
         raise RuntimeError(f"a kernel was launched on no path: {launches}")
     kernels = [{
@@ -1623,7 +2236,7 @@ def main() -> int:
         # no one PyTorch call computes a fused WN layer or the gated
         # activation; the conv backward has aten.convolution_backward
         "library_ms": rec[n].get("library_ms"),
-    } for n, (src, repl) in {**KERNELS, **DCOND_KERNELS,
+    } for n, (src, repl) in {**KERNELS, **DCOND_KERNELS, **PARTIAL_KERNELS,
                              **TRAIN_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

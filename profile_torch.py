@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Where the time goes in the PyTorch port on one NVIDIA GPU.
 
-    python3 profile_torch.py [--batch 3] [--steps 200] [--stages serve train]
+    python3 profile_torch.py [--batch 3] [--steps 200]
+                             [--stages serve server train]
 
 Builds the reference-width synthesizers on seeded random weights (bf16 fused
 and int8 vocoders, as ``chip_smoke.py`` does) and runs each stage of the
@@ -10,7 +11,12 @@ and without the denoiser through either vocoder, the composed-conditioning
 vocode beside the bf16 one, long-form vocoding of a 712-frame mel, and one
 ``synthesize_incremental`` call (``stream``: wall, device busy, idle share
 and the time to the first chunk, at ``--stream_steps`` decoder steps in
-chunks of 64).  The ``train`` stages are one WaveGlow optimizer step at
+chunks of 64).  The ``server`` stages are the tensor-parallel vocode of the
+same mel with 2 and 4 shards on the one card, bf16 and int8, beside the
+single-device vocode, and one whole run of the continuous-batching server
+(six sessions of ``--server_steps`` decoder steps through 4 slots, chunks of
+64, two with the denoiser): wall, device busy and idle share of the run and
+per scheduling round.  The ``train`` stages are one WaveGlow optimizer step at
 reference width (batch 3 x 16,000 samples of seeded noise, the seeded
 initialisation with live ``end`` convs) in f32, f32 with remat, and bf16,
 each with its peak device memory.  For each stage it prints the wall time of the profiled
@@ -140,13 +146,16 @@ def train_stages() -> list:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--stages", nargs="+", default=["serve", "train"],
-                   choices=("serve", "train"))
+    p.add_argument("--stages", nargs="+",
+                   default=["serve", "server", "train"],
+                   choices=("serve", "server", "train"))
     p.add_argument("--batch", type=int, default=3, choices=range(1, 5))
     p.add_argument("--steps", type=int, default=200,
                    help="decoder steps = mel frames per utterance")
     p.add_argument("--stream_steps", type=int, default=600,
                    help="decoder steps of the stream stage's utterance")
+    p.add_argument("--server_steps", type=int, default=400,
+                   help="decoder steps of each served session")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device", file=sys.stderr)
@@ -156,6 +165,8 @@ def main(argv=None) -> int:
 
     if "serve" in args.stages:
         serve_stages(args)
+    if "server" in args.stages:
+        server_stages(args)
     if "train" in args.stages:
         print("WaveGlow training, reference width, batch 3 x 16000")
         for name, build in train_stages():
@@ -240,6 +251,76 @@ def serve_stages(args) -> None:
                                      max_steps=args.stream_steps,
                                      denoiser_strength=0.1))
         print(json.dumps(single, ensure_ascii=False))
+
+
+def server_stages(args) -> None:
+    """The tensor-parallel vocode and one run of the continuous-batching
+    server, each profiled whole."""
+    from text2speech_tpu_torch.config import HParams, WaveGlowConfig
+    from text2speech_tpu_torch.infer import random_synthesizer
+    from text2speech_tpu_torch.parallel.tp import TPWaveGlowServer
+    from text2speech_tpu_torch.server import make_server
+
+    texts = TEXTS[: args.batch]
+    synths = {
+        "bf16": random_synthesizer(HParams(), WaveGlowConfig(), 0,
+                                   device="cuda"),
+        "int8": random_synthesizer(HParams(), WaveGlowConfig(), 0,
+                                   device="cuda", int8_vocoder=True),
+    }
+    bf16 = synths["bf16"]
+    mel, _ = bf16.text_to_mel(texts, seed=0, max_steps=args.steps)
+    mel = mel[:, :, : args.steps].contiguous()
+    gen = torch.Generator(device="cuda")
+    print(f"tensor-parallel vocode, batch {len(texts)} x {args.steps} frames, "
+          f"every shard on this card")
+    for tag, s in synths.items():
+        rec = profile_stage(f"vocode {tag} single device",
+                            lambda s=s: s.mel_to_audio(mel, SIGMA),
+                            ("wn_layer",))
+        print(json.dumps(rec, ensure_ascii=False))
+        for p in (2, 4):
+            tps = TPWaveGlowServer(bf16.waveglow, p, int8=tag == "int8")
+            rec = profile_stage(
+                f"vocode {tag} tp p={p}",
+                lambda: tps(mel, SIGMA, generator=gen.manual_seed(1)),
+                ("wn_layer",))
+            print(json.dumps(rec, ensure_ascii=False))
+            del tps
+            torch.cuda.empty_cache()
+
+    sigmas = [0.666, 0.5, 0.8, 0.666, 1.0, 0.6]
+    strengths = [None, 0.1, None, None, 0.1, None]
+    print(f"continuous-batching server: 6 sessions x {args.server_steps} "
+          f"decoder steps through 4 slots, chunks of 64")
+    for tag, s in synths.items():
+        rounds: list = []
+
+        def run(s=s):
+            srv = make_server(s, slots=4, chunk_steps=64,
+                              max_steps=args.server_steps)
+            for i in range(3):
+                srv.submit(TEXTS[i % len(TEXTS)], seed=10 + i,
+                           sigma=sigmas[i], denoiser_strength=strengths[i])
+            srv.step()
+            srv.step()
+            for i in range(3, 6):
+                srv.submit(TEXTS[i % len(TEXTS)], seed=10 + i,
+                           sigma=sigmas[i], denoiser_strength=strengths[i])
+            while not srv.idle:
+                srv.step()
+            rounds[:] = [srv.stats["rounds"], srv.stats["emitted_samples"],
+                         srv.stats["active_row_steps"]
+                         / srv.stats["row_steps"]]
+
+        rec = profile_stage(f"server {tag}", run, ("wn_layer",))
+        n, samples, occupancy = rounds
+        rec.update(rounds=n, slot_occupancy=round(occupancy, 3),
+                   wall_ms_per_round=round(rec["wall_ms_profiled"] / n, 3),
+                   busy_ms_per_round=round(rec["device_busy_ms"] / n, 3),
+                   audio_s_per_wall_s=[round(samples / 22050 / (w / 1e3), 3)
+                                       for w in rec["wall_ms_unprofiled"]])
+        print(json.dumps(rec, ensure_ascii=False))
 
 
 if __name__ == "__main__":

@@ -727,3 +727,120 @@ def test_streaming_small_synthesizer_on_the_card(dev):
     assert got.shape == want.shape == (n * cfg.upsample_stride,)
     assert (got - want).abs().max() <= 16 * 2.0 ** -8 * want.abs().max()
     assert ((got - want).norm() / want.norm()).item() < 2e-2
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel partial layers (one rank's share of a WN layer)
+# ---------------------------------------------------------------------------
+
+
+def rank_cols(C, Cp, i):
+    """Rank i's gate-paired columns of a 2C-wide in-act product."""
+    return np.r_[i * Cp:(i + 1) * Cp, C + i * Cp:C + (i + 1) * Cp]
+
+
+@pytest.mark.parametrize("p,d,rs_full", [(2, 1, True), (2, 64, False),
+                                         (4, 128, True), (8, 400, True),
+                                         (8, 2, False)])
+def test_partial_kernel_matches_plain_and_sums_to_the_layer(dev, p, d,
+                                                            rs_full):
+    """Every rank's partial against its plain version, and the ranks' sum
+    plus the bias against the whole layer's plain res/skip product."""
+    B, T, nv, C, M = 2, 333, 300, 512, 64
+    Cp = C // p
+    rs_out = 2 * C if rs_full else C
+    k = inputs(dev, B, T, nv, C, M, d, rs_out=rs_out)
+    total = None
+    for i in range(p):
+        cols = torch.from_numpy(rank_cols(C, Cp, i)).to(dev)
+        args = (k["x"], k["spect"], k["w_in"][..., cols].contiguous(),
+                k["b_in"][cols].contiguous(),
+                k["w_cond"][:, cols].contiguous(),
+                k["b_cond"][cols].contiguous(),
+                k["w_rs"][i * Cp:(i + 1) * Cp].contiguous(), d)
+        got = wb.wn_layer_partial(*args, n_valid=nv)
+        want = wb.wn_layer_partial_plain(*args, n_valid=nv)
+        assert got.dtype == torch.float32 and got.shape == (B, T, rs_out)
+        assert (got[:, nv:] == 0).all()
+        close(got, want)
+        total = got if total is None else total + got
+    cond = wb._cond(k["spect"], k["w_cond"], k["b_cond"])
+    in_act = wb._taps(k["x"], k["w_in"], d, nv) + k["b_in"] + cond
+    whole = (wb._gate(in_act, torch.bfloat16).float() @ k["w_rs"].float()
+             + k["b_rs"])
+    close((total + k["b_rs"])[:, :nv], whole[:, :nv])
+
+
+@pytest.mark.parametrize("n_half,p", [(2, 2), (3, 4), (4, 8)])
+def test_partial_first_form_kernel_matches_plain(dev, n_half, p):
+    """The layer-0 form: the audio half under a rank's columns of the
+    composed taps, with the edge-bias rows."""
+    B, T, nv, C, M = 3, 300, 271, 512, 64
+    Cp = C // p
+    k = inputs(dev, B, T, nv, C, M, n_half, n_half=n_half)
+    for i in (0, p - 1):
+        cols = torch.from_numpy(rank_cols(C, Cp, i)).to(dev)
+        wp, b_all, b_edge = wb.fold_first_taps(
+            k["start_k"], k["start_b"], k["w_in"][..., cols],
+            k["b_in"][cols])
+        args = (k["x0"], k["spect"], wp, b_all,
+                k["w_cond"][:, cols].contiguous(),
+                k["b_cond"][cols].contiguous(),
+                k["w_rs"][i * Cp:(i + 1) * Cp].contiguous(), 1)
+        got = wb.wn_layer_partial(*args, b_edge=b_edge, n_valid=nv)
+        want = wb.wn_layer_partial_plain(*args, b_edge=b_edge, n_valid=nv)
+        assert (got[:, nv:] == 0).all()
+        close(got, want)
+
+
+@pytest.mark.parametrize("p,d,rs_full", [(2, 1, True), (4, 128, False),
+                                         (8, 400, True)])
+def test_partial_int8_kernel_matches_plain(dev, p, d, rs_full):
+    """Each rank quantizes its own slices.  The integer products are exact
+    on both sides; a gated value on a rounding knife edge may differ by one
+    count, which moves an output by at most that column's weight scale, so
+    the f32 partial is held to the final int8 layer's bound, 0.02, and to
+    5e-3 relative L2."""
+    B, T, nv, C, M = 2, 333, 300, 512, 64
+    Cp = C // p
+    k = inputs(dev, B, T, nv, C, M, d, rs_out=2 * C if rs_full else C)
+    qx, sx = wq.quantize_rows(k["x"])
+    qspect, sspect = wq.quantize_rows(k["spect"])
+    for i in (0, p - 1):
+        cols = torch.from_numpy(rank_cols(C, Cp, i)).to(dev)
+        qs = [wq.quantize_cols(w) for w in (
+            k["w_in"][..., cols], k["w_cond"][:, cols],
+            k["w_rs"][i * Cp:(i + 1) * Cp])]
+        (qw_in, sw_in), (qw_cond, sw_cond), (qw_rs, sw_rs) = [
+            (wq.to_output_major(q), s) for q, s in qs]
+        args = (qx, sx, qspect, sspect, qw_in, sw_in,
+                k["b_in"][cols].contiguous(), qw_cond, sw_cond,
+                k["b_cond"][cols].contiguous(), qw_rs, sw_rs, d)
+        got = wq.wn_layer_partial_int8(*args, n_valid=nv)
+        want = wq.wn_layer_partial_int8_plain(*args, n_valid=nv)
+        assert torch.isfinite(got).all() and (got[:, nv:] == 0).all()
+        assert (got - want).abs().max().item() <= 0.02
+        assert ((got - want).norm() / want.norm()).item() <= REL_L2
+
+
+def test_partial_wrappers_reject_what_the_kernels_do_not_take(dev):
+    B, T, C, M = 1, 64, 128, 64
+    k = inputs(dev, B, T, T, C, M, 7)
+    args = [k["x"], k["spect"], k["w_in"][..., :128].contiguous(),
+            k["b_in"][:128].contiguous(), k["w_cond"][:, :128].contiguous(),
+            k["b_cond"][:128].contiguous(), k["w_rs"][:64].contiguous()]
+    wb.wn_layer_partial(*args, 1)
+    bad = list(args)
+    bad[0] = args[0].float()
+    with pytest.raises(ValueError, match="dtype"):
+        wb.wn_layer_partial(*bad, 1)
+    bad = list(args)      # a rank's share narrower than one gate-pair chunk
+    bad[2], bad[3] = args[2][..., :64].contiguous(), args[3][:64].contiguous()
+    bad[4], bad[5] = args[4][:, :64].contiguous(), args[5][:64].contiguous()
+    bad[6] = args[6][:32].contiguous()
+    with pytest.raises(ValueError, match="Cp % 64"):
+        wb.wn_layer_partial(*bad, 1)
+    bad = list(args)
+    bad[6] = args[6].cpu()
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        wb.wn_layer_partial(*bad, 1)

@@ -206,7 +206,8 @@ def test_port_imports_with_jax_blocked():
         "for n in ('ops.gated', 'ops.wn_backward', 'train.waveglow',\n"
         "          'train.checkpoint', 'data.mel2samp', 'utils.logger',\n"
         "          'waveglow_train', 'ops.wn_block_dcond',\n"
-        "          'models.tacotron_serve'):\n"
+        "          'models.tacotron_serve', 'parallel', 'parallel.tp',\n"
+        "          'server', 'http_serve'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )

@@ -1,9 +1,10 @@
 // WaveGlow WN coupling layer, hand-written for Hopper (sm_90a).
 //
-// Six kernels, one per layer role of the fused serving path and per source
-// of the conditioning, all built from one template
-// (wn_layer_kernel<ROLE, DCOND>).  With DCOND = false the conditioning is
-// projected in the kernel (spect[t] Wc + b_cond):
+// Eight kernels: one per layer role of the fused serving path and per
+// source of the conditioning, and the tensor-parallel partial layer in its
+// two forms, all built from one template (wn_layer_kernel<ROLE, DCOND>).
+// With DCOND = false the conditioning is projected in the kernel
+// (spect[t] Wc + b_cond):
 //
 //   FIRST  replaces text2speech_tpu/ops/pallas/wn_block.py:459
 //          wn_layer_stream2_first (body _kernel_stream2_first, :281)
@@ -11,6 +12,10 @@
 //          wn_layer_stream2 (body _kernel_stream2, :200)
 //   FINAL  replaces text2speech_tpu/ops/pallas/wn_block.py:528
 //          wn_layer_stream2_final (body _kernel_stream2_final, :325)
+//
+//   PART, PART_FIRST  replace text2speech_tpu/ops/pallas/wn_block.py:642
+//          wn_layer_stream2_partial (body _kernel_stream2_partial, :612),
+//          without and with the layer-0 edge-bias rows
 //
 // With DCOND = true (the composed-conditioning vocoder) it is read from a
 // column slice of a pre-materialised cond_all [B, T, cond_ld] (bf16, the
@@ -77,6 +82,23 @@
 // 2C bf16 per row, 13 MB per call at T=6400: far below the weights' L2
 // stream, so the kernel stays bound by operations.
 //
+// The partial kernels (tensor-parallel vocoder).  One rank of p owns the
+// gate-paired columns [i Cp, (i+1) Cp) u [C + i Cp, C + (i+1) Cp) of the
+// in-act product (Cp = C / p) and the matching Cp rows of the res/skip
+// product.  Its kernel reads the whole hidden state (K = CX = C per tap, or
+// the rank-n_half audio half with the composed taps and the edge-bias rows:
+// PART_FIRST), gates its Cp column pairs into a [BM, Cp] tile and multiplies
+// that by its [Cp, rs_out] rows.  The result is WRITTEN as f32 [B, T,
+// rs_out], zero at rows >= n_valid, with no res/skip bias, residual or skip
+// sum: those need the sum over ranks and are added once, outside.  So the
+// template's one width C becomes two: CX (the hidden state's, the taps' K)
+// and C (the local gate width, the res/skip K); the whole-layer roles run
+// with CX = C.  Per rank the products shrink by p but x and spect are read
+// whole and rs_out f32 columns are written: at p = 4 (Cp = 128) a call at
+// B=1, T=6400 is 8.8 GFLOP against 41 MB, 26 MB of them the f32 output, so
+// on an H100 the partial layer is bound by bytes where the whole layer is
+// bound by operations.  Measured times are in PERF.md.
+//
 // d, n_valid, n_half, E and the cond_all slice are runtime arguments: no
 // kernel is specialised per utterance length, per flow or per layer.
 
@@ -90,11 +112,19 @@ constexpr int B_LD = BN + 8;     // ldmatrix rows land in distinct banks
 constexpr int A_STAGE = BM * A_LD;
 constexpr int B_STAGE = BK * B_LD;
 
-enum Role { FIRST = 0, STD = 1, FINAL = 2 };
+enum Role { FIRST = 0, STD = 1, FINAL = 2, PART = 3, PART_FIRST = 4 };
+
+// Roles whose taps are the rank-n_half composed taps (plain FMAs).
+__host__ __device__ constexpr bool first_taps_role(int role) {
+  return role == FIRST || role == PART_FIRST;
+}
 
 struct Args {
   int T, n_valid, C, M, d, n_half, E, rs_out;
-  const bf16* x;         // STD/FINAL: hidden [B,T,C]; FIRST: x0 [B,T,n_half]
+  int CX;                // width of x (the taps' K); C except in PART, where
+                         // C is the rank's local gate width Cp
+  const bf16* x;         // STD/FINAL/PART: hidden [B,T,CX]; FIRST and
+                         // PART_FIRST: x0 [B,T,n_half]
   const bf16* spect;     // [B,T,M] (not DCOND)
   const bf16* cond_all;  // DCOND: [B,T,cond_ld]; columns [cond_off, +2C) used
   int cond_ld, cond_off;
@@ -112,21 +142,22 @@ struct Args {
   const float* b_end;    // FINAL: [E] (= b_rs@w_end + b_end)
   bf16* x_out;           // STD/FIRST: [B,T,C]
   bf16* skip_out;        // STD/FIRST: [B,T,C]; STD may alias acc
-  float* out;            // FINAL: [B,T,E]
+  float* out;            // FINAL: [B,T,E]; PART/PART_FIRST: [B,T,rs_out]
 };
 
 // --- in-act GEMM: [BM, K] x [K, 64 tanh + 64 sigmoid cols] ---------------
 
 // K rows of the combined weight: [0, KX) are the three taps of w_in
-// (STD/FINAL; KX = 3C), [KX, KX + M) are w_cond (absent with DCOND).  FIRST
-// has KX = 0: its taps are rank n_half and added by FMA in the gate epilogue.
+// (STD/FINAL/PART; KX = 3 CX), [KX, KX + M) are w_cond (absent with DCOND).
+// FIRST and PART_FIRST have KX = 0: their taps are rank n_half and added by
+// FMA in the gate epilogue.
 template <int ROLE>
 __device__ __forceinline__ void load_inact_stage(const Args& a, int b, int t0,
                                                  int c0, int ks, bf16* sA,
                                                  bf16* sB) {
   const int tid = threadIdx.x;
   const int C2 = 2 * a.C;
-  const int KX = (ROLE == FIRST) ? 0 : 3 * a.C;
+  const int KX = first_taps_role(ROLE) ? 0 : 3 * a.CX;
   const int k0 = ks * BK;
   {  // A: BM rows x BK bf16, one 16-byte chunk per thread
     const int r = tid >> 2, seg = tid & 3;
@@ -134,10 +165,10 @@ __device__ __forceinline__ void load_inact_stage(const Args& a, int b, int t0,
     const bf16* src = a.spect;
     bool ok;
     if (k0 < KX) {
-      const int tap = k0 / a.C, kc = k0 - tap * a.C;
+      const int tap = k0 / a.CX, kc = k0 - tap * a.CX;
       const int s = t + (tap - 1) * a.d;
       ok = t < a.T && s >= 0 && s < a.n_valid;
-      if (ok) src = a.x + ((size_t)b * a.T + s) * a.C + kc + seg * 8;
+      if (ok) src = a.x + ((size_t)b * a.T + s) * a.CX + kc + seg * 8;
     } else {
       ok = t < a.T;
       if (ok) src = a.spect + ((size_t)b * a.T + t) * a.M + (k0 - KX) + seg * 8;
@@ -198,7 +229,8 @@ __device__ void inact_chunk(const Args& a, int b, int t0, int c0, bf16* sA,
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-  const int nk = (((ROLE == FIRST) ? 0 : 3 * a.C) + (DCOND ? 0 : a.M)) / BK;
+  const int nk =
+      ((first_taps_role(ROLE) ? 0 : 3 * a.CX) + (DCOND ? 0 : a.M)) / BK;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk)
@@ -268,7 +300,7 @@ __device__ __forceinline__ void gate_store(const Args& a, int b, int t0,
           const int ct = c + e, cs = a.C + c + e;
           float at = acc[mi][ni][jp * 2 + e] + a.b_in[ct] + cd[0][e];
           float as = acc[mi][ni + 2][jp * 2 + e] + a.b_in[cs] + cd[1][e];
-          if (ROLE == FIRST && t < a.T) {
+          if (first_taps_role(ROLE) && t < a.T) {
             const int cl = wn * 16 + ni * 8 + 2 * tq + e;
             at += first_taps(sX, sW, a.b_edge, a.C, a.d, a.n_valid, row, t,
                              cl, ct);
@@ -296,59 +328,96 @@ __device__ __forceinline__ void load_rs_stage(const Args& a, int n0, int ks,
   }
 }
 
-template <int ROLE>
-__device__ void rs_phase(const Args& a, int b, int t0, bf16* sB,
-                         const bf16* sG, int G_LD, int wm, int wn, int lane) {
-  const int g = lane >> 2, tq = lane & 3;
+// acc = sG [BM, C] x w_rs[:, n0 : n0 + BN]; every thread leaves past the
+// last barrier, so the caller may reuse sB at once.
+__device__ __forceinline__ void rs_mainloop(const Args& a, int n0, bf16* sB,
+                                            const bf16* sG, int G_LD,
+                                            float acc[2][4][4], int wm,
+                                            int wn, int lane) {
   const int nk = a.C / BK;
-  const bool has_res = a.rs_out == 2 * a.C;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_rs_stage(a, n0, s, sB + s * B_STAGE);
+    cp_async_commit();
+  }
+  for (int ks = 0; ks < nk; ++ks) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int kn = ks + STAGES - 1;
+    if (kn < nk) load_rs_stage(a, n0, kn, sB + (kn % STAGES) * B_STAGE);
+    cp_async_commit();
+    const bf16* Bs = sB + (ks % STAGES) * B_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      unsigned af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4(af[mi], sG + (wm * 32 + mi * 16 + (lane & 15)) * G_LD +
+                                ks * BK + kk + (lane >> 4) * 8);
+      unsigned bfr[4][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        unsigned r[4];
+        ldmatrix_x4_trans(r, Bs + (kk + (lane & 15)) * B_LD + wn * 32 +
+                                 h * 16 + (lane >> 4) * 8);
+        bfr[2 * h][0] = r[0];
+        bfr[2 * h][1] = r[1];
+        bfr[2 * h + 1][0] = r[2];
+        bfr[2 * h + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The partial layer's res/skip: this rank's [BM, Cp] gated tile times its
+// [Cp, rs_out] rows, written as f32 and zero at rows >= n_valid.  No bias,
+// residual or skip sum: they follow the sum over ranks.
+__device__ void rs_partial_phase(const Args& a, int b, int t0, bf16* sB,
+                                 const bf16* sG, int G_LD, int wm, int wn,
+                                 int lane) {
+  const int g = lane >> 2, tq = lane & 3;
   for (int n0 = 0; n0 < a.rs_out; n0 += BN) {
     float acc[2][4][4];
+    rs_mainloop(a, n0, sB, sG, G_LD, acc, wm, wn, lane);
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.f;
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < nk) load_rs_stage(a, n0, s, sB + s * B_STAGE);
-      cp_async_commit();
-    }
-    for (int ks = 0; ks < nk; ++ks) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      const int kn = ks + STAGES - 1;
-      if (kn < nk) load_rs_stage(a, n0, kn, sB + (kn % STAGES) * B_STAGE);
-      cp_async_commit();
-      const bf16* Bs = sB + (ks % STAGES) * B_STAGE;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        unsigned af[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(af[mi], sG + (wm * 32 + mi * 16 + (lane & 15)) * G_LD +
-                                  ks * BK + kk + (lane >> 4) * 8);
-        unsigned bfr[4][2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          unsigned r[4];
-          ldmatrix_x4_trans(r, Bs + (kk + (lane & 15)) * B_LD + wn * 32 +
-                                   h * 16 + (lane >> 4) * 8);
-          bfr[2 * h][0] = r[0];
-          bfr[2 * h][1] = r[1];
-          bfr[2 * h + 1][0] = r[2];
-          bfr[2 * h + 1][1] = r[3];
+        for (int jp = 0; jp < 2; ++jp) {
+          const int t = t0 + wm * 32 + mi * 16 + g + jp * 8;
+          if (t >= a.T) continue;
+          const int n = n0 + wn * 32 + ni * 8 + 2 * tq;
+          const bool valid = t < a.n_valid;
+          *reinterpret_cast<float2*>(a.out + ((size_t)b * a.T + t) * a.rs_out +
+                                     n) =
+              make_float2(valid ? acc[mi][ni][jp * 2] : 0.f,
+                          valid ? acc[mi][ni][jp * 2 + 1] : 0.f);
         }
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni)
-            mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
+  }
+}
+
+template <int ROLE>
+__device__ void rs_phase(const Args& a, int b, int t0, bf16* sB,
+                         const bf16* sG, int G_LD, int wm, int wn, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+  const bool has_res = a.rs_out == 2 * a.C;
+  for (int n0 = 0; n0 < a.rs_out; n0 += BN) {
+    float acc[2][4][4];
+    rs_mainloop(a, n0, sB, sG, G_LD, acc, wm, wn, lane);
 
     // epilogue: residual (masked past n_valid) and skip accumulation
 #pragma unroll
@@ -407,17 +476,17 @@ __global__ void __launch_bounds__(THREADS) wn_layer_kernel(const Args a) {
   bf16* sB = sA + STAGES * A_STAGE;
   bf16* sG = sB + STAGES * B_STAGE;
   const int G_LD = a.C + 8;
-  bf16* sX = sG + BM * G_LD;  // FIRST only
+  bf16* sX = sG + BM * G_LD;  // FIRST and PART_FIRST only
   bf16* sW = sX + FIRST_SX;
   const int b = blockIdx.y, t0 = blockIdx.x * BM;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3;
 
-  if (ROLE == FIRST)
+  if (first_taps_role(ROLE))
     stage_first_x(a.x, b, a.T, a.n_valid, a.d, a.n_half, t0, sX);
   for (int c0 = 0; c0 < a.C; c0 += HALF) {
     float acc[2][4][4];
-    if (ROLE == FIRST) {  // the previous chunk's gate_store has read sW
+    if (first_taps_role(ROLE)) {  // the previous chunk's gate_store has read sW
       __syncthreads();
       stage_first_w(a.w_in, a.C, a.n_half, c0, sW);
     }
@@ -430,6 +499,8 @@ __global__ void __launch_bounds__(THREADS) wn_layer_kernel(const Args a) {
   if (ROLE == FINAL)
     final_phase(a.acc, a.w_rs, a.w_end, a.b_end, a.out, b, a.T, a.C, a.E, t0,
                 sG, G_LD);
+  else if (ROLE == PART || ROLE == PART_FIRST)
+    rs_partial_phase(a, b, t0, sB, sG, G_LD, wm, wn, lane);
   else
     rs_phase<ROLE>(a, b, t0, sB, sG, G_LD, wm, wn, lane);
 }
@@ -438,7 +509,7 @@ template <int ROLE, bool DCOND = false>
 int launch(const Args& a, int B, void* stream) {
   const size_t smem =
       (size_t)(STAGES * (A_STAGE + B_STAGE) + BM * (a.C + 8) +
-               (ROLE == FIRST ? FIRST_SX + FIRST_SW : 0)) *
+               (first_taps_role(ROLE) ? FIRST_SX + FIRST_SW : 0)) *
       sizeof(bf16);
   cudaError_t e = cudaFuncSetAttribute(
       wn_layer_kernel<ROLE, DCOND>,
@@ -466,7 +537,7 @@ int t2s_wn_layer_first(const void* x0, const void* spect, const void* wp,
                        void* skip_out, int B, int T, int n_valid, int C,
                        int M, int n_half, int d, void* stream) {
   Args a = {};
-  a.T = T; a.n_valid = n_valid; a.C = C; a.M = M; a.d = d;
+  a.T = T; a.n_valid = n_valid; a.C = C; a.CX = C; a.M = M; a.d = d;
   a.n_half = n_half; a.rs_out = 2 * C;
   a.x = (const bf16*)x0; a.spect = (const bf16*)spect;
   a.w_in = (const bf16*)wp; a.b_in = (const float*)b_all;
@@ -484,7 +555,7 @@ int t2s_wn_layer(const void* x, const void* spect, const void* w_in,
                  void* x_out, void* skip_out, int B, int T, int n_valid,
                  int C, int M, int rs_out, int d, void* stream) {
   Args a = {};
-  a.T = T; a.n_valid = n_valid; a.C = C; a.M = M; a.d = d;
+  a.T = T; a.n_valid = n_valid; a.C = C; a.CX = C; a.M = M; a.d = d;
   a.rs_out = rs_out;
   a.x = (const bf16*)x; a.spect = (const bf16*)spect;
   a.w_in = (const bf16*)w_in; a.b_in = (const float*)b_in;
@@ -503,7 +574,7 @@ int t2s_wn_layer_final(const void* x, const void* spect, const void* w_in,
                        int n_valid, int C, int M, int E, int d,
                        void* stream) {
   Args a = {};
-  a.T = T; a.n_valid = n_valid; a.C = C; a.M = M; a.d = d; a.E = E;
+  a.T = T; a.n_valid = n_valid; a.C = C; a.CX = C; a.M = M; a.d = d; a.E = E;
   a.x = (const bf16*)x; a.spect = (const bf16*)spect;
   a.w_in = (const bf16*)w_in; a.b_in = (const float*)b_in;
   a.w_cond = (const bf16*)w_cond; a.b_cond = (const float*)b_cond;
@@ -511,6 +582,33 @@ int t2s_wn_layer_final(const void* x, const void* spect, const void* w_in,
   a.w_end = (const bf16*)w_end; a.b_end = (const float*)b_end;
   a.out = (float*)out;
   return launch<FINAL>(a, B, stream);
+}
+
+// The tensor-parallel partial layer: one rank's gate-paired 2 Cp columns of
+// w_in [3, K, 2Cp] / w_cond [M, 2Cp] and its rows w_rs [Cp, rs_out]; out
+// [B, T, rs_out] f32 is written whole.  b_edge == NULL: x is the hidden
+// state [B, T, K = C]; otherwise x is the audio half [B, T, K = n_half <= 4]
+// under the composed taps and b_edge [2, 2Cp] is taken back at the edges.
+int t2s_wn_layer_partial(const void* x, const void* spect, const void* w_in,
+                         const void* b_in, const void* b_edge,
+                         const void* w_cond, const void* b_cond,
+                         const void* w_rs, void* out, int B, int T,
+                         int n_valid, int K, int Cp, int M, int rs_out, int d,
+                         void* stream) {
+  Args a = {};
+  a.T = T; a.n_valid = n_valid; a.C = Cp; a.M = M; a.d = d;
+  a.rs_out = rs_out;
+  a.x = (const bf16*)x; a.spect = (const bf16*)spect;
+  a.w_in = (const bf16*)w_in; a.b_in = (const float*)b_in;
+  a.b_edge = (const float*)b_edge; a.w_cond = (const bf16*)w_cond;
+  a.b_cond = (const float*)b_cond; a.w_rs = (const bf16*)w_rs;
+  a.out = (float*)out;
+  if (b_edge) {
+    a.n_half = K;
+    return launch<PART_FIRST>(a, B, stream);
+  }
+  a.CX = K;
+  return launch<PART>(a, B, stream);
 }
 
 // The composed-conditioning family: cond_all [B, T, cond_ld] bf16 in place
@@ -524,7 +622,7 @@ int t2s_wn_layer_first_dcond(const void* x0, const void* cond_all,
                              int B, int T, int n_valid, int C, int cond_ld,
                              int cond_off, int n_half, int d, void* stream) {
   Args a = {};
-  a.T = T; a.n_valid = n_valid; a.C = C; a.d = d;
+  a.T = T; a.n_valid = n_valid; a.C = C; a.CX = C; a.d = d;
   a.n_half = n_half; a.rs_out = 2 * C;
   a.x = (const bf16*)x0; a.cond_all = (const bf16*)cond_all;
   a.cond_ld = cond_ld; a.cond_off = cond_off;
@@ -543,7 +641,7 @@ int t2s_wn_layer_dcond(const void* x, const void* cond_all, const void* w_in,
                        int B, int T, int n_valid, int C, int cond_ld,
                        int cond_off, int rs_out, int d, void* stream) {
   Args a = {};
-  a.T = T; a.n_valid = n_valid; a.C = C; a.d = d; a.rs_out = rs_out;
+  a.T = T; a.n_valid = n_valid; a.C = C; a.CX = C; a.d = d; a.rs_out = rs_out;
   a.x = (const bf16*)x; a.cond_all = (const bf16*)cond_all;
   a.cond_ld = cond_ld; a.cond_off = cond_off;
   a.spect = a.cond_all;  // a valid address for the zero-size halo copies
@@ -561,7 +659,7 @@ int t2s_wn_layer_final_dcond(const void* x, const void* cond_all,
                              int B, int T, int n_valid, int C, int cond_ld,
                              int cond_off, int E, int d, void* stream) {
   Args a = {};
-  a.T = T; a.n_valid = n_valid; a.C = C; a.d = d; a.E = E;
+  a.T = T; a.n_valid = n_valid; a.C = C; a.CX = C; a.d = d; a.E = E;
   a.x = (const bf16*)x; a.cond_all = (const bf16*)cond_all;
   a.cond_ld = cond_ld; a.cond_off = cond_off;
   a.spect = a.cond_all;  // a valid address for the zero-size halo copies

@@ -1,7 +1,8 @@
 // WaveGlow WN coupling layer in int8, hand-written for Hopper (sm_90a).
 //
-// Three kernels, one per layer role of the quantized serving path, built
-// from one template (wn_layer_int8_kernel<ROLE>):
+// Four kernels, one per layer role of the quantized serving path and the
+// tensor-parallel partial layer, built from one template
+// (wn_layer_int8_kernel<ROLE>):
 //
 //   FIRST  replaces text2speech_tpu/ops/pallas/wn_block_int8.py:338
 //          wn_layer_stream2_first_int8 (body _kernel_stream2_first_q, :178)
@@ -9,6 +10,9 @@
 //          wn_layer_stream2_int8 (body _kernel_stream2_q, :141)
 //   FINAL  replaces text2speech_tpu/ops/pallas/wn_block_int8.py:510
 //          wn_layer_stream2_final_int8 (body _kernel_stream2_final_q, :220)
+//   PART   replaces text2speech_tpu/ops/pallas/wn_block_int8.py:447
+//          wn_layer_stream2_partial_int8 (body _kernel_stream2_partial_q,
+//          :410)
 //
 // What one standard layer computes for rows t of one utterance.  The hidden
 // state is int8 qx [T, C] with one f32 scale per row sx [T]; the grouped
@@ -68,6 +72,24 @@
 // reaches a fraction of the wgmma peak.  Larger row tiles, wgmma s8 and TMA
 // are the next steps and are not done here.  Measured times are in PERF.md.
 //
+// The partial kernel (tensor-parallel vocoder).  One rank of p owns the
+// gate-paired columns [i Cp, (i+1) Cp) u [C + i Cp, C + (i+1) Cp) of the
+// taps and the conditioning (Cp = C / p), quantized with its own column
+// scales, and the matching Cp rows of the res/skip weights with its own
+// scales per output column.  It reads the whole int8 hidden state (CX = C
+// per tap), gates its Cp column pairs to s8 at scale 127 and emits
+//
+//   part[t] = t < n_valid ? s32(q[t] . qw_rs) * (sw_rs / 127) : 0   [rs_out]
+//
+// in f32: dequantized by THIS rank's scales, so the ranks' partials are on a
+// common scale when they are summed.  No bias, no residual, no skip sum and
+// no requantization (the hidden state is requantized outside, after the
+// sum), so the f32 scratch of the whole-layer roles is not needed.  The
+// template's one width C becomes CX (the hidden state's) and C (the local
+// gate width, the res/skip K); the whole-layer roles run with CX = C.  At
+// p = 4 a call at B=1, T=6400 is 8.8 GOP against 35 MB, 26 MB of them the
+// f32 output: bound by bytes on an H100.
+//
 // d, n_valid, n_half and E are runtime arguments.
 
 #include "wn_common.cuh"
@@ -80,16 +102,19 @@ constexpr int QA_STAGE = BM * Q_LD;
 constexpr int QB_STAGE = BN * Q_LD;
 constexpr float INV127 = (float)(1.0 / 127.0);
 
-enum Role { FIRST = 0, STD = 1, FINAL = 2 };
+enum Role { FIRST = 0, STD = 1, FINAL = 2, PART = 3 };
 
 struct Args {
   int T, n_valid, C, M, d, n_half, E;
-  const int8_t* qx;       // STD/FINAL: hidden [B,T,C]
+  int CX;                 // width of qx (the taps' K); C except in PART,
+                          // where C is the rank's local gate width Cp
+  int rs_out;             // PART: res/skip output columns (2 CX or CX)
+  const int8_t* qx;       // STD/FINAL/PART: hidden [B,T,CX]
   const float* sx;        // STD/FINAL: row scales [B,T]
   const bf16* x0;         // FIRST: audio half [B,T,n_half]
   const int8_t* qspect;   // [B,T,M]
   const float* sspect;    // [B,T]
-  const int8_t* qw_in;    // STD/FINAL: [3,2C,C] output-major
+  const int8_t* qw_in;    // STD/FINAL/PART: [3,2C,CX] output-major
   const float* sw_in;     // STD/FINAL: [2C]
   const bf16* wp;         // FIRST: composed taps [3,n_half,2C]
   const float* b_in;      // [2C] (FIRST: b_in + folded tap bias)
@@ -97,8 +122,8 @@ struct Args {
   const int8_t* qw_cond;  // [2C,M] output-major
   const float* sw_cond;   // [2C]
   const float* b_cond;    // [2C]
-  const int8_t* qw_rs;    // FIRST/STD: [2C,C] output-major
-  const float* sw_rs;     // FIRST/STD: [2C]
+  const int8_t* qw_rs;    // FIRST/STD: [2C,C]; PART: [rs_out,C] output-major
+  const float* sw_rs;     // FIRST/STD: [2C]; PART: [rs_out]
   const float* b_rs;      // FIRST/STD: [2C]
   const bf16* acc;        // STD/FINAL: running skip sum [B,T,C]
   const bf16* start_k;    // FIRST: [n_half,C]
@@ -110,7 +135,7 @@ struct Args {
   int8_t* qx_out;         // FIRST/STD: [B,T,C]
   float* sx_out;          // FIRST/STD: [B,T]
   bf16* skip_out;         // FIRST/STD: [B,T,C]; STD aliases acc
-  float* out;             // FINAL: [B,T,E]
+  float* out;             // FINAL: [B,T,E]; PART: [B,T,rs_out]
 };
 
 // One pipeline stage of s8 mma: A rows wm*32 + [0, 32) of `A` (row stride
@@ -151,15 +176,15 @@ __device__ __forceinline__ void mma_q_stage(const int8_t* A, int lda,
 // --- in-act: taps (STD/FINAL) and conditioning ---------------------------
 
 // Stage ks covers k in [ks*QK, +QK) of the sequence tap0 | tap1 | tap2 |
-// cond (KX = 3C tap columns; FIRST has KX = 0).
+// cond (KX = 3 CX tap columns; FIRST has KX = 0).
 template <int ROLE>
 __device__ __forceinline__ void load_inact_stage(const Args& a, int b, int t0,
                                                  int c0, int ks, int8_t* sA,
                                                  int8_t* sB) {
   const int tid = threadIdx.x;
-  const int KX = (ROLE == FIRST) ? 0 : 3 * a.C;
+  const int KX = (ROLE == FIRST) ? 0 : 3 * a.CX;
   const int k0 = ks * QK;
-  const int tap = k0 / a.C, kc = k0 - tap * a.C;  // used when k0 < KX
+  const int tap = k0 / a.CX, kc = k0 - tap * a.CX;  // used when k0 < KX
   {  // A: BM rows x QK bytes, one 16-byte chunk per thread
     const int r = tid >> 2, seg = tid & 3;
     const int t = t0 + r;
@@ -168,7 +193,7 @@ __device__ __forceinline__ void load_inact_stage(const Args& a, int b, int t0,
     if (k0 < KX) {
       const int s = t + (tap - 1) * a.d;
       ok = t < a.T && s >= 0 && s < a.n_valid;
-      if (ok) src = a.qx + ((size_t)b * a.T + s) * a.C + kc + seg * 16;
+      if (ok) src = a.qx + ((size_t)b * a.T + s) * a.CX + kc + seg * 16;
     } else {
       ok = t < a.T;
       if (ok)
@@ -182,7 +207,7 @@ __device__ __forceinline__ void load_inact_stage(const Args& a, int b, int t0,
     const int r = idx >> 2, seg = idx & 3;
     const int col = r < HALF ? c0 + r : a.C + c0 + (r - HALF);
     const int8_t* src =
-        k0 < KX ? a.qw_in + ((size_t)tap * 2 * a.C + col) * a.C + kc + seg * 16
+        k0 < KX ? a.qw_in + ((size_t)tap * 2 * a.C + col) * a.CX + kc + seg * 16
                 : a.qw_cond + (size_t)col * a.M + (k0 - KX) + seg * 16;
     cp_async16(sB + r * Q_LD + seg * 16, src, true);
   }
@@ -203,7 +228,7 @@ __device__ void inact_chunk(const Args& a, int b, int t0, int c0, int8_t* sA,
         iacc[mi][ni][j] = 0;
         tsum[mi][ni][j] = 0.f;
       }
-  const int per_tap = a.C / QK;
+  const int per_tap = a.CX / QK;
   const int nkx = (ROLE == FIRST) ? 0 : 3 * per_tap;
   const int nk = nkx + a.M / QK;
   const int g = lane >> 2;
@@ -322,6 +347,67 @@ __device__ __forceinline__ void load_rs_stage(const Args& a, int n0, int ks,
   }
 }
 
+// acc = sGq [BM, C] s8 x qw_rs[n0 : n0 + BN, :]^T in s32; every thread
+// leaves past the last barrier, so the caller may reuse sB at once.
+__device__ __forceinline__ void rs_mainloop(const Args& a, int n0, int8_t* sB,
+                                            const int8_t* sGq, int ldq,
+                                            int acc[2][4][4], int wm, int wn,
+                                            int lane) {
+  const int nk = a.C / QK;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_rs_stage(a, n0, s, sB + s * QB_STAGE);
+    cp_async_commit();
+  }
+  for (int ks = 0; ks < nk; ++ks) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int kn = ks + STAGES - 1;
+    if (kn < nk) load_rs_stage(a, n0, kn, sB + (kn % STAGES) * QB_STAGE);
+    cp_async_commit();
+    mma_q_stage(sGq + ks * QK, ldq, sB + (ks % STAGES) * QB_STAGE, wn * 32,
+                wn * 32 + 16, acc, wm, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The partial layer's res/skip: this rank's [BM, Cp] s8 gated tile times its
+// [rs_out, Cp] weight rows, dequantized by its own column scales and written
+// as f32, zero at rows >= n_valid.
+__device__ void rs_partial_phase(const Args& a, int b, int t0, int8_t* sB,
+                                 const int8_t* sGq, int ldq, int wm, int wn,
+                                 int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+  for (int n0 = 0; n0 < a.rs_out; n0 += BN) {
+    int acc[2][4][4];
+    rs_mainloop(a, n0, sB, sGq, ldq, acc, wm, wn, lane);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          const int t = t0 + wm * 32 + mi * 16 + g + jp * 8;
+          if (t >= a.T) continue;
+          const int n = n0 + wn * 32 + ni * 8 + 2 * tq;
+          float v0 = 0.f, v1 = 0.f;
+          if (t < a.n_valid) {
+            v0 = (float)acc[mi][ni][jp * 2] * (a.sw_rs[n] * INV127);
+            v1 = (float)acc[mi][ni][jp * 2 + 1] * (a.sw_rs[n + 1] * INV127);
+          }
+          *reinterpret_cast<float2*>(a.out + ((size_t)b * a.T + t) * a.rs_out +
+                                     n) = make_float2(v0, v1);
+        }
+  }
+}
+
 // Columns [0, C) of rs are the residual: x_new = base + rs (0 at rows past
 // n_valid) goes to the f32 scratch a.xn for the per-row requantization.
 // Columns [C, 2C) are the skip term, added to the running sum in bf16.
@@ -330,31 +416,9 @@ __device__ void rs_phase(const Args& a, int b, int t0, int8_t* sB,
                          const int8_t* sGq, int ldq, const float* sS, int wm,
                          int wn, int lane) {
   const int g = lane >> 2, tq = lane & 3;
-  const int nk = a.C / QK;
   for (int n0 = 0; n0 < 2 * a.C; n0 += BN) {
     int acc[2][4][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0;
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < nk) load_rs_stage(a, n0, s, sB + s * QB_STAGE);
-      cp_async_commit();
-    }
-    for (int ks = 0; ks < nk; ++ks) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      const int kn = ks + STAGES - 1;
-      if (kn < nk) load_rs_stage(a, n0, kn, sB + (kn % STAGES) * QB_STAGE);
-      cp_async_commit();
-      mma_q_stage(sGq + ks * QK, ldq, sB + (ks % STAGES) * QB_STAGE, wn * 32,
-                  wn * 32 + 16, acc, wm, lane);
-    }
-    cp_async_wait<0>();
-    __syncthreads();
+    rs_mainloop(a, n0, sB, sGq, ldq, acc, wm, wn, lane);
 
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
@@ -441,8 +505,8 @@ __device__ void requant_rows(const Args& a, int b, int t0) {
 
 // Shared memory, in order: A stages, B stages, row scales sS [4][BM] (three
 // taps' shifted sx, then sspect), then FINAL: bf16 gated tile [BM, C+8];
-// FIRST/STD: s8 gated tile [BM, C+16] and FIRST's tap tables.  81 KB (STD)
-// to 111 KB (FINAL) at C=512: two blocks per SM.
+// FIRST/STD/PART: s8 gated tile [BM, C+16] and FIRST's tap tables.  81 KB
+// (STD) to 111 KB (FINAL) at C=512: two blocks per SM.
 inline size_t smem_bytes(int role, int C) {
   size_t n = (size_t)STAGES * (QA_STAGE + QB_STAGE) + 4 * BM * sizeof(float);
   if (role == FINAL) return n + (size_t)BM * (C + 8) * sizeof(bf16);
@@ -461,7 +525,7 @@ __global__ void __launch_bounds__(THREADS, 2)
   unsigned char* rest = reinterpret_cast<unsigned char*>(sS + 4 * BM);
   const int ldq = a.C + 16, ldb = a.C + 8;
   bf16* sGb = reinterpret_cast<bf16*>(rest);                    // FINAL
-  int8_t* sGq = reinterpret_cast<int8_t*>(rest);                // FIRST/STD
+  int8_t* sGq = reinterpret_cast<int8_t*>(rest);          // FIRST/STD/PART
   bf16* sX = reinterpret_cast<bf16*>(rest + (size_t)BM * ldq);  // FIRST
   bf16* sW = sX + FIRST_SX;
   const int b = blockIdx.y, t0 = blockIdx.x * BM;
@@ -499,6 +563,8 @@ __global__ void __launch_bounds__(THREADS, 2)
   if (ROLE == FINAL) {
     final_phase(a.acc, a.w_eff, a.w_end, a.b_eff, a.out, b, a.T, a.C, a.E, t0,
                 sGb, ldb);
+  } else if (ROLE == PART) {
+    rs_partial_phase(a, b, t0, sB, sGq, ldq, wm, wn, lane);
   } else {
     rs_phase<ROLE>(a, b, t0, sB, sGq, ldq, sS, wm, wn, lane);
     __syncthreads();
@@ -539,7 +605,7 @@ int t2s_wn_layer_first_int8(
     int B, int T, int n_valid, int C, int M, int n_half, int d,
     void* stream) {
   Args a = {};
-  a.T = T; a.n_valid = n_valid; a.C = C; a.M = M; a.d = d; a.n_half = n_half;
+  a.T = T; a.n_valid = n_valid; a.C = C; a.CX = C; a.M = M; a.d = d; a.n_half = n_half;
   a.x0 = (const bf16*)x0; a.qspect = (const int8_t*)qspect;
   a.sspect = (const float*)sspect; a.wp = (const bf16*)wp;
   a.b_in = (const float*)b_all; a.b_edge = (const float*)b_edge;
@@ -561,7 +627,7 @@ int t2s_wn_layer_int8(
     void* skip_out, int B, int T, int n_valid, int C, int M, int d,
     void* stream) {
   Args a = {};
-  a.T = T; a.n_valid = n_valid; a.C = C; a.M = M; a.d = d;
+  a.T = T; a.n_valid = n_valid; a.C = C; a.CX = C; a.M = M; a.d = d;
   a.qx = (const int8_t*)qx; a.sx = (const float*)sx;
   a.qspect = (const int8_t*)qspect; a.sspect = (const float*)sspect;
   a.qw_in = (const int8_t*)qw_in; a.sw_in = (const float*)sw_in;
@@ -582,7 +648,7 @@ int t2s_wn_layer_final_int8(
     const void* b_eff, void* out, int B, int T, int n_valid, int C, int M,
     int E, int d, void* stream) {
   Args a = {};
-  a.T = T; a.n_valid = n_valid; a.C = C; a.M = M; a.d = d; a.E = E;
+  a.T = T; a.n_valid = n_valid; a.C = C; a.CX = C; a.M = M; a.d = d; a.E = E;
   a.qx = (const int8_t*)qx; a.sx = (const float*)sx;
   a.qspect = (const int8_t*)qspect; a.sspect = (const float*)sspect;
   a.qw_in = (const int8_t*)qw_in; a.sw_in = (const float*)sw_in;
@@ -592,6 +658,29 @@ int t2s_wn_layer_final_int8(
   a.w_end = (const bf16*)w_end; a.b_eff = (const float*)b_eff;
   a.out = (float*)out;
   return launch<FINAL>(a, B, stream);
+}
+
+// The tensor-parallel partial layer: one rank's gate-paired 2 Cp columns
+// (qw_in [3, 2Cp, C], qw_cond [2Cp, M], output-major, with their column
+// scales) and its res/skip rows qw_rs [rs_out, Cp] with sw_rs [rs_out]; out
+// [B, T, rs_out] f32 is written whole.
+int t2s_wn_layer_partial_int8(
+    const void* qx, const void* sx, const void* qspect, const void* sspect,
+    const void* qw_in, const void* sw_in, const void* b_in,
+    const void* qw_cond, const void* sw_cond, const void* b_cond,
+    const void* qw_rs, const void* sw_rs, void* out, int B, int T,
+    int n_valid, int C, int Cp, int M, int rs_out, int d, void* stream) {
+  Args a = {};
+  a.T = T; a.n_valid = n_valid; a.C = Cp; a.CX = C; a.M = M; a.d = d;
+  a.rs_out = rs_out;
+  a.qx = (const int8_t*)qx; a.sx = (const float*)sx;
+  a.qspect = (const int8_t*)qspect; a.sspect = (const float*)sspect;
+  a.qw_in = (const int8_t*)qw_in; a.sw_in = (const float*)sw_in;
+  a.b_in = (const float*)b_in; a.qw_cond = (const int8_t*)qw_cond;
+  a.sw_cond = (const float*)sw_cond; a.b_cond = (const float*)b_cond;
+  a.qw_rs = (const int8_t*)qw_rs; a.sw_rs = (const float*)sw_rs;
+  a.out = (float*)out;
+  return launch<PART>(a, B, stream);
 }
 
 }  // extern "C"

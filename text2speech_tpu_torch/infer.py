@@ -323,6 +323,24 @@ class Synthesizer:
 
     def __post_init__(self):
         self.device = self.waveglow.upsample_k.device
+        self._denoise = None
+        self._denoise_bias = None
+        self._denoise_bias_fn = None
+        self._denoise_params = None
+        if self.use_denoiser:
+            self._denoise_bias_fn, denoise, self._denoise_params = \
+                make_denoiser_programs(self.waveglow,
+                                       **(self.denoiser_kwargs or {}))
+            # reads the CURRENT bias at call time, so a weight swap is live
+            # wherever this handle is held
+            self._denoise = lambda audio, strength: denoise(
+                audio, self._denoise_bias, strength)
+        self._derive_from_waveglow()
+        self._derive_from_tacotron()
+
+    def _derive_from_waveglow(self) -> None:
+        """What depends on the WaveGlow weights: the prepared serving
+        weights of the fused or int8 vocoder and the denoiser's bias."""
         if self.int8_vocoder:
             self.fused = prepare_fused_int8(self.waveglow, torch.bfloat16)
         elif self.use_fused_vocoder:
@@ -331,19 +349,64 @@ class Synthesizer:
             self.fused = None
         # what vocodes: the three share ``cfg`` and ``infer``'s signature
         self.vocoder = self.waveglow if self.fused is None else self.fused
-        self._denoise = None
-        self._denoise_bias = None
-        self._denoise_params = None
+        if self._denoise_bias_fn is not None:
+            self._denoise_bias = self._denoise_bias_fn()
+
+    def _derive_from_tacotron(self) -> None:
+        """What depends on the Tacotron weights: the int8 decoder weights."""
         self._dp_q = None
         if self.quantized_decode:
             self._dp_q = quantize_decoder_params(
                 extract_decoder_params(self.taco))
-        if self.use_denoiser:
-            bias_fn, denoise, self._denoise_params = make_denoiser_programs(
-                self.waveglow, **(self.denoiser_kwargs or {}))
-            self._denoise_bias = bias_fn()
-            self._denoise = lambda audio, strength: denoise(
-                audio, self._denoise_bias, strength)
+
+    @torch.no_grad()
+    def load_weights(self, taco_variables=None, wg_variables=None) -> None:
+        """Swap checkpoints IN PLACE into the live modules
+        (``infer.py:521 load_weights``): ``taco_variables`` /
+        ``wg_variables`` are flax-layout variables (a nested tree or the
+        flat ``params/...`` keys of ``export_torch_weights.py``), converted
+        as :func:`..convert.load_tacotron` / ``load_waveglow`` convert
+        them and copied into the existing parameters, so every holder of
+        the modules sees them.  What ``__post_init__`` derives is rebuilt
+        the same way: the fused or int8 serving weights, the int8 decoder
+        weights, the denoiser's bias.  Shapes must match the live models'.
+        A running continuous-batching server (``server.make_server``)
+        reads everything through this object at call time and serves the
+        new weights from its next round; sessions in flight see them
+        mid-utterance, so drain first if that matters."""
+        from .convert import tacotron_state_dict, waveglow_state_dict
+
+        if taco_variables is not None:
+            self.taco.load_state_dict(tacotron_state_dict(
+                taco_variables, self.hp, self.taco.num_speakers))
+            self._derive_from_tacotron()
+        if wg_variables is not None:
+            self.waveglow.load_state_dict(
+                waveglow_state_dict(wg_variables, self.wg_cfg))
+            self._derive_from_waveglow()
+
+    def load_checkpoints(self, taco_npz: str | None = None,
+                         wg_ckpt_dir: str | None = None) -> None:
+        """Restore either or both models from disk and swap them in through
+        :meth:`load_weights`: the live-upgrade path of a running server
+        (HTTP ``POST /reload``).  ``wg_ckpt_dir`` is a WaveGlow training
+        checkpoint directory of this package (``train/checkpoint.py``; the
+        newest step is read).  Tacotron training is not ported yet, so
+        ``taco_npz`` is the ``.npz`` that ``export_torch_weights.py`` writes
+        from a JAX checkpoint (its ``tacotron/...`` keys are read)."""
+        tv = wv = None
+        if taco_npz is not None:
+            from .convert import load_npz, sub_tree
+
+            tv = sub_tree(load_npz(taco_npz), "tacotron")
+        if wg_ckpt_dir is not None:
+            from .train.checkpoint import CheckpointManager
+
+            # the trainer's state names its leaves ``params.<flax path>``
+            wv = {f"params/{name.removeprefix('params.')}": t.numpy()
+                  for name, t in
+                  CheckpointManager(wg_ckpt_dir).load_params().items()}
+        self.load_weights(tv, wv)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)

@@ -12,7 +12,21 @@ JAX package's checkpoints; ``--random_init SEED`` synthesizes from seeded
 random weights when no checkpoint exists (noise, but the whole path runs).
 ``--stream`` decodes in chunks and writes each piece of audio as soon as it
 clears the vocoder's receptive field (the first after about one chunk, not
-the whole decode).  Without a GPU it raises: it never runs on the CPU.
+the whole decode).
+
+``--serve_slots N`` serves through the continuous-batching server
+(:mod:`.server`): the lines of ``--texts_file`` (default: ``--text``) are the
+request queue, requests join freed slots mid-flight, and one wav per session
+is written as it completes (``out_<sid>.wav``).  With ``--http_port`` the
+server is exposed over HTTP instead (:mod:`.http_serve`):
+
+    python -m text2speech_tpu_torch.inference --random_init 0 --int8_vocoder \
+        --serve_slots 4 --http_port 8080
+    curl -s -X POST localhost:8080/synthesize \
+        -d '{"text": "안녕하세요.", "seed": 1, "denoiser_strength": 0.1}' \
+        -o out.wav
+
+Without a GPU it raises: it never runs on the CPU.
 """
 
 from __future__ import annotations
@@ -52,7 +66,128 @@ def build_parser() -> argparse.ArgumentParser:
                    "audio as soon as each chunk clears the vocoder's "
                    "receptive field")
     p.add_argument("--stream_chunk_steps", type=int, default=64)
+    p.add_argument("--serve_slots", type=int, default=0,
+                   help="continuous-batching server mode: serve the input "
+                   "texts through N decode slots (requests join freed slots "
+                   "mid-flight), writing one wav per session as it "
+                   "completes")
+    p.add_argument("--texts_file", default=None,
+                   help="one text per line; with --serve_slots these are "
+                   "the request queue (default: --text)")
+    p.add_argument("--http_port", type=int, default=None,
+                   help="with --serve_slots: expose the server over HTTP "
+                   "(POST /synthesize streams chunked WAV; GET /stats, "
+                   "/healthz; 0 binds a free port) instead of serving "
+                   "--texts_file")
+    p.add_argument("--http_reload_token", default=None,
+                   help="with --http_port: require this X-Reload-Token "
+                   "header on POST /reload (the admin endpoint takes "
+                   "filesystem paths; set a token when binding beyond "
+                   "localhost)")
+    p.add_argument("--serve_max_text_len", type=int, default=256,
+                   help="encoder width every session pads to")
+    p.add_argument("--no_serve_warmup", action="store_true",
+                   help="with --http_port: skip the warm-up session before "
+                   "the port is bound (the first real request then pays "
+                   "the kernels' build and the first calls)")
     return p
+
+
+def _read_texts(args) -> list:
+    if not args.texts_file:
+        return [args.text]
+    with open(args.texts_file, encoding="utf-8") as f:
+        return [ln.strip() for ln in f if ln.strip()]
+
+
+def _request(text: str, speaker_id):
+    return text if speaker_id is None else (text, speaker_id)
+
+
+def serve_batch(args, srv) -> None:
+    """Serve the texts as one queue of sessions; one wav per session."""
+    import os
+    import time
+
+    import numpy as np
+
+    from .dsp.audio import save_wav
+
+    texts = _read_texts(args)
+    # -d and --speaker_id apply to every session (HTTP clients set them per
+    # request instead)
+    ds = args.denoiser_strength if args.denoiser_strength > 0 else None
+    sids = [srv.submit(_request(t, args.speaker_id), denoiser_strength=ds)
+            for t in texts]
+    base, ext = os.path.splitext(args.out)
+    parts: dict = {sid: [] for sid in sids}
+    first: dict = {}
+    t0 = time.perf_counter()
+    while not srv.idle:
+        for ev in srv.step():
+            if ev.final:
+                path = f"{base}_{ev.sid}{ext or '.wav'}"
+                wav = (np.concatenate(parts[ev.sid]) if parts[ev.sid]
+                       else np.zeros((0,), np.float32))
+                save_wav(wav, path, args.sample_rate)
+                print(f"session {ev.sid} complete at "
+                      f"t={time.perf_counter() - t0:.2f}s -> {path} "
+                      f"({wav.shape[0]} samples)", flush=True)
+            elif ev.audio is not None:
+                if ev.sid not in first:
+                    first[ev.sid] = time.perf_counter() - t0
+                    print(f"session {ev.sid} first audio at "
+                          f"t={first[ev.sid]:.2f}s", flush=True)
+                parts[ev.sid].append(ev.audio)
+    print(f"served {len(texts)} sessions through {args.serve_slots} slots "
+          f"in {srv.stats['rounds']} rounds", flush=True)
+
+
+def serve_http(args, synth, srv) -> None:
+    """Expose the server over HTTP until interrupted."""
+    import time
+
+    from .http_serve import make_http_server
+
+    if not args.no_serve_warmup:
+        # before the port is bound: one throwaway session through the
+        # scheduler with the denoiser on (serve mode keeps it available
+        # whatever -d says; HTTP requests carry their own strengths) and,
+        # on a multi-speaker model, one with and one without a speaker;
+        # then both window widths and the short pass.  The first real
+        # request then finds every kernel built and every library call
+        # warm.
+        t0 = time.perf_counter()
+        wtext = _read_texts(args)[0]
+        wds = args.denoiser_strength if args.denoiser_strength > 0 else 0.1
+        speakers = [args.speaker_id]
+        if args.num_speakers > 1:
+            speakers.append(0 if args.speaker_id is None else None)
+        for i, sp in enumerate(speakers):
+            srv.submit(_request(wtext, sp),
+                       denoiser_strength=wds if i == 0 else None)
+        while not srv.idle:
+            srv.step()
+        srv.warm_window_widths()
+        srv.warm_short_pass()
+        print(f"server warmed in {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    httpd, runner = make_http_server(
+        srv, host="0.0.0.0", port=args.http_port,
+        sample_rate=args.sample_rate, log_requests=True,
+        # POST /reload {"taco_npz": ..., "wg_ckpt_dir": ...}
+        reload_fn=lambda taco_npz=None, wg_ckpt_dir=None:
+            synth.load_checkpoints(taco_npz, wg_ckpt_dir),
+        reload_token=args.http_reload_token)
+    print(f"HTTP TTS server on :{httpd.server_address[1]} "
+          f"({args.serve_slots} slots; POST /synthesize)", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        runner.shutdown()
 
 
 def main(argv=None) -> None:
@@ -67,7 +202,9 @@ def main(argv=None) -> None:
     wg_cfg = (WaveGlowConfig.from_json(args.waveglow_config)
               if args.waveglow_config
               else WaveGlowConfig(sampling_rate=args.sample_rate))
-    use_denoiser = args.denoiser_strength > 0
+    # serving keeps the denoiser available whatever -d says: HTTP requests
+    # carry their own strengths
+    use_denoiser = args.denoiser_strength > 0 or args.serve_slots > 0
     if args.weights:
         from .infer import load_synthesizer
 
@@ -84,6 +221,18 @@ def main(argv=None) -> None:
             num_speakers=args.num_speakers, use_denoiser=use_denoiser,
             use_fused_vocoder=args.fused_vocoder,
             int8_vocoder=args.int8_vocoder)
+    if args.serve_slots:
+        from .server import make_server
+
+        srv = make_server(synth, slots=args.serve_slots,
+                          chunk_steps=args.stream_chunk_steps,
+                          max_text_len=args.serve_max_text_len,
+                          max_steps=args.max_steps, sigma=args.sigma)
+        if args.http_port is not None:
+            serve_http(args, synth, srv)
+        else:
+            serve_batch(args, srv)
+        return
     if args.stream:
         import time
 

@@ -3,14 +3,16 @@ PyTorch versions.
 
 Counterpart of ``text2speech_tpu/ops/pallas/wn_block.py``'s three shipping
 kernels (``wn_layer_stream2_first``, ``wn_layer_stream2``,
-``wn_layer_stream2_final``); the composed-conditioning flavours of the
-same three roles are in :mod:`.wn_block_dcond`.  Each role has
+``wn_layer_stream2_final``) and of its tensor-parallel partial layer
+(``wn_layer_stream2_partial``: one rank's share of a layer, for
+:mod:`..parallel.tp`); the composed-conditioning flavours of the three
+roles are in :mod:`.wn_block_dcond`.  Each role has
 
 * a plain PyTorch version (``*_plain``), the arithmetic of the Pallas
   kernel in float32 matmuls over the input dtype's values, used for CPU
   tensors and as the reference the CUDA kernels are checked against;
 * a wrapper (:func:`wn_layer_first`, :func:`wn_layer`,
-  :func:`wn_layer_final`) that launches the hand-written Hopper kernel of
+  :func:`wn_layer_final`, :func:`wn_layer_partial`) that launches the hand-written Hopper kernel of
   ``csrc/wn_block.cu`` for CUDA tensors, and takes the plain version only
   for CPU tensors.  A CUDA tensor the kernel does not take raises; nothing
   falls back.
@@ -37,6 +39,7 @@ LIB = CudaLibrary("wn_block", {
     "t2s_wn_layer_first": [_P] * 13 + [_I] * 7 + [_P],
     "t2s_wn_layer": [_P] * 11 + [_I] * 7 + [_P],
     "t2s_wn_layer_final": [_P] * 11 + [_I] * 7 + [_P],
+    "t2s_wn_layer_partial": [_P] * 9 + [_I] * 8 + [_P],
     "t2s_wn_layer_first_dcond": [_P] * 11 + [_I] * 8 + [_P],
     "t2s_wn_layer_dcond": [_P] * 9 + [_I] * 8 + [_P],
     "t2s_wn_layer_final_dcond": [_P] * 9 + [_I] * 8 + [_P],
@@ -193,6 +196,28 @@ def wn_layer_final_plain(x, spect, w_in, b_in, w_cond, b_cond, w_eff,
     come from :func:`fold_end`."""
     return final_body(x, _cond(spect, w_cond, b_cond), w_in, b_in, w_eff,
                       skip_acc, w_end, b_eff, dilation, n_valid)
+
+
+def wn_layer_partial_plain(x, spect, w_in, b_in, w_cond, b_cond, w_rs,
+                           dilation: int, b_edge=None,
+                           n_valid: int | None = None):
+    """One rank's share of a WN layer under tensor parallelism -> its
+    partial res/skip product [B, T, rs_out] f32 (``wn_block.py:612
+    _kernel_stream2_partial``): taps and conditioning on the rank's
+    gate-paired columns ``w_in`` [3, K, 2Cp] / ``w_cond`` [M, 2Cp], the gate
+    in f32 cast to ``w_in``'s dtype, then its rows ``w_rs`` [Cp, rs_out].
+    Rows at or past ``n_valid`` are zero.  No res/skip bias, residual or
+    skip sum: they need the sum over ranks.  With ``b_edge`` [2, 2Cp] it is
+    the layer-0 form: ``x`` is the audio half [B, T, n_half] under the
+    composed taps, and the folded start bias is taken back at the edges."""
+    T = x.shape[1]
+    n_valid = T if n_valid is None else n_valid
+    in_act = (_taps(x, w_in, dilation, n_valid) + b_in.to(F32)
+              + _cond(spect, w_cond, b_cond))
+    if b_edge is not None:
+        in_act = _edge_bias_suppress(in_act, b_edge, dilation, n_valid)
+    rs = _gate(in_act, w_in.dtype).to(F32) @ w_rs.to(F32)
+    return torch.where(_valid_rows(T, n_valid, x.device), rs, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +391,63 @@ def wn_layer_final(x, spect, w_in, b_in, w_cond, b_cond, w_eff, skip_acc,
     return out
 
 
+def check_partial_dims(Cp: int, rs_out: int) -> None:
+    """What the partial kernels need of a rank's share: whole gate-pair
+    chunks of 64 columns, whole res/skip chunks of 128."""
+    if Cp < 64 or Cp % 64 or rs_out < 128 or rs_out % 128:
+        raise ValueError(f"kernel needs Cp % 64 == 0 and rs_out % 128 == 0, "
+                         f"got Cp={Cp}, rs_out={rs_out}")
+
+
+def wn_layer_partial(x, spect, w_in, b_in, w_cond, b_cond, w_rs,
+                     dilation: int, b_edge=None, n_valid: int | None = None):
+    """One rank's share of a fused WN layer -> partial res/skip [B, T,
+    rs_out] f32, written whole (zero at rows >= ``n_valid``); sum the
+    ranks' partials, then add the res/skip bias once.
+
+    CUDA: bf16 ``x`` [B, T, C] (or, with ``b_edge`` [2, 2Cp] f32, the audio
+    half [B, T, n_half <= 4] under ``w_in`` = this rank's columns of the
+    composed taps), ``spect`` [B, T, M], ``w_in`` [3, K, 2Cp], ``w_cond``
+    [M, 2Cp], ``w_rs`` [Cp, rs_out]; f32 ``b_in``, ``b_cond`` [2Cp]."""
+    ts = [x, spect, w_in, b_in, w_cond, b_cond, w_rs]
+    if b_edge is not None:
+        ts.append(b_edge)
+    if _on_cpu(*ts):
+        return wn_layer_partial_plain(x, spect, w_in, b_in, w_cond, b_cond,
+                                      w_rs, dilation, b_edge, n_valid)
+    B, T, K = x.shape
+    M = spect.shape[-1]
+    Cp, rs_out = w_rs.shape
+    n_valid = T if n_valid is None else int(n_valid)
+    check_partial_dims(Cp, rs_out)
+    if b_edge is None:
+        _check_dims(K, M, T, n_valid, dilation)
+    else:
+        _check_dims(128, M, T, n_valid, dilation)
+        if not 1 <= K <= 4:
+            raise ValueError(f"layer-0 form takes n_half in [1, 4], got {K}")
+        _check("b_edge", b_edge, (2, 2 * Cp), F32)
+    bf = torch.bfloat16
+    for name, t, shape, dt in (
+        ("x", x, (B, T, K), bf), ("spect", spect, (B, T, M), bf),
+        ("w_in", w_in, (3, K, 2 * Cp), bf), ("b_in", b_in, (2 * Cp,), F32),
+        ("w_cond", w_cond, (M, 2 * Cp), bf),
+        ("b_cond", b_cond, (2 * Cp,), F32), ("w_rs", w_rs, (Cp, rs_out), bf),
+    ):
+        _check(name, t, shape, dt)
+    out = torch.empty((B, T, rs_out), dtype=F32, device=x.device)
+    wn_layer_partial.launches += 1
+    _run(LIB.get().t2s_wn_layer_partial, x.device, x.data_ptr(),
+         spect.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+         None if b_edge is None else b_edge.data_ptr(), w_cond.data_ptr(),
+         b_cond.data_ptr(), w_rs.data_ptr(), out.data_ptr(), B, T, n_valid,
+         K, Cp, M, rs_out, dilation)
+    return out
+
+
+# the partial layer's launches are counted with the tensor-parallel path
+# (``parallel.tp.launch_counts``), not with the three whole-layer roles
+wn_layer_partial.launches = 0
 KERNELS = (wn_layer_first, wn_layer, wn_layer_final)
 
 

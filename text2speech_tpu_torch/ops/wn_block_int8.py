@@ -3,7 +3,8 @@ their plain PyTorch versions.
 
 Counterpart of ``text2speech_tpu/ops/pallas/wn_block_int8.py``'s three
 serving kernels (``wn_layer_stream2_first_int8``, ``wn_layer_stream2_int8``,
-``wn_layer_stream2_final_int8``) and its quantizers.  The scheme:
+``wn_layer_stream2_final_int8``), its tensor-parallel partial layer
+(``wn_layer_stream2_partial_int8``) and its quantizers.  The scheme:
 
 * hidden state and grouped conditioning: int8 with one dynamic f32 scale per
   row (:func:`rowquant_f32`: amax / 127, floored at 1e-12 / 127), carried
@@ -43,7 +44,7 @@ import torch
 from .build import CudaLibrary
 from .wn_block import (F32, _check, _check_dims, _edge_bias_suppress,
                        _end_projection, _gate, _on_cpu, _run, _shift, _taps,
-                       _valid_rows)
+                       _valid_rows, check_partial_dims)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -51,6 +52,7 @@ LIB = CudaLibrary("wn_block_int8", {
     "t2s_wn_layer_first_int8": [_P] * 18 + [_I] * 7 + [_P],
     "t2s_wn_layer_int8": [_P] * 18 + [_I] * 6 + [_P],
     "t2s_wn_layer_final_int8": [_P] * 15 + [_I] * 7 + [_P],
+    "t2s_wn_layer_partial_int8": [_P] * 13 + [_I] * 8 + [_P],
 })
 
 I8 = torch.int8
@@ -188,6 +190,26 @@ def wn_layer_final_int8_plain(qx, sx, qspect, sspect, qw_in, sw_in, b_in,
               + _cond_q(qspect, sspect, qw_cond, sw_cond, b_cond))
     return _end_projection(_gate(in_act, w_eff.dtype), w_eff, skip_acc, w_end,
                            b_eff)
+
+
+def wn_layer_partial_int8_plain(qx, sx, qspect, sspect, qw_in, sw_in, b_in,
+                                qw_cond, sw_cond, b_cond, qw_rs, sw_rs,
+                                dilation: int, n_valid: int | None = None):
+    """One rank's share of an int8 WN layer under tensor parallelism -> its
+    partial res/skip product [B, T, rs_out] f32 (``wn_block_int8.py:410
+    _kernel_stream2_partial_q``): int8 taps and conditioning on the rank's
+    gate-paired columns (``qw_in`` [3, 2Cp, C], ``qw_cond`` [2Cp, M],
+    output-major, with the rank's column scales), the gate quantized at
+    scale 127, then its res/skip rows ``qw_rs`` [rs_out, Cp], dequantized
+    by the rank's own ``sw_rs`` / 127 so that the ranks' partials add on one
+    f32 scale.  Rows at or past ``n_valid`` are zero; no bias, residual,
+    skip sum or requantization."""
+    T = qx.shape[1]
+    n_valid = T if n_valid is None else n_valid
+    in_act = (_taps_q(qx, sx, qw_in, sw_in, dilation, n_valid) + b_in
+              + _cond_q(qspect, sspect, qw_cond, sw_cond, b_cond))
+    rs = _qdot(_gate_q(in_act), qw_rs) * (sw_rs * (1.0 / 127.0))
+    return torch.where(_valid_rows(T, n_valid, qx.device), rs, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -338,6 +360,49 @@ def wn_layer_final_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
     return out
 
 
+def wn_layer_partial_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in,
+                          qw_cond, sw_cond, b_cond, qw_rs, sw_rs,
+                          dilation: int, n_valid: int | None = None):
+    """One rank's share of a fused int8 WN layer -> partial res/skip
+    [B, T, rs_out] f32, written whole (zero at rows >= ``n_valid``); sum
+    the ranks' partials, then add the res/skip bias once.
+
+    CUDA: int8 ``qx`` [B, T, C], ``qspect`` [B, T, M], ``qw_in`` [3, 2Cp,
+    C], ``qw_cond`` [2Cp, M], ``qw_rs`` [rs_out, Cp] (output-major); f32
+    ``sx`` / ``sspect`` [B, T, 1], ``sw_in`` / ``b_in`` / ``sw_cond`` /
+    ``b_cond`` [2Cp], ``sw_rs`` [rs_out]."""
+    if _on_cpu(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond, sw_cond,
+               b_cond, qw_rs, sw_rs):
+        return wn_layer_partial_int8_plain(
+            qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond, sw_cond,
+            b_cond, qw_rs, sw_rs, dilation, n_valid)
+    B, T, C = qx.shape
+    M = qspect.shape[-1]
+    rs_out, Cp = qw_rs.shape
+    n_valid = T if n_valid is None else int(n_valid)
+    _check_dims(C, M, T, n_valid, dilation, m_multiple=64)
+    check_partial_dims(Cp, rs_out)
+    for name, t, shape, dt in (
+        ("qx", qx, (B, T, C), I8), ("sx", sx, (B, T, 1), F32),
+        ("qw_in", qw_in, (3, 2 * Cp, C), I8),
+        ("sw_in", sw_in, (2 * Cp,), F32), ("b_in", b_in, (2 * Cp,), F32),
+        *_cond_checks(B, T, Cp, M, qspect, sspect, qw_cond, sw_cond, b_cond),
+        ("qw_rs", qw_rs, (rs_out, Cp), I8), ("sw_rs", sw_rs, (rs_out,), F32),
+    ):
+        _check(name, t, shape, dt)
+    out = torch.empty((B, T, rs_out), dtype=F32, device=qx.device)
+    wn_layer_partial_int8.launches += 1
+    _run(LIB.get().t2s_wn_layer_partial_int8, qx.device, qx.data_ptr(),
+         sx.data_ptr(), qspect.data_ptr(), sspect.data_ptr(),
+         qw_in.data_ptr(), sw_in.data_ptr(), b_in.data_ptr(),
+         qw_cond.data_ptr(), sw_cond.data_ptr(), b_cond.data_ptr(),
+         qw_rs.data_ptr(), sw_rs.data_ptr(), out.data_ptr(), B, T, n_valid,
+         C, Cp, M, rs_out, dilation)
+    return out
+
+
+# counted with the tensor-parallel path (``parallel.tp.launch_counts``)
+wn_layer_partial_int8.launches = 0
 KERNELS = (wn_layer_first_int8, wn_layer_int8, wn_layer_final_int8)
 
 

@@ -65,6 +65,19 @@ class CheckpointManager:
         for old in self.all_steps()[: -self.max_to_keep]:
             os.unlink(self._path(old))
 
+    def load_params(self, step: int | None = None) -> dict:
+        """The parameters saved at ``step`` (default: the newest) by name,
+        f32 tensors on the CPU, without a restore template: for serving a
+        trained checkpoint.  Raises when the directory holds none."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(
+                f"no checkpoint in {self.directory}")
+        tree = torch.load(self._path(step), map_location="cpu",
+                          weights_only=True)
+        return {name: t.to(torch.float32)
+                for name, t in tree["params"].items()}
+
     def restore(self, state: TrainState, step: int | None = None,
                 params_only: bool = False) -> tuple[TrainState, int]:
         """Restore into ``state`` (in place); returns (state, step), or
