@@ -6,9 +6,10 @@
 Phases, each of which passes or raises (the script then exits non-zero):
 
 1. require CUDA; print the card's name and power limit; turn TF32 off;
-2. build the hand-written kernels from ``csrc/`` (the bf16 and int8
-   WN-layer libraries, the gated activation and the k=3 conv backward, one
-   ``nvcc`` each, all started together) and print the times;
+2. build the hand-written kernels from ``csrc/`` (the bf16, int8 and
+   padded WN-layer libraries, the gated activation and the k=3 conv
+   backward, one ``nvcc`` each, all started together) and print the
+   times;
 3. compare each of the six projecting kernels with its plain PyTorch version on the
    card at the reference width (C=512, M=640) over batch sizes, dilations,
    valid lengths and flow widths; time both with CUDA events at one
@@ -90,9 +91,27 @@ Phases, each of which passes or raises (the script then exits non-zero):
 20. the CLI with ``--serve_slots 2 --texts_file`` in a process of its own;
 21. the CLI with ``--serve_slots 2 --http_port 0`` in a process of its own:
     two concurrent ``POST /synthesize`` clients, header bytes, PCM length,
-    ``/stats``, ``/healthz``, then an interrupt.
+    ``/stats``, ``/healthz``, then an interrupt;
+22. the four padded-layout kernels (the oracle family, kernels 12-15)
+    against their plain versions at B=1, T=6400 (``pad_tiles``: Tp =
+    6656), C=512, M=640, E=8 for d = 1, 64, 128 at full and short
+    ``n_valid``, pad tiles exactly zero; times and bounds;
+23. their own path, the parity ladder across kernels: the unpadded
+    standard layer (kernel 2) against the stream kernel (14), the unpadded
+    final layer (3) against the stream final (15), the ``dcond`` layer (9)
+    against the padded one (12) on the same stacked conditioning, spect
+    (13) against stream (14); the padded kernels' launches of this run;
+24. Tacotron-2 training at full width on 40 synthetic wavs of 1-2.5 s at
+    44.8 kHz with Korean transcripts: one f32 and one bf16 step on the
+    card against the f32 step on the CPU (loss, the gradient as a whole
+    and, in bf16, each leaf); 4 steps at batch 32 through
+    ``tacotron_train.main``, then its warm steps/s, samples/s and peak
+    memory; a resume in a process of its own; 2 steps each with
+    ``--remat``, ``--bf16`` and ``--grad_accum 2``; the trained checkpoint
+    through ``Synthesizer.load_checkpoints(taco_ckpt_dir=)`` into a decode
+    and the fused vocoder.  Phases 22-24 print the seconds they take.
 
-Phases 12-21 run between phases 7 and 8.  The line before the last is a
+Phases 12-21 run between phases 7 and 8, phases 22-24 after phase 11.  The line before the last is a
 JSON object with one record per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -1918,6 +1937,200 @@ def conv_backward_path() -> int:
     return launches
 
 
+# the padded-layout family: the port's second implementation of the WN
+# layer, the oracle side of the parity ladder (no serving or training path
+# runs it, as in the JAX package)
+PADDED_KERNELS = {
+    "wn_layer_padded": ("wn_block_padded.cu",
+                        PALLAS + "wn_block_padded.py:104"),
+    "wn_layer_spect": ("wn_block_padded.cu", PALLAS + "wn_block_padded.py:165"),
+    "wn_layer_stream": ("wn_block_padded.cu",
+                        PALLAS + "wn_block_padded.py:302"),
+    "wn_layer_stream_final": ("wn_block_padded.cu",
+                              PALLAS + "wn_block_padded.py:353"),
+}
+# Rungs of the ladder between two kernels.  Both sides take the same bf16
+# inputs and accumulate in f32 in another order; the final-layer rung also
+# rounds at other places (kernel 3 folds w_rs into the end projection once
+# per checkpoint, kernel 15 rounds the skip sum to bf16 before it), so its
+# bounds are twice the kernel-vs-plain ones.
+LADDER_MAX_ABS_STEPS = 8 * 2.0 ** -8
+LADDER_REL_L2 = 1e-2
+
+
+def padded_inputs(B, T, nv, C, M, E, seed, dev, n_cond=2) -> dict:
+    """``layer_inputs`` plus a pre-materialized conditioning [B, T, 2C
+    n_cond] (b_cond folded in) and the last layer's [C, C] res/skip weights
+    and end projection."""
+    k = layer_inputs(B, T, nv, C, M, seed, dev)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1000)
+
+    def rn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    mask = (torch.arange(T) < nv)[None, :, None].to(dev)
+    k["cond"] = rn(B, T, 2 * C * n_cond) * mask
+    k["w_rs_last"] = rn(C, C, scale=C ** -0.5)
+    k["b_rs_last"] = rn(C, scale=0.1, dtype=torch.float32)
+    k["w_end"] = rn(C, E, scale=C ** -0.5)
+    k["b_end"] = rn(E, scale=0.1, dtype=torch.float32)
+    return k
+
+
+def padded_args(k: dict, d: int, cond_index: int = 1) -> dict:
+    """The four padded wrappers' argument tuples (without ``n_valid``) on
+    the ``pad_tiles`` layout of ``k``'s activations."""
+    from text2speech_tpu_torch.ops.wn_block_padded import pad_tiles
+
+    xp, sp, acc = (pad_tiles(k[n]) for n in ("x", "spect", "skip_acc"))
+    head = (k["w_in"], k["b_in"], k["w_cond"], k["b_cond"])
+    std = (xp, sp, *head, k["w_rs"], k["b_rs"], acc, d)
+    return {
+        "wn_layer_padded": (xp, pad_tiles(k["cond"]), k["w_in"], k["b_in"],
+                            k["w_rs"], k["b_rs"], d, cond_index),
+        "wn_layer_spect": std,
+        "wn_layer_stream": std,
+        "wn_layer_stream_final": (xp, sp, *head, k["w_rs_last"],
+                                  k["b_rs_last"], acc, k["w_end"],
+                                  k["b_end"], d),
+    }
+
+
+def call_padded(fn, name: str, args, nv):
+    """One padded call; the spect and stream kernels get a fresh copy of
+    the skip sum (args[-2], updated in place)."""
+    if name in ("wn_layer_spect", "wn_layer_stream"):
+        return fn(*args[:-2], args[-2].clone(), args[-1], n_valid=nv)
+    return fn(*args, n_valid=nv)
+
+
+def padded_work(name: str, B, T, C, M, E) -> dict:
+    """Operations of one padded call on its T real rows, by type."""
+    bt = 2 * B * T
+    taps, cond, rs = bt * 3 * C * 2 * C, bt * M * 2 * C, bt * C * 2 * C
+    return {"bf16": {
+        "wn_layer_padded": taps + rs,
+        "wn_layer_spect": taps + cond + rs,
+        "wn_layer_stream": taps + cond + rs,
+        "wn_layer_stream_final": taps + cond + bt * C * C + bt * C * E,
+    }[name]}
+
+
+def check_padded_kernels(C: int = 512, M: int = 640, E: int = 8) -> dict:
+    """The four padded kernels against their plain versions at B=1,
+    T=6400 (Tp = 6656), C=512, M=640, E=8 for d in {1, 64, 128} at full
+    and short ``n_valid``; pad tiles exactly zero; then times and bounds
+    at d=64."""
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    dev = torch.device("cuda")
+    bt = wp.BT_PAD
+    rec = {n: {"max_abs_err": 0.0, "library_ms": None}
+           for n in PADDED_KERNELS}
+    B, T, seed = 1, 6400, 300
+    for d in (1, 64, 128):
+        for nv in (T, T - 301):
+            seed += 1
+            k = padded_inputs(B, T, nv, C, M, E, seed, dev)
+            for name, args in padded_args(k, d).items():
+                got = call_padded(getattr(wp, name), name, args, nv)
+                want = call_padded(getattr(wp, name + "_plain"), name, args,
+                                   nv)
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    tag = f"{name}[{i}] d={d} n_valid={nv}"
+                    if g[:, :bt].any() or g[:, -bt:].any():
+                        raise RuntimeError(f"{tag}: pad tiles not zero")
+                    err = compare(tag, g, w)
+                    rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"],
+                                                   err)
+    k = padded_inputs(B, T, T, C, M, E, 399, dev)
+    for name, args in padded_args(k, 64).items():
+        kern, plain = getattr(wp, name), getattr(wp, name + "_plain")
+        outs = kern(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        tensors = [t for t in (*args, *outs) if torch.is_tensor(t)]
+        r = rec[name]
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            padded_work(name, B, T, C, M, E), tensors)
+        r["ms"] = time_ms(lambda: kern(*args))
+        r["plain_ms"] = time_ms(lambda: plain(*args))
+        print(f"  {name} B={B} T={T} (Tp={T + 2 * bt}): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms (by {r['bound_by']})")
+    return rec
+
+
+def ladder_path(C: int = 512, M: int = 640, E: int = 8) -> dict:
+    """The padded kernels' own path, the parity ladder across kernels on
+    the card (``tests/test_pallas.py:81-250`` in the JAX package): kernel 2
+    (the unpadded standard layer) against 14 and kernel 3 (the unpadded
+    final layer, end projection folded) against 15 on the valid rows,
+    kernel 9 (``dcond``) against 12 on the same stacked conditioning, and
+    13 against 14 (two loop structures, and two sets of GEMM, gate and
+    epilogue code in ``csrc/wn_block_padded.cu``).  Returns the padded
+    kernels' launch counts of this run."""
+    from text2speech_tpu_torch.ops import wn_block as wb
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    dev = torch.device("cuda")
+    B, T, li = 1, 6400, 1
+
+    def rung(tag, got, want, nv):
+        return compare(f"ladder {tag}", got[:, :nv], want[:, :nv])
+
+    worst = 0.0
+    wp.reset_launch_counts()
+    for i, (d, nv) in enumerate(((1, T), (64, T - 301), (128, T))):
+        k = padded_inputs(B, T, nv, C, M, E, 500 + i, dev)
+        a = padded_args(k, d, li)
+        un = wp.unpad_tiles
+        tag = f"d={d} n_valid={nv}"
+        head = (k["w_in"], k["b_in"], k["w_cond"], k["b_cond"])
+        x2, s2 = wb.wn_layer(k["x"], k["spect"], *head, k["w_rs"],
+                             k["b_rs"], k["skip_acc"].clone(), d, n_valid=nv)
+        x14, s14 = call_padded(wp.wn_layer_stream, "wn_layer_stream",
+                               a["wn_layer_stream"], nv)
+        x13, s13 = call_padded(wp.wn_layer_spect, "wn_layer_spect",
+                               a["wn_layer_spect"], nv)
+        worst = max(worst, rung(f"2 vs 14 x {tag}", x2, un(x14), nv),
+                    rung(f"2 vs 14 skip {tag}", s2, un(s14), nv),
+                    rung(f"13 vs 14 x {tag}", x13, x14, x13.shape[1]),
+                    rung(f"13 vs 14 skip {tag}", s13, s14, s13.shape[1]))
+        w_eff, b_eff = wb.fold_end(k["w_rs_last"], k["b_rs_last"],
+                                   k["w_end"], k["b_end"])
+        o3 = wb.wn_layer_final(k["x"], k["spect"], *head, w_eff,
+                               k["skip_acc"], k["w_end"], b_eff, d,
+                               n_valid=nv)
+        o15 = call_padded(wp.wn_layer_stream_final, "wn_layer_stream_final",
+                          a["wn_layer_stream_final"], nv)
+        err = (o3[:, :nv] - un(o15)[:, :nv]).abs().max().item()
+        rel = ((o3[:, :nv] - un(o15)[:, :nv]).norm()
+               / o3[:, :nv].norm()).item()
+        bound = LADDER_MAX_ABS_STEPS * max(o3.abs().max().item(), 1.0)
+        print(f"  ladder 3 vs 15 {tag}: max_abs_err={err:.6g} (bound "
+              f"{bound:.4g}) rel_l2={rel:.3g} (bound {LADDER_REL_L2})")
+        if err > bound or rel > LADDER_REL_L2:
+            raise RuntimeError("ladder 3 vs 15: kernels disagree")
+        worst = max(worst, err)
+        x9, s9 = wd.wn_layer_dcond(k["x"], k["cond"], li, k["w_in"],
+                                   k["b_in"], k["w_rs"], k["b_rs"],
+                                   torch.zeros_like(k["x"]), d, n_valid=nv)
+        x12, s12 = call_padded(wp.wn_layer_padded, "wn_layer_padded",
+                               a["wn_layer_padded"], nv)
+        worst = max(worst, rung(f"9 vs 12 x {tag}", x9, un(x12), nv),
+                    rung(f"9 vs 12 skip {tag}", s9, un(s12), nv))
+    torch.cuda.synchronize()
+    launches = wp.launch_counts()
+    print(f"[ladder] launches {launches}; worst max_abs_err {worst:.4g}")
+    if not all(launches.values()):
+        raise RuntimeError(f"ladder: a padded kernel was not launched: "
+                           f"{launches}")
+    return launches
+
+
 def write_corpus(root: str, cfg) -> str:
     """N_WAVS synthetic wavs (tones in noise, ~1.5 s) and their file list,
     from a numpy seed."""
@@ -2156,6 +2369,257 @@ def train_path(synth, mel: torch.Tensor) -> dict:
     return counts
 
 
+# Tacotron training at full width (the reference HParams) on synthetic wavs
+TACO_WAVS = 40
+TACO_STEPS = 4
+TACO_TEXTS = [
+    "이 것은 제작되고 있는 중입니다.",
+    "안녕하세요. 만나서 반갑습니다.",
+    "오늘 날씨가 참 좋네요.",
+    "존경하는 사람과 함께 갑니다.",
+    "내일은 비가 올 것 같습니다.",
+]
+# One step on the card against the same step on the CPU (TF32 off): the
+# same f32 products in another order through 64 decoder steps, and cuDNN's
+# convolution algorithms against the CPU's: loss within 1e-4 relative,
+# the gradient as a whole within 1e-3 relative L2.
+TACO_STEP_LOSS_RTOL = 1e-4
+TACO_STEP_GRAD_REL_L2 = 1e-3
+# The bf16 step on the card (autocast's CUDA op lists, the decoder step's
+# weights cast once through _SharedCast) against the f32 step on the CPU:
+# products of bf16-rounded operands (2^-8 each) through 64 decoder steps.
+# The same comparison under the CPU's autocast at this width reads a loss
+# 1.8e-5 relative apart, the gradient 0.035 relative L2 apart and each leaf
+# at most 0.085 apart; the bounds leave about three times that.  A conv
+# bias that feeds a BatchNorm has a zero gradient in exact arithmetic and
+# returns rounding noise on both sides, so those leaves are left out of the
+# per-leaf bound (they count in the whole).
+TACO_BF16_LOSS_RTOL = 1e-3
+TACO_BF16_GRAD_REL_L2 = 0.1
+TACO_BF16_LEAF_REL_L2 = 0.25
+
+
+def write_taco_corpus(root: str) -> str:
+    """TACO_WAVS synthetic wavs of 1-2.5 s at 44.8 kHz (tones in noise)
+    with Korean transcripts, in the KSS layout, from a numpy seed."""
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(1)
+    os.makedirs(os.path.join(root, "1"), exist_ok=True)
+    sr, lines = 44800, []
+    for i in range(TACO_WAVS):
+        n = int(sr * (1.0 + 1.5 * i / (TACO_WAVS - 1)))
+        t = np.arange(n) / sr
+        sig = (0.3 * np.sin(2 * np.pi * (140 + 9 * i) * t)
+               + 0.02 * rng.randn(n))
+        name = f"1/{i:03d}.wav"
+        wavfile.write(os.path.join(root, name), sr,
+                      (sig * 32767).astype(np.int16))
+        lines.append(f"{name}|{TACO_TEXTS[i % len(TACO_TEXTS)]}|x|1.0")
+    with open(os.path.join(root, "transcript.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return root
+
+
+def taco_step_check(hp, corpus: str) -> None:
+    """One Tacotron training step at full width on the card, in f32 and in
+    bf16, against the same f32 step on the CPU: the same seeded weights,
+    batch (two rows cut to 64 frames) and hand-built dropout masks."""
+    from text2speech_tpu_torch.data.dataset import Batch, TextMelDataset
+    from text2speech_tpu_torch.models.losses import tacotron2_loss
+    from text2speech_tpu_torch.models.tacotron2 import (Tacotron2,
+                                                        init_weights_)
+    from text2speech_tpu_torch.text import N_SYMBOLS
+
+    data = TextMelDataset([corpus], hp, device="cpu")
+    b = data.make_batch(data.items[:2])
+    b = Batch(b.text, b.input_lengths, b.mel[:, :, :64].contiguous(),
+              b.gate[:, :64].contiguous(), b.speaker_id,
+              b.output_lengths.clamp(max=64))
+    model = init_weights_(Tacotron2(hp, N_SYMBOLS),
+                          torch.Generator().manual_seed(3))
+    masks = model.draw_train_masks(2, b.text.shape[1], 64,
+                                   torch.Generator().manual_seed(4))
+    out = {}
+    for tag, dev, dtype in (("cpu", "cpu", None), ("f32", "cuda", None),
+                            ("bf16", "cuda", torch.bfloat16)):
+        m = Tacotron2(hp, N_SYMBOLS, device=dev, compute_dtype=dtype)
+        m.load_state_dict(model.state_dict())
+        mb = Batch(*(t.to(dev) for t in b))
+        mk = type(masks)(*([x.to(dev) for x in f] if isinstance(f, list)
+                           else f.to(dev) for f in masks))
+        preds = m(mb.text, mb.input_lengths, mb.mel, mb.output_lengths,
+                  train=True, masks=mk)
+        if any(p.dtype != torch.float32 for p in preds):
+            raise RuntimeError(f"taco step {tag}: outputs not f32")
+        loss, _ = tacotron2_loss(*preds[:3], mb.mel, mb.gate)
+        loss.backward()
+        out[tag] = (loss.item(), {n: p.grad.cpu()
+                                  for n, p in m.named_parameters()})
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    def flat(g):
+        return torch.cat([v.flatten() for v in g.values()])
+
+    l_c, g_c = out["cpu"]
+    for tag, l_rtol, g_bound in (
+            ("f32", TACO_STEP_LOSS_RTOL, TACO_STEP_GRAD_REL_L2),
+            ("bf16", TACO_BF16_LOSS_RTOL, TACO_BF16_GRAD_REL_L2)):
+        l_g, g_g = out[tag]
+        whole = rel(flat(g_g), flat(g_c))
+        leaves = {n: rel(g_g[n], g_c[n]) for n in g_c
+                  if not (".convs." in n and n.endswith(".bias"))}
+        worst = max(leaves, key=leaves.get)
+        print(f"[taco] one {tag} step on the card vs the f32 step on the CPU "
+              f"at full width (B=2, T_out=64, the same masks): loss {l_g:.8g}"
+              f" vs {l_c:.8g} ({abs(l_g - l_c) / l_c:.3g} relative, bound "
+              f"{l_rtol}), gradient relative L2 {whole:.3g} (bound "
+              f"{g_bound}), worst leaf {worst} {leaves[worst]:.3g}"
+              + (f" (bound {TACO_BF16_LEAF_REL_L2})" if tag == "bf16"
+                 else ""))
+        if not np.isfinite(l_g) or abs(l_g - l_c) > l_rtol * l_c \
+                or whole > g_bound:
+            raise RuntimeError(f"taco {tag} step: the card disagrees with "
+                               f"the CPU")
+        if tag == "bf16" and leaves[worst] > TACO_BF16_LEAF_REL_L2:
+            raise RuntimeError(f"taco bf16 step: leaf {worst} disagrees "
+                               f"with the CPU's f32")
+
+
+def cli_taco(corpus: str, log_dir: str, num_steps: int, *flags):
+    """``tacotron_train.main`` in this process; returns (trainer, seconds,
+    peak device bytes)."""
+    from text2speech_tpu_torch import tacotron_train
+
+    argv = ["--data_paths", corpus, "--log_dir", log_dir, "--num_steps",
+            str(num_steps), "--checkpoint_interval", "1000", "--device", "cuda",
+            *flags]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = tacotron_train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if any(all_counts().values()):
+        raise RuntimeError(f"Tacotron training launched vocoder kernels: "
+                           f"{all_counts()}")
+    loss = float(trainer.last_metrics["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[taco] tacotron_train {' '.join(argv[4:])}: at step "
+          f"{trainer.state.step} in {seconds:.2f} s (model build, data and "
+          f"checkpoint included), last loss {loss:.6f}, grad norm "
+          f"{float(trainer.last_metrics['grad_norm']):.4f}; peak device "
+          f"memory {peak / 1e9:.3f} GB")
+    if trainer.state.step != num_steps or not np.isfinite(loss):
+        raise RuntimeError(f"tacotron_train {flags}: step "
+                           f"{trainer.state.step}, loss {loss}")
+    return trainer, seconds, peak
+
+
+def taco_rate(trainer, batch, n: int = 2) -> float:
+    """Seconds per optimizer step of ``trainer`` on one batch already on
+    the card, warm: the host clock around ``n`` steps and a synchronise."""
+    from text2speech_tpu_torch.train.tacotron import step_generator
+
+    def steps():
+        for i in range(n):
+            trainer._train_step(trainer.state, batch,
+                                step_generator(0, i, "cuda"))
+
+    _, t = sync_time(steps)
+    return t / n
+
+
+def tacotron_train_path(synth, info: str) -> None:
+    """Tacotron-2 training at full width (embedding 512, encoder convs 512,
+    attention and decoder LSTMs 1024, postnet 5 x 512) on a synthetic
+    corpus: one f32 and one bf16 step on the card against the f32 step on
+    the CPU; 4 steps at batch 32 through ``tacotron_train.main``; a resume
+    in a process of its own; 2 steps each with ``--remat``, ``--bf16`` and
+    ``--grad_accum 2``; the trained checkpoint through
+    ``Synthesizer.load_checkpoints(taco_ckpt_dir=)`` into a decode and the
+    fused vocoder.  Prints the seconds of each part."""
+    from text2speech_tpu_torch.config import HParams
+
+    hp = HParams()
+    secs = {}
+
+    def part(tag, fn):
+        out, secs[tag] = sync_time(fn)
+        return out
+
+    with tempfile.TemporaryDirectory() as d:
+        corpus = part("corpus", lambda: write_taco_corpus(
+            os.path.join(d, "kss")))
+        part("one step f32 and bf16 vs CPU",
+             lambda: taco_step_check(hp, corpus))
+        logs = os.path.join(d, "logs")
+        trainer, _, peak = part(f"CLI {TACO_STEPS} steps",
+                                lambda: cli_taco(corpus, logs, TACO_STEPS))
+        run_dir = trainer.run_dir
+        ckpt = os.path.join(run_dir, "checkpoints")
+        batch = next(iter(trainer.dataset.epoch(0)))
+        B, T_out = batch.mel.shape[0], batch.mel.shape[2]
+        s = part("warm rate, 2 steps", lambda: taco_rate(trainer, batch))
+        print(f"[taco] f32 step (warm, batch {B} x {T_out} frames on the "
+              f"card): {s * 1e3:.1f} ms = {1 / s:.4f} steps/s = "
+              f"{B / s:.3f} samples/s; peak device memory of the run "
+              f"{peak / 1e9:.3f} GB ({info})")
+        del trainer
+        torch.cuda.empty_cache()
+
+        cmd = [sys.executable, "-m", "text2speech_tpu_torch.tacotron_train",
+               "--data_paths", corpus, "--load_path", run_dir,
+               "--num_steps", str(TACO_STEPS + 1), "--checkpoint_interval",
+               "1000", "--device", "cuda"]
+        r = part("resume in its own process", lambda: subprocess.run(
+            cmd, capture_output=True, text=True, timeout=600))
+        print(f"[taco] python -m text2speech_tpu_torch.tacotron_train "
+              f"--load_path ... --num_steps {TACO_STEPS + 1} -> rc "
+              f"{r.returncode}: "
+              f"{' | '.join(r.stdout.strip().splitlines()[-2:])}")
+        if r.returncode != 0:
+            raise RuntimeError(f"Tacotron CLI failed:\n{r.stderr}")
+        if f"Resumed from checkpoint at step {TACO_STEPS}" not in r.stdout \
+                or not os.path.exists(os.path.join(
+                    ckpt, f"ckpt_{TACO_STEPS + 1:08d}.pt")):
+            raise RuntimeError("the Tacotron CLI did not resume")
+
+        # the options' warm step rates are profile_torch.py's
+        # (--stages tacotron_train); here each resumes and takes two steps
+        at = TACO_STEPS + 1
+        for flags in (("--remat",), ("--bf16",), ("--grad_accum", "2")):
+            at += 2
+            part(f"CLI {' '.join(flags)} 2 steps", lambda: cli_taco(
+                corpus, logs, at, "--load_path", run_dir, *flags))
+            torch.cuda.empty_cache()
+
+        def decode():
+            synth.load_checkpoints(taco_ckpt_dir=ckpt)
+            reset_counts()
+            mel, _ = synth.text_to_mel(TEXTS[:1], max_steps=MAX_STEPS)
+            return mel, synth.mel_to_audio(mel, SIGMA, seed=0)
+
+        mel, audio = part("checkpoint into a decode and the vocoder", decode)
+        print(f"[taco] checkpoint of step {at} through load_checkpoints("
+              f"taco_ckpt_dir=): mel {tuple(mel.shape)}, audio "
+              f"{tuple(audio.shape)}, peak {audio.abs().max().item():.4g}, "
+              f"launches {all_counts()}")
+        if not (torch.isfinite(mel).all() and torch.isfinite(audio).all()) \
+                or audio.shape[-1] != mel.shape[-1] * \
+                synth.wg_cfg.upsample_stride:
+            raise RuntimeError("trained Tacotron: bad decode or audio")
+        if all_counts() != want_counts(synth.wg_cfg, False):
+            raise RuntimeError("trained Tacotron: wrong vocoder launches")
+    print(f"[time] phase 24 parts, seconds: "
+          f"{ {k: round(v, 2) for k, v in secs.items()} }; in all "
+          f"{sum(secs.values()):.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -2171,9 +2635,10 @@ def main() -> int:
     from text2speech_tpu_torch.ops import gated, wn_backward
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
 
     t0 = time.perf_counter()
-    libs = (wb.LIB, wq.LIB, gated.LIB, wn_backward.LIB)
+    libs = (wb.LIB, wq.LIB, gated.LIB, wn_backward.LIB, wp.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
@@ -2222,10 +2687,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = train_path(bf16["synth"], bf16["mel"])
 
+    print("[kernels] padded-layout kernels vs plain at C=512, M=640, E=8")
+    padded, t = sync_time(check_padded_kernels)
+    rec.update(padded)
+    print(f"[time] phase 22: {t:.2f} s")
+    ladder_launches, t = sync_time(ladder_path)
+    print(f"[time] phase 23: {t:.2f} s")
+    tacotron_train_path(bf16["synth"], info)
+
     launches = {**{n: bf16["launches"][n] for n in list(KERNELS)[:3]},
                 **{n: int8_launches[n] for n in list(KERNELS)[3:]},
                 **{n: dcond_launches[n] for n in DCOND_KERNELS},
-                **tp_launches, **trained, "conv_k3_bwd": chain_launches}
+                **tp_launches, **trained, "conv_k3_bwd": chain_launches,
+                **ladder_launches}
     if not all(launches.values()):
         raise RuntimeError(f"a kernel was launched on no path: {launches}")
     kernels = [{
@@ -2237,7 +2711,7 @@ def main() -> int:
         # activation; the conv backward has aten.convolution_backward
         "library_ms": rec[n].get("library_ms"),
     } for n, (src, repl) in {**KERNELS, **DCOND_KERNELS, **PARTIAL_KERNELS,
-                             **TRAIN_KERNELS}.items()]
+                             **TRAIN_KERNELS, **PADDED_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch port on one NVIDIA GPU.
 
     python3 profile_torch.py [--batch 3] [--steps 200]
-                             [--stages serve server train]
+                             [--stages serve server train tacotron_train]
 
 Builds the reference-width synthesizers on seeded random weights (bf16 fused
 and int8 vocoders, as ``chip_smoke.py`` does) and runs each stage of the
@@ -19,7 +19,11 @@ single-device vocode, and one whole run of the continuous-batching server
 per scheduling round.  The ``train`` stages are one WaveGlow optimizer step at
 reference width (batch 3 x 16,000 samples of seeded noise, the seeded
 initialisation with live ``end`` convs) in f32, f32 with remat, and bf16,
-each with its peak device memory.  For each stage it prints the wall time of the profiled
+each with its peak device memory.  The ``tacotron_train`` stages are one
+Tacotron-2 optimizer step at reference width (batch 32 of seeded text and
+mels, 64 text positions and 448 frames, unequal lengths) in f32, f32 with
+the decoder rematerialized, and bf16, each with its peak device memory.
+For each stage it prints the wall time of the profiled
 call, the device-busy time (the union of the kernels' intervals in the
 trace), the idle share (1 - busy / wall), the number of kernels and the
 kernels that took most of the device time.  One JSON line per stage, then
@@ -144,11 +148,52 @@ def train_stages() -> list:
             ("train step bf16", lambda: build(True, False))]
 
 
+def tacotron_train_stages() -> list:
+    """(name, build) for one Tacotron optimizer step in each training mode
+    at batch 32 x 448 frames (the bucket of a 2.5 s utterance at 44.8 kHz);
+    ``build()`` makes the model, its optimizer and the step function."""
+    from text2speech_tpu_torch.config import HParams
+    from text2speech_tpu_torch.data.dataset import Batch
+    from text2speech_tpu_torch.models.tacotron2 import (Tacotron2,
+                                                        init_weights_)
+    from text2speech_tpu_torch.text import N_SYMBOLS
+    from text2speech_tpu_torch.train.state import create_tacotron_state
+    from text2speech_tpu_torch.train.tacotron import (make_train_step,
+                                                      step_generator)
+
+    hp = HParams()
+    B, T_in, T_out = hp.batch_size, 64, 448
+    g = torch.Generator().manual_seed(0)
+    i32 = torch.int32
+    in_len = torch.randint(20, T_in + 1, (B,), generator=g,
+                           dtype=i32).sort(descending=True).values
+    out_len = torch.randint(175, T_out + 1, (B,), generator=g, dtype=i32)
+    frames = torch.arange(T_out)[None, :] < out_len[:, None]
+    batch = Batch(*(t.cuda() for t in (
+        torch.randint(2, 70, (B, T_in), generator=g, dtype=i32), in_len,
+        torch.randn(B, hp.n_mel_channels, T_out, generator=g)
+        * frames[:, None], (~frames).float(), torch.zeros(B, dtype=i32),
+        out_len)))
+
+    def build(bf16: bool, remat: bool):
+        model = init_weights_(Tacotron2(
+            hp, N_SYMBOLS, device="cuda",
+            compute_dtype=torch.bfloat16 if bf16 else None,
+            decoder_remat=remat), torch.Generator().manual_seed(hp.seed))
+        state = create_tacotron_state(model, hp)
+        step = make_train_step(model, hp)
+        return lambda: step(state, batch, step_generator(hp.seed, 0, "cuda"))
+
+    return [("tacotron step f32", lambda: build(False, False)),
+            ("tacotron step f32 remat", lambda: build(False, True)),
+            ("tacotron step bf16", lambda: build(True, False))]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--stages", nargs="+",
-                   default=["serve", "server", "train"],
-                   choices=("serve", "server", "train"))
+                   default=["serve", "server", "train", "tacotron_train"],
+                   choices=("serve", "server", "train", "tacotron_train"))
     p.add_argument("--batch", type=int, default=3, choices=range(1, 5))
     p.add_argument("--steps", type=int, default=200,
                    help="decoder steps = mel frames per utterance")
@@ -167,14 +212,21 @@ def main(argv=None) -> int:
         serve_stages(args)
     if "server" in args.stages:
         server_stages(args)
+    runs = []
     if "train" in args.stages:
-        print("WaveGlow training, reference width, batch 3 x 16000")
-        for name, build in train_stages():
+        runs.append(("WaveGlow training, reference width, batch 3 x 16000",
+                     train_stages(), ("gated_",)))
+    if "tacotron_train" in args.stages:
+        runs.append(("Tacotron training, reference width, batch 32 x 448 "
+                     "frames", tacotron_train_stages(), ()))
+    for title, stages, also in runs:
+        print(title)
+        for name, build in stages:
             fn = build()
             fn()                           # first call: cuDNN picks its plans
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            rec = profile_stage(name, fn, also=("gated_",))
+            rec = profile_stage(name, fn, also=also)
             rec["peak_memory_gb"] = round(
                 torch.cuda.max_memory_allocated() / 1e9, 3)
             print(json.dumps(rec, ensure_ascii=False))

@@ -844,3 +844,256 @@ def test_partial_wrappers_reject_what_the_kernels_do_not_take(dev):
     bad[6] = args[6].cpu()
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         wb.wn_layer_partial(*bad, 1)
+
+
+# --- the padded-layout family (kernels 12-15) and the ladder ---------------
+
+
+def padded_case(dev, T, n_valid, seed, C=512, M=640, E=8):
+    """Seeded bf16 inputs on the ``pad_tiles`` layout: hidden state and
+    mel zero past ``n_valid``, a pre-materialized conditioning of 2 layers,
+    the [C, 2C] and the last layer's [C, C] res/skip weights."""
+    from text2speech_tpu_torch.ops.wn_block_padded import pad_tiles
+
+    g = torch.Generator().manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    mask = (torch.arange(T) < n_valid)[None, :, None].to(dev)
+    k = {"x": rn(1, T, C) * mask, "spect": rn(1, T, M) * mask,
+         "cond": rn(1, T, 4 * C) * mask, "acc": rn(1, T, C, scale=0.5) * mask,
+         "w_in": rn(3, C, 2 * C, scale=(3 * C) ** -0.5),
+         "b_in": rn(2 * C, scale=0.1, dtype=f32),
+         "w_cond": rn(M, 2 * C, scale=M ** -0.5),
+         "b_cond": rn(2 * C, scale=0.1, dtype=f32),
+         "w_rs": rn(C, 2 * C, scale=C ** -0.5),
+         "b_rs": rn(2 * C, scale=0.1, dtype=f32),
+         "w_last": rn(C, C, scale=C ** -0.5),
+         "b_last": rn(C, scale=0.1, dtype=f32),
+         "w_end": rn(C, E, scale=C ** -0.5),
+         "b_end": rn(E, scale=0.1, dtype=f32)}
+    p = {n: pad_tiles(k[n]) for n in ("x", "spect", "cond", "acc")}
+    return k, p
+
+
+@pytest.mark.parametrize("d,n_valid", [(1, 6400), (64, 6099), (128, 6400),
+                                       (128, 5000)])
+def test_padded_kernels_match_plain(dev, d, n_valid):
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    k, p = padded_case(dev, 6400, n_valid, d + n_valid)
+    bt = wp.BT_PAD
+    head = (k["w_in"], k["b_in"], k["w_cond"], k["b_cond"])
+    calls = {
+        "wn_layer_padded": lambda f: f(p["x"], p["cond"], k["w_in"],
+                                       k["b_in"], k["w_rs"], k["b_rs"], d, 1,
+                                       n_valid=n_valid),
+        "wn_layer_spect": lambda f: f(p["x"], p["spect"], *head, k["w_rs"],
+                                      k["b_rs"], p["acc"].clone(), d,
+                                      n_valid=n_valid),
+        "wn_layer_stream": lambda f: f(p["x"], p["spect"], *head, k["w_rs"],
+                                       k["b_rs"], p["acc"].clone(), d,
+                                       n_valid=n_valid),
+        "wn_layer_stream_final": lambda f: f(
+            p["x"], p["spect"], *head, k["w_last"], k["b_last"], p["acc"],
+            k["w_end"], k["b_end"], d, n_valid=n_valid),
+    }
+    wp.reset_launch_counts()
+    for name, call in calls.items():
+        got = call(getattr(wp, name))
+        want = call(getattr(wp, name + "_plain"))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert not g[:, :bt].any() and not g[:, -bt:].any(), name
+            close(g, w)
+    torch.cuda.synchronize()
+    assert wp.launch_counts() == dict.fromkeys(calls, 1)
+
+
+@pytest.mark.parametrize("d", [1, 128])
+def test_padded_ladder_across_kernels(dev, d):
+    """Kernel 2 vs 14 and 9 vs 12 on the valid rows, 13 vs 14 whole."""
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    n_valid = 6300
+    k, p = padded_case(dev, 6400, n_valid, 7 + d)
+    head = (k["w_in"], k["b_in"], k["w_cond"], k["b_cond"])
+    x2, s2 = wb.wn_layer(k["x"], k["spect"], *head, k["w_rs"], k["b_rs"],
+                         k["acc"].clone(), d, n_valid=n_valid)
+    std = (p["x"], p["spect"], *head, k["w_rs"], k["b_rs"])
+    x14, s14 = wp.wn_layer_stream(*std, p["acc"].clone(), d, n_valid=n_valid)
+    x13, s13 = wp.wn_layer_spect(*std, p["acc"].clone(), d, n_valid=n_valid)
+    close(x2, wp.unpad_tiles(x14))
+    close(s2[:, :n_valid], wp.unpad_tiles(s14)[:, :n_valid])
+    close(x13, x14)
+    close(s13, s14)
+    x9, s9 = wd.wn_layer_dcond(k["x"], k["cond"], 1, k["w_in"], k["b_in"],
+                               k["w_rs"], k["b_rs"], torch.zeros_like(k["x"]),
+                               d, n_valid=n_valid)
+    x12, s12 = wp.wn_layer_padded(p["x"], p["cond"], k["w_in"], k["b_in"],
+                                  k["w_rs"], k["b_rs"], d, 1,
+                                  n_valid=n_valid)
+    close(x9, wp.unpad_tiles(x12))
+    close(s9[:, :n_valid], wp.unpad_tiles(s12)[:, :n_valid])
+
+
+def test_padded_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    k, p = padded_case(dev, 256, 256, 3, C=128, M=32)
+    args = [p["x"], p["cond"], k["w_in"], k["b_in"], k["w_rs"], k["b_rs"]]
+    with pytest.raises(ValueError, match="dilation"):
+        wp.wn_layer_padded(*args, 129)
+    with pytest.raises(ValueError, match="cond_index"):
+        wp.wn_layer_padded(*args, 1, 5)
+    with pytest.raises(ValueError, match="pad tile"):
+        wp.wn_layer_padded(*args, 1, bt=64)
+    with pytest.raises(ValueError, match="in place"):
+        wp.wn_layer_spect(p["x"], p["spect"], k["w_in"], k["b_in"],
+                          k["w_cond"], k["b_cond"], k["w_rs"], k["b_rs"],
+                          p["x"], 1)
+
+
+# --- Tacotron training on the card ------------------------------------------
+
+
+def _small_tacotron():
+    """A small Tacotron's seeded weights, a batch (text, text lengths, mel,
+    output lengths, gate targets) and hand-built dropout masks, on the
+    CPU."""
+    from text2speech_tpu_torch.config import HParams
+    from text2speech_tpu_torch.models.tacotron2 import (Tacotron2,
+                                                        init_weights_)
+
+    hp = HParams(embedding_size=64, enc_conv_channels=64,
+                 attention_rnn_dim=128, decoder_rnn_dim=128, prenet_dim=32,
+                 n_mel_channels=16, postnet_embedding_dim=64)
+    g = torch.Generator().manual_seed(0)
+    B, T_in, T_out = 4, 20, 48
+    text = torch.randint(2, 70, (B, T_in), generator=g, dtype=torch.int32)
+    in_len = torch.tensor([20, 17, 12, 9], dtype=torch.int32)
+    out_len = torch.tensor([48, 40, 33, 20], dtype=torch.int32)
+    mel = torch.randn(B, 16, T_out, generator=g)
+    gate = (torch.arange(T_out)[None] >= out_len[:, None] - 1).float()
+    model = init_weights_(Tacotron2(hp, 80), torch.Generator().manual_seed(1))
+    masks = model.draw_train_masks(B, T_in, T_out,
+                                   torch.Generator().manual_seed(2))
+    return hp, model, (text, in_len, mel, out_len, gate), masks
+
+
+def _tacotron_step(hp, model, batch, masks, d, compute_dtype=None):
+    """One training forward and backward of a copy of ``model`` on device
+    ``d`` -> (loss, {name: gradient}, {name: buffer}), on the CPU."""
+    from text2speech_tpu_torch.models.losses import tacotron2_loss
+    from text2speech_tpu_torch.models.tacotron2 import Tacotron2
+
+    m = Tacotron2(hp, 80, device=d, compute_dtype=compute_dtype)
+    m.load_state_dict(model.state_dict())
+    mk = type(masks)(*([x.to(d) for x in f] if isinstance(f, list)
+                       else f.to(d) for f in masks))
+    text, in_len, mel, out_len, gate = (t.to(d) for t in batch)
+    outs = m(text, in_len, mel, out_len, train=True, masks=mk)
+    assert all(o.dtype == torch.float32 for o in outs)
+    loss, _ = tacotron2_loss(*outs[:3], mel, gate)
+    loss.backward()
+    return (loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()},
+            {n: b.cpu() for n, b in m.named_buffers()})
+
+
+def _rel_l2(a, b):
+    return ((a - b).norm() / b.norm()).item()
+
+
+def test_tacotron_train_step_on_the_card_matches_the_cpu(dev):
+    """One training step of a small Tacotron with the same weights, batch
+    and dropout masks on the card and on the CPU (TF32 off): loss within
+    1e-5 relative, the gradient within 1e-4 relative L2, equal running
+    statistics within 1e-6."""
+    setup = _small_tacotron()
+    l_c, g_c, b_c = _tacotron_step(*setup, "cpu")
+    l_g, g_g, b_g = _tacotron_step(*setup, dev)
+    assert l_g == pytest.approx(l_c, rel=1e-5)
+    flat = [torch.cat([g.flatten() for g in gs.values()]) for gs in (g_g, g_c)]
+    assert _rel_l2(*flat) < 1e-4
+    for n, b in b_c.items():
+        assert torch.allclose(b_g[n].float(), b.float(), atol=1e-6), n
+
+
+def test_tacotron_bf16_step_on_the_card_tracks_the_cpu_f32(dev):
+    """The bf16 step on the card (CUDA autocast, the decoder step's weights
+    cast once through ``_SharedCast``) against the f32 step on the CPU,
+    same weights, batch and masks: products of bf16-rounded operands.  The
+    same comparison under the CPU's autocast reads a loss 5.4e-4 relative
+    apart, the gradient 0.061 relative L2 apart and each leaf at most 0.16
+    apart; bounds of about three times that: loss 2e-3 relative, gradient
+    0.2, each leaf 0.5 (a conv bias that feeds a BatchNorm has a zero
+    gradient in exact arithmetic and is rounding noise on both sides, so it
+    counts only in the whole); f32 gradients."""
+    setup = _small_tacotron()
+    l_c, g_c, _ = _tacotron_step(*setup, "cpu")
+    l_g, g_g, _ = _tacotron_step(*setup, dev, torch.bfloat16)
+    assert l_g == pytest.approx(l_c, rel=2e-3)
+    assert all(g.dtype == torch.float32 for g in g_g.values())
+    flat = [torch.cat([g.flatten() for g in gs.values()]) for gs in (g_g, g_c)]
+    assert _rel_l2(*flat) < 0.2
+    for n in g_c:
+        if not (".convs." in n and n.endswith(".bias")):
+            assert _rel_l2(g_g[n], g_c[n]) < 0.5, n
+
+
+@pytest.fixture
+def deterministic():
+    """Deterministic cuDNN and PyTorch kernels for one test (a backward
+    kernel that adds with atomics may round differently on every run)."""
+    prev = (torch.backends.cudnn.deterministic,
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.backends.cudnn.deterministic = prev[0]
+    torch.use_deterministic_algorithms(prev[1], warn_only=prev[2])
+
+
+def test_tacotron_bf16_remat_step_on_the_card(dev, deterministic):
+    """bf16 products with decoder remat: the same loss and gradients as
+    bf16 without (the recompute replays the same kernels, chosen
+    deterministic so that two runs agree at all), f32 outputs."""
+    from text2speech_tpu_torch.config import HParams
+    from text2speech_tpu_torch.models.losses import tacotron2_loss
+    from text2speech_tpu_torch.models.tacotron2 import (Tacotron2,
+                                                        init_weights_)
+
+    hp = HParams(embedding_size=64, enc_conv_channels=64,
+                 attention_rnn_dim=128, decoder_rnn_dim=128, prenet_dim=32,
+                 n_mel_channels=16, postnet_embedding_dim=64)
+    g = torch.Generator().manual_seed(0)
+    B, T_in, T_out = 2, 16, 32
+    text = torch.randint(2, 70, (B, T_in), generator=g,
+                         dtype=torch.int32).to(dev)
+    lens = torch.tensor([16, 11], dtype=torch.int32, device=dev)
+    outl = torch.tensor([32, 25], dtype=torch.int32, device=dev)
+    mel = torch.randn(B, 16, T_out, generator=g).to(dev)
+    gate = torch.zeros(B, T_out, device=dev)
+    base = init_weights_(Tacotron2(hp, 80), torch.Generator().manual_seed(1))
+    masks = base.draw_train_masks(B, T_in, T_out,
+                                  torch.Generator(device=dev).manual_seed(3),
+                                  dev)
+    out = []
+    for remat in (False, True):
+        m = Tacotron2(hp, 80, device=dev, compute_dtype=torch.bfloat16,
+                      decoder_remat=remat)
+        m.load_state_dict(base.state_dict())
+        preds = m(text, lens, mel, outl, train=True, masks=masks)
+        assert all(p.dtype == torch.float32 for p in preds)
+        loss, _ = tacotron2_loss(*preds[:3], mel, gate)
+        loss.backward()
+        out.append((loss.detach(), [p.grad.clone() for p in m.parameters()]))
+    assert torch.isfinite(out[0][0])
+    assert torch.allclose(out[0][0], out[1][0], rtol=1e-6)
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-6)

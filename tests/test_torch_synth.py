@@ -207,7 +207,10 @@ def test_port_imports_with_jax_blocked():
         "          'train.checkpoint', 'data.mel2samp', 'utils.logger',\n"
         "          'waveglow_train', 'ops.wn_block_dcond',\n"
         "          'models.tacotron_serve', 'parallel', 'parallel.tp',\n"
-        "          'server', 'http_serve'):\n"
+        "          'server', 'http_serve', 'ops.wn_block_padded',\n"
+        "          'train.tacotron', 'train.state', 'data.dataset',\n"
+        "          'data.npz_dataset', 'utils.run_dirs', 'utils.infolog',\n"
+        "          'tacotron_train'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )

@@ -14,6 +14,10 @@ Layout rules (``text2speech_tpu/convert.py:9-18`` run in reverse):
 * flax Conv kernel [k, in, out]    -> ``nn.Conv1d`` weight [out, in, k]
 * LSTM gates (i, f, g, o) unchanged; ``ih``/``hh`` kernels transposed
 * BatchNorm scale/bias + batch_stats mean/var -> weight/bias/running stats
+* A trainable Tacotron is the same module: :func:`trainable_tacotron_from_
+  variables` reads a JAX ``{"params", "batch_stats"}`` tree into one, and
+  :func:`variables_from_tacotron` writes a port model back into the flat
+  flax keys (both through :func:`tacotron_layout`).
 * WaveGlow weight norm ``(v, g)`` is folded once here, as
   ``waveglow_fused.py:89 _fold``; WN convs keep the ``[k, in, out]``
   layout, and each flow's fused cond kernel [1, M, 2C * L] is cut into
@@ -92,39 +96,36 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def tacotron_state_dict(variables: Mapping, hp: HParams,
-                        num_speakers: int = 1) -> dict:
-    """Tacotron2 flax variables -> the port's ``state_dict``."""
-    f = _as_flat(variables)
-    P, S = "params/", "batch_stats/"
-    sd = {}
+def tacotron_layout(hp: HParams, num_speakers: int = 1) -> list:
+    """Every Tacotron leaf as (the port's ``state_dict`` key, the flat flax
+    key, kind): kind ``dense`` (kernel [in, out] <-> weight [out, in]),
+    ``conv`` ([k, in, out] <-> [out, in, k]) or ``copy``."""
+    out = []
 
     def dense(dst, src, bias=True):
-        sd[f"{dst}.weight"] = _t(f[f"{P}{src}/kernel"]).T.contiguous()
+        out.append((f"{dst}.weight", f"params/{src}/kernel", "dense"))
         if bias:
-            sd[f"{dst}.bias"] = _t(f[f"{P}{src}/bias"])
+            out.append((f"{dst}.bias", f"params/{src}/bias", "copy"))
 
     def conv(dst, src, bias=True):
-        sd[f"{dst}.weight"] = _t(
-            f[f"{P}{src}/Conv_0/kernel"].transpose(2, 1, 0))
+        out.append((f"{dst}.weight", f"params/{src}/Conv_0/kernel", "conv"))
         if bias:
-            sd[f"{dst}.bias"] = _t(f[f"{P}{src}/Conv_0/bias"])
+            out.append((f"{dst}.bias", f"params/{src}/Conv_0/bias", "copy"))
 
     def bn(dst, src):
-        sd[f"{dst}.weight"] = _t(f[f"{P}{src}/scale"])
-        sd[f"{dst}.bias"] = _t(f[f"{P}{src}/bias"])
-        sd[f"{dst}.running_mean"] = _t(f[f"{S}{src}/mean"])
-        sd[f"{dst}.running_var"] = _t(f[f"{S}{src}/var"])
-        sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+        out.extend([(f"{dst}.weight", f"params/{src}/scale", "copy"),
+                    (f"{dst}.bias", f"params/{src}/bias", "copy"),
+                    (f"{dst}.running_mean", f"batch_stats/{src}/mean", "copy"),
+                    (f"{dst}.running_var", f"batch_stats/{src}/var", "copy")])
 
     def lstm(dst, src):
         dense(f"{dst}.ih", f"{src}/ih")
         dense(f"{dst}.hh", f"{src}/hh")
 
-    sd["embedding.weight"] = _t(f[f"{P}embedding/embedding"])
+    out.append(("embedding.weight", "params/embedding/embedding", "copy"))
     if num_speakers > 1:
-        sd["speaker_embedding.weight"] = _t(
-            f[f"{P}speaker_embedding/embedding"])
+        out.append(("speaker_embedding.weight",
+                    "params/speaker_embedding/embedding", "copy"))
         dense("speaker_proj", "speaker_proj")
     for i in range(hp.enc_conv_num_layers):
         conv(f"encoder.convs.{i}", f"encoder/conv{i}")
@@ -144,7 +145,62 @@ def tacotron_state_dict(variables: Mapping, hp: HParams,
     for i in range(hp.postnet_n_convolutions):
         conv(f"postnet.convs.{i}", f"postnet/conv{i}")
         bn(f"postnet.bns.{i}", f"postnet/bn{i}")
+    return out
+
+
+def to_port_layout(a, kind: str) -> torch.Tensor:
+    """One flax leaf -> the port's tensor (f32)."""
+    t = _t(a)
+    if kind == "dense":
+        return t.T.contiguous()
+    if kind == "conv":
+        return t.permute(2, 1, 0).contiguous()
+    return t
+
+
+def to_flax_layout(t: torch.Tensor, kind: str) -> np.ndarray:
+    """One port tensor -> the flax leaf (f32 numpy)."""
+    a = t.detach().to("cpu", torch.float32)
+    if kind == "dense":
+        a = a.T
+    elif kind == "conv":
+        a = a.permute(2, 1, 0)
+    return np.ascontiguousarray(a.numpy())
+
+
+def tacotron_state_dict(variables: Mapping, hp: HParams,
+                        num_speakers: int = 1) -> dict:
+    """Tacotron2 flax variables -> the port's ``state_dict``."""
+    f = _as_flat(variables)
+    sd = {}
+    for dst, src, kind in tacotron_layout(hp, num_speakers):
+        sd[dst] = to_port_layout(f[src], kind)
+        if dst.endswith(".running_mean"):
+            sd[dst.replace("running_mean", "num_batches_tracked")] = \
+                torch.tensor(0)
     return sd
+
+
+def variables_from_tacotron(model: Tacotron2) -> dict:
+    """A port Tacotron's parameters and running statistics as flat flax
+    variables (``params/...`` and ``batch_stats/...`` f32 numpy arrays):
+    what :func:`load_tacotron` and the JAX package read."""
+    sd = model.state_dict()
+    return {src: to_flax_layout(sd[dst], kind) for dst, src, kind in
+            tacotron_layout(model.hp, model.num_speakers)}
+
+
+def trainable_tacotron_from_variables(variables: Mapping, hp: HParams,
+                                      n_vocab: int, num_speakers: int = 1,
+                                      device=None,
+                                      **model_kwargs) -> Tacotron2:
+    """JAX ``{"params", "batch_stats"}`` (nested or flat) -> a port
+    Tacotron to train (``model_kwargs``: ``compute_dtype``,
+    ``decoder_remat``)."""
+    model = Tacotron2(hp, n_vocab=n_vocab, num_speakers=num_speakers,
+                      device=device, **model_kwargs)
+    model.load_state_dict(tacotron_state_dict(variables, hp, num_speakers))
+    return model
 
 
 def waveglow_state_dict(variables: Mapping, cfg: WaveGlowConfig) -> dict:

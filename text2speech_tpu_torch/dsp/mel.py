@@ -1,8 +1,7 @@
 """Online mel frontend, the training-time convention (counterpart of
 ``text2speech_tpu/dsp/mel.py``): mel = log(clamp(mel_basis @ |STFT(y)|,
-1e-5)), fmin 0 / fmax 8000 by default.  The batched-extraction variant for
-signals padded on the host (``center=False``) waits for the preprocess
-slice."""
+1e-5)), fmin 0 / fmax 8000 by default, also for signals the caller has
+padded (``center=False``, the Tacotron dataset's batched extraction)."""
 
 from __future__ import annotations
 
@@ -46,10 +45,22 @@ class MelFrontend:
         return STFTParams(self.filter_length, self.hop_length,
                           self.win_length)
 
-    def mel_spectrogram(self, y: torch.Tensor) -> torch.Tensor:
-        """[B, T] in [-1, 1] -> [B, n_mels, 1 + T // hop] log-mel."""
-        mag = stft_magnitude(y, self.stft_params)
+    def mel_spectrogram(self, y: torch.Tensor,
+                        center: bool = True) -> torch.Tensor:
+        """[B, T] in [-1, 1] -> [B, n_mels, 1 + T // hop] log-mel.
+        ``center=False`` takes signals each reflect-padded by
+        ``filter_length // 2`` by the caller (batched extraction, where the
+        edges must come from each utterance's own samples, not from the
+        batch's zero padding)."""
+        mag = stft_magnitude(y, self.stft_params, center)
         basis = torch.from_numpy(_mel_basis(
             self.sampling_rate, self.filter_length, self.n_mel_channels,
             self.mel_fmin, self.mel_fmax)).to(mag.device)
         return dynamic_range_compression(basis @ mag)
+
+    @classmethod
+    def from_hparams(cls, hp) -> "MelFrontend":
+        return cls(filter_length=hp.filter_length, hop_length=hp.hop_length,
+                   win_length=hp.win_length, n_mel_channels=hp.n_mel_channels,
+                   sampling_rate=hp.sample_rate, mel_fmin=hp.mel_fmin,
+                   mel_fmax=hp.mel_fmax)

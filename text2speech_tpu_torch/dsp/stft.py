@@ -40,9 +40,15 @@ def _inverse_basis(filter_length: int, win_length: int,
     return inverse_fourier_basis(filter_length, win_length, hop_length)
 
 
-def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """Reflect-pad by n_fft // 2 and cut overlapping frames:
-    [B, T] -> [B, 1 + T // hop, n_fft]."""
+def frame_signal(y: torch.Tensor, n_fft: int, hop: int,
+                 center: bool = True) -> torch.Tensor:
+    """Reflect-pad by n_fft // 2 (when ``center``) and cut overlapping
+    frames: [B, T] -> [B, 1 + T // hop, n_fft].  ``center=False`` takes a
+    signal the caller has padded already (each utterance reflect-padded by
+    its own samples before batching) -> [B, 1 + (T - n_fft) // hop,
+    n_fft]."""
+    if not center:
+        return y.unfold(1, n_fft, hop)
     # reflect padding as numpy's: the periodic mirror image (period
     # 2 (T - 1)), so it also holds for pads longer than the signal
     pad, T = n_fft // 2, y.shape[1]
@@ -50,18 +56,21 @@ def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     return y[:, torch.where(p < T, p, 2 * (T - 1) - p)].unfold(1, n_fft, hop)
 
 
-def stft_real_imag(y: torch.Tensor, params: STFTParams):
+def stft_real_imag(y: torch.Tensor, params: STFTParams,
+                   center: bool = True):
     """y [B, T] -> (real, imag), each [B, cutoff, n_frames], f32."""
     basis = torch.from_numpy(
         _forward_basis(params.filter_length, params.win_length)).to(y.device)
-    frames = frame_signal(y.float(), params.filter_length, params.hop_length)
+    frames = frame_signal(y.float(), params.filter_length, params.hop_length,
+                          center)
     spec = (frames @ basis).transpose(1, 2)          # [B, 2*cutoff, frames]
     return spec[:, : params.cutoff], spec[:, params.cutoff:]
 
 
-def stft_magnitude(y: torch.Tensor, params: STFTParams) -> torch.Tensor:
+def stft_magnitude(y: torch.Tensor, params: STFTParams,
+                   center: bool = True) -> torch.Tensor:
     """|STFT(y)|: [B, T] -> [B, cutoff, n_frames], f32."""
-    re, im = stft_real_imag(y, params)
+    re, im = stft_real_imag(y, params, center)
     return torch.sqrt(re * re + im * im)
 
 

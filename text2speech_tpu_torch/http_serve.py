@@ -34,7 +34,8 @@ Endpoints::
     POST /synthesize   {"text": "...", "seed": 123?, "sigma": 0.6?,
                         "denoiser_strength": 0.01?, "speaker_id": 0?}
                        -> chunked audio/wav; X-Session-Id response header
-    POST /reload       {"taco_npz": ...?, "wg_ckpt_dir": ...?}
+    POST /reload       {"taco_ckpt_dir": ...?, "wg_ckpt_dir": ...?} (or
+                       "taco_npz" in place of "taco_ckpt_dir")
                        live weight swap through the configured reload_fn
                        (``Synthesizer.load_checkpoints``), run between two
                        rounds; guarded by X-Reload-Token when a token is set

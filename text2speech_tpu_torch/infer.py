@@ -385,27 +385,27 @@ class Synthesizer:
                 waveglow_state_dict(wg_variables, self.wg_cfg))
             self._derive_from_waveglow()
 
-    def load_checkpoints(self, taco_npz: str | None = None,
-                         wg_ckpt_dir: str | None = None) -> None:
-        """Restore either or both models from disk and swap them in through
-        :meth:`load_weights`: the live-upgrade path of a running server
-        (HTTP ``POST /reload``).  ``wg_ckpt_dir`` is a WaveGlow training
-        checkpoint directory of this package (``train/checkpoint.py``; the
-        newest step is read).  Tacotron training is not ported yet, so
-        ``taco_npz`` is the ``.npz`` that ``export_torch_weights.py`` writes
-        from a JAX checkpoint (its ``tacotron/...`` keys are read)."""
-        tv = wv = None
+    def load_checkpoints(self, taco_ckpt_dir: str | None = None,
+                         wg_ckpt_dir: str | None = None,
+                         taco_npz: str | None = None) -> None:
+        """Restore either or both models from disk and swap them in place
+        (``infer.py:552 load_checkpoints``): the live-upgrade path of a
+        running server (HTTP ``POST /reload``).  ``taco_ckpt_dir`` and
+        ``wg_ckpt_dir`` are training checkpoint directories of this package
+        (``train/checkpoint.py``; the newest step is read).  ``taco_npz``
+        is the alternative for a JAX-trained Tacotron: the ``.npz`` that
+        ``export_torch_weights.py`` writes (its ``tacotron/...`` keys)."""
+        if taco_ckpt_dir is not None and taco_npz is not None:
+            raise ValueError("give taco_ckpt_dir or taco_npz, not both")
+        tv = None
         if taco_npz is not None:
             from .convert import load_npz, sub_tree
 
             tv = sub_tree(load_npz(taco_npz), "tacotron")
-        if wg_ckpt_dir is not None:
-            from .train.checkpoint import CheckpointManager
-
-            # the trainer's state names its leaves ``params.<flax path>``
-            wv = {f"params/{name.removeprefix('params.')}": t.numpy()
-                  for name, t in
-                  CheckpointManager(wg_ckpt_dir).load_params().items()}
+        wv = None if wg_ckpt_dir is None else waveglow_checkpoint(wg_ckpt_dir)
+        if taco_ckpt_dir is not None:
+            load_tacotron_checkpoint(self.taco, taco_ckpt_dir)
+            self._derive_from_tacotron()
         self.load_weights(tv, wv)
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -656,20 +656,64 @@ class Synthesizer:
         return wavs
 
 
-def load_synthesizer(hp: HParams, weights_npz: str, wg_cfg: WaveGlowConfig,
-                     use_denoiser: bool = True, num_speakers: int = 1,
+def waveglow_checkpoint(ckpt_dir: str) -> dict:
+    """The newest WaveGlow training checkpoint of ``ckpt_dir`` as the flat
+    flax variables ``load_waveglow`` reads (the trainer's state names its
+    leaves ``params.<flax path>``)."""
+    from .train.checkpoint import CheckpointManager
+
+    return {f"params/{name.removeprefix('params.')}": t.numpy()
+            for name, t in CheckpointManager(ckpt_dir).load_params().items()}
+
+
+@torch.no_grad()
+def load_tacotron_checkpoint(taco: Tacotron2, ckpt_dir: str) -> None:
+    """Copy the newest Tacotron training checkpoint of ``ckpt_dir`` (its
+    parameters and BatchNorm running statistics) into ``taco`` in place.
+    Raises when the names differ from the model's."""
+    from .train.checkpoint import CheckpointManager
+
+    saved = CheckpointManager(ckpt_dir).load_variables()
+    sd = taco.state_dict()
+    want = {k for k in sd if not k.endswith("num_batches_tracked")}
+    if set(saved) != want:
+        odd = sorted(set(saved) ^ want)
+        raise ValueError(f"Tacotron checkpoint in {ckpt_dir} does not match "
+                         f"the model: {odd[:8]}")
+    for k in want:
+        sd[k].copy_(saved[k])
+
+
+def load_synthesizer(hp: HParams, weights_npz: str | None,
+                     wg_cfg: WaveGlowConfig, use_denoiser: bool = True,
+                     num_speakers: int = 1,
                      use_fused_vocoder: bool = False,
                      int8_vocoder: bool = False,
                      device: str | torch.device = "cuda",
-                     quantized_decode: bool = False) -> Synthesizer:
+                     quantized_decode: bool = False,
+                     taco_ckpt_dir: str | None = None,
+                     wg_ckpt_dir: str | None = None) -> Synthesizer:
     """Build a Synthesizer from the ``.npz`` that ``export_torch_weights.py``
-    writes (``tacotron/...`` and ``waveglow/...`` flax paths)."""
+    writes (``tacotron/...`` and ``waveglow/...`` flax paths), or, with
+    ``weights_npz=None``, from this package's two training checkpoint
+    directories ``taco_ckpt_dir`` and ``wg_ckpt_dir`` (``infer.py:920
+    load_synthesizer``)."""
     from .convert import load_npz, load_tacotron, load_waveglow, sub_tree
 
-    flat = load_npz(weights_npz)
-    taco = load_tacotron(sub_tree(flat, "tacotron"), hp, N_SYMBOLS,
-                         num_speakers, device=device)
-    wg = load_waveglow(sub_tree(flat, "waveglow"), wg_cfg, device=device)
+    if weights_npz is not None:
+        flat = load_npz(weights_npz)
+        taco = load_tacotron(sub_tree(flat, "tacotron"), hp, N_SYMBOLS,
+                             num_speakers, device=device)
+        wg = load_waveglow(sub_tree(flat, "waveglow"), wg_cfg, device=device)
+    elif taco_ckpt_dir is None or wg_ckpt_dir is None:
+        raise ValueError("load_synthesizer needs weights_npz, or "
+                         "taco_ckpt_dir and wg_ckpt_dir")
+    else:
+        taco = Tacotron2(hp, N_SYMBOLS, num_speakers, device=device)
+        load_tacotron_checkpoint(taco, taco_ckpt_dir)
+        taco.eval()
+        wg = load_waveglow(waveglow_checkpoint(wg_ckpt_dir), wg_cfg,
+                           device=device)
     return Synthesizer(hp, taco, wg_cfg, wg, use_denoiser=use_denoiser,
                        use_fused_vocoder=use_fused_vocoder,
                        int8_vocoder=int8_vocoder,

@@ -8,7 +8,9 @@
         --stream --stream_chunk_steps 64 -d 0.1
 
 ``--weights`` is the ``.npz`` written by ``export_torch_weights.py`` from the
-JAX package's checkpoints; ``--random_init SEED`` synthesizes from seeded
+JAX package's checkpoints; ``--taco_checkpoint DIR --waveglow_checkpoint
+DIR`` read this package's own training checkpoints (``tacotron_train``,
+``waveglow_train``); ``--random_init SEED`` synthesizes from seeded
 random weights when no checkpoint exists (noise, but the whole path runs).
 ``--stream`` decodes in chunks and writes each piece of audio as soon as it
 clears the vocoder's receptive field (the first after about one chunk, not
@@ -45,6 +47,12 @@ def build_parser() -> argparse.ArgumentParser:
                      "(export_torch_weights.py)")
     src.add_argument("--random_init", type=int, metavar="SEED",
                      help="seeded random weights instead of a checkpoint")
+    src.add_argument("--taco_checkpoint",
+                     help="Tacotron training checkpoint directory of this "
+                     "package (tacotron_train); needs --waveglow_checkpoint")
+    p.add_argument("--waveglow_checkpoint", default=None,
+                   help="WaveGlow training checkpoint directory of this "
+                   "package (waveglow_train)")
     p.add_argument("--text", default="이 것은 제작되고 있는 중입니다.")
     p.add_argument("--out", default="tone_440.wav")
     p.add_argument("--sigma", type=float, default=0.666)
@@ -175,9 +183,8 @@ def serve_http(args, synth, srv) -> None:
     httpd, runner = make_http_server(
         srv, host="0.0.0.0", port=args.http_port,
         sample_rate=args.sample_rate, log_requests=True,
-        # POST /reload {"taco_npz": ..., "wg_ckpt_dir": ...}
-        reload_fn=lambda taco_npz=None, wg_ckpt_dir=None:
-            synth.load_checkpoints(taco_npz, wg_ckpt_dir),
+        # POST /reload {"taco_ckpt_dir" or "taco_npz", "wg_ckpt_dir"}
+        reload_fn=synth.load_checkpoints,
         reload_token=args.http_reload_token)
     print(f"HTTP TTS server on :{httpd.server_address[1]} "
           f"({args.serve_slots} slots; POST /synthesize)", flush=True)
@@ -191,7 +198,13 @@ def serve_http(args, synth, srv) -> None:
 
 
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if bool(args.taco_checkpoint) != bool(args.waveglow_checkpoint):
+        # the JAX CLI vocodes a Tacotron checkpoint alone with Griffin-Lim,
+        # which the port does not have yet
+        parser.error("--taco_checkpoint and --waveglow_checkpoint go "
+                     "together")
     if not torch.cuda.is_available():
         raise RuntimeError("text2speech_tpu_torch.inference needs a CUDA GPU "
                            "(no CUDA device is visible)")
@@ -205,14 +218,16 @@ def main(argv=None) -> None:
     # serving keeps the denoiser available whatever -d says: HTTP requests
     # carry their own strengths
     use_denoiser = args.denoiser_strength > 0 or args.serve_slots > 0
-    if args.weights:
+    if args.weights or args.taco_checkpoint:
         from .infer import load_synthesizer
 
         synth = load_synthesizer(
             hp, args.weights, wg_cfg, use_denoiser=use_denoiser,
             num_speakers=args.num_speakers,
             use_fused_vocoder=args.fused_vocoder,
-            int8_vocoder=args.int8_vocoder, device="cuda")
+            int8_vocoder=args.int8_vocoder, device="cuda",
+            taco_ckpt_dir=args.taco_checkpoint,
+            wg_ckpt_dir=args.waveglow_checkpoint)
     else:
         from .infer import random_synthesizer
 

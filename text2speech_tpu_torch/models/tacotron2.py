@@ -1,13 +1,32 @@
-"""Tacotron-2 inference in PyTorch (counterpart of
+"""Tacotron-2 in PyTorch (counterpart of
 ``text2speech_tpu/models/tacotron2.py``).
 
 Character embedding -> 3 x (conv k5 + BatchNorm + ReLU) -> BiLSTM encoder ->
-location-sensitive attention LSTM decoder -> 5-conv postnet.  Only the
-inference path is ported: the whole-utterance decode (:meth:`Tacotron2.
-inference`) and its streaming unit (:meth:`Tacotron2.decode_chunk`, a run
-of decoder steps from an explicit carry).  Layouts follow the JAX package:
-encoder activations are channels-last ``[B, T, C]``; mels are
-``[B, n_mel, T]``.
+location-sensitive attention LSTM decoder -> 5-conv postnet.  Inference:
+the whole-utterance decode (:meth:`Tacotron2.inference`) and its streaming
+unit (:meth:`Tacotron2.decode_chunk`, a run of decoder steps from an
+explicit carry).  Training: the teacher-forced forward
+(:meth:`Tacotron2.forward`, ``tacotron2.py:471 __call__``).  Layouts follow
+the JAX package: encoder activations are channels-last ``[B, T, C]``; mels
+are ``[B, n_mel, T]``.
+
+Training follows flax, not ``torch.nn``'s habits:
+
+* BatchNorm in training normalizes by the statistics over batch and time
+  (padded frames included), with the biased variance ``E[x^2] - E[x]^2``
+  in f32, and updates the running statistics as ``0.9 running + 0.1
+  batch`` (the biased variance there too; ``F.batch_norm`` would store the
+  unbiased one);
+* every dropout takes an explicit keep-mask (:class:`TrainMasks`: encoder
+  ``hp.dropout_prob``, postnet 0.5, prenet 0.5, attention and decoder LSTM
+  outputs ``hp.p_attention_dropout`` / ``hp.p_decoder_dropout``), so a
+  test can hand it the masks JAX drew; without them the masks are drawn
+  from a ``torch.Generator`` (:meth:`Tacotron2.draw_train_masks`);
+* ``compute_dtype=torch.bfloat16`` runs the products in bf16 (autocast)
+  with f32 parameters; the outputs, and the loss, are f32;
+* ``decoder_remat`` recomputes each teacher-forced decoder step in the
+  backward pass (``torch.utils.checkpoint``): the same loss and gradients
+  with one step's activations kept instead of every step's.
 
 Three behaviours of the reference that the port keeps:
 
@@ -25,11 +44,13 @@ Three behaviours of the reference that the port keeps:
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import HParams
 
@@ -63,17 +84,40 @@ class Conv1d(nn.Conv1d):
 
 
 class BatchNorm(nn.BatchNorm1d):
-    """Inference BatchNorm over channels-last [B, T, C]: running statistics
-    and flax's eps 1e-5, whatever the module's train flag."""
+    """BatchNorm over channels-last [B, T, C] with flax's semantics (eps
+    1e-5, momentum 0.9), whatever the module's own train flag: the running
+    statistics unless ``train=True``; then the batch's, and the running
+    ones are updated in place."""
 
     def __init__(self, channels: int, device=None):
         super().__init__(channels, eps=1e-5, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.transpose(1, 2), self.running_mean,
-                         self.running_var, self.weight, self.bias,
-                         training=False, eps=self.eps)
-        return y.transpose(1, 2)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            y = F.batch_norm(x.transpose(1, 2), self.running_mean,
+                             self.running_var, self.weight, self.bias,
+                             training=False, eps=self.eps)
+            return y.transpose(1, 2)
+        # flax's _compute_stats / _normalize: f32 statistics over (B, T),
+        # var = max(E[x^2] - E[x]^2, 0), y = (x - mean) (rsqrt(var + eps)
+        # scale) + bias
+        xf = x.float()
+        mean = xf.mean(dim=(0, 1))
+        var = torch.clamp_min((xf * xf).mean(dim=(0, 1)) - mean * mean, 0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float())
+        return (y + self.bias.float()).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, keep: torch.Tensor | None,
+            rate: float) -> torch.Tensor:
+    """flax ``nn.Dropout``: ``x / (1 - rate)`` where kept, else 0; no
+    mask, or rate 0, leaves ``x`` as it is."""
+    if keep is None or rate == 0.0:
+        return x
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 class Prenet(nn.Module):
@@ -103,11 +147,16 @@ class Encoder(nn.Module):
         self.bns = nn.ModuleList(
             BatchNorm(ch, device=device) for _ in ins)
         self.bilstm = BiLSTM(ch, ch // 2, device=device)
+        self.dropout_prob = hp.dropout_prob
 
-    def forward(self, x: torch.Tensor,
-                lengths: torch.Tensor | None) -> torch.Tensor:
-        for conv, bn in zip(self.convs, self.bns):
-            x = torch.relu(bn(conv(x)))
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor | None,
+                train: bool = False, keep=None) -> torch.Tensor:
+        """``keep``: with ``train``, one bool [B, T, C] dropout keep-mask
+        per conv layer (rate ``hp.dropout_prob``)."""
+        for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
+            x = torch.relu(bn(conv(x), train))
+            if train:
+                x = dropout(x, keep[i], self.dropout_prob)
         return self.bilstm(x, lengths)
 
 
@@ -125,13 +174,18 @@ class Postnet(nn.Module):
         self.bns = nn.ModuleList(
             BatchNorm(dims[i + 1], device=device) for i in range(n))
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, train: bool = False,
+                keep=None) -> torch.Tensor:
+        """``keep``: with ``train``, one bool [B, T, C_i] dropout keep-mask
+        per conv layer (rate 0.5)."""
         x = mel.transpose(1, 2)
         last = len(self.convs) - 1
         for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
-            x = bn(conv(x))
+            x = bn(conv(x), train)
             if i != last:
                 x = torch.tanh(x)
+            if train:
+                x = dropout(x, keep[i], 0.5)
         return x.transpose(1, 2)
 
 
@@ -210,10 +264,15 @@ class Decoder(nn.Module):
             z(B, T_in), z(B, T_in), z(B, hp.enc_conv_channels))
 
     def step(self, state: DecoderState, prenet_out, memory,
-             processed_memory, mask):
+             processed_memory, mask, att_keep=None, dec_keep=None):
+        """One decoder step.  ``att_keep`` / ``dec_keep`` (training): bool
+        dropout keep-masks [B, attention_rnn_dim] / [B, decoder_rnn_dim] of
+        the two LSTMs' outputs (``tacotron2.py:284-302``)."""
+        hp = self.hp
         att_h, att_c = self.attention_rnn(
             (state.attention_h, state.attention_c),
             torch.cat([prenet_out, state.attention_context], -1))
+        att_h = dropout(att_h, att_keep, hp.p_attention_dropout)
         weights_cat = torch.stack(
             [state.attention_weights, state.attention_weights_cum], dim=-1)
         context, weights = self.attention(att_h, memory, processed_memory,
@@ -221,12 +280,17 @@ class Decoder(nn.Module):
         dec_h, dec_c = self.decoder_rnn(
             (state.decoder_h, state.decoder_c),
             torch.cat([att_h, context], -1))
+        dec_h = dropout(dec_h, dec_keep, hp.p_decoder_dropout)
         proj_in = torch.cat([dec_h, context], -1)
         mel_frame = self.mel_proj(proj_in)
         gate = self.gate_proj(proj_in)[..., 0]
         new = DecoderState(att_h, att_c, dec_h, dec_c, weights,
                            state.attention_weights_cum + weights, context)
         return new, (mel_frame, gate, weights)
+
+    def forward(self, *args):
+        """:meth:`step`: what ``torch.func.functional_call`` runs."""
+        return self.step(*args)
 
     def draw_keep_masks(self, steps: int, batch: int,
                         generator: torch.Generator | None,
@@ -285,6 +349,54 @@ class Decoder(nn.Module):
                 memory.new_zeros((B, self.hp.n_mel_channels)),
                 torch.zeros((B,), dtype=torch.bool, device=memory.device))
 
+    def teacher_forced(self, memory: torch.Tensor, mels: torch.Tensor,
+                       memory_lengths: torch.Tensor, masks: "TrainMasks",
+                       train: bool = True, remat: bool = False):
+        """All steps with the ground-truth frames as inputs
+        (``tacotron2.py:313``): a go frame, then the targets shifted by one;
+        the prenet over every frame at once (its keep-masks
+        ``masks.prenet`` [2, B, T_out, prenet_dim]), then ``step`` per
+        frame with the attention and decoder LSTM dropout of
+        ``masks.attention`` [T_out, B, attention_rnn_dim] and
+        ``masks.decoder`` [T_out, B, decoder_rnn_dim] when ``train``.
+        ``remat`` recomputes each step in the backward pass.  -> (mel
+        [B, n_mel, T_out], gate [B, T_out], align [B, T_out, T_in])."""
+        B, n_mel, T_out = mels.shape
+        mask = sequence_mask(memory_lengths.to(memory.device),
+                             memory.shape[1])
+        processed_memory = self.attention.process_memory(memory)
+        go = mels.new_zeros((B, 1, n_mel))
+        frames_in = torch.cat([go, mels.transpose(1, 2)[:, :-1]], 1)
+        prenet_out = self.prenet(frames_in, masks.prenet)
+        low = _low_precision_copies(self, memory.device)
+
+        def one_step(state, pre, att_keep, dec_keep):
+            args = (state, pre, memory, processed_memory, mask, att_keep,
+                    dec_keep)
+            if low is None:
+                return self.step(*args)
+            return torch.func.functional_call(
+                self, {n: _SharedCast.apply(p, w) for n, (p, w)
+                       in low.items()}, args)
+
+        state = self.initial_state(memory)
+        mels_out, gates, aligns = [], [], []
+        for t in range(T_out):
+            keeps = ((masks.attention[t], masks.decoder[t]) if train
+                     else (None, None))
+            if remat:
+                state, (frame, gate, weights) = checkpoint(
+                    one_step, state, prenet_out[:, t], *keeps,
+                    use_reentrant=False)
+            else:
+                state, (frame, gate, weights) = one_step(
+                    state, prenet_out[:, t], *keeps)
+            mels_out.append(frame)
+            gates.append(gate)
+            aligns.append(weights)
+        return (torch.stack(mels_out, 2), torch.stack(gates, 1),
+                torch.stack(aligns, 1))
+
     def autoregressive(self, memory: torch.Tensor,
                        memory_lengths: torch.Tensor | None = None,
                        max_steps: int | None = None,
@@ -309,15 +421,62 @@ class Decoder(nn.Module):
         return mel, gate, align, active.sum(1).to(torch.int32)
 
 
+class _SharedCast(torch.autograd.Function):
+    """``w_low``, the low-precision copy of parameter ``w`` that every
+    teacher-forced step uses; each use sends its gradient back to ``w`` in
+    f32.  So the steps' gradients are summed in f32, as the JAX package's
+    scan sums them, and the copy is stored once for the backward pass.
+    autocast's cached cast would sum them in bf16; its uncached casts would
+    keep one copy per step."""
+
+    @staticmethod
+    def forward(ctx, w, w_low):
+        return w_low.view_as(w_low)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(torch.float32), None
+
+
+def _low_precision_copies(decoder: Decoder, device: torch.device):
+    """{name: (parameter, its copy in the autocast type)} of the decoder
+    step's parameters, or None outside a low-precision autocast."""
+    if not torch.is_autocast_enabled(device.type):
+        return None
+    dtype = torch.get_autocast_dtype(device.type)
+    return {n: (p, p.detach().to(dtype))
+            for n, p in decoder.named_parameters()
+            if not n.startswith("prenet.")}
+
+
+class TrainMasks(NamedTuple):
+    """Dropout keep-masks of one teacher-forced forward (bool): ``encoder``
+    one [B, T_in, enc_conv_channels] per conv layer; ``prenet`` [2, B,
+    T_out, prenet_dim]; ``attention`` [T_out, B, attention_rnn_dim];
+    ``decoder`` [T_out, B, decoder_rnn_dim]; ``postnet`` one [B, T_out,
+    C_i] per conv layer."""
+
+    encoder: list
+    prenet: torch.Tensor
+    attention: torch.Tensor
+    decoder: torch.Tensor
+    postnet: list
+
+
 class Tacotron2(nn.Module):
-    """Inference-only Tacotron-2.  ``num_speakers > 1`` adds additive
-    speaker conditioning of the encoder memory."""
+    """Tacotron-2.  ``num_speakers > 1`` adds additive speaker conditioning
+    of the encoder memory.  ``compute_dtype`` (None or ``torch.bfloat16``)
+    sets the products' type, ``decoder_remat`` the teacher-forced decoder's
+    recomputation in the backward pass."""
 
     def __init__(self, hp: HParams, n_vocab: int = 80, num_speakers: int = 1,
-                 device=None):
+                 device=None, compute_dtype: torch.dtype | None = None,
+                 decoder_remat: bool = False):
         super().__init__()
         self.hp = hp
         self.num_speakers = num_speakers
+        self.compute_dtype = compute_dtype
+        self.decoder_remat = decoder_remat
         self.embedding = nn.Embedding(n_vocab, hp.embedding_size,
                                       device=device)
         if num_speakers > 1:
@@ -329,18 +488,88 @@ class Tacotron2(nn.Module):
         self.decoder = Decoder(hp, device=device)
         self.postnet = Postnet(hp, device=device)
 
+    def _autocast(self, device: torch.device):
+        """bf16 products under ``compute_dtype``; a no-op without it.  The
+        weight casts are not cached: a cached cast is one node that every
+        step of an LSTM loop shares, so its gradient would be summed over
+        the steps in bf16; uncached, each step's cast sends an f32 gradient
+        to the parameter.  The teacher-forced decoder steps take their
+        weights from :class:`_SharedCast` instead, which sums in f32 too
+        but keeps one copy for all steps."""
+        if self.compute_dtype in (None, torch.float32):
+            return contextlib.nullcontext()
+        return torch.autocast(device.type, dtype=self.compute_dtype,
+                              cache_enabled=False)
+
     def condition_on_speaker(self, encoder_out: torch.Tensor,
                              speaker_ids: torch.Tensor | None):
         """encoder_out + speaker_proj(softsign(embed(id))), broadcast over
         time (``tacotron2.py:460-469``)."""
         if speaker_ids is None or self.num_speakers <= 1:
             return encoder_out
-        s = F.softsign(self.speaker_embedding(speaker_ids))
-        return encoder_out + self.speaker_proj(s)[:, None, :]
+        # f32 whatever the compute type, as the JAX modules (no dtype)
+        with torch.autocast(encoder_out.device.type, enabled=False):
+            s = F.softsign(self.speaker_embedding(speaker_ids))
+            return encoder_out + self.speaker_proj(s)[:, None, :]
 
-    def encode(self, text_ids, speaker_ids=None, text_lengths=None):
-        out = self.encoder(self.embedding(text_ids), text_lengths)
+    def encode(self, text_ids, speaker_ids=None, text_lengths=None,
+               train: bool = False, keep=None):
+        out = self.encoder(self.embedding(text_ids), text_lengths, train,
+                           keep)
         return self.condition_on_speaker(out, speaker_ids)
+
+    def draw_train_masks(self, batch: int, t_in: int, t_out: int,
+                         generator: torch.Generator | None = None,
+                         device=None) -> TrainMasks:
+        """Dropout keep-masks of one teacher-forced forward, drawn on the
+        generator's device in a fixed order (encoder, prenet, attention,
+        decoder, postnet) and moved to ``device``."""
+        hp = self.hp
+        gdev = generator.device if generator is not None else device
+
+        def keep(rate, *shape):
+            return (torch.rand(shape, generator=generator, device=gdev)
+                    < 1.0 - rate).to(device)
+
+        post = ([hp.postnet_embedding_dim] * (hp.postnet_n_convolutions - 1)
+                + [hp.n_mel_channels])
+        return TrainMasks(
+            [keep(hp.dropout_prob, batch, t_in, hp.enc_conv_channels)
+             for _ in range(hp.enc_conv_num_layers)],
+            keep(0.5, 2, batch, t_out, hp.prenet_dim),
+            keep(hp.p_attention_dropout, t_out, batch, hp.attention_rnn_dim),
+            keep(hp.p_decoder_dropout, t_out, batch, hp.decoder_rnn_dim),
+            [keep(0.5, batch, t_out, c) for c in post])
+
+    def forward(self, text_ids: torch.Tensor, text_lengths: torch.Tensor,
+                mels: torch.Tensor, output_lengths: torch.Tensor,
+                speaker_ids: torch.Tensor | None = None, train: bool = True,
+                masks: TrainMasks | None = None,
+                generator: torch.Generator | None = None):
+        """Teacher-forced forward (``tacotron2.py:471 __call__``): text
+        [B, T_in], mels [B, n_mel, T_out] -> (mel_out, mel_post, gate_out,
+        align), f32, masked past ``output_lengths`` when
+        ``hp.mask_padding`` (mels 0, gate 1e3).  ``train`` turns on batch
+        statistics (the running ones are updated) and every dropout; the
+        prenet always drops.  ``masks`` (:class:`TrainMasks`) or, when it
+        is None, masks drawn from ``generator``."""
+        if masks is None:
+            masks = self.draw_train_masks(text_ids.shape[0],
+                                          text_ids.shape[1], mels.shape[-1],
+                                          generator, mels.device)
+        with self._autocast(mels.device):
+            memory = self.encode(text_ids, speaker_ids, text_lengths, train,
+                                 masks.encoder)
+            mel_out, gate_out, align = self.decoder.teacher_forced(
+                memory, mels, text_lengths, masks, train,
+                self.decoder_remat)
+            mel_post = mel_out + self.postnet(mel_out, train, masks.postnet)
+        mel_out, mel_post = mel_out.float(), mel_post.float()
+        gate_out, align = gate_out.float(), align.float()
+        if self.hp.mask_padding:
+            mel_out, mel_post, gate_out = mask_outputs(
+                mel_out, mel_post, gate_out, output_lengths)
+        return mel_out, mel_post, gate_out, align
 
     def process_memory(self, memory: torch.Tensor) -> torch.Tensor:
         """The attention's memory projection [B, T_in, attention_dim],
@@ -383,10 +612,12 @@ class Tacotron2(nn.Module):
                   generator: torch.Generator | None = None):
         """text_ids [B, T_in] -> (mel_out, mel_post, gate_out, align,
         out_lengths), masked past each length (mels zero, gate 1e3)."""
-        memory = self.encode(text_ids, speaker_ids, text_lengths)
-        mel_out, gate_out, align, out_lengths = self.decoder.autoregressive(
-            memory, text_lengths, max_steps, keep_masks, generator)
-        mel_post = mel_out + self.postnet(mel_out)
+        with self._autocast(text_ids.device):
+            memory = self.encode(text_ids, speaker_ids, text_lengths)
+            mel_out, gate_out, align, out_lengths = \
+                self.decoder.autoregressive(memory, text_lengths, max_steps,
+                                            keep_masks, generator)
+            mel_post = mel_out + self.postnet(mel_out)
         mel_out, mel_post, gate_out = mask_outputs(
             mel_out.float(), mel_post.float(), gate_out.float(), out_lengths)
         return mel_out, mel_post, gate_out, align.float(), out_lengths
@@ -400,3 +631,51 @@ def mask_outputs(mel_out, mel_post, gate_out, output_lengths):
     mel_post = torch.where(valid[:, None, :], mel_post, 0.0)
     gate_out = torch.where(valid, gate_out, 1e3)
     return mel_out, mel_post, gate_out
+
+
+@torch.no_grad()
+def init_weights_(model: Tacotron2, generator: torch.Generator) -> Tacotron2:
+    """Initialise every parameter in place as the JAX package's ``init``
+    draws its kind (other numbers, the same distributions): convs
+    Xavier-uniform, dense kernels LeCun truncated-normal, biases zero,
+    BatchNorm scale 1 / bias 0 / running mean 0 / var 1, the character
+    embedding uniform in +-sqrt(3) sqrt(2 / (n_vocab + embedding_size))
+    (``tacotron2.py:429-435``), the speaker embedding normal with variance
+    1 / features.  Returns ``model``."""
+    def fill(p, t):
+        p.copy_(t.to(p.device))
+
+    def rand(*shape):
+        return torch.rand(shape, generator=generator,
+                          device=generator.device)
+
+    for m in model.modules():
+        if isinstance(m, nn.Conv1d):
+            out, cin, k = m.weight.shape
+            limit = (6.0 / ((cin + out) * k)) ** 0.5
+            fill(m.weight, (rand(*m.weight.shape) * 2 - 1) * limit)
+        elif isinstance(m, nn.Linear):
+            fan_in = m.weight.shape[1]
+            std = fan_in ** -0.5 / 0.87962566103423978
+            w = torch.empty(m.weight.shape, device=generator.device)
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            fill(m.weight, w)
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.running_var.fill_(1.0)
+            m.running_mean.zero_()
+            m.bias.zero_()
+            continue
+        elif isinstance(m, nn.Embedding):
+            n, f = m.weight.shape
+            if m is model.embedding:
+                val = 3.0 ** 0.5 * (2.0 / (n + f)) ** 0.5
+                fill(m.weight, (rand(n, f) * 2 - 1) * val)
+            else:
+                fill(m.weight, torch.randn((n, f), generator=generator,
+                                           device=generator.device)
+                     * f ** -0.5)
+        if getattr(m, "bias", None) is not None:
+            m.bias.zero_()
+    return model

@@ -1,0 +1,432 @@
+"""The padded-layout WN-layer family and its plain PyTorch versions: the
+port's second, independent implementation of the WN layer, the oracle side
+of the parity ladder (counterpart of ``text2speech_tpu/ops/pallas/
+wn_block_padded.py``, which the JAX package keeps for the same purpose; no
+serving or training path runs it).
+
+Layout: ``[B, Tp, C]`` with ``Tp = T + 2 * BT_PAD``, one tile of
+:data:`BT_PAD` zero rows on each side of the T real rows
+(:func:`pad_tiles`).  The pad tiles give the dilated taps their edge zeros,
+so a layer reads its halo rows ``t +- d`` without a bounds test as long as
+``d <= BT_PAD``.  Every output is padded too and zero in the pad tiles.
+Real rows at or past ``n_valid`` (a runtime argument) get a zero hidden
+state; the skip outputs are not masked there.
+
+Four roles, each with a plain version (``*_plain``, f32 matmuls over the
+input dtype's values, used for CPU tensors and as the reference the CUDA
+kernels are checked against) and a wrapper that launches the hand-written
+Hopper kernel of ``csrc/wn_block_padded.cu`` for CUDA tensors (a CUDA
+tensor the kernel does not take raises; nothing falls back):
+
+* :func:`wn_layer_padded` (``:104 wn_layer_padded``): the layer's own 2C
+  slice ``cond_index`` of a pre-materialized ``cond_p`` that already holds
+  ``b_cond``; returns ``(x_new, skip)``, the skip not accumulated;
+* :func:`wn_layer_spect` (``:165``): the conditioning projected in the
+  layer, returns ``(x_new, skip_acc + skip)``;
+* :func:`wn_layer_stream` (``:302``): the contract of ``wn_layer_spect``
+  from another loop structure (the TPU kernel's one-tile-behind walk);
+* :func:`wn_layer_stream_final` (``:353``): the last layer with the end
+  projection folded in, ``wn_out = bf16(skip_acc + rs) @ w_end + b_end``
+  [B, Tp, E] f32, not masked at ``n_valid``.
+
+The JAX tile is 512 rows; the port's pad width is its own:
+:data:`BT_PAD` = 128, the largest dilation of the reference config
+(2^(L-1)), which also divides the smoke's T = 6400.  It is a layout
+constant, not the CUDA block's row tile (a block covers 32 rows).
+
+The plain versions of ``spect`` and ``stream`` are two implementations
+too: whole-array shifted matmuls against a walk over the pad tiles with a
+two-tile ring (``_ring_window_padded``, ``wn_block_padded.py:233``).
+
+Each wrapper counts its kernel launches in its ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import CudaLibrary
+from .wn_block import _check, _gate, _on_cpu, _run
+
+BT_PAD = 128
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+LIB = CudaLibrary("wn_block_padded", {
+    "t2s_wn_padded": [_P] * 8 + [_I] * 9 + [_P],
+    "t2s_wn_spect": [_P] * 10 + [_I] * 8 + [_P],
+    "t2s_wn_stream": [_P] * 10 + [_I] * 8 + [_P],
+    "t2s_wn_stream_final": [_P] * 12 + [_I] * 7 + [_P],
+})
+
+F32 = torch.float32
+
+
+def pad_tiles(x: torch.Tensor, bt: int = BT_PAD) -> torch.Tensor:
+    """[B, T, C] -> [B, T + 2 bt, C] with a zero tile on each side
+    (T % bt == 0)."""
+    B, T, C = x.shape
+    if T % bt:
+        raise ValueError(f"T={T} must be a multiple of the pad tile {bt}")
+    z = x.new_zeros((B, bt, C))
+    return torch.cat([z, x, z], dim=1)
+
+
+def unpad_tiles(x: torch.Tensor, bt: int = BT_PAD) -> torch.Tensor:
+    return x[:, bt:-bt]
+
+
+# ---------------------------------------------------------------------------
+# plain versions (wn_block_padded.py:67-281 and the helpers wn_block.py:52-138)
+# ---------------------------------------------------------------------------
+
+
+def _real_rows(Tp: int, bt: int, device) -> torch.Tensor:
+    """bool [1, Tp, 1]: rows outside the two pad tiles."""
+    t = torch.arange(Tp, device=device)
+    return ((t >= bt) & (t < Tp - bt))[None, :, None]
+
+
+def _valid_rows(Tp: int, bt: int, n_valid: int, device) -> torch.Tensor:
+    """bool [1, Tp, 1]: real rows before ``n_valid``."""
+    t = torch.arange(Tp, device=device)
+    return ((t >= bt) & (t - bt < n_valid))[None, :, None]
+
+
+def _shifted(xp: torch.Tensor, s: int) -> torch.Tensor:
+    """y[:, t] = xp[:, t + s] (zero past the ends; the real rows never read
+    there, since |s| <= bt)."""
+    y = torch.zeros_like(xp)
+    Tp = xp.shape[1]
+    if s >= 0:
+        y[:, : Tp - s] = xp[:, s:]
+    else:
+        y[:, -s:] = xp[:, : Tp + s]
+    return y
+
+
+def _taps_padded(xp, w_in, d: int) -> torch.Tensor:
+    """x[t-d] w0 + x[t] w1 + x[t+d] w2 in f32 over the padded array: the
+    three dots of ``_taps`` summed in the same order."""
+    xf = xp.to(F32)
+    return (_shifted(xf, -d) @ w_in[0].to(F32) + xf @ w_in[1].to(F32)
+            + _shifted(xf, d) @ w_in[2].to(F32))
+
+
+def _layer_out(xp, rs, skip_acc, bt: int, n_valid: int):
+    """``_store_layer_out`` over the padded array, pad tiles zeroed:
+    (x_new, skip) or, with ``skip_acc``, (x_new, skip_acc + skip)."""
+    Tp, C = xp.shape[1], xp.shape[2]
+    valid = _valid_rows(Tp, bt, n_valid, xp.device)
+    real = _real_rows(Tp, bt, xp.device)
+    if rs.shape[-1] == 2 * C:
+        x_new = torch.where(valid, (xp.to(F32) + rs[..., :C]).to(xp.dtype), 0)
+        skip = rs[..., C:]
+    else:
+        x_new = torch.where(valid, xp, 0)
+        skip = rs
+    skip = skip.to(xp.dtype if skip_acc is None else skip_acc.dtype)
+    if skip_acc is not None:
+        skip = skip_acc + skip
+    return x_new, torch.where(real, skip, 0)
+
+
+def _gate_rs(in_act, w_in_dtype, w_rs, b_rs) -> torch.Tensor:
+    return _gate(in_act, w_in_dtype).to(F32) @ w_rs.to(F32) + b_rs.to(F32)
+
+
+def _n_valid(xp, bt: int, n_valid) -> int:
+    return xp.shape[1] - 2 * bt if n_valid is None else int(n_valid)
+
+
+def wn_layer_padded_plain(xp, cond_p, w_in, b_in, w_rs, b_rs, dilation: int,
+                          cond_index: int = 0, n_valid: int | None = None,
+                          bt: int = BT_PAD):
+    """Kernel 12's arithmetic -> (x_new, skip), both padded."""
+    C = xp.shape[-1]
+    cond = cond_p[..., 2 * C * cond_index: 2 * C * (cond_index + 1)]
+    in_act = _taps_padded(xp, w_in, dilation) + b_in.to(F32) + cond.to(F32)
+    rs = _gate_rs(in_act, w_in.dtype, w_rs, b_rs)
+    return _layer_out(xp, rs, None, bt,
+                      _n_valid(xp, bt, n_valid))
+
+
+def wn_layer_spect_plain(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
+                         skip_acc, dilation: int, n_valid: int | None = None,
+                         bt: int = BT_PAD):
+    """Kernel 13's arithmetic over the whole padded array ->
+    (x_new, skip_acc + skip)."""
+    cond = spect_p.to(F32) @ w_cond.to(F32) + b_cond.to(F32)
+    in_act = _taps_padded(xp, w_in, dilation) + b_in.to(F32) + cond
+    rs = _gate_rs(in_act, w_in.dtype, w_rs, b_rs)
+    return _layer_out(xp, rs, skip_acc, bt,
+                      _n_valid(xp, bt, n_valid))
+
+
+def _stream_walk(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
+                 dilation: int, bt: int, emit):
+    """The one-tile-behind walk of ``_kernel_stream``: step s reads tile s
+    and computes tile s - 1 from a two-slot ring of the tiles before it
+    (``_ring_window_padded``); ``emit(j, mid, rs)`` stores output tile j's
+    real rows.  Pad tiles are left to the caller."""
+    n_tiles, d = xp.shape[1] // bt, dilation
+    ring = [None, None]
+    for s in range(n_tiles + 1):
+        j = s - 1
+        if 1 <= j <= n_tiles - 2:
+            prev1, prev2 = ring[s % 2], ring[(s + 1) % 2]
+            x0 = xp[:, s * bt:(s + 1) * bt]
+            win = torch.cat([prev2[:, bt - d:], prev1, x0[:, :d]], 1).to(F32)
+            rows = slice(j * bt, (j + 1) * bt)
+            taps = (win[:, :bt] @ w_in[0].to(F32)
+                    + win[:, d:d + bt] @ w_in[1].to(F32)
+                    + win[:, 2 * d:2 * d + bt] @ w_in[2].to(F32))
+            cond = spect_p[:, rows].to(F32) @ w_cond.to(F32) + b_cond.to(F32)
+            emit(j, prev1, _gate_rs(taps + b_in.to(F32) + cond, w_in.dtype,
+                                    w_rs, b_rs))
+        if s <= n_tiles - 1:
+            ring[(s + 1) % 2] = xp[:, s * bt:(s + 1) * bt]
+
+
+def wn_layer_stream_plain(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs,
+                          b_rs, skip_acc, dilation: int,
+                          n_valid: int | None = None, bt: int = BT_PAD):
+    """Kernel 14's arithmetic as the TPU kernel walks it -> (x_new,
+    skip_acc + skip)."""
+    C = xp.shape[-1]
+    n_valid = _n_valid(xp, bt, n_valid)
+    x_new, skip = torch.zeros_like(xp), torch.zeros_like(skip_acc)
+    rows = torch.arange(bt, device=xp.device)[None, :, None]
+
+    def emit(j, mid, rs):
+        t = slice(j * bt, (j + 1) * bt)
+        ok = (j - 1) * bt + rows < n_valid
+        if rs.shape[-1] == 2 * C:
+            x_new[:, t] = torch.where(
+                ok, (mid.to(F32) + rs[..., :C]).to(xp.dtype), 0)
+            sk = rs[..., C:]
+        else:
+            x_new[:, t] = torch.where(ok, mid, 0)
+            sk = rs
+        skip[:, t] = skip_acc[:, t] + sk.to(skip_acc.dtype)
+
+    _stream_walk(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
+                 dilation, bt, emit)
+    return x_new, skip
+
+
+def wn_layer_stream_final_plain(xp, spect_p, w_in, b_in, w_cond, b_cond,
+                                w_rs, b_rs, skip_acc, w_end, b_end,
+                                dilation: int, n_valid: int | None = None,
+                                bt: int = BT_PAD):
+    """Kernel 15's arithmetic -> wn_out [B, Tp, E] f32 (``n_valid`` is
+    accepted for a uniform signature and, as in the TPU kernel, not
+    applied)."""
+    B, Tp, _ = xp.shape
+    out = xp.new_zeros((B, Tp, w_end.shape[-1]), dtype=F32)
+
+    def emit(j, mid, rs):
+        t = slice(j * bt, (j + 1) * bt)
+        sk = (skip_acc[:, t].to(F32) + rs).to(w_in.dtype)
+        out[:, t] = sk.to(F32) @ w_end.to(F32) + b_end.to(F32)
+
+    _stream_walk(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
+                 dilation, bt, emit)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_layout(B: int, Tp: int, C: int, M: int, n_valid: int, d: int,
+                  bt: int) -> None:
+    if bt != BT_PAD:
+        raise ValueError(f"the kernels take the pad tile {BT_PAD}, got {bt}")
+    if Tp % bt or Tp < 3 * bt:
+        raise ValueError(f"Tp={Tp} must be a multiple of {bt}, at least "
+                         f"three tiles")
+    if C % 64 or C <= 0 or M % 32 or M < 0:
+        raise ValueError(f"kernel needs C % 64 == 0 and M % 32 == 0, got "
+                         f"C={C}, M={M}")
+    if not 0 <= d <= bt or not 0 <= n_valid <= Tp - 2 * bt or B < 1:
+        raise ValueError(f"bad dilation={d} (<= {bt}), n_valid={n_valid} "
+                         f"or B={B}")
+
+
+def _check_rs(w_rs, C: int) -> int:
+    rs_out = w_rs.shape[-1]
+    if rs_out not in (C, 2 * C):
+        raise ValueError(f"w_rs must be [C, 2C] or [C, C], got "
+                         f"{tuple(w_rs.shape)}")
+    return rs_out
+
+
+def wn_layer_padded(xp, cond_p, w_in, b_in, w_rs, b_rs, dilation: int,
+                    cond_index: int = 0, n_valid: int | None = None,
+                    bt: int = BT_PAD):
+    """One WN layer on the padded layout with the layer's slice of a
+    pre-materialized conditioning -> (x_new, skip), padded.
+
+    CUDA: bf16 ``xp`` [B, Tp, C], ``cond_p`` [B, Tp, 2C n_cond],
+    ``w_in`` [3, C, 2C], ``w_rs`` [C, 2C] or [C, C]; f32 biases."""
+    if _on_cpu(xp, cond_p, w_in, b_in, w_rs, b_rs):
+        return wn_layer_padded_plain(xp, cond_p, w_in, b_in, w_rs, b_rs,
+                                     dilation, cond_index, n_valid, bt)
+    B, Tp, C = xp.shape
+    n_valid = _n_valid(xp, bt, n_valid)
+    _check_layout(B, Tp, C, 0, n_valid, dilation, bt)
+    rs_out = _check_rs(w_rs, C)
+    n_cond = cond_p.shape[-1] // (2 * C)
+    if cond_p.shape[-1] != 2 * C * n_cond or not 0 <= cond_index < n_cond:
+        raise ValueError(f"cond_p width {cond_p.shape[-1]} is not a whole "
+                         f"number of 2C slices, or cond_index {cond_index} "
+                         f"is out of range")
+    bf = torch.bfloat16
+    for name, t, shape, dt in (
+        ("xp", xp, (B, Tp, C), bf), ("cond_p", cond_p, (B, Tp, 2 * C * n_cond),
+                                     bf),
+        ("w_in", w_in, (3, C, 2 * C), bf), ("b_in", b_in, (2 * C,), F32),
+        ("w_rs", w_rs, (C, rs_out), bf), ("b_rs", b_rs, (rs_out,), F32),
+    ):
+        _check(name, t, shape, dt)
+    x_out, skip = torch.empty_like(xp), torch.empty_like(xp)
+    wn_layer_padded.launches += 1
+    _run(LIB.get().t2s_wn_padded, xp.device, xp.data_ptr(), cond_p.data_ptr(),
+         w_in.data_ptr(), b_in.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(),
+         x_out.data_ptr(), skip.data_ptr(), B, Tp, bt, n_valid, C, n_cond,
+         cond_index, rs_out, dilation)
+    return x_out, skip
+
+
+def _spect_args(name, xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
+                skip_acc, dilation, n_valid, bt):
+    """Checks shared by the spect and stream wrappers -> (B, Tp, C, M,
+    rs_out, n_valid)."""
+    B, Tp, C = xp.shape
+    M = spect_p.shape[-1]
+    n_valid = _n_valid(xp, bt, n_valid)
+    _check_layout(B, Tp, C, M, n_valid, dilation, bt)
+    if M == 0:
+        raise ValueError(f"{name}: spect_p has no channels")
+    rs_out = _check_rs(w_rs, C)
+    bf = torch.bfloat16
+    for n, t, shape, dt in (
+        ("xp", xp, (B, Tp, C), bf), ("spect_p", spect_p, (B, Tp, M), bf),
+        ("w_in", w_in, (3, C, 2 * C), bf), ("b_in", b_in, (2 * C,), F32),
+        ("w_cond", w_cond, (M, 2 * C), bf), ("b_cond", b_cond, (2 * C,), F32),
+        ("w_rs", w_rs, (C, rs_out), bf), ("b_rs", b_rs, (rs_out,), F32),
+        ("skip_acc", skip_acc, (B, Tp, C), bf),
+    ):
+        _check(n, t, shape, dt)
+    if skip_acc.untyped_storage().data_ptr() in (
+            xp.untyped_storage().data_ptr(),
+            spect_p.untyped_storage().data_ptr()):
+        raise ValueError(f"{name}: skip_acc is updated in place and must not "
+                         f"share memory with xp or spect_p")
+    return B, Tp, C, M, rs_out, n_valid
+
+
+def wn_layer_spect(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
+                   skip_acc, dilation: int, n_valid: int | None = None,
+                   bt: int = BT_PAD):
+    """One WN layer with the conditioning projected in the kernel ->
+    (x_new, skip_acc + skip), padded.
+
+    CUDA: bf16 ``xp`` / ``skip_acc`` [B, Tp, C], ``spect_p`` [B, Tp, M],
+    ``w_in`` [3, C, 2C], ``w_cond`` [M, 2C], ``w_rs`` [C, 2C] or [C, C];
+    f32 biases.  The skip sum is updated IN PLACE on CUDA (the returned
+    skip tensor is ``skip_acc``, as the TPU kernel aliases it); the plain
+    version returns a new tensor."""
+    if _on_cpu(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
+               skip_acc):
+        return wn_layer_spect_plain(xp, spect_p, w_in, b_in, w_cond, b_cond,
+                                    w_rs, b_rs, skip_acc, dilation, n_valid,
+                                    bt)
+    B, Tp, C, M, rs_out, n_valid = _spect_args(
+        "wn_layer_spect", xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs,
+        b_rs, skip_acc, dilation, n_valid, bt)
+    x_out = torch.empty_like(xp)
+    wn_layer_spect.launches += 1
+    _run(LIB.get().t2s_wn_spect, xp.device, xp.data_ptr(),
+         spect_p.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+         w_cond.data_ptr(), b_cond.data_ptr(), w_rs.data_ptr(),
+         b_rs.data_ptr(), skip_acc.data_ptr(), x_out.data_ptr(), B, Tp, bt,
+         n_valid, C, M, rs_out, dilation)
+    return x_out, skip_acc
+
+
+def wn_layer_stream(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
+                    skip_acc, dilation: int, n_valid: int | None = None,
+                    bt: int = BT_PAD):
+    """The contract of :func:`wn_layer_spect` through the one-tile-behind
+    kernel (skip sum in place on CUDA, as there)."""
+    if _on_cpu(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
+               skip_acc):
+        return wn_layer_stream_plain(xp, spect_p, w_in, b_in, w_cond, b_cond,
+                                     w_rs, b_rs, skip_acc, dilation, n_valid,
+                                     bt)
+    B, Tp, C, M, rs_out, n_valid = _spect_args(
+        "wn_layer_stream", xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs,
+        b_rs, skip_acc, dilation, n_valid, bt)
+    x_out = torch.empty_like(xp)
+    wn_layer_stream.launches += 1
+    _run(LIB.get().t2s_wn_stream, xp.device, xp.data_ptr(),
+         spect_p.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+         w_cond.data_ptr(), b_cond.data_ptr(), w_rs.data_ptr(),
+         b_rs.data_ptr(), skip_acc.data_ptr(), x_out.data_ptr(), B, Tp, bt,
+         n_valid, C, M, rs_out, dilation)
+    return x_out, skip_acc
+
+
+def wn_layer_stream_final(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs,
+                          b_rs, skip_acc, w_end, b_end, dilation: int,
+                          n_valid: int | None = None, bt: int = BT_PAD):
+    """The last WN layer with the end projection folded in -> wn_out
+    [B, Tp, E] f32, zero in the pad tiles.
+
+    CUDA: as :func:`wn_layer_spect` with ``w_rs`` [C, C], ``b_rs`` [C],
+    ``w_end`` [C, E <= 8] bf16 and ``b_end`` [E] f32."""
+    if _on_cpu(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
+               skip_acc, w_end, b_end):
+        return wn_layer_stream_final_plain(xp, spect_p, w_in, b_in, w_cond,
+                                           b_cond, w_rs, b_rs, skip_acc,
+                                           w_end, b_end, dilation, n_valid,
+                                           bt)
+    if w_rs.shape[-1] != xp.shape[-1]:
+        raise ValueError("the final layer emits skip only: w_rs is [C, C]")
+    B, Tp, C, M, _, _ = _spect_args(
+        "wn_layer_stream_final", xp, spect_p, w_in, b_in, w_cond, b_cond,
+        w_rs, b_rs, skip_acc, dilation, n_valid, bt)
+    E = w_end.shape[-1]
+    if not 1 <= E <= 8:
+        raise ValueError(f"kernel takes E in [1, 8], got {E}")
+    _check("w_end", w_end, (C, E), torch.bfloat16)
+    _check("b_end", b_end, (E,), F32)
+    out = torch.empty((B, Tp, E), dtype=F32, device=xp.device)
+    wn_layer_stream_final.launches += 1
+    _run(LIB.get().t2s_wn_stream_final, xp.device, xp.data_ptr(),
+         spect_p.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+         w_cond.data_ptr(), b_cond.data_ptr(), w_rs.data_ptr(),
+         b_rs.data_ptr(), skip_acc.data_ptr(), w_end.data_ptr(),
+         b_end.data_ptr(), out.data_ptr(), B, Tp, bt, C, M, E, dilation)
+    return out
+
+
+KERNELS = (wn_layer_padded, wn_layer_spect, wn_layer_stream,
+           wn_layer_stream_final)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+reset_launch_counts()

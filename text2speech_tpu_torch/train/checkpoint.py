@@ -2,8 +2,9 @@
 ``text2speech_tpu/train/checkpoint.py``, in a torch format).
 
 One file per step, ``ckpt_<step>.pt``: ``{"step", "params": {name:
-tensor}, "opt_state": optimizer.state_dict()}`` with every tensor on the
-CPU, written through a temporary file and ``os.replace`` so that a
+tensor}, "opt_state": optimizer.state_dict()}``, plus ``"batch_stats":
+{name: tensor}`` when the state carries BatchNorm running statistics
+(Tacotron), with every tensor on the CPU, written through a temporary file and ``os.replace`` so that a
 checkpoint either exists whole or not at all.  The newest ``max_to_keep``
 are kept.  Files are read with ``weights_only=True``: they hold tensors and
 plain containers, no code.
@@ -52,6 +53,8 @@ class CheckpointManager:
     def save(self, step: int, state: TrainState) -> None:
         tree = {"step": int(step), "params": _to_cpu(state.params),
                 "opt_state": _to_cpu(state.opt.state_dict())}
+        if state.batch_stats:
+            tree["batch_stats"] = _to_cpu(state.batch_stats)
         fd, tmp = tempfile.mkstemp(suffix=".tmp", dir=self.directory)
         try:
             with os.fdopen(fd, "wb") as f:
@@ -78,14 +81,27 @@ class CheckpointManager:
         return {name: t.to(torch.float32)
                 for name, t in tree["params"].items()}
 
+    def load_variables(self, step: int | None = None) -> dict:
+        """The parameters and BatchNorm running statistics saved at
+        ``step`` (default: the newest) as one ``{name: f32 tensor}`` dict
+        on the CPU, the names a module's ``state_dict`` uses: for serving
+        a trained Tacotron.  Raises when the directory holds none."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        tree = torch.load(self._path(step), map_location="cpu",
+                          weights_only=True)
+        return {name: t.to(torch.float32) for name, t in
+                {**tree["params"], **tree.get("batch_stats", {})}.items()}
+
     def restore(self, state: TrainState, step: int | None = None,
                 params_only: bool = False) -> tuple[TrainState, int]:
         """Restore into ``state`` (in place); returns (state, step), or
         (state, 0) when the directory holds no checkpoint.  Restored
         leaves take the template's dtype and device.
 
-        ``params_only=True`` restores the step and the parameters and
-        keeps ``state``'s fresh optimizer state: the way out for a
+        ``params_only=True`` restores the step, the parameters and the
+        running statistics and keeps ``state``'s fresh optimizer state: the way out for a
         checkpoint whose optimizer layout no longer matches (moments
         restart from zero).  It still checks the parameter names and
         shapes against the model."""
@@ -119,8 +135,14 @@ class CheckpointManager:
                     "part of the format); restore(..., params_only=True) "
                     "recovers the weights and reinitializes the optimizer."
                 ) from e
+        stats = tree.get("batch_stats", {})
+        if set(stats) != set(state.batch_stats):
+            raise ValueError(f"{where}: batch statistics do not match the "
+                             f"model's")
         with torch.no_grad():
             for name, p in state.params.items():
                 p.copy_(saved[name])
+            for name, b in state.batch_stats.items():
+                b.copy_(stats[name])
         state.step = int(tree["step"])
         return state, state.step

@@ -1,8 +1,9 @@
 """Training scalars writer (counterpart of ``text2speech_tpu/utils/
-logger.py``'s ``log_training``): TensorBoard through ``tensorboardX`` where
-that is installed, else the same scalars as JSON lines in
-``<logdir>/scalars.jsonl``.  Validation images wait for Tacotron
-training."""
+logger.py``): TensorBoard through ``tensorboardX`` where that is
+installed, else the same scalars as JSON lines in
+``<logdir>/scalars.jsonl``.  Validation writes its loss; the parameter
+histograms and the alignment, mel and gate images of the JAX package's
+``log_validation`` wait for ``utils/plotting.py``."""
 
 from __future__ import annotations
 
@@ -23,10 +24,19 @@ class MetricsLogger:
 
     def log_training(self, loss, grad_norm, learning_rate, duration,
                      iteration) -> None:
-        scalars = {"training.loss": float(loss),
-                   "grad.norm": float(grad_norm),
-                   "learning.rate": float(learning_rate),
-                   "duration": float(duration)}
+        self._write({"training.loss": float(loss),
+                     "grad.norm": float(grad_norm),
+                     "learning.rate": float(learning_rate),
+                     "duration": float(duration)}, iteration)
+
+    def log_validation(self, val_loss, params, targets, predictions,
+                       iteration) -> None:
+        """The JAX package's signature; ``params``, ``targets`` (mel, gate)
+        and ``predictions`` (mel_out, mel_post, gate_out, align) are for
+        the histograms and images, which wait for the plotting module."""
+        self._write({"validation.loss": float(val_loss)}, iteration)
+
+    def _write(self, scalars: dict, iteration) -> None:
         if self.writer is not None:
             for name, value in scalars.items():
                 self.writer.add_scalar(name, value, iteration)
