@@ -6,14 +6,20 @@
 Phases, each of which passes or raises (the script then exits non-zero):
 
 1. require CUDA; print the card's name and power limit; turn TF32 off;
-2. build the hand-written kernels from ``csrc/`` (the bf16, int8 and
-   padded WN-layer libraries, the gated activation and the k=3 conv
-   backward, one ``nvcc`` each, all started together) and print the
+2. build the hand-written kernels from ``csrc/`` (the bf16 WN-layer
+   library and its Hopper redesign of the standard and final layers, the
+   int8 and padded WN-layer libraries, the gated activation and the k=3
+   conv backward, one ``nvcc`` each, all started together) and print the
    times;
 3. compare each of the six projecting kernels with its plain PyTorch version on the
    card at the reference width (C=512, M=640) over batch sizes, dilations,
-   valid lengths and flow widths; time both with CUDA events at one
-   vocode's shapes and compute the card's bound for the same work;
+   valid lengths and flow widths, and the standard and final layers also at
+   the edges of their 128-row tile (T and n_valid off the tile grid, a
+   halo of a whole tile, batch 3, nothing valid); time both with CUDA
+   events at one vocode's shapes and compute the card's bound for the same
+   work; time the standard and final layers at batch 1 and 3 beside their
+   first design (``wn_block.first_design``), and the two products of the
+   standard layer as one library call each;
 4. bf16 main path: synthesize a small batch of Korean texts end to end at
    full reference width (seeded random weights) through the fused vocoder
    and the denoiser, write the WAVs, check the audio, the launch counts
@@ -122,6 +128,7 @@ import http.client
 import json
 import os
 import queue
+import re
 import signal
 import socket
 import subprocess
@@ -158,8 +165,8 @@ PALLAS = "text2speech_tpu/ops/pallas/"
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "wn_layer_first": ("wn_block.cu", PALLAS + "wn_block.py:459"),
-    "wn_layer": ("wn_block.cu", PALLAS + "wn_block.py:398"),
-    "wn_layer_final": ("wn_block.cu", PALLAS + "wn_block.py:528"),
+    "wn_layer": ("wn_block_sm90.cu", PALLAS + "wn_block.py:398"),
+    "wn_layer_final": ("wn_block_sm90.cu", PALLAS + "wn_block.py:528"),
     "wn_layer_first_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:338"),
     "wn_layer_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:268"),
     "wn_layer_final_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:510"),
@@ -196,6 +203,30 @@ def gpu_info() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip()
+
+
+def hgmma_counts(so) -> str:
+    """``HGMMA`` (wgmma) instructions per kernel in a built library's SASS,
+    by ``cuobjdump`` beside ``nvcc``; "no cuobjdump" where the toolkit has
+    none."""
+    from text2speech_tpu_torch.ops.build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return "no cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            # wn_sm90_kernel<ROLE, NWG, BK> -> "ROLE,NWG,BK"
+            name = ",".join(re.findall(r"ILi(\d+)E(?:Li(\d+)E)(?:Li(\d+)E)",
+                                       line)[0]) if "ILi" in line else line
+            counts[name] = 0
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    return (f"{sum(counts.values())} HGMMA instructions; per kernel "
+            f"<role, warpgroups, K per stage>: {counts}")
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -380,7 +411,7 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
     def note(name, err):
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
 
-    def check_pair(name, args, nv, tag):
+    def check_pair(name, args, nv, tag, skip_rows=None):
         kern, plain = fns[name]
         std = name in ("wn_layer", "wn_layer_int8")
         got = call_std(kern, args, nv) if std else kern(*args, n_valid=nv)
@@ -398,9 +429,10 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
         elif name.endswith("int8"):
             note(name, compare_int8(tag, got, want, nv))
         else:
+            rows = nv if skip_rows is None else skip_rows
             note(name, compare(tag + " x", got[0], want[0]))
-            note(name, compare(tag + " skip", got[1][:, :nv],
-                               want[1][:, :nv]))
+            note(name, compare(tag + " skip", got[1][:, :rows],
+                               want[1][:, :rows]))
 
     cases = [(1, 1000, 937), (2, 1000, 1000), (2, 777, 700)]
     seed = 0
@@ -427,6 +459,24 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
                 for name, args in layer_args(k, d).items():
                     check_pair(name, args, nv, f"{shape} d={d} E={E}")
 
+    # the edges of the sm90 kernels' 128-row tile: T and n_valid off the
+    # tile grid, a halo of a whole tile (d=128), batch 3, nothing valid, a
+    # grid of 128-row tiles that fills the card; the skip sum on every row
+    # (rows past n_valid too are computed alike)
+    for B, T, nv in ((1, 1000, 937), (1, 1000, 128), (1, 1000, 129),
+                     (3, 1000, 1000), (3, 777, 700), (2, 1000, 0),
+                     (3, 6450, 6401)):   # the last: 128-row tiles
+        shape = f"edge B={B} T={T} n_valid={nv}"
+        for d in (1, 128):
+            seed += 1
+            k = layer_inputs(B, T, nv, C, M, seed, dev)
+            check_pair("wn_layer", layer_args(k, d)["wn_layer"], nv,
+                       f"{shape} d={d}", skip_rows=T)
+            seed += 1
+            k = layer_inputs(B, T, nv, C, M, seed, dev, E=8)
+            check_pair("wn_layer_final", layer_args(k, d)["wn_layer_final"],
+                       nv, f"{shape} d={d} E=8")
+
     # times at one vocode's shapes: B=1, 200 mel frames = 6400 groups
     B, T = 1, 6400
     timed = {}
@@ -449,17 +499,84 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (by "
               f"{r['bound_by']})")
 
-    # yardsticks of the tensor-core rates: the standard layer's largest
-    # product as one library call each (the port calls neither)
+    time_beside_first_design(rec, C, M)
+
+    # yardsticks of the tensor-core rates: the standard layer's two
+    # products (in-act, res/skip) as one library call each, at batch 1 and
+    # 3, and its in-act product in s8 (the port calls none of them)
     a8 = torch.randint(-127, 128, (T, C), dtype=torch.int8, device=dev)
     b8 = torch.randint(-127, 128, (C, 2 * C), dtype=torch.int8, device=dev)
-    a16 = torch.randn(T, 3 * C + M, device=dev, dtype=torch.bfloat16)
-    b16 = torch.randn(3 * C + M, 2 * C, device=dev, dtype=torch.bfloat16)
     print(f"[yardstick] torch._int_mm [{T},{C}]x[{C},{2 * C}] s8: "
-          f"{time_ms(lambda: torch._int_mm(a8, b8)):.4f} ms; torch.matmul "
-          f"[{T},{3 * C + M}]x[{3 * C + M},{2 * C}] bf16: "
-          f"{time_ms(lambda: a16 @ b16):.4f} ms")
+          f"{time_ms(lambda: torch._int_mm(a8, b8)):.4f} ms")
+    for rows in (T, 3 * T):
+        for K in (3 * C + M, C):
+            a16 = torch.randn(rows, K, device=dev, dtype=torch.bfloat16)
+            b16 = torch.randn(K, 2 * C, device=dev, dtype=torch.bfloat16)
+            print(f"[yardstick] torch.matmul [{rows},{K}]x[{K},{2 * C}] "
+                  f"bf16: {time_ms(lambda: a16 @ b16):.4f} ms")
     return rec
+
+
+def time_beside_first_design(rec: dict, C: int, M: int) -> None:
+    """The sm90 standard and final layers and their first design on the
+    same inputs at one vocode's shapes, batch 1 and 3 x 6400 groups, timed
+    in turns (first, sm90, sm90, first); the two agree within the kernel
+    bounds.  Adds ``prev_ms`` (the first design at batch 1), ``ms_b3`` and
+    ``prev_ms_b3`` to the two rows of ``rec``."""
+    from text2speech_tpu_torch.ops import wn_block as wb
+
+    dev = torch.device("cuda")
+    T = 6400
+    for B in (1, 3):
+        runs = {
+            "wn_layer": layer_args(layer_inputs(B, T, T, C, M, 96, dev),
+                                   64)["wn_layer"],
+            "wn_layer_final": layer_args(layer_inputs(
+                B, T, T, C, M, 95, dev, E=8), 128)["wn_layer_final"],
+        }
+        for name, args in runs.items():
+            kern = getattr(wb, name)
+            if name == "wn_layer":
+                got = call_std(kern, args, T)
+                want = call_std(lambda *a, n_valid: wb.first_design(
+                    name, *a, n_valid=n_valid), args, T)
+                compare(f"{name} sm90 vs first design B={B} x", got[0],
+                        want[0])
+                compare(f"{name} sm90 vs first design B={B} skip", got[1],
+                        want[1])
+            else:
+                compare(f"{name} sm90 vs first design B={B}", kern(*args),
+                        wb.first_design(name, *args))
+            outs = kern(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            tensors = [t for t in (*args, *outs) if torch.is_tensor(t)]
+            bound, by = bound_ms(work(name, B, T, C, M), tensors)
+            first, sm90 = [], []
+            for fn, acc in ((lambda: wb.first_design(name, *args), first),
+                            (lambda: kern(*args), sm90),
+                            (lambda: kern(*args), sm90),
+                            (lambda: wb.first_design(name, *args), first)):
+                acc.append(time_ms(fn))
+            ms, prev = sum(sm90) / 2, sum(first) / 2
+            plan = wb.sm90_plan(C, T, B)
+            blocks = plan["grid"][0] * plan["grid"][1]
+            smem = wb.LIB_SM90.get().t2s_wn_sm90_smem_bytes(
+                plan["nwg"], plan["bk"], C, plan["stages"])
+            if smem != plan["smem"]:
+                raise RuntimeError(f"sm90 plan: {plan['smem']} B of shared "
+                                   f"memory, the kernel asks {smem}")
+            print(f"  {name} B={B} T={T}: sm90 {sm90[0]:.4f} / {sm90[1]:.4f}"
+                  f" ms ({bound / ms:.1%} of the {bound:.4f} ms bound by "
+                  f"{by}), first design {first[0]:.4f} / {first[1]:.4f} ms "
+                  f"({bound / prev:.1%}); sm90 tile {plan['bm']} rows, "
+                  f"{plan['stages']} stages of K={plan['bk']}, "
+                  f"{plan['smem']} B shared, {blocks} blocks = "
+                  f"{blocks / wb.SM90_SMS:.2f} per SM (1 resident); first design "
+                  f"{-(-T // 64) * B} blocks")
+            if B == 1:
+                rec[name]["prev_ms"] = prev
+            else:
+                rec[name]["ms_b3"], rec[name]["prev_ms_b3"] = ms, prev
 
 
 TEXTS = [
@@ -2638,7 +2755,7 @@ def main() -> int:
     from text2speech_tpu_torch.ops import wn_block_padded as wp
 
     t0 = time.perf_counter()
-    libs = (wb.LIB, wq.LIB, gated.LIB, wn_backward.LIB, wp.LIB)
+    libs = (wb.LIB, wb.LIB_SM90, wq.LIB, gated.LIB, wn_backward.LIB, wp.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
@@ -2648,6 +2765,7 @@ def main() -> int:
         print(lib.build_log.strip())
     print(f"[build] {len(libs)} libraries built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
+    print(f"[build] wn_block_sm90.cu SASS: {hgmma_counts(wb.LIB_SM90.path)}")
 
     print("[kernels] kernel vs plain at C=512, M=640")
     rec = check_kernels()
@@ -2710,6 +2828,10 @@ def main() -> int:
         # no one PyTorch call computes a fused WN layer or the gated
         # activation; the conv backward has aten.convolution_backward
         "library_ms": rec[n].get("library_ms"),
+        # the redesigned standard and final layers: their first design's
+        # time and both at batch 3
+        **{k: rec[n][k] for k in ("prev_ms", "ms_b3", "prev_ms_b3")
+           if k in rec[n]},
     } for n, (src, repl) in {**KERNELS, **DCOND_KERNELS, **PARTIAL_KERNELS,
                              **TRAIN_KERNELS, **PADDED_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))

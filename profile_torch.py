@@ -275,7 +275,8 @@ def serve_stages(args) -> None:
         composed_cond=cc)))
     print(f"batch {len(texts)} x {args.steps} frames, reference width")
     for name, fn in stages:
-        also = ("wn_layer_kernel",) if name.startswith("vocode") else ()
+        also = (("wn_layer_kernel", "wn_sm90_kernel")
+                if name.startswith("vocode") else ())
         print(json.dumps(profile_stage(name, fn, also), ensure_ascii=False))
     del cc
 

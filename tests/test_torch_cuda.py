@@ -125,6 +125,80 @@ def test_final_layer_kernel_matches_plain(dev, E, d):
           wb.wn_layer_final_plain(*args, n_valid=nv))
 
 
+# the edges of the sm90 kernels' 128-row tile: T and n_valid off the tile
+# grid, a halo of a whole tile (d=128), batch 3, nothing valid, a grid of
+# 128-row tiles that fills the card
+TILE_EDGES = [(1, 1000, 937, 1), (1, 1000, 128, 128), (1, 1000, 129, 64),
+              (3, 1000, 1000, 128), (3, 777, 700, 1), (2, 300, 0, 5),
+              (3, 6450, 6401, 64)]   # 51 x 3 tiles of 128 rows
+
+
+@pytest.mark.parametrize("B,T,nv,d", TILE_EDGES)
+def test_standard_layer_kernel_at_tile_edges(dev, B, T, nv, d):
+    C, M = 256, 96
+    k = inputs(dev, B, T, nv, C, M, 11 + d + nv)
+    args = (k["x"], k["spect"], k["w_in"], k["b_in"], k["w_cond"],
+            k["b_cond"], k["w_rs"], k["b_rs"])
+    px, ps = wb.wn_layer_plain(*args, k["acc"], d, n_valid=nv)
+    gx, gs = wb.wn_layer(*args, k["acc"].clone(), d, n_valid=nv)
+    assert (gx[:, nv:] == 0).all()
+    if nv:
+        close(gx, px)
+    close(gs, ps)      # every row: rows past n_valid are computed alike
+
+
+@pytest.mark.parametrize("B,T,nv,d", TILE_EDGES)
+def test_final_layer_kernel_at_tile_edges(dev, B, T, nv, d):
+    C, M, E = 128, 64, 8
+    k = inputs(dev, B, T, nv, C, M, 21 + d + nv, rs_out=C, E=E)
+    w_eff, b_eff = wb.fold_end(k["w_rs"], k["b_rs"], k["w_end"], k["b_end"])
+    args = (k["x"], k["spect"], k["w_in"], k["b_in"], k["w_cond"],
+            k["b_cond"], w_eff, k["acc"], k["w_end"], b_eff, d)
+    close(wb.wn_layer_final(*args, n_valid=nv),
+          wb.wn_layer_final_plain(*args, n_valid=nv))
+
+
+@pytest.mark.parametrize("C", [128, 512, 640])
+def test_sm90_kernels_agree_with_the_first_design(dev, C):
+    """The sm90 standard and final layers against their first design
+    (``csrc/wn_block.cu``, 64-row blocks, mma.sync) on the same inputs,
+    within the kernel bounds; 640 takes the 64-row tile."""
+    B, T, nv, M, d = 2, 500, 451, 64, 64
+    k = inputs(dev, B, T, nv, C, M, 31 + C, E=8)
+    args = (k["x"], k["spect"], k["w_in"], k["b_in"], k["w_cond"],
+            k["b_cond"], k["w_rs"], k["b_rs"])
+    gx, gs = wb.wn_layer(*args, k["acc"].clone(), d, n_valid=nv)
+    fx, fs = wb.first_design("wn_layer", *args, k["acc"].clone(), d,
+                             n_valid=nv)
+    close(gx, fx)
+    close(gs[:, :nv], fs[:, :nv])
+    w_eff, b_eff = wb.fold_end(k["w_rs"][:, :C].contiguous(),
+                               k["b_rs"][:C].contiguous(), k["w_end"],
+                               k["b_end"])
+    fargs = (*args[:6], w_eff, k["acc"], k["w_end"], b_eff, d)
+    close(wb.wn_layer_final(*fargs, n_valid=nv),
+          wb.first_design("wn_layer_final", *fargs, n_valid=nv))
+
+
+def test_sm90_wrappers_raise_where_no_tile_fits(dev):
+    """C = 1536: the gated tile of even the 64-row form leaves no room for
+    two ring stages.  The wrappers raise; nothing falls back."""
+    B, T, C, M = 1, 64, 1536, 32
+    k = inputs(dev, B, T, T, C, M, 9, E=4)
+    args = (k["x"], k["spect"], k["w_in"], k["b_in"], k["w_cond"],
+            k["b_cond"])
+    wb.reset_launch_counts()
+    with pytest.raises(ValueError, match="no tile"):
+        wb.wn_layer(*args, k["w_rs"], k["b_rs"], k["acc"], 1)
+    w_eff, b_eff = wb.fold_end(k["w_rs"][:, :C].contiguous(),
+                               k["b_rs"][:C].contiguous(), k["w_end"],
+                               k["b_end"])
+    with pytest.raises(ValueError, match="no tile"):
+        wb.wn_layer_final(*args, w_eff, k["acc"], k["w_end"], b_eff, 1)
+    assert wb.launch_counts() == {"wn_layer_first": 0, "wn_layer": 0,
+                                  "wn_layer_final": 0}
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     B, T, C, M = 1, 64, 128, 64
     k = inputs(dev, B, T, T, C, M, 7)

@@ -174,6 +174,30 @@ def test_synthesizer_matches_jax(pair):
         assert rel < 2e-2, rel
 
 
+def test_text_to_mel_with_align_matches_jax(pair):
+    """``with_align=True`` returns the attention alignment [B, T_dec, T_enc]
+    beside the mel, as the JAX method does.  Both sides run the decoder in
+    f32 on the same weights and prenet masks; the alignment is a softmax
+    over the encoder positions of every step, so it agrees as the mel does,
+    to a few f32 ulps carried through the steps: 1e-5."""
+    taco, tvars, jsyn, tsyn = pair
+    texts = ["안녕하세요.", "존경하는 사람"]
+    seed = 5
+    jmel, jlen, jalign = jsyn.text_to_mel(texts, seed, with_align=True)
+    jlen = np.asarray(jlen)
+    Tg = int(jlen.max()) * WG.upsample_stride // WG.n_group
+    keep, _ = _jax_draws(taco, tvars, seed, Tg, len(texts))
+    tmel, tlen, talign = tsyn.text_to_mel(texts, seed, keep_masks=keep,
+                                          with_align=True)
+    np.testing.assert_array_equal(tlen.numpy(), jlen)
+    np.testing.assert_allclose(tmel.numpy(), np.asarray(jmel), atol=1e-4)
+    assert talign.dtype == torch.float32
+    assert tuple(talign.shape) == np.asarray(jalign).shape
+    np.testing.assert_allclose(talign.numpy(), np.asarray(jalign), atol=1e-5)
+    mel_only = tsyn.text_to_mel(texts, seed, keep_masks=keep)
+    assert len(mel_only) == 2 and torch.equal(mel_only[0], tmel)
+
+
 def test_synthesize_to_files_writes_pcm16(pair, tmp_path):
     from scipy.io import wavfile
 

@@ -69,9 +69,10 @@
 // and mma.sync the kernel is bound by that L2 stream and by mma.sync
 // throughput, far from the 989 TFLOP/s bf16 (wgmma) peak: the standard
 // layer measured 0.39 ms at B=1, T=6400 (~90 TFLOP/s) and 0.93 ms at B=3
-// (113 TFLOP/s) on "NVIDIA H100 80GB HBM3, 700.00 W".  Larger row blocks,
-// wgmma and TMA multicast of the weight tiles across a cluster are the
-// next steps, and are not done here.
+// (113 TFLOP/s) on "NVIDIA H100 80GB HBM3, 700.00 W".  wn_block_sm90.cu
+// redesigns STD and FINAL (DCOND = false) with larger row blocks, wgmma and
+// TMA, and ops/wn_block.py launches that; the two instantiations here stay
+// as the first design, which only chip_smoke.py times beside it.
 //
 // The DCOND kernels.  The in-act GEMM loses its M conditioning rows: K = 3C
 // (1536 of 2176 at C=512, M=640), and FIRST has no GEMM before the gate at

@@ -413,18 +413,24 @@ class Synthesizer:
 
     @torch.inference_mode()
     def text_to_mel(self, texts, seed: int = 0, max_steps: int | None = None,
-                    speaker_id=None, keep_masks: torch.Tensor | None = None):
-        """list[str] -> (mel_post [B, n_mel, T], out_lengths [B])."""
+                    speaker_id=None, keep_masks: torch.Tensor | None = None,
+                    with_align: bool = False):
+        """list[str] -> (mel_post [B, n_mel, T], out_lengths [B]).
+
+        ``with_align=True`` also returns the attention alignment [B, T_dec,
+        T_enc] f32, as the JAX ``Synthesizer.text_to_mel`` does."""
         ids, lengths = encode_batch(texts)
         sid = speaker_ids_array(speaker_id, ids.shape[0],
                                 self.taco.num_speakers)
-        _, mel_post, _, _, out_lengths = self.taco.inference(
+        _, mel_post, _, align, out_lengths = self.taco.inference(
             torch.from_numpy(ids).long().to(self.device),
             speaker_ids=(None if sid is None
                          else torch.from_numpy(sid).long().to(self.device)),
             text_lengths=torch.from_numpy(lengths).to(self.device),
             max_steps=max_steps, keep_masks=keep_masks,
             generator=self._generator(seed))
+        if with_align:
+            return mel_post, out_lengths, align
         return mel_post, out_lengths
 
     @torch.inference_mode()

@@ -12,10 +12,12 @@ roles are in :mod:`.wn_block_dcond`.  Each role has
   kernel in float32 matmuls over the input dtype's values, used for CPU
   tensors and as the reference the CUDA kernels are checked against;
 * a wrapper (:func:`wn_layer_first`, :func:`wn_layer`,
-  :func:`wn_layer_final`, :func:`wn_layer_partial`) that launches the hand-written Hopper kernel of
-  ``csrc/wn_block.cu`` for CUDA tensors, and takes the plain version only
-  for CPU tensors.  A CUDA tensor the kernel does not take raises; nothing
-  falls back.
+  :func:`wn_layer_final`, :func:`wn_layer_partial`) that launches a
+  hand-written Hopper kernel for CUDA tensors, and takes the plain version
+  only for CPU tensors.  The standard and final layers launch
+  ``csrc/wn_block_sm90.cu`` (wgmma, TMA, 128-row tiles; :func:`sm90_plan`
+  picks the tile), the first and partial layers ``csrc/wn_block.cu``.  A
+  CUDA tensor the kernel does not take raises; nothing falls back.
 
 Layout is channels-last ``[B, T, C]``.  Rows at or past ``n_valid`` read as
 zero in every dilated tap (the conv's zero padding at the true length),
@@ -43,6 +45,11 @@ LIB = CudaLibrary("wn_block", {
     "t2s_wn_layer_first_dcond": [_P] * 11 + [_I] * 8 + [_P],
     "t2s_wn_layer_dcond": [_P] * 9 + [_I] * 8 + [_P],
     "t2s_wn_layer_final_dcond": [_P] * 9 + [_I] * 8 + [_P],
+})
+LIB_SM90 = CudaLibrary("wn_block_sm90", {
+    "t2s_wn_layer_sm90": [_P] * 10 + [_I] * 10 + [_P],
+    "t2s_wn_layer_final_sm90": [_P] * 11 + [_I] * 10 + [_P],
+    "t2s_wn_sm90_smem_bytes": [_I] * 4,
 })
 
 F32 = torch.float32
@@ -258,6 +265,53 @@ def _check_dims(C: int, M: int, T: int, n_valid: int, d: int,
         raise ValueError(f"bad T={T}, n_valid={n_valid}, dilation={d}")
 
 
+# The launch plan of ``csrc/wn_block_sm90.cu`` (its constants, restated):
+# a block is ``nwg`` consumer warpgroups of 64 rows and one producer
+# warpgroup; a ring stage holds a [bk, 256] bf16 weight tile and a
+# [64 nwg, bk] bf16 activation tile; the gated tile is [64 nwg, C] bf16;
+# 1 KB aligns the ring, and 64 bytes of static shared memory hold its
+# mbarriers.
+SM90_SMEM_LIMIT = 232448       # shared memory a block may use on an H100
+SM90_STATIC_SMEM = 64
+SM90_MAX_STAGES = 4
+SM90_SMS = 132                 # streaming multiprocessors of an H100 SXM
+
+
+def _sm90_stage_bytes(nwg: int, bk: int) -> int:
+    return bk * 256 * 2 + nwg * 64 * bk * 2
+
+
+def sm90_smem_bytes(nwg: int, bk: int, C: int, stages: int) -> int:
+    """Dynamic shared memory of one block (the kernel's ``smem_bytes``)."""
+    return 1024 + stages * _sm90_stage_bytes(nwg, bk) + nwg * 64 * C * 2
+
+
+def _sm90_stages(nwg: int, bk: int, C: int) -> int:
+    free = SM90_SMEM_LIMIT - SM90_STATIC_SMEM - sm90_smem_bytes(nwg, bk, C, 0)
+    return min(SM90_MAX_STAGES, max(free, 0) // _sm90_stage_bytes(nwg, bk))
+
+
+def sm90_plan(C: int, T: int = 1, B: int = 1) -> dict:
+    """Tile of ``csrc/wn_block_sm90.cu`` for width ``C`` and ``B``
+    utterances of ``T`` rows.  Rows: 128-row blocks (two consumer
+    warpgroups) where the gated tile fits (C <= 512) and the grid fills the
+    card's SMs at least once, else 64-row blocks, twice as many.  K per
+    stage: 64 where three or more such stages fit beside the gated tile,
+    else 32; the ring is as deep as fits, up to four stages.  Raises
+    ValueError where no tile fits in shared memory."""
+    nwg = 2 if C <= 512 and B * -(-T // 128) >= SM90_SMS else 1
+    bk = 64 if _sm90_stages(nwg, 64, C) >= 3 else 32
+    stages = _sm90_stages(nwg, bk, C)
+    if stages >= 2:
+        bm = 64 * nwg
+        return {"nwg": nwg, "bm": bm, "bk": bk, "stages": stages,
+                "threads": 128 * (nwg + 1),
+                "smem": sm90_smem_bytes(nwg, bk, C, stages),
+                "grid": (-(-T // bm), B)}
+    raise ValueError(f"no tile of the sm90 WN-layer kernel fits C={C} in "
+                     f"{SM90_SMEM_LIMIT} bytes of shared memory")
+
+
 def _run(fn, device: torch.device, *args) -> None:
     """Launch on ``device`` (made current for the call, so a tensor on
     another card than the current one is not launched in the wrong
@@ -344,13 +398,15 @@ def wn_layer(x, spect, w_in, b_in, w_cond, b_cond, w_rs, b_rs, skip_acc,
             spect.untyped_storage().data_ptr()):
         raise ValueError("skip_acc is updated in place and must not share "
                          "memory with x or spect")
+    plan = sm90_plan(C, T, B)
     x_out = torch.empty_like(x)
     wn_layer.launches += 1
-    _run(LIB.get().t2s_wn_layer, x.device, x.data_ptr(), spect.data_ptr(),
-         w_in.data_ptr(), b_in.data_ptr(), w_cond.data_ptr(),
-         b_cond.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(),
-         skip_acc.data_ptr(), x_out.data_ptr(), skip_acc.data_ptr(), B, T,
-         n_valid, C, M, rs_out, dilation)
+    _run(LIB_SM90.get().t2s_wn_layer_sm90, x.device, x.data_ptr(),
+         spect.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+         w_cond.data_ptr(), b_cond.data_ptr(), w_rs.data_ptr(),
+         b_rs.data_ptr(), skip_acc.data_ptr(), x_out.data_ptr(), B, T,
+         n_valid, C, M, rs_out, dilation, plan["nwg"], plan["bk"],
+         plan["stages"])
     return x_out, skip_acc
 
 
@@ -381,13 +437,46 @@ def wn_layer_final(x, spect, w_in, b_in, w_cond, b_cond, w_eff, skip_acc,
         ("w_end", w_end, (C, E), bf), ("b_eff", b_eff, (E,), F32),
     ):
         _check(name, t, shape, dt)
+    plan = sm90_plan(C, T, B)
     out = torch.empty((B, T, E), dtype=F32, device=x.device)
     wn_layer_final.launches += 1
-    _run(LIB.get().t2s_wn_layer_final, x.device, x.data_ptr(),
+    _run(LIB_SM90.get().t2s_wn_layer_final_sm90, x.device, x.data_ptr(),
          spect.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
          w_cond.data_ptr(), b_cond.data_ptr(), w_eff.data_ptr(),
          skip_acc.data_ptr(), w_end.data_ptr(), b_eff.data_ptr(),
-         out.data_ptr(), B, T, n_valid, C, M, E, dilation)
+         out.data_ptr(), B, T, n_valid, C, M, E, dilation, plan["nwg"],
+         plan["bk"], plan["stages"])
+    return out
+
+
+def first_design(name: str, *args, n_valid: int | None = None):
+    """The first CUDA design of the standard or the final layer
+    (``csrc/wn_block.cu``'s ``t2s_wn_layer`` / ``t2s_wn_layer_final``:
+    64-row blocks, ``mma.sync``, ``cp.async``), kept so that the sm90
+    kernel can be timed and checked beside it on the same inputs; no path
+    calls it.  ``name`` is ``"wn_layer"`` or ``"wn_layer_final"`` and the
+    arguments are that wrapper's (CUDA tensors, already checked by a call
+    of the wrapper); the standard layer updates ``skip_acc`` in place.  It
+    counts no launch."""
+    x, spect = args[0], args[1]
+    B, T, C = x.shape
+    M = spect.shape[-1]
+    n_valid = T if n_valid is None else int(n_valid)
+    lib = LIB.get()
+    ptrs = [t.data_ptr() for t in args[:-1]]
+    if name == "wn_layer":
+        skip_acc, w_rs = args[8], args[6]
+        x_out = torch.empty_like(x)
+        _run(lib.t2s_wn_layer, x.device, *ptrs, x_out.data_ptr(),
+             skip_acc.data_ptr(), B, T, n_valid, C, M, w_rs.shape[-1],
+             args[-1])
+        return x_out, skip_acc
+    if name != "wn_layer_final":
+        raise ValueError(f"no first design of {name!r}")
+    E = args[8].shape[-1]
+    out = torch.empty((B, T, E), dtype=F32, device=x.device)
+    _run(lib.t2s_wn_layer_final, x.device, *ptrs, out.data_ptr(), B, T,
+         n_valid, C, M, E, args[-1])
     return out
 
 
