@@ -7,10 +7,12 @@ Phases, each of which passes or raises (the script then exits non-zero):
 
 1. require CUDA; print the card's name and power limit; turn TF32 off;
 2. build the hand-written kernels from ``csrc/`` (the bf16 WN-layer
-   library and its Hopper redesign of the standard and final layers, the
-   int8 and padded WN-layer libraries, the gated activation and the k=3
-   conv backward, one ``nvcc`` each, all started together) and print the
-   times;
+   library and its Hopper redesign of the standard, final and ``dcond``
+   standard layers, the int8 and padded WN-layer libraries, the gated
+   activation, the k=3 conv backward and its Hopper redesign, one ``nvcc``
+   each, all started together) and print the times, and for the two
+   Hopper files the ``HGMMA`` count per kernel and the registers and
+   spills ``-Xptxas -v`` reports;
 3. compare each of the six projecting kernels with its plain PyTorch version on the
    card at the reference width (C=512, M=640) over batch sizes, dilations,
    valid lengths and flow widths, and the standard and final layers also at
@@ -36,8 +38,11 @@ Phases, each of which passes or raises (the script then exits non-zero):
    random weights with ``--fused_vocoder`` and with ``--int8_vocoder``;
 8. training kernels: the gated activation's forward and backward kernel
    and the k=3 dilated conv's backward kernel against their plain versions
-   (the last also against autograd of ``F.conv1d``) at the training shapes
-   and at odd ones, f32 and bf16; times, bounds and the library's time;
+   (the last also against autograd of ``F.conv1d`` and its first design,
+   ``wn_backward.first_design``, two runs bitwise equal) at the training
+   shapes and at odd ones, f32 and bf16; times, bounds and the library's
+   time, the conv backward beside its first design in turns at d = 1, 8,
+   128 in both dtypes;
    then the conv backward's own path, a chain of calls down the WN
    dilation ladder (it is a probe beside the trainer, as in the JAX
    package, and no training step launches it);
@@ -57,7 +62,9 @@ Phases, each of which passes or raises (the script then exits non-zero):
 12. the three composed-conditioning (``dcond``) kernels against their plain
     versions at C=512, L=8: batches 1 and 3, every dilation 1..128,
     ``n_valid < T``, the first and the last ``cond_index``, flow widths;
-    times and bounds;
+    the standard one (the sm90 kernel) also at the edges of its tile and
+    against its first design; times and bounds, the standard one at batch
+    1 and 3 beside its first design in turns;
 13. the composed vocoder at full width on the main path's mel
     (``precompute_composed_cond`` once, ``infer_fused(composed_cond=...)``):
     12/72/12 launches of the ``dcond`` wrappers and none of the projecting
@@ -174,7 +181,7 @@ KERNELS = {
 # the composed-conditioning flavours (the DCOND instantiations)
 DCOND_KERNELS = {
     "wn_layer_first_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:100"),
-    "wn_layer_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:43"),
+    "wn_layer_dcond": ("wn_block_sm90.cu", PALLAS + "wn_block_dcond.py:43"),
     "wn_layer_final_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:162"),
 }
 # the tensor-parallel partial layers (one rank's share of a layer)
@@ -187,7 +194,7 @@ PARTIAL_KERNELS = {
 TRAIN_KERNELS = {
     "gated_fwd": ("gated.cu", PALLAS + "gated.py:64"),
     "gated_bwd": ("gated.cu", PALLAS + "gated.py:76"),
-    "conv_k3_bwd": ("wn_backward.cu", PALLAS + "wn_backward.py:83"),
+    "conv_k3_bwd": ("wn_backward_sm90.cu", PALLAS + "wn_backward.py:83"),
 }
 CSRC = "text2speech_tpu_torch/csrc/"
 
@@ -205,6 +212,24 @@ def gpu_info() -> str:
     return out.stdout.strip()
 
 
+def demangled(names) -> dict:
+    """Each mangled kernel name -> its C++ name without parameter types, by
+    the toolkit's ``cu++filt`` beside ``nvcc``; the names stay mangled
+    where the toolkit has none or it fails."""
+    from text2speech_tpu_torch.ops.build import find_nvcc
+
+    names = list(dict.fromkeys(names))
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cu++filt")
+    out = []
+    if names and os.path.exists(tool):
+        r = subprocess.run([tool, "-p", *names], capture_output=True,
+                           text=True, timeout=60)
+        out = r.stdout.splitlines() if r.returncode == 0 else []
+    if len(out) != len(names):
+        out = names
+    return dict(zip(names, out))
+
+
 def hgmma_counts(so) -> str:
     """``HGMMA`` (wgmma) instructions per kernel in a built library's SASS,
     by ``cuobjdump`` beside ``nvcc``; "no cuobjdump" where the toolkit has
@@ -219,14 +244,34 @@ def hgmma_counts(so) -> str:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            # wn_sm90_kernel<ROLE, NWG, BK> -> "ROLE,NWG,BK"
-            name = ",".join(re.findall(r"ILi(\d+)E(?:Li(\d+)E)(?:Li(\d+)E)",
-                                       line)[0]) if "ILi" in line else line
+            name = line.split("Function :")[1].strip()
             counts[name] = 0
         elif name and "HGMMA" in line:
             counts[name] += 1
-    return (f"{sum(counts.values())} HGMMA instructions; per kernel "
-            f"<role, warpgroups, K per stage>: {counts}")
+    names = demangled(counts)
+    counts = {names[n]: c for n, c in counts.items()}
+    return f"{sum(counts.values())} HGMMA instructions; per kernel: {counts}"
+
+
+def ptxas_registers(log: str) -> str:
+    """Registers and spill bytes per kernel from a build's ``-Xptxas -v``
+    output."""
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (f", spills {m.group(1)}/{m.group(2)} B" if m.group(1)
+                     != "0" or m.group(2) != "0" else "")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, f"{m.group(1)}{spill}"))
+            name, spill = None, ""
+    names = demangled(n for n, _ in out)
+    return "; ".join(f"{names[n]}: {regs}" for n, regs in out)
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -850,12 +895,16 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
     """Phase 12: kernels 9-11 against their plain versions at reference
     width, then kernel and plain times and the card's bound at one
     main-path shape (B=1, T=6400, cond_all [1, 6400, 8192])."""
+    from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
 
     fns = {n: (getattr(wd, n), getattr(wd, n + "_plain"))
            for n in DCOND_KERNELS}
     dev = torch.device("cuda")
     rec = {n: {"max_abs_err": 0.0} for n in DCOND_KERNELS}
+
+    def note(name, err):
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
 
     def cond_for(B, T, seed):
         g = torch.Generator().manual_seed(seed)
@@ -905,6 +954,40 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
                 check_pair(name, args, nv, f"{shape} d={d} li={li} "
                            f"E={k['w_end'].shape[1]}")
 
+    # the sm90 standard layer at the edges of its tile (as phase 3 does
+    # for the in-kernel projection: T and n_valid off the tile grid, a halo
+    # of a whole tile, batch 3, nothing valid, 128-row tiles) against its
+    # plain version and its first design, the skip sum on every row
+    for B, T, nv in ((1, 1000, 129), (3, 777, 700), (2, 1000, 0),
+                     (3, 6450, 6401)):
+        cond_all = cond_for(B, T, seed)
+        for d, li, rs_full in ((1, 0, True), (128, L - 1, False)):
+            seed += 1
+            k = layer_inputs(B, T, nv, C, 64, seed, dev)
+            if not rs_full:
+                k["w_rs"] = k["w_rs"][:, :C].contiguous()
+                k["b_rs"] = k["b_rs"][:C].contiguous()
+            args = dcond_args(k, cond_all, li, d)["wn_layer_dcond"]
+            got = call_std(wd.wn_layer_dcond, args, nv)
+            tag = (f"wn_layer_dcond edge B={B} T={T} n_valid={nv} d={d} "
+                   f"li={li} rs_out={k['w_rs'].shape[1]}")
+            for ref, want in (
+                    ("plain", call_std(wd.wn_layer_dcond_plain, args, nv)),
+                    ("first design", call_std(
+                        lambda *a, n_valid: wb.first_design(
+                            "wn_layer_dcond", *a, n_valid=n_valid),
+                        args, nv))):
+                if got[0][:, nv:].any() or want[0][:, nv:].any():
+                    raise RuntimeError(f"{tag}: rows past n_valid are not "
+                                       f"zero")
+                if nv:
+                    err = compare(f"{tag} vs {ref} x", got[0], want[0])
+                    if ref == "plain":
+                        note("wn_layer_dcond", err)
+                err = compare(f"{tag} vs {ref} skip", got[1], want[1])
+                if ref == "plain":
+                    note("wn_layer_dcond", err)
+
     B, T = 1, 6400
     cond_all = cond_for(B, T, 77)
     timed = {}
@@ -934,7 +1017,63 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
         print(f"  {name} B={B} T={T}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (by "
               f"{r['bound_by']})")
+    time_dcond_beside_first_design(rec["wn_layer_dcond"], C, L)
     return rec
+
+
+def time_dcond_beside_first_design(r: dict, C: int, L: int) -> None:
+    """The sm90 dcond standard layer and its first design on the same
+    inputs at the composed vocode's shapes, batch 1 and 3 x 6400 groups,
+    timed in turns (first, sm90, sm90, first); the two agree within the
+    kernel bounds.  Adds ``prev_ms`` (the first design at batch 1),
+    ``ms_b3`` and ``prev_ms_b3`` to the row ``r``."""
+    from text2speech_tpu_torch.ops import wn_block as wb
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    dev = torch.device("cuda")
+    T = 6400
+    for B in (1, 3):
+        g = torch.Generator().manual_seed(78 + B)
+        cond_all = torch.randn(B, T, 2 * C * L, generator=g).to(
+            dev, torch.bfloat16)
+        args = dcond_args(layer_inputs(B, T, T, C, 64, 93, dev), cond_all,
+                          3, 64)["wn_layer_dcond"]
+
+        def first(*a, n_valid=None):
+            return wb.first_design("wn_layer_dcond", *a, n_valid=n_valid)
+
+        got = call_std(wd.wn_layer_dcond, args, T)
+        want = call_std(first, args, T)
+        compare(f"wn_layer_dcond sm90 vs first design B={B} x", got[0],
+                want[0])
+        compare(f"wn_layer_dcond sm90 vs first design B={B} skip", got[1],
+                want[1])
+        x_out = got[0]
+        bt = 2 * B * T
+        bound, by = bound_ms(
+            {"bf16": bt * 3 * C * 2 * C + bt * C * 2 * C},
+            [t[..., 3 * 2 * C: 4 * 2 * C] if t is cond_all else t
+             for t in (*args, x_out, args[-2]) if torch.is_tensor(t)])
+        firsts, sm90 = [], []
+        for fn, acc in ((lambda: first(*args), firsts),
+                        (lambda: wd.wn_layer_dcond(*args), sm90),
+                        (lambda: wd.wn_layer_dcond(*args), sm90),
+                        (lambda: first(*args), firsts)):
+            acc.append(time_ms(fn))
+        ms, prev = sum(sm90) / 2, sum(firsts) / 2
+        plan = wb.sm90_plan(C, T, B)
+        blocks = plan["grid"][0] * plan["grid"][1]
+        print(f"  wn_layer_dcond B={B} T={T}: sm90 {sm90[0]:.4f} / "
+              f"{sm90[1]:.4f} ms ({bound / ms:.1%} of the {bound:.4f} ms "
+              f"bound by {by}), first design {firsts[0]:.4f} / "
+              f"{firsts[1]:.4f} ms ({bound / prev:.1%}); sm90 tile "
+              f"{plan['bm']} rows, {plan['stages']} stages of K={plan['bk']}"
+              f" ({3 * C // plan['bk']} per gate-pair chunk), "
+              f"{plan['smem']} B shared, {blocks} blocks")
+        if B == 1:
+            r["prev_ms"] = prev
+        else:
+            r["ms_b3"], r["prev_ms_b3"] = ms, prev
 
 
 def composed_path(synth, mel: torch.Tensor, rel32_bf16: float) -> dict:
@@ -1957,7 +2096,8 @@ def check_train_kernels() -> dict:
             F.conv1d(xr.transpose(1, 2), wr.permute(2, 1, 0), padding=d,
                      dilation=d).transpose(1, 2).backward(cot.float())
             refs = {"plain": twb.conv_k3_bwd_plain(x, cot, w, d),
-                    "autograd": (xr.grad, wr.grad)}
+                    "autograd": (xr.grad, wr.grad),
+                    "first design": twb.first_design(x, cot, w, d)}
             for ref, (want_dx, want_dw) in refs.items():
                 want_dx = want_dx.float()
                 e_x = (dx.float() - want_dx).abs().max().item()
@@ -1976,7 +2116,8 @@ def check_train_kernels() -> dict:
                     raise RuntimeError(f"{tag}: kernel disagrees")
                 if ref == "plain":
                     r = rec["conv_k3_bwd"]
-                    r["max_abs_err"] = max(r["max_abs_err"], e_x, e_w)
+                    key = "max_abs_err" + ("_f32" if dtype == f32 else "")
+                    r[key] = max(r.get(key, 0.0), e_x, e_w)
 
     # times at the training shapes.  The gated pair as a WN layer gives it:
     # f32, b a column slice of the fused projection.
@@ -2002,11 +2143,16 @@ def check_train_kernels() -> dict:
                   f"(by {t['bound_by']})")
             if dtype == f32:
                 rec[name].update(t)
+    # times at the training shape, both dtypes, beside the first design in
+    # turns (first, sm90, sm90, first); the record holds bf16 at d=8, and
+    # the f32 form's numbers under "f32"
     B, T, C = 3, 2000, 512
+    r = rec["conv_k3_bwd"]
     for dtype, kind in ((bf16, "bf16"), (f32, "f32")):
         for d in (1, 8, 128):
             x, cot, w = conv_inputs(B, T, C, dtype, 91)
             dx, dw = twb.conv_k3_bwd(x, cot, w, d)
+            plan = twb.bwd_plan(B, T, C, dtype)
 
             def library():
                 return torch.ops.aten.convolution_backward(
@@ -2014,19 +2160,92 @@ def check_train_kernels() -> dict:
                     w.permute(2, 1, 0), None, [1], [d], [d], False, [0], 1,
                     [True, True, False])
 
-            t = {"ms": time_ms(lambda: twb.conv_k3_bwd(x, cot, w, d)),
+            firsts, sm90 = [], []
+            for fn, acc in ((lambda: twb.first_design(x, cot, w, d), firsts),
+                            (lambda: twb.conv_k3_bwd(x, cot, w, d), sm90),
+                            (lambda: twb.conv_k3_bwd(x, cot, w, d), sm90),
+                            (lambda: twb.first_design(x, cot, w, d),
+                             firsts)):
+                acc.append(time_ms(fn))
+            t = {"ms": sum(sm90) / 2, "prev_ms": sum(firsts) / 2,
                  "plain_ms": time_ms(
                      lambda: twb.conv_k3_bwd_plain(x, cot, w, d)),
                  "library_ms": time_ms(library)}
             t["bound_ms"], t["bound_by"] = bound_ms(
                 {kind: 12 * B * T * C * 2 * C}, (x, cot, w, dx, dw))
-            print(f"  conv_k3_bwd {kind} B={B} T={T} C={C} d={d}: kernel "
-                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-                  f"aten.convolution_backward {t['library_ms']:.4f} ms, "
-                  f"bound {t['bound_ms']:.4f} ms (by {t['bound_by']})")
-            if dtype == bf16 and d == 8:
-                rec["conv_k3_bwd"].update(t)
+            print(f"  conv_k3_bwd {kind} B={B} T={T} C={C} d={d}: sm90 "
+                  f"{sm90[0]:.4f} / {sm90[1]:.4f} ms ({t['bound_ms'] / t['ms']:.1%} "
+                  f"of the {t['bound_ms']:.4f} ms bound by {t['bound_by']}), "
+                  f"first design {firsts[0]:.4f} / {firsts[1]:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, aten.convolution_backward "
+                  f"{t['library_ms']:.4f} ms; route {plan['route']}, "
+                  f"{plan['dx_blocks']} dx + {plan['dw_blocks']} dW blocks "
+                  f"({plan['splits']} splits)")
+            if d == 8:
+                if kind == "bf16":
+                    r.update(t)
+                else:
+                    r["f32"] = {**t, "max_abs_err": r.pop("max_abs_err_f32")}
+    conv_split_and_widths(twb, conv_inputs)
     return rec
+
+
+def conv_split_and_widths(twb, conv_inputs) -> None:
+    """Row 18's launch plan on the card: the kernel's tiles against
+    ``bwd_plan``'s restatement of them, the dW split the plan picks beside
+    others at the training shape (the entry called directly, d=8), and
+    bf16 at a width the tensor-core route does not take (C % 128 != 0:
+    the FMA route) beside the first design, in turns."""
+    import ctypes
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    lib = twb.LIB_SM90.get()
+    for route, tile in twb.BWD_TILES.items():
+        got = (ctypes.c_int * 4)()
+        lib.t2s_conv_k3_bwd_sm90_tile(int(route == "wgmma"),
+                                      ctypes.addressof(got))
+        if tuple(got) != tile:
+            raise RuntimeError(f"bwd_plan: {route} tile {tile}, the kernel "
+                               f"has {tuple(got)}")
+    B, T, C, d = 3, 2000, 512, 8
+    for dtype, kind in ((bf16, "bf16"), (torch.float32, "f32")):
+        x, cot, w = conv_inputs(B, T, C, dtype, 92)
+        plan = twb.bwd_plan(B, T, C, dtype)
+        dx = torch.empty_like(x)
+        dw = torch.empty((3, C, 2 * C), dtype=torch.float32, device=dev)
+        times = []
+        for S in sorted({1, 2, 3, 4, 8, plan["splits"]}):
+            part = dw if S == 1 else torch.empty(
+                (3 * S, C, 2 * C), dtype=torch.float32, device=dev)
+
+            def launch(S=S, part=part):
+                twb._run(lib.t2s_conv_k3_bwd_sm90, dev, x.data_ptr(),
+                         cot.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                         dw.data_ptr(), part.data_ptr(), B, T, C, d, S,
+                         int(dtype == bf16), int(plan["route"] == "wgmma"))
+            times.append(f"S={S} {time_ms(launch):.4f}")
+        print(f"  conv_k3_bwd {kind} dW split at B={B} T={T} C={C} d={d}: "
+              f"{', '.join(times)} ms; the plan's S={plan['splits']}")
+    B, T, C = 3, 2000, 320
+    x, cot, w = conv_inputs(B, T, C, bf16, 93)
+    twb.conv_k3_bwd(x, cot, w, d)
+    firsts, sm90 = [], []
+    for fn, acc in ((lambda: twb.first_design(x, cot, w, d), firsts),
+                    (lambda: twb.conv_k3_bwd(x, cot, w, d), sm90),
+                    (lambda: twb.conv_k3_bwd(x, cot, w, d), sm90),
+                    (lambda: twb.first_design(x, cot, w, d), firsts)):
+        acc.append(time_ms(fn))
+    plan = twb.bwd_plan(B, T, C, bf16)
+    plain = time_ms(lambda: twb.conv_k3_bwd_plain(x, cot, w, d))
+    library = time_ms(lambda: torch.ops.aten.convolution_backward(
+        cot.transpose(1, 2), x.transpose(1, 2), w.permute(2, 1, 0), None,
+        [1], [d], [d], False, [0], 1, [True, True, False]))
+    print(f"  conv_k3_bwd bf16 B={B} T={T} C={C} d={d} (route "
+          f"{plan['route']}, {plan['splits']} splits): sm90 {sm90[0]:.4f} / "
+          f"{sm90[1]:.4f} ms, first design {firsts[0]:.4f} / "
+          f"{firsts[1]:.4f} ms, plain {plain:.4f} ms, "
+          f"aten.convolution_backward {library:.4f} ms")
 
 
 def conv_backward_path() -> int:
@@ -2755,7 +2974,8 @@ def main() -> int:
     from text2speech_tpu_torch.ops import wn_block_padded as wp
 
     t0 = time.perf_counter()
-    libs = (wb.LIB, wb.LIB_SM90, wq.LIB, gated.LIB, wn_backward.LIB, wp.LIB)
+    libs = (wb.LIB, wb.LIB_SM90, wq.LIB, gated.LIB, wn_backward.LIB,
+            wn_backward.LIB_SM90, wp.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
@@ -2765,7 +2985,10 @@ def main() -> int:
         print(lib.build_log.strip())
     print(f"[build] {len(libs)} libraries built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    print(f"[build] wn_block_sm90.cu SASS: {hgmma_counts(wb.LIB_SM90.path)}")
+    for lib in (wb.LIB_SM90, wn_backward.LIB_SM90):
+        print(f"[build] {lib.source.name} SASS: {hgmma_counts(lib.path)}")
+        print(f"[build] {lib.source.name} registers (-Xptxas -v): "
+              f"{ptxas_registers(lib.build_log)}")
 
     print("[kernels] kernel vs plain at C=512, M=640")
     rec = check_kernels()
@@ -2828,9 +3051,9 @@ def main() -> int:
         # no one PyTorch call computes a fused WN layer or the gated
         # activation; the conv backward has aten.convolution_backward
         "library_ms": rec[n].get("library_ms"),
-        # the redesigned standard and final layers: their first design's
-        # time and both at batch 3
-        **{k: rec[n][k] for k in ("prev_ms", "ms_b3", "prev_ms_b3")
+        # the redesigned kernels: their first design's time, both at batch
+        # 3 (the WN layers) and the conv backward's f32 form
+        **{k: rec[n][k] for k in ("prev_ms", "ms_b3", "prev_ms_b3", "f32")
            if k in rec[n]},
     } for n, (src, repl) in {**KERNELS, **DCOND_KERNELS, **PARTIAL_KERNELS,
                              **TRAIN_KERNELS, **PADDED_KERNELS}.items()]

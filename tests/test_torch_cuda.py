@@ -523,6 +523,58 @@ def test_conv_k3_bwd_kernel_matches_plain_and_autograd(dev, dtype, B, T, C, d):
         assert (dw - want_dw).abs().max().item() <= 2e-5 * max(peak_w, 1.0)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,C,d", [(3, 2000, 512, 8), (2, 333, 256, 1),
+                                     (1, 300, 128, 128), (2, 61, 384, 4),
+                                     (2, 99, 24, 128)])
+def test_conv_k3_bwd_sm90_agrees_with_the_first_design(dev, dtype, B, T, C,
+                                                       d):
+    """The sm90 conv backward (wgmma for bf16 at C % 128 == 0, the
+    register-tiled FMA GEMM else) against its first design
+    (``wn_backward.first_design``) and autograd of ``F.conv1d`` on the same
+    inputs: T ragged against both routes' tiles, a dilation of a whole
+    128-row tile, widths that leave part of a 256-column dx tile empty
+    (128, 384); two runs bitwise equal.  Bounds as above: both sum f32
+    products in another order; a bf16 dx may round to the neighbouring
+    value, one step of its peak."""
+    import torch.nn.functional as F
+
+    from text2speech_tpu_torch.ops import wn_backward as twb
+
+    g = torch.Generator().manual_seed(100 + d + C)
+    x = torch.randn(B, T, C, generator=g).to(dev, dtype)
+    w = (torch.randn(3, C, 2 * C, generator=g) * (3 * C) ** -0.5).to(dev, dtype)
+    cot = torch.randn(B, T, 2 * C, generator=g).to(dev, dtype)
+    twb.reset_launch_counts()
+    dx, dw = twb.conv_k3_bwd(x, cot, w, d)
+    fx, fw = twb.first_design(x, cot, w, d)
+    assert twb.launch_counts() == {"conv_k3_bwd": 1}
+    dx2, dw2 = twb.conv_k3_bwd(x, cot, w, d)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    xr = x.float().requires_grad_()
+    wr = w.float().requires_grad_()
+    F.conv1d(xr.transpose(1, 2), wr.permute(2, 1, 0), padding=d,
+             dilation=d).transpose(1, 2).backward(cot.float())
+    for want_dx, want_dw in ((fx, fw), (xr.grad, wr.grad)):
+        want_dx = want_dx.float()
+        peak_x, peak_w = want_dx.abs().max().item(), want_dw.abs().max().item()
+        tol_x = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * peak_x + 1e-4
+        assert (dx.float() - want_dx).abs().max().item() <= tol_x
+        assert (dw - want_dw).abs().max().item() <= 2e-5 * max(peak_w, 1.0)
+
+
+def test_conv_k3_bwd_raises_for_widths_no_route_takes(dev):
+    from text2speech_tpu_torch.ops import wn_backward as twb
+
+    x = torch.zeros(1, 10, 12, device=dev)
+    g = torch.zeros(1, 10, 24, device=dev)
+    w = torch.zeros(3, 12, 24, device=dev)
+    twb.reset_launch_counts()
+    with pytest.raises(ValueError, match="C % 8"):
+        twb.conv_k3_bwd(x, g, w, 1)
+    assert twb.launch_counts() == {"conv_k3_bwd": 0}
+
+
 def test_conv_k3_bwd_rejects_on_the_card(dev):
     from text2speech_tpu_torch.ops import wn_backward as twb
 
@@ -645,6 +697,47 @@ def test_final_dcond_kernel_matches_plain(dev, E, d, li):
             k["w_end"], b_eff, d)
     close(wd.wn_layer_final_dcond(*args, n_valid=nv),
           wd.wn_layer_final_dcond_plain(*args, n_valid=nv))
+
+
+@pytest.mark.parametrize("C,B,T,nv,d", [
+    (512, 1, 1000, 937, 64),    # 64-row tile (one utterance)
+    (512, 3, 6000, 5999, 128),  # 128-row tile (141 blocks), n_valid = T - 1
+    (512, 2, 777, 0, 1),        # nothing valid: no in-act stage at all
+    (128, 2, 333, 300, 130),    # n_valid off the tile, a halo past a tile
+    (256, 3, 6400, 6400, 8),    # 128-row tile, K = 64 stages
+])
+@pytest.mark.parametrize("rs_full", [True, False])
+def test_sm90_dcond_layer_agrees_with_first_design_and_plain(dev, C, B, T,
+                                                             nv, d, rs_full):
+    """The sm90 ``dcond`` standard layer against its first design
+    (``wn_block.first_design("wn_layer_dcond", ...)``) and its plain
+    version, at the first and the last ``cond_index``; rows past n_valid of
+    x_out are zero, and the skip sum is updated in place on every row."""
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    L = 4
+    k = inputs(dev, B, T, nv, C, 64, C + nv + d,
+               rs_out=2 * C if rs_full else C)
+    cond_all = cond_all_for(dev, B, T, C, L, nv + d)
+    for li in (0, L - 1):
+        args = (k["x"], cond_all, li, k["w_in"], k["b_in"], k["w_rs"],
+                k["b_rs"])
+        wd.reset_launch_counts()
+        acc = k["acc"].clone()
+        gx, gs = wd.wn_layer_dcond(*args, acc, d, n_valid=nv)
+        assert wd.launch_counts()["wn_layer_dcond"] == 1
+        assert gs.data_ptr() == acc.data_ptr()
+        fx, fs = wb.first_design("wn_layer_dcond", *args, k["acc"].clone(),
+                                 d, n_valid=nv)
+        px, ps = wd.wn_layer_dcond_plain(*args, k["acc"], d, n_valid=nv)
+        assert wd.launch_counts()["wn_layer_dcond"] == 1
+        assert not gx[:, nv:].any()
+        for want_x, want_s in ((fx, fs), (px, ps)):
+            if nv:
+                close(gx, want_x)
+            else:
+                assert not want_x.any()
+            close(gs, want_s)
 
 
 def test_dcond_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -5,6 +5,9 @@
 //          wn_layer_stream2 (body _kernel_stream2, :200)
 //   FINAL  replaces text2speech_tpu/ops/pallas/wn_block.py:528
 //          wn_layer_stream2_final (body _kernel_stream2_final, :325)
+//   STD, DCOND  replaces text2speech_tpu/ops/pallas/wn_block_dcond.py:43
+//          wn_layer_stream2_dcond (pallas_call :73; body _kernel_stream2
+//          with project_cond=False)
 //
 // The function is that of wn_block.cu's STD and FINAL roles, for rows t of
 // one utterance (hidden x [T, C], grouped mel spect [T, M], dilation d,
@@ -18,10 +21,18 @@
 //          (rs_out == C: skip only, x passes through)
 //   FINAL: out[t] = acts[t] W_rs' + skip_acc[t] W_end + b'   [E <= 8], f32
 //
-// with x rows outside [0, n_valid) read as zero.  wn_block.cu keeps the
-// first design of these two roles (64-row blocks, mma.sync, cp.async); its
-// entry points t2s_wn_layer and t2s_wn_layer_final stay exported so that
-// the two designs can be timed side by side, and nothing else calls them.
+// with x rows outside [0, n_valid) read as zero.  With DCOND (the
+// composed-conditioning vocoder) the standard layer has no spect rows:
+//
+//   in_act[t] = x[t-d] W0 + x[t] W1 + x[t+d] W2 + b_in
+//               + f32(cond_all[t, off : off + 2C])                 (t < T)
+//
+// with cond_all [B, T, cond_ld] bf16 (the folded conditioning bias already
+// in it) read in place at column offset off = 2C * layer.  wn_block.cu
+// keeps the first design of these roles (64-row blocks, mma.sync,
+// cp.async); its entry points t2s_wn_layer, t2s_wn_layer_final and
+// t2s_wn_layer_dcond stay exported so that the two designs can be timed
+// side by side, and nothing else calls them.
 //
 // What bounds the layer on an H100.  At B=3, T=6400, C=512, M=640 the
 // standard layer is 106 GFLOP of bf16 products against ~60 MB of
@@ -70,20 +81,34 @@
 // every block still streams all of the weight tiles from L2 and loads its
 // activation operand four times, a ring of at most 96 KB beside the 128 KB
 // gated tile, and the gate epilogue, during which both warpgroups leave the
-// tensor cores idle.  A cluster pair that multicasts the weight tiles or
-// splits the gate columns is the next step.  Measured times are in PERF.md.
+// tensor cores idle.  A cluster pair that multicasts the weight tiles, each
+// CTA's producer waiting for both CTAs' consumers to free a slot, ran
+// slower in the DCOND form (PERF.md): the per-stage handshake across the
+// pair costs more than the halved L2 reads save.  A pair that splits the
+// gate columns is untried.  Measured times are in PERF.md.
+//
+// DCOND.  The in-act K loop runs over the three tap boxes only: K = 3C,
+// 24 stages of 64 at C = 512, no spect map and no w_cond map.  At B=1,
+// T=6400 the layer is 26.8 GFLOP against ~40 MB (x, its 2C-wide slice of
+// cond_all, the skip sum in and out, weights): 0.0271 ms at the bf16 peak,
+// bound by operations.  The conditioning takes b_cond's place in the gate:
+// each consumer thread reads its bf16 pairs of a chunk (columns c, c+1 and
+// C+c, C+c+1 of its two rows, 16 column tiles) and adds them in f32 after
+// b_in; it prefetches their lines into L2 when the chunk's K loop starts,
+// so the gate finds them there.  Holding them in registers instead (64 a
+// thread, loaded during the last stage's wgmma) spills at 128-row tiles,
+// where ptxas gives a thread 168 registers, and ran slower (PERF.md).  A
+// TMA tile of the slice ([BM, 256] bf16, 64 KB at BM = 128) would not fit
+// beside the 128 KB gated tile and the ring.  n_valid == 0 leaves no K stage at all:
+// the producer issues no in-act load, the consumers gate b_in + cond alone,
+// and the res/skip ring runs as in STD.
 //
 // A wait on an mbarrier that does not complete within seconds traps (a
 // launch error) instead of hanging the card.
 
-#include <cuda.h>  // CUtensorMap and the tensor-map encoder's types
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <string.h>
 
-
-typedef __nv_bfloat16 bf16;
+#include "sm90.cuh"
 
 namespace {
 
@@ -120,6 +145,8 @@ struct Params {
   int ktap;              // 3C, or 0 when n_valid == 0 (every tap reads zero)
   int stages;
   const bf16* x;         // [B, T, C]
+  const bf16* cond_all;  // DCOND: [B, T, cond_ld]; the layer reads columns
+  int cond_ld, cond_off; //   [cond_off, cond_off + 2C) in place
   const float* b_in;     // [2C]
   const float* b_cond;   // [2C]
   const float* b_rs;     // STD: [rs_out]
@@ -132,100 +159,6 @@ struct Params {
 };
 
 
-// --- PTX wrappers ----------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t addr, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(ok)
-      : "r"(addr), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-__device__ __forceinline__ uint64_t globaltimer() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait for the phase of parity `parity` to complete; trap after 4 s.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  if (mbar_try(addr, parity)) return;
-  const uint64_t t0 = globaltimer();
-  while (!mbar_try(addr, parity))
-    if (globaltimer() - t0 > 4000000000ull) __trap();
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* m,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* m,
-                                            int c0, int c1, int c2,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(m)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), layout (1: 128-byte swizzle, 2: 64-byte).
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
-}
 // A from a ring slot: K-major, rows of BK bf16 swizzled across the row,
 // 8-row groups 8 rows apart.
 template <int NWG, int BK>
@@ -244,72 +177,6 @@ __device__ __forceinline__ uint64_t desc_b(uint32_t addr) {
   return make_desc(addr, BK * 128, 1024, 1);
 }
 
-// wgmma m64nNk16, f32 += bf16 x bf16; A K-major, B MN-major (trans-b = 1).
-// d holds N/2 floats: tile j (columns 8j..8j+7) in d[4j..4j+3], rows
-// lane/4 (d[4j], d[4j+1]) and lane/4 + 8 (d[4j+2], d[4j+3]) of the warp's
-// 16, columns 2 (lane % 4) + {0, 1}.
-__device__ __forceinline__ void wgmma_n256(float* d, uint64_t da,
-                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71,"
-      "%72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87,"
-      "%88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103,"
-      "%104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119,"
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-
-
 // tanh(at) * sigmoid(as) in f32; the sigmoid by the fast exp and
 // reciprocal (a few ulp, far below the bf16 step the result is rounded to)
 __device__ __forceinline__ float gate_f32(float at, float as) {
@@ -324,17 +191,6 @@ __device__ __forceinline__ uint32_t gated_off(int r, int c) {
   return (uint32_t)((c >> 6) * (BM * 128) + r * 128 +
                     ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1));
 }
-
-struct Ring {
-  int st = 0;
-  uint32_t ph = 0;
-  __device__ __forceinline__ void next(int stages) {
-    if (++st == stages) {
-      st = 0;
-      ph ^= 1;
-    }
-  }
-};
 
 // --- producer ---------------------------------------------------------------
 
@@ -398,14 +254,37 @@ __device__ __forceinline__ void zero(float* acc) {
   for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 }
 
+// DCOND: bring this thread's conditioning of one gate-pair chunk into L2
+// ahead of the gate: its rows r0 and r0 + 8 (t < T) read 128 tanh and 128
+// sigmoid columns, four 128-byte lines a row, and the four threads of a
+// quad that share the rows prefetch one line each.  Prefetches hold no
+// register, so the chunk's K loop hides their latency.
+__device__ __forceinline__ void prefetch_cond(const Params& p, int wg,
+                                              int tid, int b, int t0,
+                                              int c0) {
+  const int lane = tid & 31, q = lane & 3;
+  const int r0 = wg * 64 + (tid >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + r0 + 8 * h;
+    if (t >= p.T) continue;
+    const bf16* line = p.cond_all + ((size_t)b * p.T + t) * p.cond_ld +
+                       p.cond_off + c0 + (q >> 1) * p.C + (q & 1) * 64;
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(line));
+  }
+}
+
 // The in-act product of one gate-pair chunk for this warpgroup's 64 rows.
-template <int NWG, int BK>
+// DCOND: the chunk's conditioning is prefetched into L2 first.
+template <int NWG, int BK, bool DCOND>
 __device__ __forceinline__ void inact_chunk(const Params& p, uint8_t* ring,
                                             uint64_t* full, uint64_t* empty,
                                             Ring& r, int wg, int tid,
-                                            float* acc) {
+                                            float* acc, int b, int t0,
+                                            int c0) {
   using TL = Tile<NWG, BK>;
   const int nk = (p.ktap + p.M + BK - 1) / BK;  // M % BK: zero fill
+  if (DCOND) prefetch_cond(p, wg, tid, b, t0, c0);
   zero(acc);
   int prev = -1;
   for (int ks = 0; ks < nk; ++ks) {
@@ -415,8 +294,8 @@ __device__ __forceinline__ void inact_chunk(const Params& p, uint8_t* ring,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_n256(acc, desc_a_ring<NWG, BK>(a + kk * 32),
-                 desc_b<BK>(s + kk * 2048), 1);
+      wgmma_n256<0, 1>(acc, desc_a_ring<NWG, BK>(a + kk * 32),
+                       desc_b<BK>(s + kk * 2048), 1);
     wgmma_commit();
     wgmma_wait<1>();
     if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
@@ -427,27 +306,55 @@ __device__ __forceinline__ void inact_chunk(const Params& p, uint8_t* ring,
   if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
 }
 
-// Gate one chunk in f32 and store it as bf16 into the gated tile.
-template <int BM>
-__device__ __forceinline__ void gate_store(const Params& p, int c0, int wg,
-                                           int tid, const float* acc,
-                                           uint8_t* G) {
+// Gate one chunk in f32 and store it as bf16 into the gated tile.  The
+// bias is b_in + b_cond, or with DCOND b_in and then the row's
+// conditioning: the bf16 pairs (c, c + 1) and (C + c, C + c + 1) of
+// cond_all's slice for rows t < T (the order of the plain version's sums;
+// rows at or past n_valid are gated, and reach the skip sum, like any
+// other, as in the first design).
+template <int BM, bool DCOND>
+__device__ __forceinline__ void gate_store(const Params& p, int b, int t0,
+                                           int c0, int wg, int tid,
+                                           const float* acc, uint8_t* G) {
   const int lane = tid & 31, q = lane & 3;
   const int r0 = wg * 64 + (tid >> 5) * 16 + (lane >> 2);
   const int C = p.C;
+  const __nv_bfloat162* crow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + r0 + 8 * h;
+    crow[h] = !DCOND || t >= p.T ? nullptr
+        : reinterpret_cast<const __nv_bfloat162*>(
+              p.cond_all + ((size_t)b * p.T + t) * p.cond_ld + p.cond_off +
+              c0 + 2 * q);
+  }
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int c = c0 + 8 * j + 2 * q;
-    const float bt0 = p.b_in[c] + p.b_cond[c];
-    const float bt1 = p.b_in[c + 1] + p.b_cond[c + 1];
-    const float bs0 = p.b_in[C + c] + p.b_cond[C + c];
-    const float bs1 = p.b_in[C + c + 1] + p.b_cond[C + c + 1];
+    float bt0 = p.b_in[c], bt1 = p.b_in[c + 1];
+    float bs0 = p.b_in[C + c], bs1 = p.b_in[C + c + 1];
+    if (!DCOND) {
+      bt0 += p.b_cond[c];
+      bt1 += p.b_cond[c + 1];
+      bs0 += p.b_cond[C + c];
+      bs1 += p.b_cond[C + c + 1];
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int i = 4 * j + 2 * h, k = 4 * (j + 16) + 2 * h;
+      float at0 = acc[i] + bt0, at1 = acc[i + 1] + bt1;
+      float as0 = acc[k] + bs0, as1 = acc[k + 1] + bs1;
+      if (DCOND && crow[h]) {
+        const __nv_bfloat162 ct = __ldg(crow[h] + 4 * j);
+        const __nv_bfloat162 cs = __ldg(crow[h] + C / 2 + 4 * j);
+        at0 += __low2float(ct);
+        at1 += __high2float(ct);
+        as0 += __low2float(cs);
+        as1 += __high2float(cs);
+      }
       __nv_bfloat162 v;
-      v.x = __float2bfloat16(gate_f32(acc[i] + bt0, acc[k] + bs0));
-      v.y = __float2bfloat16(gate_f32(acc[i + 1] + bt1, acc[k + 1] + bs1));
+      v.x = __float2bfloat16(gate_f32(at0, as0));
+      v.y = __float2bfloat16(gate_f32(at1, as1));
       *reinterpret_cast<__nv_bfloat162*>(G + gated_off<BM>(r0 + 8 * h, c)) = v;
     }
   }
@@ -481,7 +388,7 @@ __device__ __forceinline__ void rs_phase(const Params& p, uint8_t* ring,
         const int k = ks * BK + kk * 16;
         const uint64_t da =
             desc_a_gated(g + (k >> 6) * (BM * 128) + (k & 63) * 2);
-        wgmma_n256(acc, da, desc_b<BK>(s + kk * 2048), 1);
+        wgmma_n256<0, 1>(acc, da, desc_b<BK>(s + kk * 2048), 1);
       }
       wgmma_commit();
       wgmma_wait<1>();
@@ -646,7 +553,7 @@ __device__ __forceinline__ void final_phase(const Params& p, int wg, int tid,
   }
 }
 
-template <int ROLE, int NWG, int BK>
+template <int ROLE, int NWG, int BK, bool DCOND>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
     wn_sm90_kernel(const __grid_constant__ Params p) {
   constexpr int BM = NWG * 64;
@@ -681,8 +588,9 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
     float acc[128];
     Ring r;
     for (int c0 = 0; c0 < p.C; c0 += GHALF) {
-      inact_chunk<NWG, BK>(p, ring, full, empty, r, wg, tid, acc);
-      gate_store<BM>(p, c0, wg, tid, acc, G);
+      inact_chunk<NWG, BK, DCOND>(p, ring, full, empty, r, wg, tid, acc, b,
+                                  t0, c0);
+      gate_store<BM, DCOND>(p, b, t0, c0, wg, tid, acc, G);
     }
     // the warpgroup's gated rows -> visible to its wgmma (async proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -696,55 +604,14 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 
 // --- host -------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// A bf16 tensor map of rank 2 or 3 (dims innermost first; strides in bytes
-// of dims 1..rank-1).  Returns 0, or minus the driver's CUresult.
-int encode(CUtensorMap* m, const void* ptr, int rank, const cuuint64_t* dims,
-           const cuuint64_t* strides, const cuuint32_t* box,
-           CUtensorMapSwizzle swizzle) {
-  EncodeTiled fn = encoder();
-  if (!fn) return -(int)CUDA_ERROR_NOT_FOUND;
-  const cuuint32_t estr[3] = {1, 1, 1};
-  CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                  const_cast<void*>(ptr), dims, strides, box, estr,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -(int)r;
-}
-
 CUtensorMapSwizzle a_swizzle(int bk) {
   return bk == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
 }
 
-// The maps every role uses: x (T extent n_valid), spect, w_in, w_cond.
-int encode_inact(Params& p, const void* x, const void* spect, const void* w_in,
-                 const void* w_cond, int B, int bm, int bk) {
-  const cuuint64_t C = p.C, M = p.M, T = p.T;
+// The tap maps: x (T extent n_valid) and w_in.
+int encode_taps(Params& p, const void* x, const void* w_in, int B, int bm,
+                int bk) {
+  const cuuint64_t C = p.C, T = p.T;
   const cuuint64_t nv = p.n_valid > 0 ? p.n_valid : 1;
   const cuuint32_t abox[3] = {(cuuint32_t)bk, (cuuint32_t)bm, 1};
   const cuuint32_t wbox[2] = {64, (cuuint32_t)bk};
@@ -755,17 +622,24 @@ int encode_inact(Params& p, const void* x, const void* spect, const void* w_in,
     if ((e = encode(&p.tm_x, x, 3, dims, str, abox, a_swizzle(bk))))
       return e;
   }
+  const cuuint64_t dims[2] = {2 * C, 3 * C};
+  const cuuint64_t str[1] = {2 * C * 2};
+  return encode(&p.tm_win, w_in, 2, dims, str, wbox,
+                CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The maps of the in-kernel projection: the taps', spect and w_cond.
+int encode_inact(Params& p, const void* x, const void* spect, const void* w_in,
+                 const void* w_cond, int B, int bm, int bk) {
+  const cuuint64_t C = p.C, M = p.M, T = p.T;
+  const cuuint32_t abox[3] = {(cuuint32_t)bk, (cuuint32_t)bm, 1};
+  const cuuint32_t wbox[2] = {64, (cuuint32_t)bk};
+  int e;
+  if ((e = encode_taps(p, x, w_in, B, bm, bk))) return e;
   {
     const cuuint64_t dims[3] = {M, T, (cuuint64_t)B};
     const cuuint64_t str[2] = {M * 2, T * M * 2};
     if ((e = encode(&p.tm_spect, spect, 3, dims, str, abox, a_swizzle(bk))))
-      return e;
-  }
-  {
-    const cuuint64_t dims[2] = {2 * C, 3 * C};
-    const cuuint64_t str[1] = {2 * C * 2};
-    if ((e = encode(&p.tm_win, w_in, 2, dims, str, wbox,
-                    CU_TENSOR_MAP_SWIZZLE_128B)))
       return e;
   }
   const cuuint64_t dims[2] = {2 * C, M};
@@ -783,27 +657,36 @@ size_t smem_bytes(int nwg, int bk, int C, int stages) {
          (size_t)nwg * 64 * C * 2;
 }
 
-template <int ROLE, int NWG, int BK>
+template <int ROLE, int NWG, int BK, bool DCOND>
 int launch(const Params& p, int B, void* stream) {
   const size_t smem = smem_bytes(NWG, BK, p.C, p.stages);
   cudaError_t e = cudaFuncSetAttribute(
-      wn_sm90_kernel<ROLE, NWG, BK>,
+      wn_sm90_kernel<ROLE, NWG, BK, DCOND>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((p.T + NWG * 64 - 1) / (NWG * 64), B);
-  wn_sm90_kernel<ROLE, NWG, BK>
+  wn_sm90_kernel<ROLE, NWG, BK, DCOND>
       <<<grid, (NWG + 1) * 128, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int ROLE>
+template <int ROLE, bool DCOND = false>
 int dispatch(const Params& p, int B, int nwg, int bk, void* stream) {
   if (p.stages < 2 || p.stages > MAX_STAGES) return (int)cudaErrorInvalidValue;
-  if (nwg == 2 && bk == 32) return launch<ROLE, 2, 32>(p, B, stream);
-  if (nwg == 2 && bk == 64) return launch<ROLE, 2, 64>(p, B, stream);
-  if (nwg == 1 && bk == 32) return launch<ROLE, 1, 32>(p, B, stream);
-  if (nwg == 1 && bk == 64) return launch<ROLE, 1, 64>(p, B, stream);
+  if (nwg == 2 && bk == 32) return launch<ROLE, 2, 32, DCOND>(p, B, stream);
+  if (nwg == 2 && bk == 64) return launch<ROLE, 2, 64, DCOND>(p, B, stream);
+  if (nwg == 1 && bk == 32) return launch<ROLE, 1, 32, DCOND>(p, B, stream);
+  if (nwg == 1 && bk == 64) return launch<ROLE, 1, 64, DCOND>(p, B, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// STD's res/skip weight map: w_rs [C, rs_out].
+int encode_wrs(Params& p, const void* w_rs, int bk) {
+  const cuuint64_t dims[2] = {(cuuint64_t)p.rs_out, (cuuint64_t)p.C};
+  const cuuint64_t str[1] = {(cuuint64_t)p.rs_out * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)bk};
+  return encode(&p.tm_wrs, w_rs, 2, dims, str, box,
+                CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 void fill_common(Params& p, int T, int n_valid, int C, int M, int d,
@@ -844,14 +727,32 @@ int t2s_wn_layer_sm90(const void* x, const void* spect, const void* w_in,
   p.b_rs = (const float*)b_rs;
   p.x_out = (bf16*)x_out;
   int e = encode_inact(p, x, spect, w_in, w_cond, B, 64 * nwg, bk);
-  if (e) return e;
-  const cuuint64_t dims[2] = {(cuuint64_t)rs_out, (cuuint64_t)C};
-  const cuuint64_t str[1] = {(cuuint64_t)rs_out * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)bk};
-  if ((e = encode(&p.tm_wrs, w_rs, 2, dims, str, box,
-                  CU_TENSOR_MAP_SWIZZLE_128B)))
-    return e;
+  if (e || (e = encode_wrs(p, w_rs, bk))) return e;
   return dispatch<STD>(p, B, nwg, bk, stream);
+}
+
+// The standard layer of the composed-conditioning vocoder: K = 3C (no
+// spect rows), the conditioning read from columns [cond_off, cond_off +
+// 2C) of cond_all [B, T, cond_ld] in place; the skip sum in place.
+int t2s_wn_layer_dcond_sm90(const void* x, const void* cond_all,
+                            const void* w_in, const void* b_in,
+                            const void* w_rs, const void* b_rs,
+                            void* skip_acc, void* x_out, int B, int T,
+                            int n_valid, int C, int cond_ld, int cond_off,
+                            int rs_out, int d, int nwg, int bk, int stages,
+                            void* stream) {
+  Params p;
+  memset(&p, 0, sizeof(p));
+  fill_common(p, T, n_valid, C, 0, d, stages, x, b_in, nullptr, skip_acc);
+  p.rs_out = rs_out;
+  p.b_rs = (const float*)b_rs;
+  p.x_out = (bf16*)x_out;
+  p.cond_all = (const bf16*)cond_all;
+  p.cond_ld = cond_ld;
+  p.cond_off = cond_off;
+  int e = encode_taps(p, x, w_in, B, 64 * nwg, bk);
+  if (e || (e = encode_wrs(p, w_rs, bk))) return e;
+  return dispatch<STD, true>(p, B, nwg, bk, stream);
 }
 
 int t2s_wn_layer_final_sm90(const void* x, const void* spect,

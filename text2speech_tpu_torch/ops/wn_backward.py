@@ -13,13 +13,17 @@ Channels-last, zero padding, dilation d, per utterance:
           dW_j  = sum over (b, t) of x[t+(j-1)d]^T g[t]
 
 Unlike the TPU kernel it takes the tensors unpadded.  ``dW`` is a split
-reduction over row blocks into f32 partials that a second kernel adds in a
-fixed order (no atomics), so the result is the same from run to run.
+reduction over rows into f32 partials that a second kernel adds in a fixed
+order (no atomics), so the result is the same from run to run;
+:func:`bwd_plan` sizes the split.
 
-:func:`conv_k3_bwd` launches ``csrc/wn_backward.cu`` for CUDA tensors (the
-tensor-core path for bf16 at C % 128 == 0, the f32 FMA path otherwise) and
-takes :func:`conv_k3_bwd_plain` only for CPU tensors; a CUDA tensor the
-kernel does not take raises.  It counts its launches in ``launches``.
+:func:`conv_k3_bwd` launches ``csrc/wn_backward_sm90.cu`` for CUDA tensors
+(``wgmma`` and TMA for bf16 at C % 128 == 0, a register-tiled FMA GEMM for
+f32 and for bf16 at other widths with C % 8 == 0) and takes
+:func:`conv_k3_bwd_plain` only for CPU tensors; a CUDA tensor the kernels do
+not take raises.  It counts its launches in ``launches``.
+:func:`first_design` runs the first design (``csrc/wn_backward.cu``) on the
+same arguments, for timing beside it.
 """
 
 from __future__ import annotations
@@ -36,11 +40,53 @@ _I = ctypes.c_int
 LIB = CudaLibrary("wn_backward", {
     "t2s_conv_k3_bwd": [_P] * 6 + [_I] * 7 + [_P],
 })
+LIB_SM90 = CudaLibrary("wn_backward_sm90", {
+    "t2s_conv_k3_bwd_sm90": [_P] * 6 + [_I] * 7 + [_P],
+    "t2s_conv_k3_bwd_sm90_tile": [_I, _P],
+})
 
 F32 = torch.float32
 MAX_DILATION = 128
-# blocks the dW grid aims for: four per SM of an H100
+# the first design's dW grid aims for four blocks per SM of an H100
 _TARGET_BLOCKS = 4 * 132
+
+# The tiles of ``csrc/wn_backward_sm90.cu`` by route: rows, columns, K per
+# stage, blocks per SM.  Restated from the kernel, whose
+# ``t2s_conv_k3_bwd_sm90_tile`` returns its own; the chip check holds the
+# two equal.
+BWD_TILES = {"wgmma": (128, 256, 64, 1), "fma": (128, 128, 16, 2)}
+BWD_SMS = 132
+BWD_MAX_SPLITS = 16
+
+
+def bwd_plan(B: int, T: int, C: int, dtype) -> dict:
+    """Route and dW split of ``csrc/wn_backward_sm90.cu`` for x [B, T, C]
+    of ``dtype``: ``route`` ("wgmma" for bf16 at C % 128 == 0, else
+    "fma"), ``splits``, ``dx_blocks``, ``dw_blocks``, ``dx_stages`` (per
+    dx block) and ``row_stages`` (per dW tile, before the split).
+
+    One launch holds the dx blocks and then the dW blocks, dealt to the
+    card's block slots.  The split S is the least that makes no dW block
+    longer than the longer of a dx block and one slot's share of all the
+    stages; on the FMA route, whose blocks share an SM two by two, S is
+    twice that.  Each further split costs the f32 partials' traffic and
+    shortens no wave.  Raises ValueError for widths neither route takes
+    (C % 8 != 0)."""
+    if C % 8 or C < 8:
+        raise ValueError(f"kernel needs C % 8 == 0, got C={C}")
+    route = ("wgmma" if dtype == torch.bfloat16 and C % 128 == 0
+             else "fma")
+    bm, bn, bk, per_sm = BWD_TILES[route]
+    n_dx = -(-T // bm) * -(-C // bn) * B
+    dx_stages = 3 * 2 * C // bk
+    tiles = 3 * -(-C // bm) * -(-2 * C // bn)
+    rows = B * -(-T // bk)
+    share = (n_dx * dx_stages + tiles * rows) / (BWD_SMS * per_sm)
+    S = per_sm * -(-rows // max(dx_stages, share))
+    S = int(max(1, min(BWD_MAX_SPLITS, rows, S)))
+    return {"route": route, "splits": S, "dx_blocks": n_dx,
+            "dw_blocks": tiles * S, "dx_stages": dx_stages,
+            "row_stages": rows}
 
 
 def conv_k3_bwd_plain(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
@@ -79,6 +125,29 @@ def conv_k3_bwd(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
     for name, t, shape in (("x", x, (B, T, C)), ("g", g, (B, T, 2 * C)),
                            ("w", w, (3, C, 2 * C))):
         _check(name, t, shape, x.dtype)
+    plan = bwd_plan(B, T, C, x.dtype)
+    S = plan["splits"]
+    dx = torch.empty_like(x)
+    dw = torch.empty((3, C, 2 * C), dtype=F32, device=x.device)
+    partial = (dw if S == 1 else
+               torch.empty((3 * S, C, 2 * C), dtype=F32, device=x.device))
+    conv_k3_bwd.launches += 1
+    _run(LIB_SM90.get().t2s_conv_k3_bwd_sm90, x.device, x.data_ptr(),
+         g.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+         partial.data_ptr(), B, T, C, d, S, int(x.dtype == torch.bfloat16),
+         int(plan["route"] == "wgmma"))
+    return dx, dw
+
+
+def first_design(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+                 dilation: int):
+    """The first CUDA design of the conv backward (``csrc/wn_backward.cu``:
+    ``mma.sync`` for bf16 at C % 128 == 0, else an FMA tile of 4 x 4
+    outputs a thread), kept so that the sm90 kernels can be timed and
+    checked beside it on the same inputs; no path calls it.  The arguments
+    are :func:`conv_k3_bwd`'s (CUDA tensors, already checked by a call of
+    the wrapper).  It counts no launch."""
+    B, T, C = x.shape
     bf16 = x.dtype == torch.bfloat16
     use_mma = bf16 and C % 128 == 0
     if use_mma:
@@ -91,10 +160,9 @@ def conv_k3_bwd(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
     dx = torch.empty_like(x)
     dw = torch.empty((3, C, 2 * C), dtype=F32, device=x.device)
     partial = torch.empty((3 * splits, C, 2 * C), dtype=F32, device=x.device)
-    conv_k3_bwd.launches += 1
     _run(LIB.get().t2s_conv_k3_bwd, x.device, x.data_ptr(), g.data_ptr(),
          w.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), B,
-         T, C, d, splits, int(bf16), int(use_mma))
+         T, C, int(dilation), splits, int(bf16), int(use_mma))
     return dx, dw
 
 

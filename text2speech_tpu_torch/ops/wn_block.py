@@ -49,6 +49,7 @@ LIB = CudaLibrary("wn_block", {
 LIB_SM90 = CudaLibrary("wn_block_sm90", {
     "t2s_wn_layer_sm90": [_P] * 10 + [_I] * 10 + [_P],
     "t2s_wn_layer_final_sm90": [_P] * 11 + [_I] * 10 + [_P],
+    "t2s_wn_layer_dcond_sm90": [_P] * 8 + [_I] * 11 + [_P],
     "t2s_wn_sm90_smem_bytes": [_I] * 4,
 })
 
@@ -293,7 +294,9 @@ def _sm90_stages(nwg: int, bk: int, C: int) -> int:
 
 def sm90_plan(C: int, T: int = 1, B: int = 1) -> dict:
     """Tile of ``csrc/wn_block_sm90.cu`` for width ``C`` and ``B``
-    utterances of ``T`` rows.  Rows: 128-row blocks (two consumer
+    utterances of ``T`` rows, the same for all three of its layers (the
+    ``dcond`` layer's ring stage is the standard layer's; only its K, 3C in
+    place of 3C + M, is shorter).  Rows: 128-row blocks (two consumer
     warpgroups) where the gated tile fits (C <= 512) and the grid fills the
     card's SMs at least once, else 64-row blocks, twice as many.  K per
     stage: 64 where three or more such stages fit beside the gated tile,
@@ -450,19 +453,30 @@ def wn_layer_final(x, spect, w_in, b_in, w_cond, b_cond, w_eff, skip_acc,
 
 
 def first_design(name: str, *args, n_valid: int | None = None):
-    """The first CUDA design of the standard or the final layer
-    (``csrc/wn_block.cu``'s ``t2s_wn_layer`` / ``t2s_wn_layer_final``:
-    64-row blocks, ``mma.sync``, ``cp.async``), kept so that the sm90
-    kernel can be timed and checked beside it on the same inputs; no path
-    calls it.  ``name`` is ``"wn_layer"`` or ``"wn_layer_final"`` and the
+    """The first CUDA design of the standard, the final or the ``dcond``
+    standard layer (``csrc/wn_block.cu``'s ``t2s_wn_layer`` /
+    ``t2s_wn_layer_final`` / ``t2s_wn_layer_dcond``: 64-row blocks,
+    ``mma.sync``, ``cp.async``), kept so that the sm90 kernel can be timed
+    and checked beside it on the same inputs; no path calls it.  ``name``
+    is ``"wn_layer"``, ``"wn_layer_final"`` or ``"wn_layer_dcond"`` and the
     arguments are that wrapper's (CUDA tensors, already checked by a call
-    of the wrapper); the standard layer updates ``skip_acc`` in place.  It
+    of the wrapper); the standard layers update ``skip_acc`` in place.  It
     counts no launch."""
     x, spect = args[0], args[1]
     B, T, C = x.shape
-    M = spect.shape[-1]
     n_valid = T if n_valid is None else int(n_valid)
     lib = LIB.get()
+    if name == "wn_layer_dcond":
+        cond_all, li, w_in, b_in, w_rs, b_rs, skip_acc, d = args[1:]
+        ld = cond_all.shape[-1]
+        x_out = torch.empty_like(x)
+        _run(lib.t2s_wn_layer_dcond, x.device, x.data_ptr(),
+             cond_all.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+             w_rs.data_ptr(), b_rs.data_ptr(), skip_acc.data_ptr(),
+             x_out.data_ptr(), skip_acc.data_ptr(), B, T, n_valid, C, ld,
+             2 * C * int(li), w_rs.shape[-1], int(d))
+        return x_out, skip_acc
+    M = spect.shape[-1]
     ptrs = [t.data_ptr() for t in args[:-1]]
     if name == "wn_layer":
         skip_acc, w_rs = args[8], args[6]

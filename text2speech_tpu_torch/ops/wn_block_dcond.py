@@ -12,18 +12,21 @@ reads slice 0), widened to f32 and added to the tap sums and ``b_in``.
 ``models/waveglow_fused.py`` materialises it once per flow from the mel
 frames and the phase-expanded weights of ``precompute_composed_cond``.
 
-The wrappers launch the ``DCOND`` instantiations of ``csrc/wn_block.cu``
-for CUDA tensors and take the plain versions only for CPU tensors; the
-slice is read in place through a row stride and a column offset, never
-copied.  Each wrapper counts its kernel launches in ``launches``.
+For CUDA tensors the standard layer launches the ``DCOND`` form of
+``csrc/wn_block_sm90.cu`` (wgmma, TMA, 128-row tiles; ``sm90_plan`` picks the
+tile, as for the standard layer) and the first and final layers the ``DCOND``
+instantiations of ``csrc/wn_block.cu``; the plain versions run only for CPU
+tensors.  The slice is read in place through a row stride and a column
+offset, never copied.  Each wrapper counts its kernel launches in
+``launches``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .wn_block import (F32, LIB, _check, _on_cpu, _run, final_body,
-                       first_body, std_body)
+from .wn_block import (F32, LIB, LIB_SM90, _check, _on_cpu, _run,
+                       final_body, first_body, sm90_plan, std_body)
 
 
 def _cond_slice(cond_all, cond_index: int, C: int) -> torch.Tensor:
@@ -119,7 +122,9 @@ def wn_layer_dcond(x, cond_all, cond_index: int, w_in, b_in, w_rs, b_rs,
     """:func:`wn_layer` with pre-materialised conditioning: slice
     ``cond_index`` of ``cond_all`` [B, T, 2C * L] bf16, read in place.  The
     skip sum is updated IN PLACE on CUDA, as in :func:`wn_layer`
-    (``wn_block_dcond.py:94`` aliases it the same way)."""
+    (``wn_block_dcond.py:94`` aliases it the same way).  CUDA: the sm90
+    kernel; ``wn_block.first_design("wn_layer_dcond", ...)`` runs the first
+    design on the same arguments."""
     if _on_cpu(x, cond_all, w_in, b_in, w_rs, b_rs, skip_acc):
         return wn_layer_dcond_plain(x, cond_all, cond_index, w_in, b_in, w_rs,
                                     b_rs, skip_acc, dilation, n_valid)
@@ -144,13 +149,14 @@ def wn_layer_dcond(x, cond_all, cond_index: int, w_in, b_in, w_rs, b_rs,
             cond_all.untyped_storage().data_ptr()):
         raise ValueError("skip_acc is updated in place and must not share "
                          "memory with x or cond_all")
+    plan = sm90_plan(C, T, B)
     x_out = torch.empty_like(x)
     wn_layer_dcond.launches += 1
-    _run(LIB.get().t2s_wn_layer_dcond, x.device, x.data_ptr(),
+    _run(LIB_SM90.get().t2s_wn_layer_dcond_sm90, x.device, x.data_ptr(),
          cond_all.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
          w_rs.data_ptr(), b_rs.data_ptr(), skip_acc.data_ptr(),
-         x_out.data_ptr(), skip_acc.data_ptr(), B, T, n_valid, C, ld, off,
-         rs_out, dilation)
+         x_out.data_ptr(), B, T, n_valid, C, ld, off, rs_out, dilation,
+         plan["nwg"], plan["bk"], plan["stages"])
     return x_out, skip_acc
 
 
