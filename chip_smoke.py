@@ -7,21 +7,25 @@ Phases, each of which passes or raises (the script then exits non-zero):
 
 1. require CUDA; print the card's name and power limit; turn TF32 off;
 2. build the hand-written kernels from ``csrc/`` (the bf16 WN-layer
-   library and its Hopper redesign of the standard, final and ``dcond``
-   standard layers, the int8 and padded WN-layer libraries, the gated
-   activation, the k=3 conv backward and its Hopper redesign, one ``nvcc``
-   each, all started together) and print the times, and for the two
-   Hopper files the ``HGMMA`` count per kernel and the registers and
-   spills ``-Xptxas -v`` reports;
+   library and its Hopper redesign of the standard, final, ``dcond``
+   standard and tensor-parallel partial layers, the int8 WN-layer library
+   and its Hopper redesign of the standard layer on s8 ``wgmma``, the
+   padded WN-layer library, the gated activation, the k=3 conv backward
+   and its Hopper redesign, one ``nvcc`` each, all started together) and
+   print the times, and for the three Hopper files the ``HGMMA`` /
+   ``IGMMA`` count per kernel and the registers, stack frames and spills
+   ``-Xptxas -v`` reports;
 3. compare each of the six projecting kernels with its plain PyTorch version on the
    card at the reference width (C=512, M=640) over batch sizes, dilations,
    valid lengths and flow widths, and the standard and final layers also at
    the edges of their 128-row tile (T and n_valid off the tile grid, a
-   halo of a whole tile, batch 3, nothing valid); time both with CUDA
-   events at one vocode's shapes and compute the card's bound for the same
-   work; time the standard and final layers at batch 1 and 3 beside their
-   first design (``wn_block.first_design``), and the two products of the
-   standard layer as one library call each;
+   halo of a whole tile, batch 3, nothing valid), the s8 standard layer
+   there also against its first design and run twice (bitwise equal); time
+   them with CUDA events at one vocode's shapes and compute the card's
+   bound for the same work; time the standard, final and s8 standard
+   layers at batch 1 and 3 beside their first design
+   (``wn_block.first_design``, ``wn_block_int8.first_design``), and the
+   two products of the standard layer as one library call each;
 4. bf16 main path: synthesize a small batch of Korean texts end to end at
    full reference width (seeded random weights) through the fused vocoder
    and the denoiser, write the WAVs, check the audio, the launch counts
@@ -84,9 +88,12 @@ Phases, each of which passes or raises (the script then exits non-zero):
 17. the two tensor-parallel partial kernels against their plain versions
     at C=512, M=640 for p = 2, 4, 8 ranks: batches 1 and 3, every dilation
     1..128, ``n_valid < T``, ``rs_out`` 2C and C, the layer-0 form (n_half
-    2..4 with the edge-bias rows); the sum of the p partials plus the bias
-    against the whole layer's plain res/skip product; times and bounds at
-    B=1, T=6400 for p = 2 and 4;
+    2..4 with the edge-bias rows); the bf16 one's sm90 form also against
+    its first design; the sum of the p partials plus the bias against the
+    whole layer's plain res/skip product; times and bounds at B=1, T=6400
+    for p = 2 and 4, the bf16 one beside its first design in turns at
+    batch 1 and 3, and its 64- against its 128-row tile at batch 1; the s8
+    standard layer with one against two column groups at batch 1 and 3;
 18. the tensor-parallel vocoder at full width on the main path's mel, p = 2
     and 4, all shards on the one card, bf16 and int8: 96 p launches of the
     bf16 partial kernel (12 p + 84 p with int8) and none of the whole-layer
@@ -175,7 +182,8 @@ KERNELS = {
     "wn_layer": ("wn_block_sm90.cu", PALLAS + "wn_block.py:398"),
     "wn_layer_final": ("wn_block_sm90.cu", PALLAS + "wn_block.py:528"),
     "wn_layer_first_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:338"),
-    "wn_layer_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:268"),
+    "wn_layer_int8": ("wn_block_int8_sm90.cu",
+                      PALLAS + "wn_block_int8.py:268"),
     "wn_layer_final_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:510"),
 }
 # the composed-conditioning flavours (the DCOND instantiations)
@@ -186,7 +194,7 @@ DCOND_KERNELS = {
 }
 # the tensor-parallel partial layers (one rank's share of a layer)
 PARTIAL_KERNELS = {
-    "wn_layer_partial": ("wn_block.cu", PALLAS + "wn_block.py:642"),
+    "wn_layer_partial": ("wn_block_sm90.cu", PALLAS + "wn_block.py:642"),
     "wn_layer_partial_int8": ("wn_block_int8.cu",
                               PALLAS + "wn_block_int8.py:447"),
 }
@@ -231,9 +239,9 @@ def demangled(names) -> dict:
 
 
 def hgmma_counts(so) -> str:
-    """``HGMMA`` (wgmma) instructions per kernel in a built library's SASS,
-    by ``cuobjdump`` beside ``nvcc``; "no cuobjdump" where the toolkit has
-    none."""
+    """``wgmma`` instructions per kernel in a built library's SASS (``HGMMA``
+    for bf16, ``IGMMA`` for s8), by ``cuobjdump`` beside ``nvcc``; "no
+    cuobjdump" where the toolkit has none."""
     from text2speech_tpu_torch.ops.build import find_nvcc
 
     tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
@@ -246,26 +254,29 @@ def hgmma_counts(so) -> str:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             counts[name] = 0
-        elif name and "HGMMA" in line:
+        elif name and re.search(r"\b[HI]GMMA\b", line):
             counts[name] += 1
     names = demangled(counts)
     counts = {names[n]: c for n, c in counts.items()}
-    return f"{sum(counts.values())} HGMMA instructions; per kernel: {counts}"
+    return (f"{sum(counts.values())} HGMMA / IGMMA instructions; per kernel: "
+            f"{counts}")
 
 
 def ptxas_registers(log: str) -> str:
-    """Registers and spill bytes per kernel from a build's ``-Xptxas -v``
-    output."""
+    """Registers, stack frame and spill bytes per kernel from a build's
+    ``-Xptxas -v`` output (a stack frame in a ``wgmma`` kernel means an
+    array in local memory)."""
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spill = (f", spills {m.group(1)}/{m.group(2)} B" if m.group(1)
-                     != "0" or m.group(2) != "0" else "")
+            spill = (f", stack {m.group(1)} B" if m.group(1) != "0" else "")
+            spill += (f", spills {m.group(2)}/{m.group(3)} B" if m.group(2)
+                      != "0" or m.group(3) != "0" else "")
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.append((name, f"{m.group(1)}{spill}"))
@@ -507,7 +518,11 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
     # the edges of the sm90 kernels' 128-row tile: T and n_valid off the
     # tile grid, a halo of a whole tile (d=128), batch 3, nothing valid, a
     # grid of 128-row tiles that fills the card; the skip sum on every row
-    # (rows past n_valid too are computed alike)
+    # (rows past n_valid too are computed alike).  The s8 kernel also
+    # against its first design, and run twice: bitwise equal
+    def first_int8(*a, n_valid):
+        return wq.first_design("wn_layer_int8", *a, n_valid=n_valid)
+
     for B, T, nv in ((1, 1000, 937), (1, 1000, 128), (1, 1000, 129),
                      (3, 1000, 1000), (3, 777, 700), (2, 1000, 0),
                      (3, 6450, 6401)):   # the last: 128-row tiles
@@ -515,8 +530,20 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
         for d in (1, 128):
             seed += 1
             k = layer_inputs(B, T, nv, C, M, seed, dev)
-            check_pair("wn_layer", layer_args(k, d)["wn_layer"], nv,
-                       f"{shape} d={d}", skip_rows=T)
+            args = layer_args(k, d)
+            check_pair("wn_layer", args["wn_layer"], nv, f"{shape} d={d}",
+                       skip_rows=T)
+            a8 = args["wn_layer_int8"]
+            got = call_std(wq.wn_layer_int8, a8, nv)
+            tag = f"wn_layer_int8 {shape} d={d}"
+            note("wn_layer_int8", compare_int8(
+                f"{tag} vs plain", got, call_std(wq.wn_layer_int8_plain, a8,
+                                                 nv), T))
+            compare_int8(f"{tag} vs first design", got,
+                         call_std(first_int8, a8, nv), T)
+            again = call_std(wq.wn_layer_int8, a8, nv)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise RuntimeError(f"{tag}: two runs differ")
             seed += 1
             k = layer_inputs(B, T, nv, C, M, seed, dev, E=8)
             check_pair("wn_layer_final", layer_args(k, d)["wn_layer_final"],
@@ -563,61 +590,78 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
 
 
 def time_beside_first_design(rec: dict, C: int, M: int) -> None:
-    """The sm90 standard and final layers and their first design on the
-    same inputs at one vocode's shapes, batch 1 and 3 x 6400 groups, timed
-    in turns (first, sm90, sm90, first); the two agree within the kernel
-    bounds.  Adds ``prev_ms`` (the first design at batch 1), ``ms_b3`` and
-    ``prev_ms_b3`` to the two rows of ``rec``."""
+    """The sm90 standard, final and s8 standard layers and their first
+    design on the same inputs at one vocode's shapes, batch 1 and 3 x 6400
+    groups, timed in turns (first, sm90, sm90, first); the two agree within
+    the kernel bounds.  Adds ``prev_ms`` (the first design at batch 1),
+    ``ms_b3`` and ``prev_ms_b3`` to the three rows of ``rec``."""
     from text2speech_tpu_torch.ops import wn_block as wb
+    from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
     dev = torch.device("cuda")
     T = 6400
     for B in (1, 3):
+        # inputs of their own for each layer: the timing loops update the
+        # standard layers' skip sums in place
         runs = {
             "wn_layer": layer_args(layer_inputs(B, T, T, C, M, 96, dev),
                                    64)["wn_layer"],
             "wn_layer_final": layer_args(layer_inputs(
                 B, T, T, C, M, 95, dev, E=8), 128)["wn_layer_final"],
+            "wn_layer_int8": layer_args(layer_inputs(B, T, T, C, M, 94, dev),
+                                        64)["wn_layer_int8"],
         }
         for name, args in runs.items():
-            kern = getattr(wb, name)
+            mod = wq if name == "wn_layer_int8" else wb
+            kern = getattr(mod, name)
+
+            def first(*a, n_valid=None, name=name, mod=mod):
+                return mod.first_design(name, *a, n_valid=n_valid)
+
+            tag = f"{name} sm90 vs first design B={B}"
             if name == "wn_layer":
-                got = call_std(kern, args, T)
-                want = call_std(lambda *a, n_valid: wb.first_design(
-                    name, *a, n_valid=n_valid), args, T)
-                compare(f"{name} sm90 vs first design B={B} x", got[0],
-                        want[0])
-                compare(f"{name} sm90 vs first design B={B} skip", got[1],
-                        want[1])
+                got, want = call_std(kern, args, T), call_std(first, args, T)
+                compare(f"{tag} x", got[0], want[0])
+                compare(f"{tag} skip", got[1], want[1])
+            elif name == "wn_layer_int8":
+                compare_int8(tag, call_std(kern, args, T),
+                             call_std(first, args, T), T)
             else:
-                compare(f"{name} sm90 vs first design B={B}", kern(*args),
-                        wb.first_design(name, *args))
+                compare(tag, kern(*args), first(*args))
             outs = kern(*args)
             outs = outs if isinstance(outs, tuple) else (outs,)
             tensors = [t for t in (*args, *outs) if torch.is_tensor(t)]
             bound, by = bound_ms(work(name, B, T, C, M), tensors)
-            first, sm90 = [], []
-            for fn, acc in ((lambda: wb.first_design(name, *args), first),
-                            (lambda: kern(*args), sm90),
-                            (lambda: kern(*args), sm90),
-                            (lambda: wb.first_design(name, *args), first)):
-                acc.append(time_ms(fn))
-            ms, prev = sum(sm90) / 2, sum(first) / 2
-            plan = wb.sm90_plan(C, T, B)
-            blocks = plan["grid"][0] * plan["grid"][1]
-            smem = wb.LIB_SM90.get().t2s_wn_sm90_smem_bytes(
-                plan["nwg"], plan["bk"], C, plan["stages"])
+            times = {"first": [], "sm90": []}
+            for tag_, fn in (("first", lambda: first(*args)),
+                             ("sm90", lambda: kern(*args)),
+                             ("sm90", lambda: kern(*args)),
+                             ("first", lambda: first(*args))):
+                times[tag_].append(time_ms(fn))
+            first_ms, sm90 = times["first"], times["sm90"]
+            ms, prev = sum(sm90) / 2, sum(first_ms) / 2
+            if mod is wq:
+                plan = wq.int8_sm90_plan(C, T, B)
+                smem = wq.LIB_SM90.get().t2s_wn_int8_sm90_smem_bytes(
+                    plan["nc"], C, plan["stages"])
+                ring = (f"{plan['nc']} column groups, {plan['stages']} "
+                        f"stages of K=128 bytes")
+            else:
+                plan = wb.sm90_plan(C, T, B)
+                smem = wb.LIB_SM90.get().t2s_wn_sm90_smem_bytes(
+                    plan["nwg"], plan["bk"], C, plan["stages"])
+                ring = f"{plan['stages']} stages of K={plan['bk']}"
             if smem != plan["smem"]:
-                raise RuntimeError(f"sm90 plan: {plan['smem']} B of shared "
+                raise RuntimeError(f"{name} plan: {plan['smem']} B of shared "
                                    f"memory, the kernel asks {smem}")
+            blocks = plan["grid"][0] * plan["grid"][1]
             print(f"  {name} B={B} T={T}: sm90 {sm90[0]:.4f} / {sm90[1]:.4f}"
                   f" ms ({bound / ms:.1%} of the {bound:.4f} ms bound by "
-                  f"{by}), first design {first[0]:.4f} / {first[1]:.4f} ms "
-                  f"({bound / prev:.1%}); sm90 tile {plan['bm']} rows, "
-                  f"{plan['stages']} stages of K={plan['bk']}, "
-                  f"{plan['smem']} B shared, {blocks} blocks = "
-                  f"{blocks / wb.SM90_SMS:.2f} per SM (1 resident); first design "
-                  f"{-(-T // 64) * B} blocks")
+                  f"{by}), first design {first_ms[0]:.4f} / "
+                  f"{first_ms[1]:.4f} ms ({bound / prev:.1%}); sm90 tile "
+                  f"{plan['bm']} rows, {ring}, {plan['smem']} B shared, "
+                  f"{blocks} blocks = {blocks / wb.SM90_SMS:.2f} per SM (1 "
+                  f"resident); first design {-(-T // 64) * B} blocks")
             if B == 1:
                 rec[name]["prev_ms"] = prev
             else:
@@ -1472,8 +1516,10 @@ def rank_share(k: dict, p: int, i: int, int8: bool) -> tuple:
 
 def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
     """Phase 17: kernels 4 and 8 against their plain versions at reference
-    width, then kernel and plain times and the card's bound at B=1, T=6400
-    for p = 2 and 4 (the record holds p = 4's)."""
+    width (kernel 4's sm90 form also against its first design), then kernel
+    and plain times and the card's bound at B=1, T=6400 for p = 2 and 4 (the
+    record holds p = 4's), and kernel 4 beside its first design in turns at
+    batch 1 and 3."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
@@ -1489,6 +1535,9 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
         if got.dtype != torch.float32 or got[:, nv:].any():
             raise RuntimeError(f"{tag}: not f32, or rows past n_valid not 0")
         note("wn_layer_partial", compare(f"wn_layer_partial {tag}", got, want))
+        if not kw:      # the sm90 form: also its first design
+            compare(f"wn_layer_partial {tag} vs first design", got,
+                    wb.first_design("wn_layer_partial", *args, n_valid=nv))
         return got
 
     def check_int8(tag, args, nv):
@@ -1579,7 +1628,112 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
                   f" MB")
             if p == 4:
                 rec[name].update(r)
+    time_partial_beside_first_design(rec["wn_layer_partial"], C, M)
     return rec
+
+
+def time_partial_beside_first_design(r: dict, C: int, M: int) -> None:
+    """Kernel 4's sm90 form and its first design on the same inputs, rank 0
+    of p = 2 and 4, d=64, batch 1 and 3 x 6400 groups, in turns (first,
+    sm90, sm90, first).  Adds ``prev_ms`` (p = 4, batch 1), ``ms_b3`` and
+    ``prev_ms_b3`` (p = 4) to ``r``."""
+    from text2speech_tpu_torch.ops import wn_block as wb
+
+    dev = torch.device("cuda")
+    T, d = 6400, 64
+    for B in (1, 3):
+        k = layer_inputs(B, T, T, C, M, 92, dev)
+        for p in (2, 4):
+            Cp = C // p
+            args = (k["x"], k["spect"], *rank_share(k, p, 0, False), d)
+            out = wb.wn_layer_partial(*args)
+            compare(f"wn_layer_partial sm90 vs first design p={p} B={B}",
+                    out, wb.first_design("wn_layer_partial", *args))
+            ops = 2 * B * T * ((3 * C + M) * 2 * Cp + Cp * 2 * C)
+            tensors = [t for t in (*args, out) if torch.is_tensor(t)]
+            bound, by = bound_ms({"bf16": ops}, tensors)
+            times = {"first": [], "sm90": []}
+            for tag, fn in (
+                    ("first", lambda: wb.first_design("wn_layer_partial",
+                                                      *args)),
+                    ("sm90", lambda: wb.wn_layer_partial(*args)),
+                    ("sm90", lambda: wb.wn_layer_partial(*args)),
+                    ("first", lambda: wb.first_design("wn_layer_partial",
+                                                      *args))):
+                times[tag].append(time_ms(fn))
+            ms, prev = sum(times["sm90"]) / 2, sum(times["first"]) / 2
+            plan = wb.sm90_plan(Cp, T, B)
+            print(f"  wn_layer_partial p={p} B={B} T={T}: sm90 "
+                  f"{times['sm90'][0]:.4f} / {times['sm90'][1]:.4f} ms "
+                  f"({bound / ms:.1%} of the {bound:.4f} ms bound by {by}), "
+                  f"first design {times['first'][0]:.4f} / "
+                  f"{times['first'][1]:.4f} ms ({bound / prev:.1%}); tile "
+                  f"{plan['bm']} rows, {plan['stages']} stages of "
+                  f"K={plan['bk']}, {plan['grid'][0] * B} blocks")
+            if p == 4 and B == 1:
+                r["prev_ms"] = prev
+            elif p == 4:
+                r["ms_b3"], r["prev_ms_b3"] = ms, prev
+
+
+def tile_alternatives(C: int = 512, M: int = 640) -> None:
+    """What the plans' tiles buy, on the same inputs, timed in turns (each
+    tile, then each in reverse): the s8 standard layer with one and two
+    column groups (consumer warpgroups on its 64 rows) at batch 1 and 3 x
+    6400 groups; kernel 4's sm90 form (rank 0 of p = 2, 4) at batch 1 with
+    64- and 128-row blocks (one utterance: 50 blocks of 128 rows would
+    leave 82 of 132 SMs idle)."""
+    from text2speech_tpu_torch.ops import wn_block as wb
+    from text2speech_tpu_torch.ops import wn_block_int8 as wq
+
+    dev = torch.device("cuda")
+    T, d = 6400, 64
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def in_turns(name, fns):
+        for fn in fns.values():
+            if fn():
+                raise RuntimeError(f"{name}: launch failed")
+        times = {n: [] for n in fns}
+        for n in [*fns, *reversed(fns)]:
+            times[n].append(time_ms(lambda: fns[n]() and None))
+        print(f"[kernels] tiles, {name}: " + "; ".join(
+            f"{n} {t[0]:.4f} / {t[1]:.4f} ms" for n, t in times.items()))
+
+    for B in (1, 3):
+        k = layer_inputs(B, T, T, C, M, 91, dev)
+        a8 = layer_args(k, d)["wn_layer_int8"]
+        skip = a8[13].clone()
+        xn = torch.empty(B, T, C, device=dev)
+        q_out, s_out = torch.empty_like(a8[0]), torch.empty_like(a8[1])
+        ptrs = [t.data_ptr() for t in (*a8[:13], skip, xn, q_out, s_out)]
+        plan = wq.int8_sm90_plan(C, T, B)
+
+        def s8(nc):
+            stages = wq.int8_sm90_tile(C, nc, T, B)["stages"]
+            return lambda: wq.LIB_SM90.get().t2s_wn_layer_int8_sm90(
+                *ptrs, B, T, T, C, M, d, nc, stages, stream)
+
+        in_turns(f"wn_layer_int8 B={B} (the plan's: {plan['nc']} column "
+                 f"groups)", {f"{nc} column groups": s8(nc) for nc in (1, 2)})
+
+    B = 1
+    k = layer_inputs(B, T, T, C, M, 90, dev)
+    for p in (2, 4):
+        Cp = C // p
+        args = (k["x"], k["spect"], *rank_share(k, p, 0, False))
+        out = torch.empty(B, T, 2 * C, device=dev)
+        ptrs = [t.data_ptr() for t in (*args, out)]
+
+        def part(plan):
+            return lambda: wb.LIB_SM90.get().t2s_wn_layer_partial_sm90(
+                *ptrs, B, T, T, C, Cp, M, 2 * C, d, plan["nwg"], plan["bk"],
+                plan["stages"], stream)
+
+        # the 128-row tile with its own ring (the plan's at batch 3)
+        in_turns(f"wn_layer_partial p={p} B=1", {
+            "64 rows (the plan's)": part(wb.sm90_plan(Cp, T, B)),
+            "128 rows": part(wb.sm90_plan(Cp, T, 3))})
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2974,8 +3128,8 @@ def main() -> int:
     from text2speech_tpu_torch.ops import wn_block_padded as wp
 
     t0 = time.perf_counter()
-    libs = (wb.LIB, wb.LIB_SM90, wq.LIB, gated.LIB, wn_backward.LIB,
-            wn_backward.LIB_SM90, wp.LIB)
+    libs = (wb.LIB, wb.LIB_SM90, wq.LIB, wq.LIB_SM90, gated.LIB,
+            wn_backward.LIB, wn_backward.LIB_SM90, wp.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
@@ -2985,7 +3139,7 @@ def main() -> int:
         print(lib.build_log.strip())
     print(f"[build] {len(libs)} libraries built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    for lib in (wb.LIB_SM90, wn_backward.LIB_SM90):
+    for lib in (wb.LIB_SM90, wq.LIB_SM90, wn_backward.LIB_SM90):
         print(f"[build] {lib.source.name} SASS: {hgmma_counts(lib.path)}")
         print(f"[build] {lib.source.name} registers (-Xptxas -v): "
               f"{ptxas_registers(lib.build_log)}")
@@ -3013,6 +3167,7 @@ def main() -> int:
     print("[kernels] tensor-parallel partial kernels vs plain at C=512, "
           "M=640, p=2,4,8")
     rec.update(check_partial_kernels())
+    tile_alternatives()
     tp_launches = tp_path(bf16["synth"], int8["synth"], bf16["mel"],
                           bf16["rel32"])
     server_path(bf16["synth"], "bf16", int8=False)

@@ -275,8 +275,8 @@ def serve_stages(args) -> None:
         composed_cond=cc)))
     print(f"batch {len(texts)} x {args.steps} frames, reference width")
     for name, fn in stages:
-        also = (("wn_layer_kernel", "wn_sm90_kernel")
-                if name.startswith("vocode") else ())
+        also = (("wn_layer_kernel", "wn_sm90_kernel", "wn_int8_sm90_kernel",
+                 "wn_layer_int8_kernel") if name.startswith("vocode") else ())
         print(json.dumps(profile_stage(name, fn, also), ensure_ascii=False))
     del cc
 
@@ -330,14 +330,15 @@ def server_stages(args) -> None:
     for tag, s in synths.items():
         rec = profile_stage(f"vocode {tag} single device",
                             lambda s=s: s.mel_to_audio(mel, SIGMA),
-                            ("wn_layer",))
+                            ("wn_layer", "wn_sm90_kernel",
+                             "wn_int8_sm90_kernel"))
         print(json.dumps(rec, ensure_ascii=False))
         for p in (2, 4):
             tps = TPWaveGlowServer(bf16.waveglow, p, int8=tag == "int8")
             rec = profile_stage(
                 f"vocode {tag} tp p={p}",
                 lambda: tps(mel, SIGMA, generator=gen.manual_seed(1)),
-                ("wn_layer",))
+                ("wn_layer", "wn_sm90_kernel"))
             print(json.dumps(rec, ensure_ascii=False))
             del tps
             torch.cuda.empty_cache()
@@ -366,7 +367,9 @@ def server_stages(args) -> None:
                          srv.stats["active_row_steps"]
                          / srv.stats["row_steps"]]
 
-        rec = profile_stage(f"server {tag}", run, ("wn_layer",))
+        rec = profile_stage(f"server {tag}", run,
+                            ("wn_layer", "wn_sm90_kernel",
+                             "wn_int8_sm90_kernel"))
         n, samples, occupancy = rounds
         rec.update(rounds=n, slot_occupancy=round(occupancy, 3),
                    wall_ms_per_round=round(rec["wall_ms_profiled"] / n, 3),

@@ -227,16 +227,17 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
                     k["b_cond"], k["w_rs"], k["b_rs"], k["acc"], 1)
 
 
-def small_waveglow(dev):
+def small_waveglow(dev, **cfg_kw):
     """A 4-flow, 4-layer WaveGlow at C=128, M = 16 * 8 = 128 on seeded
-    random weights (orthogonal 1x1 convs, small end convs)."""
+    random weights (orthogonal 1x1 convs, small end convs); ``cfg_kw``
+    replaces fields of that configuration."""
     from text2speech_tpu_torch.infer import random_weights_
     from text2speech_tpu_torch.models.waveglow import WaveGlow
 
-    cfg = WaveGlowConfig(n_mel_channels=16, n_flows=4, n_group=8,
-                         n_early_every=2, n_early_size=2, wn_n_layers=4,
-                         wn_n_channels=128, upsample_kernel=64,
-                         upsample_stride=16)
+    cfg = WaveGlowConfig(**{
+        **dict(n_mel_channels=16, n_flows=4, n_group=8, n_early_every=2,
+               n_early_size=2, wn_n_layers=4, wn_n_channels=128,
+               upsample_kernel=64, upsample_stride=16), **cfg_kw})
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = WaveGlow(cfg, device=dev)
     random_weights_(model, gen, out_first=False)
@@ -411,6 +412,150 @@ def test_infer_fused_int8_launches_each_kernel_and_matches_plain(dev):
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 32 * 2.0 ** -8 * want.abs().max()
     assert ((got - want).norm() / want.norm()).item() < 5e-2
+
+
+# --- the s8 standard layer on wgmma (csrc/wn_block_int8_sm90.cu) -----------
+
+S8_EDGES = [(1, 1000, 937, 1), (1, 1000, 128, 128), (1, 1000, 129, 64),
+            (3, 777, 700, 128), (2, 1000, 0, 1), (3, 6450, 6401, 128),
+            (1, 333, 332, 400)]
+
+
+def _std_int8_args(q):
+    return (q["qx"], q["sx"], q["qspect"], q["sspect"], q["qw_in"],
+            q["sw_in"], q["b_in"], q["qw_cond"], q["sw_cond"], q["b_cond"],
+            q["qw_rs"], q["sw_rs"], q["b_rs"])
+
+
+@pytest.mark.parametrize("B,T,nv,d", S8_EDGES)
+def test_sm90_int8_layer_agrees_with_first_design_and_plain(dev, B, T, nv, d):
+    """At the edges of the 64-row tile (T and n_valid off the grid, a halo
+    of a whole tile and more, nothing valid, batch 3): against the plain
+    version and the first design by the int8 rule, the skip sum on every
+    row (rows past n_valid are computed alike); two runs bitwise equal."""
+    C, M = 512, 640
+    q = int8_inputs(dev, B, T, nv, C, M, 11 + d + nv)
+    args = _std_int8_args(q)
+    got = wq.wn_layer_int8(*args, q["acc"].clone(), d, n_valid=nv)
+    again = wq.wn_layer_int8(*args, q["acc"].clone(), d, n_valid=nv)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = wq.wn_layer_int8_plain(*args, q["acc"], d, n_valid=nv)
+    first = wq.first_design("wn_layer_int8", *args, q["acc"].clone(), d,
+                            n_valid=nv)
+    close_int8(got, want, T)
+    close_int8(got, first, T)
+    assert (got[0][:, nv:] == 0).all()
+
+
+@pytest.mark.parametrize("C,M", [(1024, 128), (1792, 64), (2816, 64)])
+def test_sm90_int8_layer_takes_the_first_designs_widths(dev, C, M):
+    """Wide layers (one column group past C = 1664, a shallow ring) against
+    the first design; the plain version's f32 products are exact only up
+    to K = 1040."""
+    B, T, nv, d = 2, 300, 271, 8
+    q = int8_inputs(dev, B, T, nv, C, M, C)
+    args = _std_int8_args(q)
+    got = wq.wn_layer_int8(*args, q["acc"].clone(), d, n_valid=nv)
+    first = wq.first_design("wn_layer_int8", *args, q["acc"].clone(), d,
+                            n_valid=nv)
+    close_int8(got, first, T)
+
+
+def test_int8_sm90_plan_is_the_kernels(dev):
+    """The plan's shared memory is what the kernel asks for."""
+    for C in (128, 512, 2816):
+        for B in (1, 3):
+            plan = wq.int8_sm90_plan(C, 6400, B)
+            assert wq.LIB_SM90.get().t2s_wn_int8_sm90_smem_bytes(
+                plan["nc"], C, plan["stages"]) == plan["smem"]
+
+
+def test_infer_fused_int8_at_reference_depth_launches_12_72_12(dev):
+    """12 flows of 8 layers (narrow): 12 / 72 / 12 int8 launches per
+    vocode, the 72 standard layers through the s8 wgmma kernel."""
+    from text2speech_tpu_torch.models.waveglow_fused import (
+        infer_fused_int8, prepare_fused_int8)
+
+    model, _ = small_waveglow(dev, n_flows=12, n_early_every=4,
+                              wn_n_layers=8)
+    fw = prepare_fused_int8(model)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    mel = torch.randn(1, 16, 40, generator=gen, device="cuda")
+    noise = tuple(torch.randn(s, generator=gen, device="cuda")
+                  for s in fw.noise_shapes(1, 40 * 2))
+    wq.reset_launch_counts()
+    got = infer_fused_int8(fw, mel, 0.7, noise=noise)
+    assert wq.launch_counts() == {"wn_layer_first_int8": 12,
+                                  "wn_layer_int8": 72,
+                                  "wn_layer_final_int8": 12}
+    want = infer_fused_int8(fw, mel, 0.7, noise=noise, plain=True)
+    assert torch.isfinite(got).all()
+    assert ((got - want).norm() / want.norm()).item() < 5e-2
+
+
+# --- the partial layer's sm90 form (csrc/wn_block_sm90.cu PART) ------------
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])
+@pytest.mark.parametrize("B,T,nv,d,rs_full", [
+    (1, 1000, 937, 1, True), (3, 777, 700, 128, False),
+    (3, 6450, 6401, 64, True), (2, 1000, 0, 1, True)])
+def test_sm90_partial_agrees_with_first_design_and_plain(dev, p, B, T, nv, d,
+                                                         rs_full):
+    """The first and the last rank's share at reference width: Cp = 256,
+    128 and 64 (a half gate chunk), rs_out 2C and C, 64- and 128-row
+    tiles, nothing valid."""
+    C, M = 512, 640
+    Cp = C // p
+    k = inputs(dev, B, T, nv, C, M, 3 * p + d, rs_out=2 * C if rs_full else C)
+    for i in (0, p - 1):
+        cols = torch.from_numpy(rank_cols(C, Cp, i)).to(dev)
+        args = (k["x"], k["spect"], k["w_in"][..., cols].contiguous(),
+                k["b_in"][cols].contiguous(),
+                k["w_cond"][:, cols].contiguous(),
+                k["b_cond"][cols].contiguous(),
+                k["w_rs"][i * Cp:(i + 1) * Cp].contiguous(), d)
+        got = wb.wn_layer_partial(*args, n_valid=nv)
+        assert (got[:, nv:] == 0).all()
+        if nv:
+            close(got, wb.wn_layer_partial_plain(*args, n_valid=nv))
+            close(got, wb.first_design("wn_layer_partial", *args,
+                                       n_valid=nv))
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("int8", [False, True])
+def test_tp_vocoder_launches_96p_partial_kernels(dev, p, int8):
+    """12 flows of 8 layers at C=256 split over p shards on this card: 96 p
+    launches of the bf16 partial wrapper (12 p of them the layer-0 form,
+    84 p the sm90 form), or with int8 12 p bf16 and 84 p int8.  The audio
+    against the f32 vocoder by ``chip_smoke.py``'s rule: within 3 x (int8:
+    5 x) the single-device fused bf16 vocoder's own distance from it, and
+    no tighter than 2e-2 (int8: 0.05)."""
+    from text2speech_tpu_torch.models.waveglow_fused import (infer_fused,
+                                                             prepare_fused)
+    from text2speech_tpu_torch.parallel import tp
+
+    model, _ = small_waveglow(dev, n_flows=12, n_early_every=4,
+                              wn_n_layers=8, wn_n_channels=256)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mel = torch.randn(1, 16, 40, generator=gen, device="cuda")
+    fw = prepare_fused(model)
+    noise = tuple(torch.randn(s, generator=gen, device="cuda")
+                  for s in fw.noise_shapes(1, 40 * 2))
+    server = tp.TPWaveGlowServer(model, p, int8=int8)
+    tp.reset_launch_counts()
+    got = server(mel, 0.7, noise=noise)
+    want = ({"wn_layer_partial": 12 * p, "wn_layer_partial_int8": 84 * p}
+            if int8 else {"wn_layer_partial": 96 * p,
+                          "wn_layer_partial_int8": 0})
+    assert tp.launch_counts() == want
+    exact = model.infer(mel, 0.7, noise=noise)
+    rel = lambda a: ((a - exact).norm() / exact.norm()).item()  # noqa: E731
+    single = rel(infer_fused(fw, mel, 0.7, noise=noise))
+    assert torch.isfinite(got).all()
+    assert rel(got) < (max(5 * single, 0.05) if int8
+                       else max(3 * single, 2e-2))
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (wn_block_sm90.cu, wn_backward_sm90.cu): mbarriers with a trapping wait,
-// TMA tile loads, the wgmma m64n256k16 bf16 product with its shared-memory
-// descriptors, the stage ring's position, and the host's tensor-map
-// encoder.  Everything lives in an anonymous namespace: each .cu that
-// includes this file gets its own copy.
+// (wn_block_sm90.cu, wn_block_int8_sm90.cu, wn_backward_sm90.cu):
+// mbarriers with a trapping wait, TMA tile loads, the wgmma m64n256k16 bf16
+// product with its shared-memory descriptors, the stage ring's position,
+// and the host's tensor-map encoder.  Everything lives in an anonymous
+// namespace: each .cu that includes this file gets its own copy.
 
 #pragma once
 
@@ -217,15 +217,18 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A bf16 tensor map of rank 2 or 3 (dims innermost first; strides in bytes
-// of dims 1..rank-1).  Returns 0, or minus the driver's CUresult.
+// A tensor map of rank 2 or 3 (dims innermost first; strides in bytes of
+// dims 1..rank-1), of bf16 elements unless `dtype` says otherwise (int8
+// tensors map as UINT8: TMA copies bytes).  Returns 0, or minus the
+// driver's CUresult.
 int encode(CUtensorMap* m, const void* ptr, int rank, const cuuint64_t* dims,
            const cuuint64_t* strides, const cuuint32_t* box,
-           CUtensorMapSwizzle swizzle) {
+           CUtensorMapSwizzle swizzle,
+           CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiled fn = encoder();
   if (!fn) return -(int)CUDA_ERROR_NOT_FOUND;
   const cuuint32_t estr[3] = {1, 1, 1};
-  CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  CUresult r = fn(m, dtype, rank,
                   const_cast<void*>(ptr), dims, strides, box, estr,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -1,0 +1,721 @@
+// WaveGlow WN coupling layer in int8, standard role, redesigned for Hopper
+// (sm_90a): s8 wgmma, TMA and 128-row tiles.
+//
+//   STD    replaces text2speech_tpu/ops/pallas/wn_block_int8.py:268
+//          wn_layer_stream2_int8 (body _kernel_stream2_q, :141)
+//
+// The function is that of wn_block_int8.cu's STD role, for rows t of one
+// utterance: hidden state qx [T, C] int8 with one f32 scale per row sx [T],
+// grouped mel qspect [T, M] with sspect [T], int8 weights stored
+// output-major ([N, K], k contiguous) with one f32 scale per output column
+// (the three taps share sw_in):
+//
+//   taps[t]   = sum_j  s32(qx[t+(j-1)d] . qw_in[j]) * sx[t+(j-1)d]      f32
+//   in_act[t] = taps[t] * sw_in + b_in
+//               + s32(qspect[t] . qw_cond) * sspect[t] * sw_cond + b_cond
+//   q[t]      = s8( rint( tanh(in_act[t,:C]) * sigmoid(in_act[t,C:]) * 127 ))
+//   rs[t]     = s32(q[t] . qw_rs) * (sw_rs / 127) + b_rs                 f32
+//   x_new[t]  = t < n_valid ? qx[t] * sx[t] + rs[t,:C] : 0
+//   sx_new[t] = max(amax_c |x_new[t]|, 1e-12) / 127
+//   qx_new[t] = s8( rint( x_new[t] / sx_new[t] ))      (a real division)
+//   skip[t]   = bf16(skip_acc[t] + bf16(rs[t,C:]))          (in place)
+//
+// with qx rows outside [0, n_valid) read as zero in every tap.
+// wn_block_int8.cu keeps the first design of this role (64-row blocks,
+// mma.sync s8, cp.async, halo rows gathered by hand); its entry point
+// t2s_wn_layer_int8 stays exported so that the two designs can be timed side
+// by side, and nothing else calls it.
+//
+// What bounds the layer on an H100.  At B=1, T=6400, C=512, M=640 it is
+// 35.2 GOP of s8 products against ~27 MB of activations and 2.7 MB of
+// weights: 0.0178 ms at the 1,979 TOP/s int8 peak, bound by operations.
+// The first design reached ~6% of that: mma.sync (wgmma is the only route
+// to the peak), 64-row blocks that each stream the layer's weights from
+// L2, and every thread issuing cp.async loads.
+//
+// Design.  A block owns 64 rows of one utterance.  It is warp-specialised:
+// one producer warpgroup, one thread of which issues every load, and NC =
+// 2 consumer warpgroups (column groups) on the same 64 rows, or 1 where
+// three ring stages of two would not fit beside the gated tile (C > 1664);
+// the host plan (ops/wn_block_int8.py int8_sm90_plan) chooses, and its
+// constants are held to this file's by t2s_wn_int8_sm90_smem_bytes.
+//
+// * s8 wgmma (m64n128k32 s32.s8.s8) takes A and B K-major only: there is no
+//   transpose for 8-bit types.  The port already stores the int8 weights
+//   [N, K] with k contiguous, and qx, qspect and the gated tile are [rows,
+//   K]: every operand is K-major as stored, and no layout changes.  A ring
+//   stage is K = 128 bytes deep, one 128-byte swizzled row of each operand:
+//   the [64, 128] activation tile and one [128, 128] weight tile (two
+//   64-row TMA boxes) per consumer warpgroup; four k32 steps.
+// * The taps are three TMA boxes of qx at rows t0-d, t0, t0+d from a tensor
+//   map whose T extent is n_valid: the out-of-bounds zero fill is the
+//   conv's zero padding at the true length, negative rows included.  A
+//   zero-filled row gives an s32 partial of exactly 0 whatever its scale;
+//   the scale each thread reads for such a row is 0 and does not leave sx.
+//   qspect and w_cond boxes past M are zero-filled alike (M % 128 != 0).
+// * Per-tap scales.  A gate chunk is 64 tanh + the matching 64 sigmoid
+//   columns (N = 128) and runs four s32 accumulations (K = C, C, C, M).  At
+//   the end of each tap the warpgroup's wgmma queue drains and the s32 sums
+//   are flushed into an f32 sum with the scale of that tap's shifted row
+//   (separate multiply and add, in the plain version's order); the next
+//   tap starts its accumulator with scale-d = 0.  So two register sets are
+//   live, 64 s32 and 64 f32 a thread: at N = 256 they would need 256
+//   registers, more than setmaxnreg can give a consumer beside the
+//   producer.  The conditioning's s32 sums stay in the accumulator for the
+//   gate.
+// * Two column groups.  The warpgroups take alternate gate chunks (columns
+//   c0 and c0 + 64 of each stage's pair) from the activation tile they
+//   share, so the K = 3C + M operand is loaded C / 128 times per block, and
+//   one warpgroup's drains, flushes, gate and epilogues overlap the other's
+//   products: with one warpgroup on 64 rows, or two on 128 rows, nothing
+//   hid them, and both ran slower at batch 1 and 3 (PERF.md).
+// * The gate runs in f32 (tanhf, expf and a division, as the first
+//   design), is quantized to s8 at 127 with rint and stored into the gated
+//   tile [64, C] s8 in shared memory: 128-column panels with the 128-byte
+//   swizzle that the res/skip wgmma reads as its K-major A operand.  Both
+//   warpgroups read all of it, so they meet at a barrier before the
+//   res/skip product.
+// * The res/skip product [64, C] x [C, 2C] runs in chunks of N = 128, the
+//   warpgroups taking alternate ones, the residual chunks first.  The
+//   requantization needs each row's amax over all C residual columns: each
+//   thread keeps a running max over its columns, the quad that shares its
+//   rows reduces it by shuffles, and the two warpgroups exchange theirs
+//   through shared memory at a barrier after the last chunk.  The values
+//   wait for it in an f32 scratch buffer in global memory ([B, T, C], from
+//   the wrapper), as in the first design: a thread reads back exactly the
+//   elements it wrote itself (program order, no barrier), from L2, and
+//   quantizes them with x / s.  Kept rather than replaced: 128 KB a block
+//   at C = 512 would leave no room for the ring in shared memory; in
+//   registers they would take 128 a thread; recomputing the residual
+//   chunks would add 10% of the layer's products and stream their weights
+//   twice.  The skip chunks update the bf16 skip sum in place: a block
+//   reads and writes its own rows only.
+// * Epilogues issue their global loads before their stores: a store
+//   through a byte pointer may alias any load, and interleaved, every load
+//   waited for the store before it (PERF.md).
+// * Registers: with two consumer warpgroups the block is 384 threads, 168
+//   registers each at launch (setmaxnreg gives the consumers 216 and the
+//   producer 72).  ptxas fits the kernel in 168 with a few spills; the
+//   residual epilogue works in halves of its chunk, which cut them from
+//   160 to 48 bytes (PERF.md).  With one warpgroup it takes 254.
+//
+// Every block still streams all 2.7 MB of the layer's int8 weights from L2
+// (100 blocks at one utterance of 6400 rows).  Measured times are in
+// PERF.md.  A wait on an mbarrier that does not complete within seconds
+// traps (a launch error) instead of hanging the card.
+
+#include <string.h>
+
+#include "sm90.cuh"
+
+namespace {
+
+constexpr int BM = 64;               // rows per block
+constexpr int QN = 128;              // columns per product chunk
+constexpr int QH = QN / 2;           // gate chunk: 64 tanh + 64 sigmoid
+constexpr int QK = 128;              // int8 k (bytes) per ring stage
+constexpr int MAX_STAGES = 6;
+constexpr int A_BYTES = BM * QK;     // the [64, 128] activation tile
+constexpr int B_BOX = 64 * QK;       // one [64 rows, 128 k] weight box
+constexpr int B_STAGE = 2 * B_BOX;   // the [128, 128] weight tile
+constexpr float INV127 = (float)(1.0 / 127.0);
+
+// NC consumer warpgroups (column groups) on the block's 64 rows: a stage
+// holds NC weight tiles, one per warpgroup's chunk, and the activation tile
+// they share.
+template <int NC>
+struct QTile {
+  static constexpr int B_BYTES = NC * B_STAGE;
+  static constexpr int STAGE = B_BYTES + A_BYTES;
+};
+
+struct QParams {
+  CUtensorMap tm_qx;      // qx as [B, n_valid, C]; box {128, BM, 1}
+  CUtensorMap tm_qspect;  // qspect [B, T, M]; box {128, BM, 1}
+  CUtensorMap tm_win;     // qw_in as [3 * 2C, C]; box {128, 64}
+  CUtensorMap tm_wcond;   // qw_cond [2C, M]; box {128, 64}
+  CUtensorMap tm_wrs;     // qw_rs [2C, C]; box {128, 64}
+  int T, n_valid, C, M, d, stages;
+  int ntap;               // K stages of one tap (C / 128); 0 if n_valid == 0
+  int ncond;              // K stages of the conditioning: ceil(M / 128)
+  const int8_t* qx;       // [B, T, C]
+  const float* sx;        // [B, T]
+  const float* sspect;    // [B, T]
+  const float* sw_in;     // [2C]
+  const float* b_in;      // [2C]
+  const float* sw_cond;   // [2C]
+  const float* b_cond;    // [2C]
+  const float* sw_rs;     // [2C]
+  const float* b_rs;      // [2C]
+  bf16* skip;             // [B, T, C] running skip sum, updated in place
+  float* xn;              // [B, T, C] scratch for x_new
+  int8_t* qx_out;         // [B, T, C]
+  float* sx_out;          // [B, T]
+};
+
+// K-major operand with 128-byte rows and the 128-byte swizzle: 8-row
+// groups 1024 bytes apart.  A k32 step advances the start by 32 bytes.
+__device__ __forceinline__ uint64_t desc_k128(uint32_t addr) {
+  return make_desc(addr, 16, 1024, 1);
+}
+
+// wgmma m64n128k32, s32 += s8 x s8, A and B K-major from shared memory.
+// d holds 64 s32: tile j (columns 8j..8j+7) in d[4j..4j+3], rows lane/4
+// (d[4j], d[4j+1]) and lane/4 + 8 (d[4j+2], d[4j+3]) of the warp's 16,
+// columns 2 (lane % 4) + {0, 1} (the f32 layout).  scale_d = 0 ignores d.
+__device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// tanh(at) * sigmoid(as) in f32, as the first design computes it
+__device__ __forceinline__ float gate_q(float at, float as) {
+  return tanhf(at) * (1.f / (1.f + expf(-as)));
+}
+
+// Byte offset of (row r, column c) in the s8 gated tile: 128-column panels
+// of 64 rows x 128 bytes, 16-byte chunks swizzled by the row (what TMA's
+// 128-byte swizzle gives, and wgmma's K-major A expects).
+__device__ __forceinline__ uint32_t gated_off(int r, int c) {
+  return (uint32_t)((c >> 7) * (BM * QK) + r * QK +
+                    ((((c & 127) >> 4) ^ (r & 7)) << 4) + (c & 15));
+}
+
+// --- producer ---------------------------------------------------------------
+
+template <int NC>
+__device__ __forceinline__ void produce(const QParams& p, uint8_t* ring,
+                                        uint64_t* full, uint64_t* empty,
+                                        int b, int t0) {
+  using TL = QTile<NC>;
+  const int C = p.C;
+  Ring r;
+  for (int c0 = 0; c0 < C; c0 += QH * NC) {
+    // the chunks' K order: tap 0, 1, 2 (C each), then the conditioning;
+    // column group g's chunk starts at column c0 + 64 g
+    for (int ks = 0; ks < 3 * p.ntap + p.ncond; ++ks) {
+      mbar_wait(&empty[r.st], r.ph ^ 1);
+      uint8_t* slot = ring + r.st * TL::STAGE;
+      uint64_t* bar = &full[r.st];
+      mbar_expect_tx(bar, TL::STAGE);
+      const bool tap = ks < 3 * p.ntap;
+      const int j = tap ? ks / p.ntap : 0;
+      const int k0 = (tap ? ks - j * p.ntap : ks - 3 * p.ntap) * QK;
+      const CUtensorMap* wm = tap ? &p.tm_win : &p.tm_wcond;
+      const int wrow = tap ? j * 2 * C : 0;
+      if (tap)
+        tma_load_3d(slot + TL::B_BYTES, &p.tm_qx, k0, t0 + (j - 1) * p.d, b,
+                    bar);
+      else
+        tma_load_3d(slot + TL::B_BYTES, &p.tm_qspect, k0, t0, b, bar);
+#pragma unroll
+      for (int g = 0; g < NC; ++g) {
+        const int c = c0 + QH * g;
+        tma_load_2d(slot + g * B_STAGE, wm, k0, wrow + c, bar);
+        tma_load_2d(slot + g * B_STAGE + B_BOX, wm, k0, wrow + C + c, bar);
+      }
+      r.next(p.stages);
+    }
+  }
+  for (int n0 = 0; n0 < 2 * C; n0 += QN * NC) {
+    for (int ks = 0; ks < C / QK; ++ks) {
+      mbar_wait(&empty[r.st], r.ph ^ 1);
+      uint8_t* slot = ring + r.st * TL::STAGE;
+      uint64_t* bar = &full[r.st];
+      mbar_expect_tx(bar, TL::B_BYTES);
+#pragma unroll
+      for (int g = 0; g < NC; ++g) {
+        tma_load_2d(slot + g * B_STAGE, &p.tm_wrs, ks * QK, n0 + QN * g, bar);
+        tma_load_2d(slot + g * B_STAGE + B_BOX, &p.tm_wrs, ks * QK,
+                    n0 + QN * g + 64, bar);
+      }
+      r.next(p.stages);
+    }
+  }
+}
+
+// --- consumers --------------------------------------------------------------
+
+// The in-act product of one gate chunk of column group cg for the block's
+// 64 rows.  On return tsum holds the three taps' f32 sum (each tap's s32
+// sums times the scale of its shifted row: st[tap][h] for rows r0 + 8h)
+// and acc the conditioning's s32 sums.
+template <int NC>
+__device__ __forceinline__ void inact_chunk(const QParams& p, uint8_t* ring,
+                                            uint64_t* full, uint64_t* empty,
+                                            Ring& r, int cg, int tid,
+                                            int* acc, float* tsum,
+                                            const float (&st)[3][2]) {
+  using TL = QTile<NC>;
+  const int nkt = 3 * p.ntap, nk = nkt + p.ncond;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tsum[i] = 0.f;
+  int prev = -1;
+  for (int ks = 0; ks < nk; ++ks) {
+    mbar_wait(&full[r.st], r.ph);
+    const uint32_t s = smem_u32(ring + r.st * TL::STAGE);
+    const uint32_t a = s + TL::B_BYTES;
+    const uint32_t w = s + cg * B_STAGE;
+    const bool first = ks < nkt ? ks % p.ntap == 0 : ks == nkt;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < QK / 32; ++kk)
+      wgmma_s8_n128(acc, desc_k128(a + kk * 32), desc_k128(w + kk * 32),
+                    first && kk == 0 ? 0 : 1);
+    wgmma_commit();
+    if (ks < nkt && (ks + 1) % p.ntap == 0) {
+      // the end of a tap: drain, free both slots, flush with the scales
+      wgmma_wait<0>();
+      if (tid == 0) {
+        if (prev >= 0) mbar_arrive(&empty[prev]);
+        mbar_arrive(&empty[r.st]);
+      }
+      prev = -1;
+      const int j = ks / p.ntap;
+      const float s0 = j == 0 ? st[0][0] : j == 1 ? st[1][0] : st[2][0];
+      const float s1 = j == 0 ? st[0][1] : j == 1 ? st[1][1] : st[2][1];
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        tsum[i] = __fadd_rn(tsum[i],
+                            __fmul_rn(__int2float_rn(acc[i]), i & 2 ? s1 : s0));
+    } else {
+      wgmma_wait<1>();
+      if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+      prev = r.st;
+    }
+    r.next(p.stages);
+  }
+  wgmma_wait<0>();
+  if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+}
+
+// Gate one chunk in f32, quantize at 127 and store s8 into the gated tile.
+// The sums in the plain version's order: taps * sw_in + b_in, then
+// (cond * sspect) * sw_cond + b_cond, then their sum.  Every pair is
+// computed before the first store: a store through a byte pointer may
+// alias any load, and the compiler would issue each parameter load after
+// the previous store.
+__device__ __forceinline__ void gate_store(const QParams& p, int c0, int tid,
+                                           const int* acc, const float* tsum,
+                                           const float (&ss)[2], uint8_t* G) {
+  const int lane = tid & 31, q = lane & 3;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  const int C = p.C;
+  unsigned short pairs[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = c0 + 8 * j + 2 * q;
+    unsigned v[2][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ct = c + e, cs = C + c + e;
+      const float swt = __ldg(p.sw_in + ct), sws = __ldg(p.sw_in + cs);
+      const float bit = __ldg(p.b_in + ct), bis = __ldg(p.b_in + cs);
+      const float wct = __ldg(p.sw_cond + ct), wcs = __ldg(p.sw_cond + cs);
+      const float bct = __ldg(p.b_cond + ct), bcs = __ldg(p.b_cond + cs);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e, k = 4 * (j + 8) + 2 * h + e;
+        const float at = __fadd_rn(__fmul_rn(tsum[i], swt), bit);
+        const float as = __fadd_rn(__fmul_rn(tsum[k], sws), bis);
+        const float ct_q = __fadd_rn(
+            __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), ss[h]), wct), bct);
+        const float cs_q = __fadd_rn(
+            __fmul_rn(__fmul_rn(__int2float_rn(acc[k]), ss[h]), wcs), bcs);
+        const float g = gate_q(__fadd_rn(at, ct_q), __fadd_rn(as, cs_q));
+        v[h][e] = (unsigned)__float2int_rn(__fmul_rn(g, 127.f)) & 0xffu;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      pairs[j][h] = (unsigned short)(v[h][0] | (v[h][1] << 8));
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<unsigned short*>(
+          G + gated_off(r0 + 8 * h, c0 + 8 * j + 2 * q)) = pairs[j][h];
+}
+
+// The res/skip product in chunks of N = 128, A from the gated tile: each
+// warpgroup takes the chunks n0 + 128 cg (column group cg of NC).  The
+// residual chunks park x_new in the scratch and keep each row's running
+// amax; the skip chunks update the running skip sum.  After the last chunk
+// the rows are requantized: the quad that shares a row reduces its amax
+// by shuffles, two column groups exchange theirs through `xamax` [2][64]
+// in shared memory, and each warpgroup quantizes the columns it parked.
+// sc[h] is sx of rows r0 + 8h (0 past n_valid).  Each epilogue issues all
+// of its global loads (the chunk's qx pairs or running skip sums, the
+// parked values) before its first store, and the chunk's are issued before
+// its K loop, so their latency hides behind the products: interleaved with
+// stores, every load would wait for the store before it, which may alias
+// it.
+template <int NC>
+__device__ __forceinline__ void rs_phase(const QParams& p, uint8_t* ring,
+                                         uint64_t* full, uint64_t* empty,
+                                         Ring& r, int cg, int tid, int b,
+                                         int t0, const uint8_t* G,
+                                         float* xamax, const float (&sc)[2]) {
+  using TL = QTile<NC>;
+  const int C = p.C, T = p.T;
+  const uint32_t g = smem_u32(G);
+  const int lane = tid & 31, q = lane & 3;
+  const int rl = (tid >> 5) * 16 + (lane >> 2);   // the row in the block
+  size_t row[2];
+  int t[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    t[h] = t0 + rl + 8 * h;
+    row[h] = ((size_t)b * T + t[h]) * C;
+  }
+  float amax[2] = {0.f, 0.f};
+  int acc[64];
+  for (int n0 = 0; n0 < 2 * C; n0 += QN * NC) {
+    const int nc = n0 + QN * cg;   // this warpgroup's chunk
+    // the chunk's epilogue inputs: qx pairs (residual) or the running skip
+    // sum (skip), zero where the row is not read
+    unsigned in[QN / 8][2];
+#pragma unroll
+    for (int j = 0; j < QN / 8; ++j) {
+      const int n = nc + 8 * j + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        in[j][h] = 0;
+        if (nc < C) {
+          if (t[h] < p.n_valid)
+            in[j][h] = __ldg(reinterpret_cast<const unsigned short*>(
+                p.qx + row[h] + n));
+        } else if (t[h] < T) {
+          in[j][h] = *reinterpret_cast<const unsigned*>(p.skip + row[h] +
+                                                        (n - C));
+        }
+      }
+    }
+    int prev = -1;
+    for (int ks = 0; ks < C / QK; ++ks) {
+      mbar_wait(&full[r.st], r.ph);
+      const uint32_t s = smem_u32(ring + r.st * TL::STAGE) + cg * B_STAGE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QK / 32; ++kk)
+        wgmma_s8_n128(acc, desc_k128(g + ks * (BM * QK) + kk * 32),
+                      desc_k128(s + kk * 32), ks == 0 && kk == 0 ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+      prev = r.st;
+      r.next(p.stages);
+    }
+    wgmma_wait<0>();
+    if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+
+    if (nc < C) {  // residual: x_new -> scratch, running amax
+      // in two halves of the chunk: the whole chunk's values at once spill
+      // at two warpgroups' 168 registers
+#pragma unroll
+      for (int j0 = 0; j0 < QN / 8; j0 += QN / 16) {
+        float2 xv[QN / 16][2];
+#pragma unroll
+        for (int j = j0; j < j0 + QN / 16; ++j) {
+          const int n = nc + 8 * j + 2 * q;
+          const float w0 = __fmul_rn(__ldg(p.sw_rs + n), INV127);
+          const float w1 = __fmul_rn(__ldg(p.sw_rs + n + 1), INV127);
+          const float b0 = __ldg(p.b_rs + n), b1 = __ldg(p.b_rs + n + 1);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float x0 = 0.f, x1 = 0.f;
+            if (t[h] < p.n_valid) {
+              const float q0 = (float)(signed char)(in[j][h] & 0xffu);
+              const float q1 = (float)(signed char)(in[j][h] >> 8);
+              const float v0 = __fadd_rn(
+                  __fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), w0), b0);
+              const float v1 = __fadd_rn(
+                  __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), w1), b1);
+              x0 = __fadd_rn(__fmul_rn(q0, sc[h]), v0);
+              x1 = __fadd_rn(__fmul_rn(q1, sc[h]), v1);
+            }
+            xv[j - j0][h] = make_float2(x0, x1);
+            amax[h] = fmaxf(amax[h], fmaxf(fabsf(x0), fabsf(x1)));
+          }
+        }
+#pragma unroll
+        for (int j = j0; j < j0 + QN / 16; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            if (t[h] < T)
+              *reinterpret_cast<float2*>(p.xn + row[h] + nc + 8 * j +
+                                         2 * q) = xv[j - j0][h];
+      }
+    } else {  // skip: bf16(skip_acc + bf16(rs)) in place
+#pragma unroll
+      for (int j = 0; j < QN / 8; ++j) {
+        const int n = nc + 8 * j + 2 * q;
+        const float w0 = __fmul_rn(__ldg(p.sw_rs + n), INV127);
+        const float w1 = __fmul_rn(__ldg(p.sw_rs + n + 1), INV127);
+        const float b0 = __ldg(p.b_rs + n), b1 = __ldg(p.b_rs + n + 1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (t[h] >= T) continue;
+          const float v0 = __fadd_rn(
+              __fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), w0), b0);
+          const float v1 = __fadd_rn(
+              __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), w1), b1);
+          __nv_bfloat162 sum;
+          memcpy(&sum, &in[j][h], 4);
+          sum = __floats2bfloat162_rn(
+              __low2float(sum) + __bfloat162float(__float2bfloat16(v0)),
+              __high2float(sum) + __bfloat162float(__float2bfloat16(v1)));
+          unsigned u;
+          memcpy(&u, &sum, 4);
+          in[j][h] = u;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < QN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (t[h] < T)
+            *reinterpret_cast<unsigned*>(p.skip + row[h] + nc - C + 8 * j +
+                                         2 * q) = in[j][h];
+    }
+  }
+
+  // every residual column is parked: each row's scale, then its payload
+  // from the values this thread wrote itself
+  float sq[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float m = amax[h];
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    sq[h] = m;
+    if (NC == 2 && q == 0) xamax[cg * 64 + rl + 8 * h] = m;
+  }
+  if (NC == 2) {
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sq[h] = fmaxf(xamax[rl + 8 * h], xamax[64 + rl + 8 * h]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sq[h] = __fmul_rn(fmaxf(sq[h], 1e-12f), INV127);
+    if (cg == 0 && q == 0 && t[h] < T) p.sx_out[(size_t)b * T + t[h]] = sq[h];
+  }
+  for (int c0 = QN * cg; c0 < C; c0 += QN * NC) {
+    float2 xv[QN / 8][2];
+#pragma unroll
+    for (int j = 0; j < QN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        xv[j][h] = t[h] < T ? *reinterpret_cast<const float2*>(
+                                  p.xn + row[h] + c0 + 8 * j + 2 * q)
+                            : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < QN / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (t[h] >= T) continue;
+        const unsigned o0 =
+            (unsigned)__float2int_rn(__fdiv_rn(xv[j][h].x, sq[h]));
+        const unsigned o1 =
+            (unsigned)__float2int_rn(__fdiv_rn(xv[j][h].y, sq[h]));
+        *reinterpret_cast<unsigned short*>(p.qx_out + row[h] + c0 + 8 * j +
+                                           2 * q) =
+            (unsigned short)((o0 & 0xffu) | ((o1 & 0xffu) << 8));
+      }
+  }
+}
+
+template <int NC>
+__global__ void __launch_bounds__((NC + 1) * 128, 1)
+    wn_int8_sm90_kernel(const __grid_constant__ QParams p) {
+  using TL = QTile<NC>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES];
+  __shared__ __align__(8) uint64_t empty[MAX_STAGES];
+  __shared__ float xamax[NC == 2 ? 128 : 1];  // two column groups' row amax
+  // 1024-byte alignment for the 128-byte swizzle (the launch adds 1 KB)
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* G = ring + p.stages * TL::STAGE;
+  const int b = blockIdx.y, t0 = blockIdx.x * BM;
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= NC * 4) {  // producer warpgroup: one thread issues the loads
+    if (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
+    if (threadIdx.x == NC * 128) produce<NC>(p, ring, full, empty, b, t0);
+  } else {
+    if (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+    const int cg = warp >> 2, tid = threadIdx.x & 127;
+    const int r0 = (tid >> 5) * 16 + ((tid & 31) >> 2);
+    // this thread's two rows: the three taps' shifted row scales (0 outside
+    // [0, n_valid), read only inside sx) and the conditioning's
+    float st[3][2], ss[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + r0 + 8 * h;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int s = t + (j - 1) * p.d;
+        st[j][h] = t < p.T && s >= 0 && s < p.n_valid
+                       ? p.sx[(size_t)b * p.T + s] : 0.f;
+      }
+      ss[h] = t < p.T ? p.sspect[(size_t)b * p.T + t] : 0.f;
+    }
+    int acc[64];
+    float tsum[64];
+    Ring r;
+    for (int c0 = 0; c0 < p.C; c0 += QH * NC) {
+      inact_chunk<NC>(p, ring, full, empty, r, cg, tid, acc, tsum, st);
+      gate_store(p, c0 + QH * cg, tid, acc, tsum, ss, G);
+    }
+    // every gated column -> visible to the wgmma of both warpgroups (async
+    // proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"r"(NC * 128) : "memory");
+    const float sc[2] = {st[1][0], st[1][1]};
+    rs_phase<NC>(p, ring, full, empty, r, cg, tid, b, t0, G, xamax, sc);
+  }
+}
+
+// --- host -------------------------------------------------------------------
+
+size_t smem_bytes(int nc, int C, int stages) {
+  return 1024 + (size_t)stages * (nc * B_STAGE + A_BYTES) + (size_t)BM * C;
+}
+
+int encode_s8(CUtensorMap* m, const void* ptr, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box) {
+  return encode(m, ptr, rank, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_DATA_TYPE_UINT8);
+}
+
+int encode_maps(QParams& p, const void* qx, const void* qspect,
+                const void* qw_in, const void* qw_cond, const void* qw_rs,
+                int B) {
+  const cuuint64_t C = p.C, M = p.M, T = p.T;
+  const cuuint64_t nv = p.n_valid > 0 ? p.n_valid : 1;
+  const cuuint32_t abox[3] = {QK, BM, 1};
+  const cuuint32_t wbox[2] = {QK, 64};
+  int e;
+  {
+    const cuuint64_t dims[3] = {C, nv, (cuuint64_t)B};
+    const cuuint64_t str[2] = {C, T * C};
+    if ((e = encode_s8(&p.tm_qx, qx, 3, dims, str, abox))) return e;
+  }
+  {
+    const cuuint64_t dims[3] = {M, T, (cuuint64_t)B};
+    const cuuint64_t str[2] = {M, T * M};
+    if ((e = encode_s8(&p.tm_qspect, qspect, 3, dims, str, abox))) return e;
+  }
+  {
+    const cuuint64_t dims[2] = {C, 6 * C};
+    const cuuint64_t str[1] = {C};
+    if ((e = encode_s8(&p.tm_win, qw_in, 2, dims, str, wbox))) return e;
+  }
+  {
+    const cuuint64_t dims[2] = {M, 2 * C};
+    const cuuint64_t str[1] = {M};
+    if ((e = encode_s8(&p.tm_wcond, qw_cond, 2, dims, str, wbox))) return e;
+  }
+  const cuuint64_t dims[2] = {C, 2 * C};
+  const cuuint64_t str[1] = {C};
+  return encode_s8(&p.tm_wrs, qw_rs, 2, dims, str, wbox);
+}
+
+template <int NC>
+int launch(const QParams& p, int B, void* stream) {
+  const size_t smem = smem_bytes(NC, p.C, p.stages);
+  cudaError_t e = cudaFuncSetAttribute(
+      wn_int8_sm90_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((p.T + BM - 1) / BM, B);
+  wn_int8_sm90_kernel<NC>
+      <<<grid, (NC + 1) * 128, smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes).  Each returns 0 on success, a
+// cudaError_t after the launch, or minus the CUresult of a refused tensor
+// map.  `nc` (consumer warpgroups: column groups on the block's 64 rows)
+// and `stages` are the launch plan of ops/wn_block_int8.py; shapes,
+// dtypes, contiguity and alignment are checked there before the call.
+extern "C" {
+
+size_t t2s_wn_int8_sm90_smem_bytes(int nc, int C, int stages) {
+  return smem_bytes(nc, C, stages);
+}
+
+int t2s_wn_layer_int8_sm90(
+    const void* qx, const void* sx, const void* qspect, const void* sspect,
+    const void* qw_in, const void* sw_in, const void* b_in,
+    const void* qw_cond, const void* sw_cond, const void* b_cond,
+    const void* qw_rs, const void* sw_rs, const void* b_rs, void* skip_acc,
+    void* xn, void* qx_out, void* sx_out, int B, int T, int n_valid, int C,
+    int M, int d, int nc, int stages, void* stream) {
+  if (stages < 2 || stages > MAX_STAGES || (nc != 1 && nc != 2))
+    return (int)cudaErrorInvalidValue;
+  QParams p;
+  memset(&p, 0, sizeof(p));
+  p.T = T; p.n_valid = n_valid; p.C = C; p.M = M; p.d = d;
+  p.stages = stages;
+  p.ntap = n_valid > 0 ? C / QK : 0;
+  p.ncond = (M + QK - 1) / QK;
+  p.qx = (const int8_t*)qx; p.sx = (const float*)sx;
+  p.sspect = (const float*)sspect;
+  p.sw_in = (const float*)sw_in; p.b_in = (const float*)b_in;
+  p.sw_cond = (const float*)sw_cond; p.b_cond = (const float*)b_cond;
+  p.sw_rs = (const float*)sw_rs; p.b_rs = (const float*)b_rs;
+  p.skip = (bf16*)skip_acc; p.xn = (float*)xn;
+  p.qx_out = (int8_t*)qx_out; p.sx_out = (float*)sx_out;
+  const int e = encode_maps(p, qx, qspect, qw_in, qw_cond, qw_rs, B);
+  if (e) return e;
+  return nc == 2 ? launch<2>(p, B, stream) : launch<1>(p, B, stream);
+}
+
+}  // extern "C"

@@ -8,6 +8,9 @@
 //   STD, DCOND  replaces text2speech_tpu/ops/pallas/wn_block_dcond.py:43
 //          wn_layer_stream2_dcond (pallas_call :73; body _kernel_stream2
 //          with project_cond=False)
+//   PART   replaces text2speech_tpu/ops/pallas/wn_block.py:642
+//          wn_layer_stream2_partial (body _kernel_stream2_partial, :612),
+//          layers 1..L-1 of the tensor-parallel vocoder
 //
 // The function is that of wn_block.cu's STD and FINAL roles, for rows t of
 // one utterance (hidden x [T, C], grouped mel spect [T, M], dilation d,
@@ -28,11 +31,21 @@
 //               + f32(cond_all[t, off : off + 2C])                 (t < T)
 //
 // with cond_all [B, T, cond_ld] bf16 (the folded conditioning bias already
-// in it) read in place at column offset off = 2C * layer.  wn_block.cu
-// keeps the first design of these roles (64-row blocks, mma.sync,
-// cp.async); its entry points t2s_wn_layer, t2s_wn_layer_final and
-// t2s_wn_layer_dcond stay exported so that the two designs can be timed
-// side by side, and nothing else calls them.
+// in it) read in place at column offset off = 2C * layer.  PART is one
+// rank's share of a layer under tensor parallelism: the hidden state's
+// width CX (the taps' K) and the rank's gate width Cp (its gate-paired
+// columns of w_in [3, CX, 2Cp] and w_cond [M, 2Cp], the res/skip K) are
+// two widths, and the kernel's C below is Cp:
+//
+//   PART:  part[t] = t < n_valid ? acts[t] W_rs : 0   [rs_out], f32
+//
+// with W_rs the rank's rows [Cp, rs_out]: no bias, residual or skip sum
+// (they need the sum over ranks).  wn_block.cu keeps the first design of
+// these roles (64-row blocks, mma.sync, cp.async) and the layer-0 form of
+// the partial layer (K = n_half <= 4, which gives wgmma nothing to do); its
+// entry points t2s_wn_layer, t2s_wn_layer_final, t2s_wn_layer_dcond and
+// t2s_wn_layer_partial stay exported so that the two designs can be timed
+// side by side, and nothing else calls the first three.
 //
 // What bounds the layer on an H100.  At B=3, T=6400, C=512, M=640 the
 // standard layer is 106 GFLOP of bf16 products against ~60 MB of
@@ -103,6 +116,17 @@
 // the producer issues no in-act load, the consumers gate b_in + cond alone,
 // and the res/skip ring runs as in STD.
 //
+// PART.  A rank's Cp columns run in the standard layer's gate-pair chunks
+// (128 + 128); at Cp % 128 == 64 the last chunk is half: its weight boxes
+// past the rank's columns are zero-filled or belong to the sigmoid half,
+// and only its 64 tanh columns (tiles 0-7, with partners 16-23) are gated,
+// so every Cp % 64 == 0 runs.  The res/skip product's K is Cp; its
+// epilogue writes the f32 partial whole, 16 bytes a thread: the two
+// threads of a quad pair swap a row's pair of columns by a shuffle, so each
+// stores four consecutive floats of one row.  At p = 4, B=1, T=6400 the
+// call is 8.8 GFLOP against ~42 MB, 26 MB of it the f32 output: 0.0126 ms
+// at 3.35 TB/s, bound by bytes.  The tile is sm90_plan's for width Cp.
+//
 // A wait on an mbarrier that does not complete within seconds traps (a
 // launch error) instead of hanging the card.
 
@@ -133,16 +157,17 @@ struct Tile {
   static constexpr uint32_t A_SBO = 8 * BK * 2;
 };
 
-enum Role { STD = 0, FINAL = 1 };
+enum Role { STD = 0, FINAL = 1, PART = 2 };
 
 struct Params {
-  CUtensorMap tm_x;      // x as [B, n_valid, C]; box {32, BM, 1}, 64B swizzle
-  CUtensorMap tm_spect;  // spect [B, T, M]; box {32, BM, 1}, 64B swizzle
-  CUtensorMap tm_win;    // w_in as [3C, 2C]; box {64, 32}, 128B swizzle
-  CUtensorMap tm_wcond;  // w_cond [M, 2C]; box {64, 32}, 128B swizzle
-  CUtensorMap tm_wrs;    // STD: w_rs [C, rs_out]; box {64, 32}, 128B swizzle
+  CUtensorMap tm_x;      // x as [B, n_valid, CX]; box {BK, BM, 1}
+  CUtensorMap tm_spect;  // spect [B, T, M]; box {BK, BM, 1}
+  CUtensorMap tm_win;    // w_in as [3CX, 2C]; box {64, BK}, 128B swizzle
+  CUtensorMap tm_wcond;  // w_cond [M, 2C]; box {64, BK}, 128B swizzle
+  CUtensorMap tm_wrs;    // STD, PART: w_rs [C, rs_out]; box {64, BK}
   int T, n_valid, C, M, d, rs_out, E;
-  int ktap;              // 3C, or 0 when n_valid == 0 (every tap reads zero)
+  int CX;                // the hidden state's width: C except in PART
+  int ktap;              // 3CX, or 0 when n_valid == 0 (every tap reads 0)
   int stages;
   const bf16* x;         // [B, T, C]
   const bf16* cond_all;  // DCOND: [B, T, cond_ld]; the layer reads columns
@@ -155,7 +180,7 @@ struct Params {
   const bf16* w_eff;     // FINAL: w_rs @ w_end [C, E]
   const bf16* w_end;     // FINAL: [C, E]
   const float* b_eff;    // FINAL: [E]
-  float* out;            // FINAL: [B, T, E]
+  float* out;            // FINAL: [B, T, E]; PART: [B, T, rs_out]
 };
 
 
@@ -215,9 +240,9 @@ __device__ __forceinline__ void produce(const Params& p, uint8_t* ring,
       const CUtensorMap* wm = tap ? &p.tm_win : &p.tm_wcond;
       const int kr = tap ? k0 : k0 - p.ktap;
       if (tap) {
-        const int j = k0 / C;
-        tma_load_3d(slot + B_STAGE, &p.tm_x, k0 - j * C, t0 + (j - 1) * p.d, b,
-                    bar);
+        const int j = k0 / p.CX;
+        tma_load_3d(slot + B_STAGE, &p.tm_x, k0 - j * p.CX, t0 + (j - 1) * p.d,
+                    b, bar);
       } else {
         tma_load_3d(slot + B_STAGE, &p.tm_spect, kr, t0, b, bar);
       }
@@ -229,9 +254,9 @@ __device__ __forceinline__ void produce(const Params& p, uint8_t* ring,
       r.next(p.stages);
     }
   }
-  if (ROLE == STD) {
-    // a last half chunk (rs_out = C, an odd multiple of 128) reads zeros
-    // past rs_out: TMA fills them, and counts a whole box either way
+  if (ROLE != FINAL) {
+    // a last half chunk (rs_out an odd multiple of 128) reads zeros past
+    // rs_out: TMA fills them, and counts a whole box either way
     for (int n0 = 0; n0 < p.rs_out; n0 += GN) {
       for (int ks = 0; ks < C / BK; ++ks) {
         mbar_wait(&empty[r.st], r.ph ^ 1);
@@ -306,7 +331,8 @@ __device__ __forceinline__ void inact_chunk(const Params& p, uint8_t* ring,
   if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
 }
 
-// Gate one chunk in f32 and store it as bf16 into the gated tile.  The
+// Gate one chunk in f32 and store it as bf16 into the gated tile: 128
+// columns, or the 64 of a half chunk (PART at Cp % 128 == 64).  The
 // bias is b_in + b_cond, or with DCOND b_in and then the row's
 // conditioning: the bf16 pairs (c, c + 1) and (C + c, C + c + 1) of
 // cond_all's slice for rows t < T (the order of the plain version's sums;
@@ -328,8 +354,10 @@ __device__ __forceinline__ void gate_store(const Params& p, int b, int t0,
               p.cond_all + ((size_t)b * p.T + t) * p.cond_ld + p.cond_off +
               c0 + 2 * q);
   }
+  const int ntile = C - c0 < GHALF ? 8 : 16;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
+    if (j >= ntile) break;
     const int c = c0 + 8 * j + 2 * q;
     float bt0 = p.b_in[c], bt1 = p.b_in[c + 1];
     float bs0 = p.b_in[C + c], bs1 = p.b_in[C + c + 1];
@@ -360,9 +388,38 @@ __device__ __forceinline__ void gate_store(const Params& p, int b, int t0,
   }
 }
 
-// STD: the res/skip product in chunks of N = 256, A from the gated tile,
-// with the residual and skip epilogue.
-template <int NWG, int BK>
+// PART's epilogue of one res/skip chunk: the f32 partial, zero at rows
+// t >= n_valid.  Lanes q and q ^ 1 of a quad swap half of their pairs, so
+// that an even lane holds four columns of row r0 and an odd lane four of
+// row r0 + 8; each stores them as one 16-byte vector.
+__device__ __forceinline__ void part_store(const Params& p, int b, int t0,
+                                           int r0, int q, int n0, int nn,
+                                           const float* acc) {
+  const bool odd = q & 1;
+  const int t = t0 + r0 + (odd ? 8 : 0);
+  const bool ok = t < p.n_valid;
+  float* row = p.out + ((size_t)b * p.T + t) * p.rs_out;
+#pragma unroll
+  for (int j = 0; j < GN / 8; ++j) {
+    if (8 * j >= nn) break;
+    // send the pair the partner keeps: an even lane its row r0 + 8 pair,
+    // an odd lane its row r0 pair (static indices only: a runtime index
+    // would move the accumulators, which wgmma writes asynchronously, to
+    // local memory)
+    const float a0 = acc[4 * j], a1 = acc[4 * j + 1];
+    const float a2 = acc[4 * j + 2], a3 = acc[4 * j + 3];
+    const float g0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : a2, 1);
+    const float g1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : a3, 1);
+    float4 v = odd ? make_float4(g0, g1, a2, a3) : make_float4(a0, a1, g0, g1);
+    if (!ok) v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t < p.T)
+      *reinterpret_cast<float4*>(row + n0 + 8 * j + 2 * (q & 2)) = v;
+  }
+}
+
+// STD, PART: the res/skip product in chunks of N = 256, A from the gated
+// tile, with STD's residual and skip epilogue or PART's f32 partial.
+template <int ROLE, int NWG, int BK>
 __device__ __forceinline__ void rs_phase(const Params& p, uint8_t* ring,
                                          uint64_t* full, uint64_t* empty,
                                          Ring& r, int wg, int tid, int b,
@@ -398,6 +455,10 @@ __device__ __forceinline__ void rs_phase(const Params& p, uint8_t* ring,
     }
     wgmma_wait<0>();
     if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+    if (ROLE == PART) {
+      part_store(p, b, t0, r0, q, n0, nn, acc);
+      continue;
+    }
 
     // epilogue in groups of EG column tiles: every load of a group (bias,
     // residual input, running skip) is issued before its stores, which may
@@ -456,7 +517,7 @@ __device__ __forceinline__ void rs_phase(const Params& p, uint8_t* ring,
       }
     }
   }
-  if (!has_res) {  // skip-only layer: the hidden state passes through
+  if (ROLE == STD && !has_res) {  // skip-only: the hidden state passes
     const int cv = C / 8;
     for (int i = tid; i < 64 * cv; i += 128) {
       const int t = t0 + wg * 64 + i / cv;
@@ -598,7 +659,7 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
     if (ROLE == FINAL)
       final_phase<NWG>(p, wg, tid, b, t0, G);
     else
-      rs_phase<NWG, BK>(p, ring, full, empty, r, wg, tid, b, t0, G);
+      rs_phase<ROLE, NWG, BK>(p, ring, full, empty, r, wg, tid, b, t0, G);
   }
 }
 
@@ -608,21 +669,21 @@ CUtensorMapSwizzle a_swizzle(int bk) {
   return bk == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
 }
 
-// The tap maps: x (T extent n_valid) and w_in.
+// The tap maps: x (T extent n_valid, width CX) and w_in [3CX, 2C].
 int encode_taps(Params& p, const void* x, const void* w_in, int B, int bm,
                 int bk) {
-  const cuuint64_t C = p.C, T = p.T;
+  const cuuint64_t C = p.C, CX = p.CX, T = p.T;
   const cuuint64_t nv = p.n_valid > 0 ? p.n_valid : 1;
   const cuuint32_t abox[3] = {(cuuint32_t)bk, (cuuint32_t)bm, 1};
   const cuuint32_t wbox[2] = {64, (cuuint32_t)bk};
   int e;
   {
-    const cuuint64_t dims[3] = {C, nv, (cuuint64_t)B};
-    const cuuint64_t str[2] = {C * 2, T * C * 2};
+    const cuuint64_t dims[3] = {CX, nv, (cuuint64_t)B};
+    const cuuint64_t str[2] = {CX * 2, T * CX * 2};
     if ((e = encode(&p.tm_x, x, 3, dims, str, abox, a_swizzle(bk))))
       return e;
   }
-  const cuuint64_t dims[2] = {2 * C, 3 * C};
+  const cuuint64_t dims[2] = {2 * C, 3 * CX};
   const cuuint64_t str[1] = {2 * C * 2};
   return encode(&p.tm_win, w_in, 2, dims, str, wbox,
                 CU_TENSOR_MAP_SWIZZLE_128B);
@@ -692,7 +753,7 @@ int encode_wrs(Params& p, const void* w_rs, int bk) {
 void fill_common(Params& p, int T, int n_valid, int C, int M, int d,
                  int stages, const void* x, const void* b_in,
                  const void* b_cond, const void* skip_acc) {
-  p.T = T; p.n_valid = n_valid; p.C = C; p.M = M; p.d = d;
+  p.T = T; p.n_valid = n_valid; p.C = C; p.CX = C; p.M = M; p.d = d;
   p.ktap = n_valid > 0 ? 3 * C : 0;
   p.stages = stages;
   p.x = (const bf16*)x;
@@ -753,6 +814,29 @@ int t2s_wn_layer_dcond_sm90(const void* x, const void* cond_all,
   int e = encode_taps(p, x, w_in, B, 64 * nwg, bk);
   if (e || (e = encode_wrs(p, w_rs, bk))) return e;
   return dispatch<STD, true>(p, B, nwg, bk, stream);
+}
+
+// One rank's share of a layer under tensor parallelism (layers 1..L-1):
+// the hidden state x [B, T, CX], the rank's gate-paired columns w_in [3, CX,
+// 2Cp] and w_cond [M, 2Cp] with b_in, b_cond [2Cp], its res/skip rows w_rs
+// [Cp, rs_out]; out [B, T, rs_out] f32 is written whole.
+int t2s_wn_layer_partial_sm90(const void* x, const void* spect,
+                              const void* w_in, const void* b_in,
+                              const void* w_cond, const void* b_cond,
+                              const void* w_rs, void* out, int B, int T,
+                              int n_valid, int CX, int Cp, int M, int rs_out,
+                              int d, int nwg, int bk, int stages,
+                              void* stream) {
+  Params p;
+  memset(&p, 0, sizeof(p));
+  fill_common(p, T, n_valid, Cp, M, d, stages, x, b_in, b_cond, nullptr);
+  p.CX = CX;
+  p.ktap = n_valid > 0 ? 3 * CX : 0;
+  p.rs_out = rs_out;
+  p.out = (float*)out;
+  int e = encode_inact(p, x, spect, w_in, w_cond, B, 64 * nwg, bk);
+  if (e || (e = encode_wrs(p, w_rs, bk))) return e;
+  return dispatch<PART>(p, B, nwg, bk, stream);
 }
 
 int t2s_wn_layer_final_sm90(const void* x, const void* spect,

@@ -14,10 +14,11 @@ roles are in :mod:`.wn_block_dcond`.  Each role has
 * a wrapper (:func:`wn_layer_first`, :func:`wn_layer`,
   :func:`wn_layer_final`, :func:`wn_layer_partial`) that launches a
   hand-written Hopper kernel for CUDA tensors, and takes the plain version
-  only for CPU tensors.  The standard and final layers launch
+  only for CPU tensors.  The standard, final and partial layers launch
   ``csrc/wn_block_sm90.cu`` (wgmma, TMA, 128-row tiles; :func:`sm90_plan`
-  picks the tile), the first and partial layers ``csrc/wn_block.cu``.  A
-  CUDA tensor the kernel does not take raises; nothing falls back.
+  picks the tile), the first layer and the partial layer's layer-0 form
+  ``csrc/wn_block.cu``.  A CUDA tensor the kernel does not take raises;
+  nothing falls back.
 
 Layout is channels-last ``[B, T, C]``.  Rows at or past ``n_valid`` read as
 zero in every dilated tap (the conv's zero padding at the true length),
@@ -50,6 +51,7 @@ LIB_SM90 = CudaLibrary("wn_block_sm90", {
     "t2s_wn_layer_sm90": [_P] * 10 + [_I] * 10 + [_P],
     "t2s_wn_layer_final_sm90": [_P] * 11 + [_I] * 10 + [_P],
     "t2s_wn_layer_dcond_sm90": [_P] * 8 + [_I] * 11 + [_P],
+    "t2s_wn_layer_partial_sm90": [_P] * 8 + [_I] * 11 + [_P],
     "t2s_wn_sm90_smem_bytes": [_I] * 4,
 })
 
@@ -293,14 +295,15 @@ def _sm90_stages(nwg: int, bk: int, C: int) -> int:
 
 
 def sm90_plan(C: int, T: int = 1, B: int = 1) -> dict:
-    """Tile of ``csrc/wn_block_sm90.cu`` for width ``C`` and ``B``
-    utterances of ``T`` rows, the same for all three of its layers (the
+    """Tile of ``csrc/wn_block_sm90.cu`` for gate width ``C`` and ``B``
+    utterances of ``T`` rows, the same for all four of its layers (the
     ``dcond`` layer's ring stage is the standard layer's; only its K, 3C in
-    place of 3C + M, is shorter).  Rows: 128-row blocks (two consumer
-    warpgroups) where the gated tile fits (C <= 512) and the grid fills the
-    card's SMs at least once, else 64-row blocks, twice as many.  K per
-    stage: 64 where three or more such stages fit beside the gated tile,
-    else 32; the ring is as deep as fits, up to four stages.  Raises
+    place of 3C + M, is shorter; the partial layer's ``C`` is the rank's
+    width Cp, its taps' K the hidden state's).  Rows: 128-row blocks (two
+    consumer warpgroups) where the gated tile fits (C <= 512) and the grid
+    fills the card's SMs at least once, else 64-row blocks, twice as many.
+    K per stage: 64 where three or more such stages fit beside the gated
+    tile, else 32; the ring is as deep as fits, up to four stages.  Raises
     ValueError where no tile fits in shared memory."""
     nwg = 2 if C <= 512 and B * -(-T // 128) >= SM90_SMS else 1
     bk = 64 if _sm90_stages(nwg, 64, C) >= 3 else 32
@@ -453,19 +456,29 @@ def wn_layer_final(x, spect, w_in, b_in, w_cond, b_cond, w_eff, skip_acc,
 
 
 def first_design(name: str, *args, n_valid: int | None = None):
-    """The first CUDA design of the standard, the final or the ``dcond``
-    standard layer (``csrc/wn_block.cu``'s ``t2s_wn_layer`` /
-    ``t2s_wn_layer_final`` / ``t2s_wn_layer_dcond``: 64-row blocks,
-    ``mma.sync``, ``cp.async``), kept so that the sm90 kernel can be timed
-    and checked beside it on the same inputs; no path calls it.  ``name``
-    is ``"wn_layer"``, ``"wn_layer_final"`` or ``"wn_layer_dcond"`` and the
-    arguments are that wrapper's (CUDA tensors, already checked by a call
-    of the wrapper); the standard layers update ``skip_acc`` in place.  It
-    counts no launch."""
+    """The first CUDA design of the standard, the final, the ``dcond``
+    standard or the partial layer (``csrc/wn_block.cu``'s ``t2s_wn_layer``
+    / ``t2s_wn_layer_final`` / ``t2s_wn_layer_dcond`` /
+    ``t2s_wn_layer_partial``: 64-row blocks, ``mma.sync``, ``cp.async``),
+    kept so that the sm90 kernel can be timed and checked beside it on the
+    same inputs; no path calls it.  ``name`` is ``"wn_layer"``,
+    ``"wn_layer_final"``, ``"wn_layer_dcond"`` or ``"wn_layer_partial"``
+    (without ``b_edge``) and the arguments are that wrapper's (CUDA
+    tensors, already checked by a call of the wrapper); the standard layers
+    update ``skip_acc`` in place.  It counts no launch."""
     x, spect = args[0], args[1]
     B, T, C = x.shape
     n_valid = T if n_valid is None else int(n_valid)
     lib = LIB.get()
+    if name == "wn_layer_partial":
+        w_rs, d = args[6], args[7]
+        Cp, rs_out = w_rs.shape
+        out = torch.empty((B, T, rs_out), dtype=F32, device=x.device)
+        ptrs = [t.data_ptr() for t in args[:7]]    # b_edge: none
+        _run(lib.t2s_wn_layer_partial, x.device, *ptrs[:4], None, *ptrs[4:],
+             out.data_ptr(), B, T, n_valid, C, Cp, spect.shape[-1], rs_out,
+             int(d))
+        return out
     if name == "wn_layer_dcond":
         cond_all, li, w_in, b_in, w_rs, b_rs, skip_acc, d = args[1:]
         ld = cond_all.shape[-1]
@@ -511,7 +524,11 @@ def wn_layer_partial(x, spect, w_in, b_in, w_cond, b_cond, w_rs,
     CUDA: bf16 ``x`` [B, T, C] (or, with ``b_edge`` [2, 2Cp] f32, the audio
     half [B, T, n_half <= 4] under ``w_in`` = this rank's columns of the
     composed taps), ``spect`` [B, T, M], ``w_in`` [3, K, 2Cp], ``w_cond``
-    [M, 2Cp], ``w_rs`` [Cp, rs_out]; f32 ``b_in``, ``b_cond`` [2Cp]."""
+    [M, 2Cp], ``w_rs`` [Cp, rs_out]; f32 ``b_in``, ``b_cond`` [2Cp].  The
+    layers 1..L-1 launch ``csrc/wn_block_sm90.cu``'s ``PART`` form with
+    :func:`sm90_plan` of width Cp; the layer-0 form (``b_edge``) launches
+    ``csrc/wn_block.cu``, whose rank-n_half taps give ``wgmma`` nothing to
+    do."""
     ts = [x, spect, w_in, b_in, w_cond, b_cond, w_rs]
     if b_edge is not None:
         ts.append(b_edge)
@@ -538,13 +555,21 @@ def wn_layer_partial(x, spect, w_in, b_in, w_cond, b_cond, w_rs,
         ("b_cond", b_cond, (2 * Cp,), F32), ("w_rs", w_rs, (Cp, rs_out), bf),
     ):
         _check(name, t, shape, dt)
+    plan = sm90_plan(Cp, T, B) if b_edge is None else None
     out = torch.empty((B, T, rs_out), dtype=F32, device=x.device)
     wn_layer_partial.launches += 1
-    _run(LIB.get().t2s_wn_layer_partial, x.device, x.data_ptr(),
-         spect.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
-         None if b_edge is None else b_edge.data_ptr(), w_cond.data_ptr(),
-         b_cond.data_ptr(), w_rs.data_ptr(), out.data_ptr(), B, T, n_valid,
-         K, Cp, M, rs_out, dilation)
+    if plan is not None:
+        _run(LIB_SM90.get().t2s_wn_layer_partial_sm90, x.device,
+             x.data_ptr(), spect.data_ptr(), w_in.data_ptr(),
+             b_in.data_ptr(), w_cond.data_ptr(), b_cond.data_ptr(),
+             w_rs.data_ptr(), out.data_ptr(), B, T, n_valid, K, Cp, M,
+             rs_out, dilation, plan["nwg"], plan["bk"], plan["stages"])
+    else:
+        _run(LIB.get().t2s_wn_layer_partial, x.device, x.data_ptr(),
+             spect.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+             b_edge.data_ptr(), w_cond.data_ptr(), b_cond.data_ptr(),
+             w_rs.data_ptr(), out.data_ptr(), B, T, n_valid, K, Cp, M,
+             rs_out, dilation)
     return out
 
 

@@ -18,19 +18,24 @@ serving kernels (``wn_layer_stream2_first_int8``, ``wn_layer_stream2_int8``,
 Weight layout.  The kernels take int8 weights OUTPUT-MAJOR, ``[N, K]`` with
 the contraction axis contiguous (``qw_in`` [3, 2C, C], ``qw_cond`` [2C, M],
 ``qw_rs`` [2C, C]): the s8 ``mma`` wants four consecutive k of one column
-in a register.  :func:`quantize_cols` itself keeps the JAX package's
-``[..., K, N]`` layout; :func:`to_output_major` transposes once, when the
-weights are prepared.  The plain versions take the same output-major
+in a register, and the s8 ``wgmma`` takes B K-major only.
+:func:`quantize_cols` itself keeps the JAX package's ``[..., K, N]``
+layout; :func:`to_output_major` transposes once, when the weights are
+prepared.  The plain versions take the same output-major
 tensors as the kernels.
 
 Each role has a plain version (``*_plain``), used for CPU tensors and as the
-reference the CUDA kernels of ``csrc/wn_block_int8.cu`` are checked
-against, and a wrapper that launches the kernel for CUDA tensors or raises;
-nothing falls back.  The plain versions are EXACT in their integer
-products without an integer matmul: s8 values cast to f32 multiply and add
-exactly while every partial sum stays below 2^24, which holds for K <= 1040
-(K * 127 * 127 < 2^24).  So each tap and the conditioning are separate f32
-products (TF32 off on a GPU), never one merged K = 3C + M product.
+reference the CUDA kernels are checked against, and a wrapper that launches
+the kernel for CUDA tensors or raises; nothing falls back.  The standard
+layer launches ``csrc/wn_block_int8_sm90.cu`` (s8 ``wgmma``, TMA, two
+warpgroups on a 64-row tile; :func:`int8_sm90_plan` picks the tile), the
+other roles ``csrc/wn_block_int8.cu``, which keeps the standard layer's
+first design (:func:`first_design`).  The plain versions are EXACT in their
+integer products without an integer matmul: s8 values cast to f32 multiply
+and add exactly while every partial sum stays below 2^24, which holds for
+K <= 1040 (K * 127 * 127 < 2^24).  So each tap and the conditioning are
+separate f32 products (TF32 off on a GPU), never one merged K = 3C + M
+product.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute.
 """
@@ -42,9 +47,9 @@ import ctypes
 import torch
 
 from .build import CudaLibrary
-from .wn_block import (F32, _check, _check_dims, _edge_bias_suppress,
-                       _end_projection, _gate, _on_cpu, _run, _shift, _taps,
-                       _valid_rows, check_partial_dims)
+from .wn_block import (F32, SM90_SMEM_LIMIT, _check, _check_dims,
+                       _edge_bias_suppress, _end_projection, _gate, _on_cpu,
+                       _run, _shift, _taps, _valid_rows, check_partial_dims)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,6 +58,10 @@ LIB = CudaLibrary("wn_block_int8", {
     "t2s_wn_layer_int8": [_P] * 18 + [_I] * 6 + [_P],
     "t2s_wn_layer_final_int8": [_P] * 15 + [_I] * 7 + [_P],
     "t2s_wn_layer_partial_int8": [_P] * 13 + [_I] * 8 + [_P],
+})
+LIB_SM90 = CudaLibrary("wn_block_int8_sm90", {
+    "t2s_wn_layer_int8_sm90": [_P] * 17 + [_I] * 8 + [_P],
+    "t2s_wn_int8_sm90_smem_bytes": [_I] * 3,
 })
 
 I8 = torch.int8
@@ -236,6 +245,55 @@ def _rs_checks(C, qw_rs, sw_rs, b_rs):
             ("b_rs", b_rs, (2 * C,), F32))
 
 
+# The launch plan of ``csrc/wn_block_int8_sm90.cu`` (its constants,
+# restated): a block is 64 rows, ``nc`` consumer warpgroups (column groups)
+# and one producer warpgroup; a ring stage holds ``nc`` [128, 128] int8
+# weight tiles and the [64, 128] int8 activation tile (K = 128 bytes, one
+# swizzled row); the gated tile is [64, C] int8; 1 KB aligns the ring, and
+# 608 bytes of static shared memory hold its mbarriers (six stages at most)
+# and the two column groups' row maxima.
+INT8_SM90_K = 128
+INT8_SM90_MAX_STAGES = 6
+INT8_SM90_STATIC_SMEM = 608
+
+
+def _int8_sm90_stage_bytes(nc: int) -> int:
+    return nc * 128 * INT8_SM90_K + 64 * INT8_SM90_K
+
+
+def int8_sm90_smem_bytes(nc: int, C: int, stages: int) -> int:
+    """Dynamic shared memory of one block (the kernel's ``smem_bytes``)."""
+    return 1024 + stages * _int8_sm90_stage_bytes(nc) + 64 * C
+
+
+def _int8_sm90_stages(nc: int, C: int) -> int:
+    free = (SM90_SMEM_LIMIT - INT8_SM90_STATIC_SMEM
+            - int8_sm90_smem_bytes(nc, C, 0))
+    return min(INT8_SM90_MAX_STAGES,
+               max(free, 0) // _int8_sm90_stage_bytes(nc))
+
+
+def int8_sm90_tile(C: int, nc: int, T: int = 1, B: int = 1) -> dict:
+    """The tile of ``csrc/wn_block_int8_sm90.cu`` with ``nc`` column groups
+    on 64-row blocks, its ring as deep as fits (up to six stages).  Raises
+    ValueError where fewer than two stages fit."""
+    stages = _int8_sm90_stages(nc, C)
+    if stages < 2:
+        raise ValueError(f"no tile of the sm90 int8 WN-layer kernel fits "
+                         f"C={C} in {SM90_SMEM_LIMIT} bytes of shared memory")
+    return {"nc": nc, "bm": 64, "stages": stages, "threads": 128 * (nc + 1),
+            "smem": int8_sm90_smem_bytes(nc, C, stages),
+            "grid": (-(-T // 64), B)}
+
+
+def int8_sm90_plan(C: int, T: int = 1, B: int = 1) -> dict:
+    """Tile of ``csrc/wn_block_int8_sm90.cu`` for width ``C`` and ``B``
+    utterances of ``T`` rows: two column groups where three ring stages of
+    them fit beside the gated tile (C <= 1664), else one.  Raises
+    ValueError where no tile fits in shared memory."""
+    return int8_sm90_tile(C, 2 if _int8_sm90_stages(2, C) >= 3 else 1, T, B)
+
+
 def wn_layer_first_int8(x0, qspect, sspect, start_k, start_b, wp, b_all,
                         b_edge, qw_cond, sw_cond, b_cond, qw_rs, sw_rs, b_rs,
                         dilation: int, n_valid: int | None = None):
@@ -291,7 +349,8 @@ def wn_layer_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
     ``qw_cond`` [2C, M], ``qw_rs`` [2C, C] (output-major); f32 ``sx`` /
     ``sspect`` [B, T, 1], column scales and biases [2C]; bf16 ``skip_acc``
     [B, T, C], updated IN PLACE (the returned skip tensor is ``skip_acc``
-    itself; the plain version returns a new tensor)."""
+    itself; the plain version returns a new tensor).  Launches
+    ``csrc/wn_block_int8_sm90.cu`` with :func:`int8_sm90_plan`."""
     if _on_cpu(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond, sw_cond,
                b_cond, qw_rs, sw_rs, b_rs, skip_acc):
         return wn_layer_int8_plain(qx, sx, qspect, sspect, qw_in, sw_in,
@@ -308,18 +367,42 @@ def wn_layer_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
         ("skip_acc", skip_acc, (B, T, C), torch.bfloat16),
     ):
         _check(name, t, shape, dt)
+    plan = int8_sm90_plan(C, T, B)
     qx_out = torch.empty_like(qx)
     sx_out = torch.empty_like(sx)
     x_new = torch.empty((B, T, C), dtype=F32, device=qx.device)  # scratch
     wn_layer_int8.launches += 1
-    _run(LIB.get().t2s_wn_layer_int8, qx.device, qx.data_ptr(),
+    _run(LIB_SM90.get().t2s_wn_layer_int8_sm90, qx.device, qx.data_ptr(),
          sx.data_ptr(), qspect.data_ptr(), sspect.data_ptr(),
          qw_in.data_ptr(), sw_in.data_ptr(), b_in.data_ptr(),
          qw_cond.data_ptr(), sw_cond.data_ptr(), b_cond.data_ptr(),
          qw_rs.data_ptr(), sw_rs.data_ptr(), b_rs.data_ptr(),
          skip_acc.data_ptr(), x_new.data_ptr(), qx_out.data_ptr(),
-         sx_out.data_ptr(), skip_acc.data_ptr(), B, T, n_valid, C, M,
-         dilation)
+         sx_out.data_ptr(), B, T, n_valid, C, M, dilation, plan["nc"],
+         plan["stages"])
+    return qx_out, sx_out, skip_acc
+
+
+def first_design(name: str, *args, n_valid: int | None = None):
+    """The first CUDA design of the standard int8 layer
+    (``csrc/wn_block_int8.cu``'s ``t2s_wn_layer_int8``: 64-row blocks,
+    ``mma.sync`` s8, ``cp.async``), kept so that the sm90 kernel can be
+    timed and checked beside it on the same inputs; no path calls it.
+    ``name`` is ``"wn_layer_int8"`` and the arguments are that wrapper's
+    (CUDA tensors, already checked by a call of the wrapper); ``skip_acc``
+    is updated in place.  It counts no launch."""
+    if name != "wn_layer_int8":
+        raise ValueError(f"no first design of {name!r}")
+    qx, sx, skip_acc = args[0], args[1], args[13]
+    B, T, C = qx.shape
+    n_valid = T if n_valid is None else int(n_valid)
+    qx_out = torch.empty_like(qx)
+    sx_out = torch.empty_like(sx)
+    x_new = torch.empty((B, T, C), dtype=F32, device=qx.device)  # scratch
+    _run(LIB.get().t2s_wn_layer_int8, qx.device,
+         *[t.data_ptr() for t in args[:14]], x_new.data_ptr(),
+         qx_out.data_ptr(), sx_out.data_ptr(), skip_acc.data_ptr(), B, T,
+         n_valid, C, args[2].shape[-1], int(args[14]))
     return qx_out, sx_out, skip_acc
 
 
