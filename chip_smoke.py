@@ -8,8 +8,9 @@ Phases, each of which passes or raises (the script then exits non-zero):
 1. require CUDA; print the card's name and power limit; turn TF32 off;
 2. build the hand-written kernels from ``csrc/`` (the bf16 WN-layer
    library and its Hopper redesign of the standard, final, ``dcond``
-   standard and tensor-parallel partial layers, the int8 WN-layer library
-   and its Hopper redesign of the standard layer on s8 ``wgmma``, the
+   standard and final and tensor-parallel partial layers, the int8
+   WN-layer library and its Hopper redesign of the standard and the
+   tensor-parallel partial layer on s8 ``wgmma``, the
    padded WN-layer library, the gated activation, the k=3 conv backward
    and its Hopper redesign, one ``nvcc`` each, all started together) and
    print the times, and for the three Hopper files the ``HGMMA`` /
@@ -24,7 +25,8 @@ Phases, each of which passes or raises (the script then exits non-zero):
    them with CUDA events at one vocode's shapes and compute the card's
    bound for the same work; time the standard, final and s8 standard
    layers at batch 1 and 3 beside their first design
-   (``wn_block.first_design``, ``wn_block_int8.first_design``), and the
+   (``wn_block.first_design``, ``wn_block_int8.first_design``), the
+   first and the int8 final layers at batch 3 with their bound, and the
    two products of the standard layer as one library call each;
 4. bf16 main path: synthesize a small batch of Korean texts end to end at
    full reference width (seeded random weights) through the fused vocoder
@@ -66,9 +68,11 @@ Phases, each of which passes or raises (the script then exits non-zero):
 12. the three composed-conditioning (``dcond``) kernels against their plain
     versions at C=512, L=8: batches 1 and 3, every dilation 1..128,
     ``n_valid < T``, the first and the last ``cond_index``, flow widths;
-    the standard one (the sm90 kernel) also at the edges of its tile and
-    against its first design; times and bounds, the standard one at batch
-    1 and 3 beside its first design in turns;
+    the standard and final ones (the sm90 kernel) also at the edges of
+    their tile and against their first design (the final one leaving
+    ``skip_acc`` untouched); times and bounds, the standard and final ones
+    at batch 1 and 3 beside their first design in turns, the first one at
+    batch 3;
 13. the composed vocoder at full width on the main path's mel
     (``precompute_composed_cond`` once, ``infer_fused(composed_cond=...)``):
     12/72/12 launches of the ``dcond`` wrappers and none of the projecting
@@ -88,12 +92,16 @@ Phases, each of which passes or raises (the script then exits non-zero):
 17. the two tensor-parallel partial kernels against their plain versions
     at C=512, M=640 for p = 2, 4, 8 ranks: batches 1 and 3, every dilation
     1..128, ``n_valid < T``, ``rs_out`` 2C and C, the layer-0 form (n_half
-    2..4 with the edge-bias rows); the bf16 one's sm90 form also against
-    its first design; the sum of the p partials plus the bias against the
+    2..4 with the edge-bias rows); both sm90 forms also against their
+    first design, the int8 one equal to its plain version bit for bit,
+    also at the edges of its tile (nothing valid, T - 1, off the tile, d
+    = 400, batch 3); the sum of the p partials plus the bias against the
     whole layer's plain res/skip product; times and bounds at B=1, T=6400
-    for p = 2 and 4, the bf16 one beside its first design in turns at
-    batch 1 and 3, and its 64- against its 128-row tile at batch 1; the s8
-    standard layer with one against two column groups at batch 1 and 3;
+    for p = 2 and 4, both beside their first design in turns at batch 1
+    and 3, and the bf16 one's 64- against its 128-row tile at batch 1;
+    the s8 standard layer with one against two column groups at batch 1
+    and 3, and the s8 partial layer so at p = 8, and at p = 4, 2 its
+    wrapper against the kernel alone;
 18. the tensor-parallel vocoder at full width on the main path's mel, p = 2
     and 4, all shards on the one card, bf16 and int8: 96 p launches of the
     bf16 partial kernel (12 p + 84 p with int8) and none of the whole-layer
@@ -190,12 +198,13 @@ KERNELS = {
 DCOND_KERNELS = {
     "wn_layer_first_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:100"),
     "wn_layer_dcond": ("wn_block_sm90.cu", PALLAS + "wn_block_dcond.py:43"),
-    "wn_layer_final_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:162"),
+    "wn_layer_final_dcond": ("wn_block_sm90.cu",
+                             PALLAS + "wn_block_dcond.py:162"),
 }
 # the tensor-parallel partial layers (one rank's share of a layer)
 PARTIAL_KERNELS = {
     "wn_layer_partial": ("wn_block_sm90.cu", PALLAS + "wn_block.py:642"),
-    "wn_layer_partial_int8": ("wn_block_int8.cu",
+    "wn_layer_partial_int8": ("wn_block_int8_sm90.cu",
                               PALLAS + "wn_block_int8.py:447"),
 }
 # the training kernels, same columns
@@ -572,6 +581,7 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
               f"{r['bound_by']})")
 
     time_beside_first_design(rec, C, M)
+    time_at_batch3(rec, fns, C, M)
 
     # yardsticks of the tensor-core rates: the standard layer's two
     # products (in-act, res/skip) as one library call each, at batch 1 and
@@ -594,7 +604,8 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
     design on the same inputs at one vocode's shapes, batch 1 and 3 x 6400
     groups, timed in turns (first, sm90, sm90, first); the two agree within
     the kernel bounds.  Adds ``prev_ms`` (the first design at batch 1),
-    ``ms_b3`` and ``prev_ms_b3`` to the three rows of ``rec``."""
+    ``ms_b3``, ``prev_ms_b3`` and ``bound_ms_b3`` to the three rows of
+    ``rec``."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
@@ -666,6 +677,31 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
                 rec[name]["prev_ms"] = prev
             else:
                 rec[name]["ms_b3"], rec[name]["prev_ms_b3"] = ms, prev
+                rec[name]["bound_ms_b3"] = bound
+
+
+def time_at_batch3(rec: dict, fns: dict, C: int, M: int) -> None:
+    """The first-design kernels of the main paths (rows 1, 6, 7: the bf16
+    and int8 first layers, the int8 final layer) at batch 3 x 6400 groups,
+    the served batch: their time and bound (``ms_b3``, ``bound_ms_b3``)."""
+    dev = torch.device("cuda")
+    B, T = 3, 6400
+    timed = {}
+    timed.update(layer_args(
+        layer_inputs(B, T, T, C, M, 89, dev, n_half=4), 1))
+    timed.update(layer_args(layer_inputs(B, T, T, C, M, 88, dev, E=8), 128))
+    for name in ("wn_layer_first", "wn_layer_first_int8",
+                 "wn_layer_final_int8"):
+        kern = fns[name][0]
+        args = timed[name]
+        outs = kern(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        tensors = [t for t in (*args, *outs) if torch.is_tensor(t)]
+        bound, by = bound_ms(work(name, B, T, C, M), tensors)
+        ms = time_ms(lambda: kern(*args))
+        print(f"  {name} B={B} T={T}: {ms:.4f} ms ({bound / ms:.1%} of the "
+              f"{bound:.4f} ms bound by {by})")
+        rec[name]["ms_b3"], rec[name]["bound_ms_b3"] = ms, bound
 
 
 TEXTS = [
@@ -998,13 +1034,30 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
                 check_pair(name, args, nv, f"{shape} d={d} li={li} "
                            f"E={k['w_end'].shape[1]}")
 
-    # the sm90 standard layer at the edges of its tile (as phase 3 does
-    # for the in-kernel projection: T and n_valid off the tile grid, a halo
-    # of a whole tile, batch 3, nothing valid, 128-row tiles) against its
-    # plain version and its first design, the skip sum on every row
+    # the sm90 standard and final layers at the edges of their tile (as
+    # phase 3 does for the in-kernel projection: T and n_valid off the tile
+    # grid, a halo of a whole tile, batch 3, nothing valid, 128-row tiles)
+    # against their plain versions and their first design, the skip sum
+    # and the final layer's output on every row; the final layer leaves
+    # skip_acc as it found it
     for B, T, nv in ((1, 1000, 129), (3, 777, 700), (2, 1000, 0),
                      (3, 6450, 6401)):
         cond_all = cond_for(B, T, seed)
+        for d, li, E in ((1, 0, 8), (400, L - 1, 1)):
+            seed += 1
+            k = layer_inputs(B, T, nv, C, 64, seed, dev, E=E)
+            args = dcond_args(k, cond_all, li, d)["wn_layer_final_dcond"]
+            skip_before = k["skip_acc"].clone()
+            got = wd.wn_layer_final_dcond(*args, n_valid=nv)
+            tag = (f"wn_layer_final_dcond edge B={B} T={T} n_valid={nv} d={d}"
+                   f" li={li} E={E}")
+            note("wn_layer_final_dcond", compare(
+                f"{tag} vs plain", got,
+                wd.wn_layer_final_dcond_plain(*args, n_valid=nv)))
+            compare(f"{tag} vs first design", got, wb.first_design(
+                "wn_layer_final_dcond", *args, n_valid=nv))
+            if not torch.equal(k["skip_acc"], skip_before):
+                raise RuntimeError(f"{tag}: skip_acc was written")
         for d, li, rs_full in ((1, 0, True), (128, L - 1, False)):
             seed += 1
             k = layer_inputs(B, T, nv, C, 64, seed, dev)
@@ -1061,53 +1114,65 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
         print(f"  {name} B={B} T={T}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (by "
               f"{r['bound_by']})")
-    time_dcond_beside_first_design(rec["wn_layer_dcond"], C, L)
+    for name in ("wn_layer_dcond", "wn_layer_final_dcond"):
+        time_dcond_beside_first_design(name, rec[name], C, L)
+    time_first_dcond_at_batch3(rec["wn_layer_first_dcond"], C, L)
     return rec
 
 
-def time_dcond_beside_first_design(r: dict, C: int, L: int) -> None:
-    """The sm90 dcond standard layer and its first design on the same
-    inputs at the composed vocode's shapes, batch 1 and 3 x 6400 groups,
-    timed in turns (first, sm90, sm90, first); the two agree within the
-    kernel bounds.  Adds ``prev_ms`` (the first design at batch 1),
-    ``ms_b3`` and ``prev_ms_b3`` to the row ``r``."""
+def time_dcond_beside_first_design(name: str, r: dict, C: int,
+                                   L: int) -> None:
+    """The sm90 dcond standard or final layer and its first design on the
+    same inputs at the composed vocode's shapes, batch 1 and 3 x 6400
+    groups, timed in turns (first, sm90, sm90, first); the two agree within
+    the kernel bounds.  Adds ``prev_ms`` (the first design at batch 1),
+    ``ms_b3``, ``prev_ms_b3`` and ``bound_ms_b3`` to the row ``r``."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
 
     dev = torch.device("cuda")
     T = 6400
+    std = name == "wn_layer_dcond"
+    kern = getattr(wd, name)
     for B in (1, 3):
         g = torch.Generator().manual_seed(78 + B)
         cond_all = torch.randn(B, T, 2 * C * L, generator=g).to(
             dev, torch.bfloat16)
-        args = dcond_args(layer_inputs(B, T, T, C, 64, 93, dev), cond_all,
-                          3, 64)["wn_layer_dcond"]
+        li = 3 if std else L - 1
+        args = dcond_args(layer_inputs(B, T, T, C, 64, 93, dev,
+                                       E=None if std else 8),
+                          cond_all, li, 64 if std else 128)[name]
 
         def first(*a, n_valid=None):
-            return wb.first_design("wn_layer_dcond", *a, n_valid=n_valid)
+            return wb.first_design(name, *a, n_valid=n_valid)
 
-        got = call_std(wd.wn_layer_dcond, args, T)
-        want = call_std(first, args, T)
-        compare(f"wn_layer_dcond sm90 vs first design B={B} x", got[0],
-                want[0])
-        compare(f"wn_layer_dcond sm90 vs first design B={B} skip", got[1],
-                want[1])
-        x_out = got[0]
         bt = 2 * B * T
+        if std:
+            got = call_std(kern, args, T)
+            want = call_std(first, args, T)
+            compare(f"{name} sm90 vs first design B={B} x", got[0], want[0])
+            compare(f"{name} sm90 vs first design B={B} skip", got[1],
+                    want[1])
+            outs, ops = (got[0], args[-2]), bt * 3 * C * 2 * C + bt * C * 2 * C
+        else:
+            got = kern(*args)
+            compare(f"{name} sm90 vs first design B={B}", got, first(*args))
+            outs, ops = (got,), bt * 3 * C * 2 * C + 2 * bt * C * 8
+        # the function reads its 2C-wide slice of cond_all, not all of it
         bound, by = bound_ms(
-            {"bf16": bt * 3 * C * 2 * C + bt * C * 2 * C},
-            [t[..., 3 * 2 * C: 4 * 2 * C] if t is cond_all else t
-             for t in (*args, x_out, args[-2]) if torch.is_tensor(t)])
+            {"bf16": ops},
+            [t[..., li * 2 * C: (li + 1) * 2 * C] if t is cond_all else t
+             for t in (*args, *outs) if torch.is_tensor(t)])
         firsts, sm90 = [], []
         for fn, acc in ((lambda: first(*args), firsts),
-                        (lambda: wd.wn_layer_dcond(*args), sm90),
-                        (lambda: wd.wn_layer_dcond(*args), sm90),
+                        (lambda: kern(*args), sm90),
+                        (lambda: kern(*args), sm90),
                         (lambda: first(*args), firsts)):
             acc.append(time_ms(fn))
         ms, prev = sum(sm90) / 2, sum(firsts) / 2
         plan = wb.sm90_plan(C, T, B)
         blocks = plan["grid"][0] * plan["grid"][1]
-        print(f"  wn_layer_dcond B={B} T={T}: sm90 {sm90[0]:.4f} / "
+        print(f"  {name} B={B} T={T}: sm90 {sm90[0]:.4f} / "
               f"{sm90[1]:.4f} ms ({bound / ms:.1%} of the {bound:.4f} ms "
               f"bound by {by}), first design {firsts[0]:.4f} / "
               f"{firsts[1]:.4f} ms ({bound / prev:.1%}); sm90 tile "
@@ -1117,7 +1182,31 @@ def time_dcond_beside_first_design(r: dict, C: int, L: int) -> None:
         if B == 1:
             r["prev_ms"] = prev
         else:
-            r["ms_b3"], r["prev_ms_b3"] = ms, prev
+            r["ms_b3"], r["prev_ms_b3"], r["bound_ms_b3"] = ms, prev, bound
+
+
+def time_first_dcond_at_batch3(r: dict, C: int, L: int) -> None:
+    """Kernel 10 (the dcond first layer) at batch 3 x 6400 groups: its time
+    and bound (``ms_b3``, ``bound_ms_b3`` of the row ``r``)."""
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    dev = torch.device("cuda")
+    B, T = 3, 6400
+    g = torch.Generator().manual_seed(87)
+    cond_all = torch.randn(B, T, 2 * C * L, generator=g).to(dev,
+                                                            torch.bfloat16)
+    args = dcond_args(layer_inputs(B, T, T, C, 64, 86, dev, n_half=4),
+                      cond_all, 0, 1)["wn_layer_first_dcond"]
+    outs = wd.wn_layer_first_dcond(*args)
+    bt = 2 * B * T
+    bound, by = bound_ms(
+        {"bf16": bt * 3 * 4 * 2 * C + bt * 4 * C + bt * C * 2 * C},
+        [t[..., : 2 * C] if t is cond_all else t
+         for t in (*args, *outs) if torch.is_tensor(t)])
+    ms = time_ms(lambda: wd.wn_layer_first_dcond(*args))
+    print(f"  wn_layer_first_dcond B={B} T={T}: {ms:.4f} ms ({bound / ms:.1%}"
+          f" of the {bound:.4f} ms bound by {by})")
+    r["ms_b3"], r["bound_ms_b3"] = ms, bound
 
 
 def composed_path(synth, mel: torch.Tensor, rel32_bf16: float) -> dict:
@@ -1516,10 +1605,11 @@ def rank_share(k: dict, p: int, i: int, int8: bool) -> tuple:
 
 def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
     """Phase 17: kernels 4 and 8 against their plain versions at reference
-    width (kernel 4's sm90 form also against its first design), then kernel
-    and plain times and the card's bound at B=1, T=6400 for p = 2 and 4 (the
-    record holds p = 4's), and kernel 4 beside its first design in turns at
-    batch 1 and 3."""
+    width (their sm90 forms also against their first design; kernel 8's
+    equal to its plain version bit for bit), then kernel and plain times
+    and the card's bound at B=1, T=6400 for p = 2 and 4 (the record holds p
+    = 4's), and both beside their first design in turns at batch 1 and
+    3."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
@@ -1541,16 +1631,22 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
         return got
 
     def check_int8(tag, args, nv):
+        """The s8 wgmma form: equal to the plain version bit for bit, and
+        to the first design within the int8 partial bound."""
         got = wq.wn_layer_partial_int8(*args, n_valid=nv)
         want = wq.wn_layer_partial_int8_plain(*args, n_valid=nv)
+        first = wq.first_design("wn_layer_partial_int8", *args, n_valid=nv)
         err = (got - want).abs().max().item()
-        rel = ((got - want).norm() / want.norm()).item()
-        print(f"  wn_layer_partial_int8 {tag}: max_abs_err={err:.6g} (bound "
-              f"{INT8_PARTIAL_ATOL}) rel_l2={rel:.3g} (bound {KERNEL_REL_L2})")
-        if not torch.isfinite(got).all() or got[:, nv:].any() \
-                or err > INT8_PARTIAL_ATOL or rel > KERNEL_REL_L2:
+        err_first = (got - first).abs().max().item()
+        same = torch.equal(got, want)
+        print(f"  wn_layer_partial_int8 {tag}: equal to plain {same} "
+              f"(max_abs_err={err:.6g}); vs first design max_abs_err="
+              f"{err_first:.6g} (bound {INT8_PARTIAL_ATOL})")
+        if not torch.isfinite(got).all() or got[:, nv:].any() or not same \
+                or err_first > INT8_PARTIAL_ATOL:
             raise RuntimeError(f"wn_layer_partial_int8 {tag}: kernel "
-                               f"disagrees with its plain version")
+                               f"disagrees with its plain version or its "
+                               f"first design")
         note("wn_layer_partial_int8", err)
 
     seed = 700
@@ -1600,6 +1696,26 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
                         f"sum of {p} partials + bias vs the whole layer {tag}",
                         (total + k["b_rs"])[:, :nv], rs[:, :nv]))
 
+    # kernel 8's s8 form at the edges of its 64-row tile: nothing valid,
+    # n_valid = T - 1 and off the tile, a halo past a tile (d = 400), the
+    # 6400-row grids of batch 3, every rank width
+    for p in (2, 4, 8):
+        for B, T, nv, d, rs_full in ((2, 1000, 0, 1, True),
+                                     (1, 1000, 999, 64, False),
+                                     (1, 333, 200, 400, True),
+                                     (3, 6450, 6401, 128, False)):
+            seed += 1
+            k = layer_inputs(B, T, nv, C, M, seed, dev)
+            if not rs_full:
+                k["w_rs"] = k["w_rs"][:, :C].contiguous()
+            qx, sx = wq.quantize_rows(k["x"])
+            qsp, ssp = wq.quantize_rows(k["spect"])
+            for i in (0, p - 1):
+                check_int8(f"edge p={p} B={B} T={T} n_valid={nv} d={d} "
+                           f"rs_out={k['w_rs'].shape[1]} rank {i}",
+                           (qx, sx, qsp, ssp, *rank_share(k, p, i, True), d),
+                           nv)
+
     B, T, d = 1, 6400, 64
     k = layer_inputs(B, T, T, C, M, 93, dev)
     qx, sx = wq.quantize_rows(k["x"])
@@ -1628,61 +1744,88 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
                   f" MB")
             if p == 4:
                 rec[name].update(r)
-    time_partial_beside_first_design(rec["wn_layer_partial"], C, M)
+    for name in PARTIAL_KERNELS:
+        time_partial_beside_first_design(name, rec[name], C, M)
     return rec
 
 
-def time_partial_beside_first_design(r: dict, C: int, M: int) -> None:
-    """Kernel 4's sm90 form and its first design on the same inputs, rank 0
-    of p = 2 and 4, d=64, batch 1 and 3 x 6400 groups, in turns (first,
-    sm90, sm90, first).  Adds ``prev_ms`` (p = 4, batch 1), ``ms_b3`` and
-    ``prev_ms_b3`` (p = 4) to ``r``."""
+def time_partial_beside_first_design(name: str, r: dict, C: int,
+                                     M: int) -> None:
+    """Kernel 4's or 8's sm90 form and its first design on the same inputs,
+    rank 0 of p = 2 and 4, d=64, batch 1 and 3 x 6400 groups, in turns
+    (first, sm90, sm90, first).  Adds ``prev_ms`` (p = 4, batch 1),
+    ``ms_b3``, ``prev_ms_b3`` and ``bound_ms_b3`` (p = 4) to ``r``."""
     from text2speech_tpu_torch.ops import wn_block as wb
+    from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
     dev = torch.device("cuda")
     T, d = 6400, 64
+    int8 = name == "wn_layer_partial_int8"
+    mod = wq if int8 else wb
+    kern = getattr(mod, name)
     for B in (1, 3):
         k = layer_inputs(B, T, T, C, M, 92, dev)
+        acts = ((*wq.quantize_rows(k["x"]), *wq.quantize_rows(k["spect"]))
+                if int8 else (k["x"], k["spect"]))
         for p in (2, 4):
             Cp = C // p
-            args = (k["x"], k["spect"], *rank_share(k, p, 0, False), d)
-            out = wb.wn_layer_partial(*args)
-            compare(f"wn_layer_partial sm90 vs first design p={p} B={B}",
-                    out, wb.first_design("wn_layer_partial", *args))
+            args = (*acts, *rank_share(k, p, 0, int8), d)
+
+            def first(args=args):
+                return mod.first_design(name, *args)
+
+            out = kern(*args)
+            tag = f"{name} sm90 vs first design p={p} B={B}"
+            if int8:
+                err = (out - first()).abs().max().item()
+                print(f"  {tag}: max_abs_err={err:.6g} (bound "
+                      f"{INT8_PARTIAL_ATOL})")
+                if err > INT8_PARTIAL_ATOL:
+                    raise RuntimeError(f"{tag}: the designs disagree")
+            else:
+                compare(tag, out, first())
             ops = 2 * B * T * ((3 * C + M) * 2 * Cp + Cp * 2 * C)
             tensors = [t for t in (*args, out) if torch.is_tensor(t)]
-            bound, by = bound_ms({"bf16": ops}, tensors)
+            bound, by = bound_ms({"int8" if int8 else "bf16": ops}, tensors)
             times = {"first": [], "sm90": []}
-            for tag, fn in (
-                    ("first", lambda: wb.first_design("wn_layer_partial",
-                                                      *args)),
-                    ("sm90", lambda: wb.wn_layer_partial(*args)),
-                    ("sm90", lambda: wb.wn_layer_partial(*args)),
-                    ("first", lambda: wb.first_design("wn_layer_partial",
-                                                      *args))):
+            for tag, fn in (("first", first),
+                            ("sm90", lambda: kern(*args)),
+                            ("sm90", lambda: kern(*args)),
+                            ("first", first)):
                 times[tag].append(time_ms(fn))
             ms, prev = sum(times["sm90"]) / 2, sum(times["first"]) / 2
-            plan = wb.sm90_plan(Cp, T, B)
-            print(f"  wn_layer_partial p={p} B={B} T={T}: sm90 "
+            if int8:
+                plan = wq.int8_sm90_plan(Cp, T, B)
+                tile = (f"{plan['nc']} column groups, {plan['stages']} "
+                        f"stages of K=128 bytes")
+            else:
+                plan = wb.sm90_plan(Cp, T, B)
+                tile = f"{plan['stages']} stages of K={plan['bk']}"
+            print(f"  {name} p={p} B={B} T={T}: sm90 "
                   f"{times['sm90'][0]:.4f} / {times['sm90'][1]:.4f} ms "
                   f"({bound / ms:.1%} of the {bound:.4f} ms bound by {by}), "
                   f"first design {times['first'][0]:.4f} / "
                   f"{times['first'][1]:.4f} ms ({bound / prev:.1%}); tile "
-                  f"{plan['bm']} rows, {plan['stages']} stages of "
-                  f"K={plan['bk']}, {plan['grid'][0] * B} blocks")
+                  f"{plan['bm']} rows, {tile}, {plan['grid'][0] * B} blocks")
             if p == 4 and B == 1:
                 r["prev_ms"] = prev
             elif p == 4:
-                r["ms_b3"], r["prev_ms_b3"] = ms, prev
+                r["ms_b3"], r["prev_ms_b3"], r["bound_ms_b3"] = (ms, prev,
+                                                                 bound)
 
 
 def tile_alternatives(C: int = 512, M: int = 640) -> None:
     """What the plans' tiles buy, on the same inputs, timed in turns (each
     tile, then each in reverse): the s8 standard layer with one and two
     column groups (consumer warpgroups on its 64 rows) at batch 1 and 3 x
-    6400 groups; kernel 4's sm90 form (rank 0 of p = 2, 4) at batch 1 with
-    64- and 128-row blocks (one utterance: 50 blocks of 128 rows would
-    leave 82 of 132 SMs idle)."""
+    6400 groups; kernel 8's s8 form at p = 8 (Cp = 64: one gate chunk, so
+    the second column group sits out the in-act product) with one and two
+    column groups at batch 1 and 3, the choice of ``wn_block_int8.
+    int8_sm90_plan`` there, and at p = 4 and 2 its wrapper back to back
+    against the kernel alone (raw launches into one output buffer: the
+    wrapper's host work per call can outlast the kernel); kernel 4's sm90 form (rank 0 of p = 2, 4) at
+    batch 1 with 64- and 128-row blocks (one utterance: 50 blocks of 128
+    rows would leave 82 of 132 SMs idle)."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
@@ -1716,6 +1859,50 @@ def tile_alternatives(C: int = 512, M: int = 640) -> None:
 
         in_turns(f"wn_layer_int8 B={B} (the plan's: {plan['nc']} column "
                  f"groups)", {f"{nc} column groups": s8(nc) for nc in (1, 2)})
+
+        qx, sx = wq.quantize_rows(k["x"])
+        qsp, ssp = wq.quantize_rows(k["spect"])
+        a8 = (qx, sx, qsp, ssp, *rank_share(k, 8, 0, True))
+        out = torch.empty(B, T, 2 * C, device=dev)
+        pptrs = [t.data_ptr() for t in (*a8, out)]
+        plan = wq.int8_sm90_plan(C // 8, T, B)
+
+        def part8(nc):
+            stages = wq.int8_sm90_tile(C // 8, nc, T, B)["stages"]
+            return lambda: wq.LIB_SM90.get().t2s_wn_layer_partial_int8_sm90(
+                *pptrs, B, T, T, C, C // 8, M, 2 * C, d, nc, stages, stream)
+
+        in_turns(f"wn_layer_partial_int8 p=8 B={B} (the plan's: "
+                 f"{plan['nc']} column groups)",
+                 {f"{nc} column groups": part8(nc) for nc in (1, 2)})
+
+        # kernel 8 at p = 4 and 2: its wrapper back to back (as the
+        # kernel rows time it) against the kernel alone, raw launches into
+        # one output buffer: at batch 1 the wrapper's host work per call
+        # (checks, plan, allocation, device guard) can outlast the kernel
+        for p in (4, 2):
+            Cp = C // p
+            a8 = (qx, sx, qsp, ssp, *rank_share(k, p, 0, True))
+            plan = wq.int8_sm90_plan(Cp, T, B)
+            aptrs = [t.data_ptr() for t in (*a8, out)]
+
+            def alone(aptrs=aptrs, plan=plan, Cp=Cp):
+                return wq.LIB_SM90.get().t2s_wn_layer_partial_int8_sm90(
+                    *aptrs, B, T, T, C, Cp, M, 2 * C, d, plan["nc"],
+                    plan["stages"], stream)
+
+            def wrapper(a8=a8):
+                return wq.wn_layer_partial_int8(*a8, d)
+
+            if alone():
+                raise RuntimeError("wn_layer_partial_int8: launch failed")
+            times = {"wrapper": [], "kernel alone": []}
+            for n, fn in (("wrapper", wrapper), ("kernel alone", alone),
+                          ("kernel alone", alone), ("wrapper", wrapper)):
+                times[n].append(time_ms(fn))
+            print(f"[kernels] host, wn_layer_partial_int8 p={p} B={B}: " +
+                  "; ".join(f"{n} {t[0]:.4f} / {t[1]:.4f} ms"
+                            for n, t in times.items()))
 
     B = 1
     k = layer_inputs(B, T, T, C, M, 90, dev)
@@ -3207,9 +3394,10 @@ def main() -> int:
         # activation; the conv backward has aten.convolution_backward
         "library_ms": rec[n].get("library_ms"),
         # the redesigned kernels: their first design's time, both at batch
-        # 3 (the WN layers) and the conv backward's f32 form
-        **{k: rec[n][k] for k in ("prev_ms", "ms_b3", "prev_ms_b3", "f32")
-           if k in rec[n]},
+        # 3 (the WN layers; the main paths' other WN layers too, with the
+        # bound there) and the conv backward's f32 form
+        **{k: rec[n][k] for k in ("prev_ms", "ms_b3", "prev_ms_b3",
+                                  "bound_ms_b3", "f32") if k in rec[n]},
     } for n, (src, repl) in {**KERNELS, **DCOND_KERNELS, **PARTIAL_KERNELS,
                              **TRAIN_KERNELS, **PADDED_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))

@@ -26,8 +26,17 @@ the decoder rematerialized, and bf16, each with its peak device memory.
 For each stage it prints the wall time of the profiled
 call, the device-busy time (the union of the kernels' intervals in the
 trace), the idle share (1 - busy / wall), the number of kernels and the
-kernels that took most of the device time.  One JSON line per stage, then
-the card's name and power limit.  Needs a GPU; imports nothing of JAX.
+kernels that took most of the device time, and under "named" the WN-layer
+kernels by their (mangled) names: ``wn_sm90_kernel<ROLE, NWG, BK, DCOND>``
+of ``csrc/wn_block_sm90.cu`` (ROLE 0 standard, 1 final, 2 partial; DCOND 1
+for the composed vocoder's standard and final layers),
+``wn_int8_sm90_kernel<ROLE, NC>`` of ``csrc/wn_block_int8_sm90.cu`` (ROLE
+0 the int8 standard layer, 1 the int8 tensor-parallel partial layer) and
+the first design's ``wn_layer_kernel`` / ``wn_layer_int8_kernel`` of
+``csrc/wn_block.cu`` / ``csrc/wn_block_int8.cu`` (the first layers, the
+int8 final layer, the layer-0 partial form).  One JSON line per stage,
+then the card's name and power limit.  Needs a GPU; imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -338,7 +347,7 @@ def server_stages(args) -> None:
             rec = profile_stage(
                 f"vocode {tag} tp p={p}",
                 lambda: tps(mel, SIGMA, generator=gen.manual_seed(1)),
-                ("wn_layer", "wn_sm90_kernel"))
+                ("wn_layer", "wn_sm90_kernel", "wn_int8_sm90_kernel"))
             print(json.dumps(rec, ensure_ascii=False))
             del tps
             torch.cuda.empty_cache()

@@ -885,6 +885,40 @@ def test_sm90_dcond_layer_agrees_with_first_design_and_plain(dev, C, B, T,
             close(gs, want_s)
 
 
+@pytest.mark.parametrize("C,B,T,nv,d,E", [
+    (512, 1, 1000, 937, 64, 8),     # 64-row tile (one utterance)
+    (512, 3, 6000, 5999, 128, 1),   # 128-row tile, n_valid = T - 1, E = 1
+    (512, 2, 777, 0, 1, 8),         # nothing valid: no in-act stage at all
+    (128, 2, 333, 300, 400, 4),     # n_valid off the tile, a halo past it
+    (256, 3, 6400, 6400, 8, 6),     # 128-row tile, K = 64 stages
+])
+def test_sm90_final_dcond_agrees_with_first_design_and_plain(dev, C, B, T,
+                                                             nv, d, E):
+    """The sm90 ``dcond`` final layer (``FINAL`` with ``DCOND``) against its
+    first design (``wn_block.first_design("wn_layer_final_dcond", ...)``)
+    and its plain version at the first and the last ``cond_index``, on
+    every row; skip_acc is read, never written; one launch per call."""
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    L = 4
+    k = inputs(dev, B, T, nv, C, 64, C + nv + d, rs_out=C, E=E)
+    cond_all = cond_all_for(dev, B, T, C, L, nv + d + E)
+    w_eff, b_eff = wb.fold_end(k["w_rs"], k["b_rs"], k["w_end"], k["b_end"])
+    acc = k["acc"].clone()
+    for li in (0, L - 1):
+        args = (k["x"], cond_all, li, k["w_in"], k["b_in"], w_eff, k["acc"],
+                k["w_end"], b_eff, d)
+        wd.reset_launch_counts()
+        got = wd.wn_layer_final_dcond(*args, n_valid=nv)
+        first = wb.first_design("wn_layer_final_dcond", *args, n_valid=nv)
+        want = wd.wn_layer_final_dcond_plain(*args, n_valid=nv)
+        assert wd.launch_counts()["wn_layer_final_dcond"] == 1
+        assert got.shape == (B, T, E) and got.dtype == torch.float32
+        close(got, first)
+        close(got, want)
+        assert torch.equal(k["acc"], acc)
+
+
 def test_dcond_wrappers_reject_what_the_kernels_do_not_take(dev):
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
 
@@ -1109,10 +1143,9 @@ def test_partial_first_form_kernel_matches_plain(dev, n_half, p):
                                          (8, 400, True)])
 def test_partial_int8_kernel_matches_plain(dev, p, d, rs_full):
     """Each rank quantizes its own slices.  The integer products are exact
-    on both sides; a gated value on a rounding knife edge may differ by one
-    count, which moves an output by at most that column's weight scale, so
-    the f32 partial is held to the final int8 layer's bound, 0.02, and to
-    5e-3 relative L2."""
+    on both sides, and the s8 wgmma form runs every f32 operation after
+    them in the plain version's order, so the f32 partial equals the plain
+    version bit for bit."""
     B, T, nv, C, M = 2, 333, 300, 512, 64
     Cp = C // p
     k = inputs(dev, B, T, nv, C, M, d, rs_out=2 * C if rs_full else C)
@@ -1131,8 +1164,57 @@ def test_partial_int8_kernel_matches_plain(dev, p, d, rs_full):
         got = wq.wn_layer_partial_int8(*args, n_valid=nv)
         want = wq.wn_layer_partial_int8_plain(*args, n_valid=nv)
         assert torch.isfinite(got).all() and (got[:, nv:] == 0).all()
-        assert (got - want).abs().max().item() <= 0.02
-        assert ((got - want).norm() / want.norm()).item() <= REL_L2
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p", [2, 4, 8])          # Cp = 256, 128, 64
+@pytest.mark.parametrize("B,T,nv,d,rs_full", [
+    (2, 1000, 0, 1, True),        # nothing valid: no tap stage
+    (1, 1000, 999, 64, False),    # n_valid = T - 1
+    (3, 777, 700, 128, True),     # n_valid off the tile, batch 3
+    (1, 333, 200, 400, False),    # a halo past several tiles
+    (3, 6450, 6401, 8, True)])    # the grid of batch 3 at full length
+def test_sm90_partial_int8_equals_plain_at_tile_edges(dev, p, B, T, nv, d,
+                                                      rs_full):
+    """The s8 wgmma ``PART`` form (csrc/wn_block_int8_sm90.cu) equals its
+    plain version bit for bit (the integer sums are exact on both sides and
+    every f32 operation after them runs in the plain version's order), at
+    the first and the last rank; its first design within the int8 partial
+    bound; one launch per call."""
+    C, M = 512, 640
+    Cp = C // p
+    k = inputs(dev, B, T, nv, C, M, 5 * p + d, rs_out=2 * C if rs_full else C)
+    qx, sx = wq.quantize_rows(k["x"])
+    qspect, sspect = wq.quantize_rows(k["spect"])
+    for i in (0, p - 1):
+        cols = torch.from_numpy(rank_cols(C, Cp, i)).to(dev)
+        qs = [wq.quantize_cols(w) for w in (
+            k["w_in"][..., cols], k["w_cond"][:, cols],
+            k["w_rs"][i * Cp:(i + 1) * Cp])]
+        (qw_in, sw_in), (qw_cond, sw_cond), (qw_rs, sw_rs) = [
+            (wq.to_output_major(q), s) for q, s in qs]
+        args = (qx, sx, qspect, sspect, qw_in, sw_in,
+                k["b_in"][cols].contiguous(), qw_cond, sw_cond,
+                k["b_cond"][cols].contiguous(), qw_rs, sw_rs, d)
+        wq.wn_layer_partial_int8.launches = 0
+        got = wq.wn_layer_partial_int8(*args, n_valid=nv)
+        assert wq.wn_layer_partial_int8.launches == 1
+        want = wq.wn_layer_partial_int8_plain(*args, n_valid=nv)
+        first = wq.first_design("wn_layer_partial_int8", *args, n_valid=nv)
+        assert wq.wn_layer_partial_int8.launches == 1
+        assert torch.equal(got, want)
+        assert (got[:, nv:] == 0).all()
+        assert (got - first).abs().max().item() <= 0.02
+
+
+def test_int8_partial_plan_is_the_kernels(dev):
+    """The partial plan's shared memory is what the kernel asks for, at
+    every rank width of the reference config and a wide one."""
+    for Cp in (64, 128, 192, 256, 512, 2816):
+        for B in (1, 3):
+            plan = wq.int8_sm90_plan(Cp, 6400, B)
+            assert wq.LIB_SM90.get().t2s_wn_int8_sm90_smem_bytes(
+                plan["nc"], Cp, plan["stages"]) == plan["smem"]
 
 
 def test_partial_wrappers_reject_what_the_kernels_do_not_take(dev):

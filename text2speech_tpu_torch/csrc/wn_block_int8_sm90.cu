@@ -1,8 +1,11 @@
-// WaveGlow WN coupling layer in int8, standard role, redesigned for Hopper
-// (sm_90a): s8 wgmma, TMA and 128-row tiles.
+// WaveGlow WN coupling layer in int8, standard and partial roles,
+// redesigned for Hopper (sm_90a): s8 wgmma, TMA and 64-row tiles.
 //
 //   STD    replaces text2speech_tpu/ops/pallas/wn_block_int8.py:268
 //          wn_layer_stream2_int8 (body _kernel_stream2_q, :141)
+//   PART   replaces text2speech_tpu/ops/pallas/wn_block_int8.py:447
+//          wn_layer_stream2_partial_int8 (body _kernel_stream2_partial_q,
+//          :410), layers 1..L-1 of the tensor-parallel int8 vocoder
 //
 // The function is that of wn_block_int8.cu's STD role, for rows t of one
 // utterance: hidden state qx [T, C] int8 with one f32 scale per row sx [T],
@@ -101,8 +104,41 @@
 //
 // Every block still streams all 2.7 MB of the layer's int8 weights from L2
 // (100 blocks at one utterance of 6400 rows).  Measured times are in
-// PERF.md.  A wait on an mbarrier that does not complete within seconds
-// traps (a launch error) instead of hanging the card.
+// PERF.md.
+//
+// PART.  One rank's share of a layer under tensor parallelism: the hidden
+// state's width CX (the taps' K) and the rank's gate width Cp (its
+// gate-paired columns of qw_in [3, 2Cp, CX] and qw_cond [2Cp, M], with its
+// own column scales; the res/skip K) are two widths, and the kernel's C
+// is Cp:
+//
+//   part[t] = t < n_valid ? s32(q[t] . qw_rs) * (sw_rs / 127) : 0  [rs_out]
+//
+// f32, with qw_rs [rs_out, Cp] the rank's rows and sw_rs its own scales, so
+// the ranks' partials add on one scale: no bias, residual, amax,
+// requantization, x_new scratch or skip sum (they follow the sum over
+// ranks).  The mainloop is the standard layer's.  At Cp % 128 == 64 the
+// last gate chunk pair has one chunk: the second column group sits out its
+// in-act product (the producer loads no weight tile for it, and it passes
+// the ring's stages on), so at p = 8 (Cp = 64) the second warpgroup only
+// shares the res/skip chunks: int8_sm90_plan keeps two column groups there,
+// which a timed tile line found within 3% of one, ahead at batch 3
+// (PERF.md).  The res/skip K = Cp may be below one 128-byte stage: the
+// gated tile is whole 128-column panels, and the qw_rs boxes past Cp are
+// TMA's zero fill, so the panel's unwritten columns multiply zeros.  The
+// epilogue writes the f32 partial whole, zero at rows >= n_valid: the
+// chunk's column scales are loaded before its K loop, and the two threads
+// of a quad pair swap a row's pair of columns by a shuffle, so that each
+// stores four consecutive floats of one row as one 16-byte vector.  At
+// p = 4, B=1, T=6400 the call is 8.8 GOP against ~34 MB, 26 MB of it the
+// f32 output: 0.0102 ms at 3.35 TB/s, bound by bytes.  The register path's
+// stores are kept: at p = 8, 4 and 2 (the same output, in-act work 1 : 2 :
+// 4) the call grows with the in-act product, not with the stores, so a TMA
+// store of each [64, 128] f32 chunk from shared memory is untried
+// (PERF.md).
+//
+// A wait on an mbarrier that does not complete within seconds traps (a
+// launch error) instead of hanging the card.
 
 #include <string.h>
 
@@ -129,16 +165,21 @@ struct QTile {
   static constexpr int STAGE = B_BYTES + A_BYTES;
 };
 
+enum Role { STD = 0, PART = 1 };
+
 struct QParams {
-  CUtensorMap tm_qx;      // qx as [B, n_valid, C]; box {128, BM, 1}
+  CUtensorMap tm_qx;      // qx as [B, n_valid, CX]; box {128, BM, 1}
   CUtensorMap tm_qspect;  // qspect [B, T, M]; box {128, BM, 1}
-  CUtensorMap tm_win;     // qw_in as [3 * 2C, C]; box {128, 64}
+  CUtensorMap tm_win;     // qw_in as [3 * 2C, CX]; box {128, 64}
   CUtensorMap tm_wcond;   // qw_cond [2C, M]; box {128, 64}
-  CUtensorMap tm_wrs;     // qw_rs [2C, C]; box {128, 64}
+  CUtensorMap tm_wrs;     // qw_rs [rs_out, C]; box {128, 64}
   int T, n_valid, C, M, d, stages;
-  int ntap;               // K stages of one tap (C / 128); 0 if n_valid == 0
+  int CX;                 // the hidden state's width: C except in PART
+  int rs_out;             // res/skip columns: 2C in STD
+  int ntap;               // K stages of one tap (CX / 128); 0 if n_valid == 0
   int ncond;              // K stages of the conditioning: ceil(M / 128)
-  const int8_t* qx;       // [B, T, C]
+  int nrs;                // K stages of the res/skip product: ceil(C / 128)
+  const int8_t* qx;       // [B, T, CX]
   const float* sx;        // [B, T]
   const float* sspect;    // [B, T]
   const float* sw_in;     // [2C]
@@ -151,6 +192,7 @@ struct QParams {
   float* xn;              // [B, T, C] scratch for x_new
   int8_t* qx_out;         // [B, T, C]
   float* sx_out;          // [B, T]
+  float* out;             // PART: [B, T, rs_out]
 };
 
 // K-major operand with 128-byte rows and the 128-byte swizzle: 8-row
@@ -214,7 +256,14 @@ __device__ __forceinline__ uint32_t gated_off(int r, int c) {
 
 // --- producer ---------------------------------------------------------------
 
-template <int NC>
+// PART: the column groups that have a chunk at c0 of a width of `width`
+// columns in chunks of `chunk` (the others sit it out); STD: all of them.
+template <int ROLE, int NC>
+__device__ __forceinline__ int groups_on(int c0, int width, int chunk) {
+  return ROLE == PART ? min(NC, (width - c0) / chunk) : NC;
+}
+
+template <int ROLE, int NC>
 __device__ __forceinline__ void produce(const QParams& p, uint8_t* ring,
                                         uint64_t* full, uint64_t* empty,
                                         int b, int t0) {
@@ -222,13 +271,14 @@ __device__ __forceinline__ void produce(const QParams& p, uint8_t* ring,
   const int C = p.C;
   Ring r;
   for (int c0 = 0; c0 < C; c0 += QH * NC) {
-    // the chunks' K order: tap 0, 1, 2 (C each), then the conditioning;
+    // the chunks' K order: tap 0, 1, 2 (CX each), then the conditioning;
     // column group g's chunk starts at column c0 + 64 g
+    const int ng = groups_on<ROLE, NC>(c0, C, QH);
     for (int ks = 0; ks < 3 * p.ntap + p.ncond; ++ks) {
       mbar_wait(&empty[r.st], r.ph ^ 1);
       uint8_t* slot = ring + r.st * TL::STAGE;
       uint64_t* bar = &full[r.st];
-      mbar_expect_tx(bar, TL::STAGE);
+      mbar_expect_tx(bar, A_BYTES + ng * B_STAGE);
       const bool tap = ks < 3 * p.ntap;
       const int j = tap ? ks / p.ntap : 0;
       const int k0 = (tap ? ks - j * p.ntap : ks - 3 * p.ntap) * QK;
@@ -241,6 +291,7 @@ __device__ __forceinline__ void produce(const QParams& p, uint8_t* ring,
         tma_load_3d(slot + TL::B_BYTES, &p.tm_qspect, k0, t0, b, bar);
 #pragma unroll
       for (int g = 0; g < NC; ++g) {
+        if (g >= ng) break;
         const int c = c0 + QH * g;
         tma_load_2d(slot + g * B_STAGE, wm, k0, wrow + c, bar);
         tma_load_2d(slot + g * B_STAGE + B_BOX, wm, k0, wrow + C + c, bar);
@@ -248,14 +299,18 @@ __device__ __forceinline__ void produce(const QParams& p, uint8_t* ring,
       r.next(p.stages);
     }
   }
-  for (int n0 = 0; n0 < 2 * C; n0 += QN * NC) {
-    for (int ks = 0; ks < C / QK; ++ks) {
+  // the res/skip weights: K = C in ceil(C / 128) stages, a last one past
+  // C zero-filled (TMA counts a whole box either way)
+  for (int n0 = 0; n0 < p.rs_out; n0 += QN * NC) {
+    const int ng = groups_on<ROLE, NC>(n0, p.rs_out, QN);
+    for (int ks = 0; ks < p.nrs; ++ks) {
       mbar_wait(&empty[r.st], r.ph ^ 1);
       uint8_t* slot = ring + r.st * TL::STAGE;
       uint64_t* bar = &full[r.st];
-      mbar_expect_tx(bar, TL::B_BYTES);
+      mbar_expect_tx(bar, ng * B_STAGE);
 #pragma unroll
       for (int g = 0; g < NC; ++g) {
+        if (g >= ng) break;
         tma_load_2d(slot + g * B_STAGE, &p.tm_wrs, ks * QK, n0 + QN * g, bar);
         tma_load_2d(slot + g * B_STAGE + B_BOX, &p.tm_wrs, ks * QK,
                     n0 + QN * g + 64, bar);
@@ -266,6 +321,19 @@ __device__ __forceinline__ void produce(const QParams& p, uint8_t* ring,
 }
 
 // --- consumers --------------------------------------------------------------
+
+// PART: a column group that sits out a chunk passes its n ring stages on:
+// it waits for each to fill (so that its arrival counts for this round of
+// the slot, not the one before) and frees it.
+__device__ __forceinline__ void pass_stages(uint64_t* full, uint64_t* empty,
+                                            Ring& r, int n, int tid,
+                                            int stages) {
+  for (int i = 0; i < n; ++i) {
+    mbar_wait(&full[r.st], r.ph);
+    if (tid == 0) mbar_arrive(&empty[r.st]);
+    r.next(stages);
+  }
+}
 
 // The in-act product of one gate chunk of column group cg for the block's
 // 64 rows.  On return tsum holds the three taps' f32 sum (each tap's s32
@@ -559,7 +627,78 @@ __device__ __forceinline__ void rs_phase(const QParams& p, uint8_t* ring,
   }
 }
 
+// PART: the res/skip product [64, C] x [C, rs_out] in chunks of N = 128, A
+// from the gated tile, the warpgroups taking alternate chunks (a group
+// with no chunk left passes its stages on), and the f32 partial
+// s32 * (sw_rs / 127), zero at rows t >= n_valid, written whole.  The
+// chunk's column scales are loaded before its K loop.  Lanes q and q ^ 1 of
+// a quad swap half of their pairs, so that an even lane holds four columns
+// of row r0 and an odd lane four of row r0 + 8, and each stores them as one
+// 16-byte vector (static indices only: a runtime index would move the
+// accumulators, which wgmma writes asynchronously, to local memory).
 template <int NC>
+__device__ __forceinline__ void part_phase(const QParams& p, uint8_t* ring,
+                                           uint64_t* full, uint64_t* empty,
+                                           Ring& r, int cg, int tid, int b,
+                                           int t0, const uint8_t* G) {
+  using TL = QTile<NC>;
+  const uint32_t g = smem_u32(G);
+  const int lane = tid & 31, q = lane & 3;
+  const bool odd = q & 1;
+  const int t = t0 + (tid >> 5) * 16 + (lane >> 2) + (odd ? 8 : 0);
+  const bool ok = t < p.n_valid;
+  float* row = p.out + ((size_t)b * p.T + t) * p.rs_out;
+  int acc[64];
+  for (int n0 = 0; n0 < p.rs_out; n0 += QN * NC) {
+    const int nc = n0 + QN * cg;   // this warpgroup's chunk
+    if (nc >= p.rs_out) {
+      pass_stages(full, empty, r, p.nrs, tid, p.stages);
+      continue;
+    }
+    float w[QN / 8][2];
+#pragma unroll
+    for (int j = 0; j < QN / 8; ++j) {
+      const int n = nc + 8 * j + 2 * q;
+      w[j][0] = __fmul_rn(__ldg(p.sw_rs + n), INV127);
+      w[j][1] = __fmul_rn(__ldg(p.sw_rs + n + 1), INV127);
+    }
+    int prev = -1;
+    for (int ks = 0; ks < p.nrs; ++ks) {
+      mbar_wait(&full[r.st], r.ph);
+      const uint32_t s = smem_u32(ring + r.st * TL::STAGE) + cg * B_STAGE;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QK / 32; ++kk)
+        wgmma_s8_n128(acc, desc_k128(g + ks * (BM * QK) + kk * 32),
+                      desc_k128(s + kk * 32), ks == 0 && kk == 0 ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+      prev = r.st;
+      r.next(p.stages);
+    }
+    wgmma_wait<0>();
+    if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+    for (int j = 0; j < QN / 8; ++j) {
+      const float a0 = __fmul_rn(__int2float_rn(acc[4 * j]), w[j][0]);
+      const float a1 = __fmul_rn(__int2float_rn(acc[4 * j + 1]), w[j][1]);
+      const float a2 = __fmul_rn(__int2float_rn(acc[4 * j + 2]), w[j][0]);
+      const float a3 = __fmul_rn(__int2float_rn(acc[4 * j + 3]), w[j][1]);
+      // send the pair the partner keeps: an even lane its row r0 + 8
+      // pair, an odd lane its row r0 pair
+      const float g0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : a2, 1);
+      const float g1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : a3, 1);
+      float4 v = odd ? make_float4(g0, g1, a2, a3)
+                     : make_float4(a0, a1, g0, g1);
+      if (!ok) v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < p.T)
+        *reinterpret_cast<float4*>(row + nc + 8 * j + 2 * (q & 2)) = v;
+    }
+  }
+}
+
+template <int ROLE, int NC>
 __global__ void __launch_bounds__((NC + 1) * 128, 1)
     wn_int8_sm90_kernel(const __grid_constant__ QParams p) {
   using TL = QTile<NC>;
@@ -584,7 +723,8 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
 
   if (warp >= NC * 4) {  // producer warpgroup: one thread issues the loads
     if (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
-    if (threadIdx.x == NC * 128) produce<NC>(p, ring, full, empty, b, t0);
+    if (threadIdx.x == NC * 128)
+      produce<ROLE, NC>(p, ring, full, empty, b, t0);
   } else {
     if (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
     const int cg = warp >> 2, tid = threadIdx.x & 127;
@@ -607,6 +747,10 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
     float tsum[64];
     Ring r;
     for (int c0 = 0; c0 < p.C; c0 += QH * NC) {
+      if (ROLE == PART && c0 + QH * cg >= p.C) {   // no chunk of this group
+        pass_stages(full, empty, r, 3 * p.ntap + p.ncond, tid, p.stages);
+        continue;
+      }
       inact_chunk<NC>(p, ring, full, empty, r, cg, tid, acc, tsum, st);
       gate_store(p, c0 + QH * cg, tid, acc, tsum, ss, G);
     }
@@ -614,15 +758,21 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
     // proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync 1, %0;\n" ::"r"(NC * 128) : "memory");
-    const float sc[2] = {st[1][0], st[1][1]};
-    rs_phase<NC>(p, ring, full, empty, r, cg, tid, b, t0, G, xamax, sc);
+    if (ROLE == PART) {
+      part_phase<NC>(p, ring, full, empty, r, cg, tid, b, t0, G);
+    } else {
+      const float sc[2] = {st[1][0], st[1][1]};
+      rs_phase<NC>(p, ring, full, empty, r, cg, tid, b, t0, G, xamax, sc);
+    }
   }
 }
 
 // --- host -------------------------------------------------------------------
 
+// the ring and the gated tile [64, C] in whole 128-column panels
 size_t smem_bytes(int nc, int C, int stages) {
-  return 1024 + (size_t)stages * (nc * B_STAGE + A_BYTES) + (size_t)BM * C;
+  return 1024 + (size_t)stages * (nc * B_STAGE + A_BYTES) +
+         (size_t)BM * ((C + QK - 1) / QK * QK);
 }
 
 int encode_s8(CUtensorMap* m, const void* ptr, int rank,
@@ -635,14 +785,14 @@ int encode_s8(CUtensorMap* m, const void* ptr, int rank,
 int encode_maps(QParams& p, const void* qx, const void* qspect,
                 const void* qw_in, const void* qw_cond, const void* qw_rs,
                 int B) {
-  const cuuint64_t C = p.C, M = p.M, T = p.T;
+  const cuuint64_t C = p.C, CX = p.CX, M = p.M, T = p.T;
   const cuuint64_t nv = p.n_valid > 0 ? p.n_valid : 1;
   const cuuint32_t abox[3] = {QK, BM, 1};
   const cuuint32_t wbox[2] = {QK, 64};
   int e;
   {
-    const cuuint64_t dims[3] = {C, nv, (cuuint64_t)B};
-    const cuuint64_t str[2] = {C, T * C};
+    const cuuint64_t dims[3] = {CX, nv, (cuuint64_t)B};
+    const cuuint64_t str[2] = {CX, T * CX};
     if ((e = encode_s8(&p.tm_qx, qx, 3, dims, str, abox))) return e;
   }
   {
@@ -651,8 +801,8 @@ int encode_maps(QParams& p, const void* qx, const void* qspect,
     if ((e = encode_s8(&p.tm_qspect, qspect, 3, dims, str, abox))) return e;
   }
   {
-    const cuuint64_t dims[2] = {C, 6 * C};
-    const cuuint64_t str[1] = {C};
+    const cuuint64_t dims[2] = {CX, 6 * C};
+    const cuuint64_t str[1] = {CX};
     if ((e = encode_s8(&p.tm_win, qw_in, 2, dims, str, wbox))) return e;
   }
   {
@@ -660,22 +810,42 @@ int encode_maps(QParams& p, const void* qx, const void* qspect,
     const cuuint64_t str[1] = {M};
     if ((e = encode_s8(&p.tm_wcond, qw_cond, 2, dims, str, wbox))) return e;
   }
-  const cuuint64_t dims[2] = {C, 2 * C};
+  // a box past C (the partial layer's Cp % 128 == 64) is zero-filled
+  const cuuint64_t dims[2] = {C, (cuuint64_t)p.rs_out};
   const cuuint64_t str[1] = {C};
   return encode_s8(&p.tm_wrs, qw_rs, 2, dims, str, wbox);
 }
 
-template <int NC>
+template <int ROLE, int NC>
 int launch(const QParams& p, int B, void* stream) {
   const size_t smem = smem_bytes(NC, p.C, p.stages);
   cudaError_t e = cudaFuncSetAttribute(
-      wn_int8_sm90_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      wn_int8_sm90_kernel<ROLE, NC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((p.T + BM - 1) / BM, B);
-  wn_int8_sm90_kernel<NC>
+  wn_int8_sm90_kernel<ROLE, NC>
       <<<grid, (NC + 1) * 128, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// What both roles set: widths, K stages and the tap and conditioning
+// operands.
+void fill_common(QParams& p, int T, int n_valid, int CX, int C, int M,
+                 int d, int stages, const void* qx, const void* sx,
+                 const void* sspect, const void* sw_in, const void* b_in,
+                 const void* sw_cond, const void* b_cond,
+                 const void* sw_rs) {
+  p.T = T; p.n_valid = n_valid; p.C = C; p.CX = CX; p.M = M; p.d = d;
+  p.stages = stages;
+  p.ntap = n_valid > 0 ? CX / QK : 0;
+  p.ncond = (M + QK - 1) / QK;
+  p.nrs = (C + QK - 1) / QK;
+  p.qx = (const int8_t*)qx; p.sx = (const float*)sx;
+  p.sspect = (const float*)sspect;
+  p.sw_in = (const float*)sw_in; p.b_in = (const float*)b_in;
+  p.sw_cond = (const float*)sw_cond; p.b_cond = (const float*)b_cond;
+  p.sw_rs = (const float*)sw_rs;
 }
 
 }  // namespace
@@ -702,20 +872,42 @@ int t2s_wn_layer_int8_sm90(
     return (int)cudaErrorInvalidValue;
   QParams p;
   memset(&p, 0, sizeof(p));
-  p.T = T; p.n_valid = n_valid; p.C = C; p.M = M; p.d = d;
-  p.stages = stages;
-  p.ntap = n_valid > 0 ? C / QK : 0;
-  p.ncond = (M + QK - 1) / QK;
-  p.qx = (const int8_t*)qx; p.sx = (const float*)sx;
-  p.sspect = (const float*)sspect;
-  p.sw_in = (const float*)sw_in; p.b_in = (const float*)b_in;
-  p.sw_cond = (const float*)sw_cond; p.b_cond = (const float*)b_cond;
-  p.sw_rs = (const float*)sw_rs; p.b_rs = (const float*)b_rs;
+  fill_common(p, T, n_valid, C, C, M, d, stages, qx, sx, sspect, sw_in, b_in,
+              sw_cond, b_cond, sw_rs);
+  p.rs_out = 2 * C;
+  p.b_rs = (const float*)b_rs;
   p.skip = (bf16*)skip_acc; p.xn = (float*)xn;
   p.qx_out = (int8_t*)qx_out; p.sx_out = (float*)sx_out;
   const int e = encode_maps(p, qx, qspect, qw_in, qw_cond, qw_rs, B);
   if (e) return e;
-  return nc == 2 ? launch<2>(p, B, stream) : launch<1>(p, B, stream);
+  return nc == 2 ? launch<STD, 2>(p, B, stream)
+                 : launch<STD, 1>(p, B, stream);
+}
+
+// One rank's share of an int8 layer under tensor parallelism (layers
+// 1..L-1): the hidden state qx [B, T, CX] with sx, the rank's gate-paired
+// columns qw_in [3, 2Cp, CX] and qw_cond [2Cp, M] with their column scales
+// and b_in, b_cond [2Cp], its res/skip rows qw_rs [rs_out, Cp] with sw_rs
+// [rs_out]; out [B, T, rs_out] f32 is written whole.
+int t2s_wn_layer_partial_int8_sm90(
+    const void* qx, const void* sx, const void* qspect, const void* sspect,
+    const void* qw_in, const void* sw_in, const void* b_in,
+    const void* qw_cond, const void* sw_cond, const void* b_cond,
+    const void* qw_rs, const void* sw_rs, void* out, int B, int T,
+    int n_valid, int CX, int Cp, int M, int rs_out, int d, int nc,
+    int stages, void* stream) {
+  if (stages < 2 || stages > MAX_STAGES || (nc != 1 && nc != 2))
+    return (int)cudaErrorInvalidValue;
+  QParams p;
+  memset(&p, 0, sizeof(p));
+  fill_common(p, T, n_valid, CX, Cp, M, d, stages, qx, sx, sspect, sw_in,
+              b_in, sw_cond, b_cond, sw_rs);
+  p.rs_out = rs_out;
+  p.out = (float*)out;
+  const int e = encode_maps(p, qx, qspect, qw_in, qw_cond, qw_rs, B);
+  if (e) return e;
+  return nc == 2 ? launch<PART, 2>(p, B, stream)
+                 : launch<PART, 1>(p, B, stream);
 }
 
 }  // extern "C"

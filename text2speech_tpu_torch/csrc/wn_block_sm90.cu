@@ -8,6 +8,10 @@
 //   STD, DCOND  replaces text2speech_tpu/ops/pallas/wn_block_dcond.py:43
 //          wn_layer_stream2_dcond (pallas_call :73; body _kernel_stream2
 //          with project_cond=False)
+//   FINAL, DCOND  replaces text2speech_tpu/ops/pallas/wn_block_dcond.py:162
+//          wn_layer_stream2_final_dcond (pallas_call :203; body
+//          wn_block.py:325 _kernel_stream2_final with project_cond=False,
+//          fold_rs=True)
 //   PART   replaces text2speech_tpu/ops/pallas/wn_block.py:642
 //          wn_layer_stream2_partial (body _kernel_stream2_partial, :612),
 //          layers 1..L-1 of the tensor-parallel vocoder
@@ -25,7 +29,8 @@
 //   FINAL: out[t] = acts[t] W_rs' + skip_acc[t] W_end + b'   [E <= 8], f32
 //
 // with x rows outside [0, n_valid) read as zero.  With DCOND (the
-// composed-conditioning vocoder) the standard layer has no spect rows:
+// composed-conditioning vocoder) the standard and final layers have no
+// spect rows:
 //
 //   in_act[t] = x[t-d] W0 + x[t] W1 + x[t+d] W2 + b_in
 //               + f32(cond_all[t, off : off + 2C])                 (t < T)
@@ -43,9 +48,10 @@
 // (they need the sum over ranks).  wn_block.cu keeps the first design of
 // these roles (64-row blocks, mma.sync, cp.async) and the layer-0 form of
 // the partial layer (K = n_half <= 4, which gives wgmma nothing to do); its
-// entry points t2s_wn_layer, t2s_wn_layer_final, t2s_wn_layer_dcond and
-// t2s_wn_layer_partial stay exported so that the two designs can be timed
-// side by side, and nothing else calls the first three.
+// entry points t2s_wn_layer, t2s_wn_layer_final, t2s_wn_layer_dcond,
+// t2s_wn_layer_final_dcond and t2s_wn_layer_partial stay exported so that
+// the two designs can be timed side by side, and nothing else calls the
+// first four.
 //
 // What bounds the layer on an H100.  At B=3, T=6400, C=512, M=640 the
 // standard layer is 106 GFLOP of bf16 products against ~60 MB of
@@ -114,7 +120,12 @@
 // TMA tile of the slice ([BM, 256] bf16, 64 KB at BM = 128) would not fit
 // beside the 128 KB gated tile and the ring.  n_valid == 0 leaves no K stage at all:
 // the producer issues no in-act load, the consumers gate b_in + cond alone,
-// and the res/skip ring runs as in STD.
+// and the res/skip ring runs as in STD.  The final layer composes the two
+// unchanged: DCOND's gate (the cond_all pairs after b_in, prefetched into
+// L2 at each chunk's start) writes the gated tile, and FINAL's epilogue
+// reads it and reads skip_acc, which it never writes; at n_valid == 0 the
+// producer issues no load at all.  At B=1, T=6400 it is 20.2 GFLOP against
+// ~29 MB: 0.0205 ms at the bf16 peak, bound by operations.
 //
 // PART.  A rank's Cp columns run in the standard layer's gate-pair chunks
 // (128 + 128); at Cp % 128 == 64 the last chunk is half: its weight boxes
@@ -837,6 +848,33 @@ int t2s_wn_layer_partial_sm90(const void* x, const void* spect,
   int e = encode_inact(p, x, spect, w_in, w_cond, B, 64 * nwg, bk);
   if (e || (e = encode_wrs(p, w_rs, bk))) return e;
   return dispatch<PART>(p, B, nwg, bk, stream);
+}
+
+// The final layer of the composed-conditioning vocoder: K = 3C (no spect
+// rows), the conditioning read from columns [cond_off, cond_off + 2C) of
+// cond_all [B, T, cond_ld] in place; skip_acc is read only.
+int t2s_wn_layer_final_dcond_sm90(const void* x, const void* cond_all,
+                                  const void* w_in, const void* b_in,
+                                  const void* w_eff, const void* skip_acc,
+                                  const void* w_end, const void* b_eff,
+                                  void* out, int B, int T, int n_valid, int C,
+                                  int cond_ld, int cond_off, int E, int d,
+                                  int nwg, int bk, int stages, void* stream) {
+  Params p;
+  memset(&p, 0, sizeof(p));
+  fill_common(p, T, n_valid, C, 0, d, stages, x, b_in, nullptr,
+              const_cast<void*>(skip_acc));
+  p.E = E;
+  p.w_eff = (const bf16*)w_eff;
+  p.w_end = (const bf16*)w_end;
+  p.b_eff = (const float*)b_eff;
+  p.out = (float*)out;
+  p.cond_all = (const bf16*)cond_all;
+  p.cond_ld = cond_ld;
+  p.cond_off = cond_off;
+  const int e = encode_taps(p, x, w_in, B, 64 * nwg, bk);
+  if (e) return e;
+  return dispatch<FINAL, true>(p, B, nwg, bk, stream);
 }
 
 int t2s_wn_layer_final_sm90(const void* x, const void* spect,

@@ -51,6 +51,7 @@ LIB_SM90 = CudaLibrary("wn_block_sm90", {
     "t2s_wn_layer_sm90": [_P] * 10 + [_I] * 10 + [_P],
     "t2s_wn_layer_final_sm90": [_P] * 11 + [_I] * 10 + [_P],
     "t2s_wn_layer_dcond_sm90": [_P] * 8 + [_I] * 11 + [_P],
+    "t2s_wn_layer_final_dcond_sm90": [_P] * 9 + [_I] * 11 + [_P],
     "t2s_wn_layer_partial_sm90": [_P] * 8 + [_I] * 11 + [_P],
     "t2s_wn_sm90_smem_bytes": [_I] * 4,
 })
@@ -296,15 +297,15 @@ def _sm90_stages(nwg: int, bk: int, C: int) -> int:
 
 def sm90_plan(C: int, T: int = 1, B: int = 1) -> dict:
     """Tile of ``csrc/wn_block_sm90.cu`` for gate width ``C`` and ``B``
-    utterances of ``T`` rows, the same for all four of its layers (the
-    ``dcond`` layer's ring stage is the standard layer's; only its K, 3C in
-    place of 3C + M, is shorter; the partial layer's ``C`` is the rank's
-    width Cp, its taps' K the hidden state's).  Rows: 128-row blocks (two
-    consumer warpgroups) where the gated tile fits (C <= 512) and the grid
-    fills the card's SMs at least once, else 64-row blocks, twice as many.
-    K per stage: 64 where three or more such stages fit beside the gated
-    tile, else 32; the ring is as deep as fits, up to four stages.  Raises
-    ValueError where no tile fits in shared memory."""
+    utterances of ``T`` rows, the same for all five of its layers (the
+    ``dcond`` layers' ring stage is the in-kernel projection's; only their
+    K, 3C in place of 3C + M, is shorter; the partial layer's ``C`` is the
+    rank's width Cp, its taps' K the hidden state's).  Rows: 128-row
+    blocks (two consumer warpgroups) where the gated tile fits (C <= 512)
+    and the grid fills the card's SMs at least once, else 64-row blocks,
+    twice as many.  K per stage: 64 where three or more such stages fit
+    beside the gated tile, else 32; the ring is as deep as fits, up to four
+    stages.  Raises ValueError where no tile fits in shared memory."""
     nwg = 2 if C <= 512 and B * -(-T // 128) >= SM90_SMS else 1
     bk = 64 if _sm90_stages(nwg, 64, C) >= 3 else 32
     stages = _sm90_stages(nwg, bk, C)
@@ -457,15 +458,16 @@ def wn_layer_final(x, spect, w_in, b_in, w_cond, b_cond, w_eff, skip_acc,
 
 def first_design(name: str, *args, n_valid: int | None = None):
     """The first CUDA design of the standard, the final, the ``dcond``
-    standard or the partial layer (``csrc/wn_block.cu``'s ``t2s_wn_layer``
-    / ``t2s_wn_layer_final`` / ``t2s_wn_layer_dcond`` /
-    ``t2s_wn_layer_partial``: 64-row blocks, ``mma.sync``, ``cp.async``),
-    kept so that the sm90 kernel can be timed and checked beside it on the
-    same inputs; no path calls it.  ``name`` is ``"wn_layer"``,
-    ``"wn_layer_final"``, ``"wn_layer_dcond"`` or ``"wn_layer_partial"``
-    (without ``b_edge``) and the arguments are that wrapper's (CUDA
-    tensors, already checked by a call of the wrapper); the standard layers
-    update ``skip_acc`` in place.  It counts no launch."""
+    standard or final, or the partial layer (``csrc/wn_block.cu``'s
+    ``t2s_wn_layer`` / ``t2s_wn_layer_final`` / ``t2s_wn_layer_dcond`` /
+    ``t2s_wn_layer_final_dcond`` / ``t2s_wn_layer_partial``: 64-row blocks,
+    ``mma.sync``, ``cp.async``), kept so that the sm90 kernel can be timed
+    and checked beside it on the same inputs; no path calls it.  ``name``
+    is ``"wn_layer"``, ``"wn_layer_final"``, ``"wn_layer_dcond"``,
+    ``"wn_layer_final_dcond"`` or ``"wn_layer_partial"`` (without
+    ``b_edge``) and the arguments are that wrapper's (CUDA tensors, already
+    checked by a call of the wrapper); the standard layers update
+    ``skip_acc`` in place.  It counts no launch."""
     x, spect = args[0], args[1]
     B, T, C = x.shape
     n_valid = T if n_valid is None else int(n_valid)
@@ -489,6 +491,16 @@ def first_design(name: str, *args, n_valid: int | None = None):
              x_out.data_ptr(), skip_acc.data_ptr(), B, T, n_valid, C, ld,
              2 * C * int(li), w_rs.shape[-1], int(d))
         return x_out, skip_acc
+    if name == "wn_layer_final_dcond":
+        cond_all, li, w_in, b_in, w_eff, skip_acc, w_end, b_eff, d = args[1:]
+        E = w_end.shape[-1]
+        out = torch.empty((B, T, E), dtype=F32, device=x.device)
+        _run(lib.t2s_wn_layer_final_dcond, x.device, x.data_ptr(),
+             cond_all.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+             w_eff.data_ptr(), skip_acc.data_ptr(), w_end.data_ptr(),
+             b_eff.data_ptr(), out.data_ptr(), B, T, n_valid, C,
+             cond_all.shape[-1], 2 * C * int(li), E, int(d))
+        return out
     M = spect.shape[-1]
     ptrs = [t.data_ptr() for t in args[:-1]]
     if name == "wn_layer":

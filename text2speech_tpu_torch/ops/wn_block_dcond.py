@@ -12,11 +12,11 @@ reads slice 0), widened to f32 and added to the tap sums and ``b_in``.
 ``models/waveglow_fused.py`` materialises it once per flow from the mel
 frames and the phase-expanded weights of ``precompute_composed_cond``.
 
-For CUDA tensors the standard layer launches the ``DCOND`` form of
-``csrc/wn_block_sm90.cu`` (wgmma, TMA, 128-row tiles; ``sm90_plan`` picks the
-tile, as for the standard layer) and the first and final layers the ``DCOND``
-instantiations of ``csrc/wn_block.cu``; the plain versions run only for CPU
-tensors.  The slice is read in place through a row stride and a column
+For CUDA tensors the standard and final layers launch the ``DCOND`` forms
+of ``csrc/wn_block_sm90.cu`` (wgmma, TMA, 128-row tiles; ``sm90_plan`` picks
+the tile, as for the in-kernel projection's layers) and the first layer the
+``DCOND`` instantiation of ``csrc/wn_block.cu``; the plain versions run only
+for CPU tensors.  The slice is read in place through a row stride and a column
 offset, never copied.  Each wrapper counts its kernel launches in
 ``launches``.
 """
@@ -164,7 +164,9 @@ def wn_layer_final_dcond(x, cond_all, cond_index: int, w_in, b_in, w_eff,
                          skip_acc, w_end, b_eff, dilation: int,
                          n_valid: int | None = None):
     """:func:`wn_layer_final` with pre-materialised conditioning: slice
-    ``cond_index`` of ``cond_all`` [B, T, 2C * L] bf16, read in place."""
+    ``cond_index`` of ``cond_all`` [B, T, 2C * L] bf16, read in place.
+    CUDA: the sm90 kernel; ``wn_block.first_design("wn_layer_final_dcond",
+    ...)`` runs the first design on the same arguments."""
     if _on_cpu(x, cond_all, w_in, b_in, w_eff, skip_acc, w_end, b_eff):
         return wn_layer_final_dcond_plain(x, cond_all, cond_index, w_in, b_in,
                                           w_eff, skip_acc, w_end, b_eff,
@@ -184,13 +186,14 @@ def wn_layer_final_dcond(x, cond_all, cond_index: int, w_in, b_in, w_eff,
         ("w_end", w_end, (C, E), bf), ("b_eff", b_eff, (E,), F32),
     ):
         _check(name, t, shape, dt)
+    plan = sm90_plan(C, T, B)
     out = torch.empty((B, T, E), dtype=F32, device=x.device)
     wn_layer_final_dcond.launches += 1
-    _run(LIB.get().t2s_wn_layer_final_dcond, x.device, x.data_ptr(),
-         cond_all.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+    _run(LIB_SM90.get().t2s_wn_layer_final_dcond_sm90, x.device,
+         x.data_ptr(), cond_all.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
          w_eff.data_ptr(), skip_acc.data_ptr(), w_end.data_ptr(),
          b_eff.data_ptr(), out.data_ptr(), B, T, n_valid, C, ld, off, E,
-         dilation)
+         dilation, plan["nwg"], plan["bk"], plan["stages"])
     return out
 
 

@@ -27,10 +27,11 @@ tensors as the kernels.
 Each role has a plain version (``*_plain``), used for CPU tensors and as the
 reference the CUDA kernels are checked against, and a wrapper that launches
 the kernel for CUDA tensors or raises; nothing falls back.  The standard
-layer launches ``csrc/wn_block_int8_sm90.cu`` (s8 ``wgmma``, TMA, two
-warpgroups on a 64-row tile; :func:`int8_sm90_plan` picks the tile), the
-other roles ``csrc/wn_block_int8.cu``, which keeps the standard layer's
-first design (:func:`first_design`).  The plain versions are EXACT in their
+and the partial layer launch ``csrc/wn_block_int8_sm90.cu`` (s8 ``wgmma``,
+TMA, two warpgroups on a 64-row tile; :func:`int8_sm90_plan` picks the
+tile), the first and final layers ``csrc/wn_block_int8.cu``, which keeps
+the first design of the standard and partial layers
+(:func:`first_design`).  The plain versions are EXACT in their
 integer products without an integer matmul: s8 values cast to f32 multiply
 and add exactly while every partial sum stays below 2^24, which holds for
 K <= 1040 (K * 127 * 127 < 2^24).  So each tap and the conditioning are
@@ -61,6 +62,7 @@ LIB = CudaLibrary("wn_block_int8", {
 })
 LIB_SM90 = CudaLibrary("wn_block_int8_sm90", {
     "t2s_wn_layer_int8_sm90": [_P] * 17 + [_I] * 8 + [_P],
+    "t2s_wn_layer_partial_int8_sm90": [_P] * 13 + [_I] * 10 + [_P],
     "t2s_wn_int8_sm90_smem_bytes": [_I] * 3,
 })
 
@@ -249,9 +251,9 @@ def _rs_checks(C, qw_rs, sw_rs, b_rs):
 # restated): a block is 64 rows, ``nc`` consumer warpgroups (column groups)
 # and one producer warpgroup; a ring stage holds ``nc`` [128, 128] int8
 # weight tiles and the [64, 128] int8 activation tile (K = 128 bytes, one
-# swizzled row); the gated tile is [64, C] int8; 1 KB aligns the ring, and
-# 608 bytes of static shared memory hold its mbarriers (six stages at most)
-# and the two column groups' row maxima.
+# swizzled row); the gated tile is [64, C] int8 in whole 128-column panels;
+# 1 KB aligns the ring, and 608 bytes of static shared memory hold its
+# mbarriers (six stages at most) and the two column groups' row maxima.
 INT8_SM90_K = 128
 INT8_SM90_MAX_STAGES = 6
 INT8_SM90_STATIC_SMEM = 608
@@ -263,7 +265,8 @@ def _int8_sm90_stage_bytes(nc: int) -> int:
 
 def int8_sm90_smem_bytes(nc: int, C: int, stages: int) -> int:
     """Dynamic shared memory of one block (the kernel's ``smem_bytes``)."""
-    return 1024 + stages * _int8_sm90_stage_bytes(nc) + 64 * C
+    return (1024 + stages * _int8_sm90_stage_bytes(nc)
+            + 64 * -(-C // INT8_SM90_K) * INT8_SM90_K)
 
 
 def _int8_sm90_stages(nc: int, C: int) -> int:
@@ -289,8 +292,14 @@ def int8_sm90_tile(C: int, nc: int, T: int = 1, B: int = 1) -> dict:
 def int8_sm90_plan(C: int, T: int = 1, B: int = 1) -> dict:
     """Tile of ``csrc/wn_block_int8_sm90.cu`` for width ``C`` and ``B``
     utterances of ``T`` rows: two column groups where three ring stages of
-    them fit beside the gated tile (C <= 1664), else one.  Raises
-    ValueError where no tile fits in shared memory."""
+    them fit beside the gated tile (C <= 1664), else one.  The partial
+    layer's ``C`` is the rank's gate width Cp (its gated tile and res/skip
+    K; the taps' K is the hidden state's).  At Cp = 64 (p = 8 at C = 512) a
+    rank has one gate chunk, and the second group sits out the in-act
+    product and shares the res/skip chunks: there one and two groups ran
+    within 3% of each other, two ahead at batch 3 (``chip_smoke.py``'s
+    tile line, PERF.md), so the rule holds there too.  Raises ValueError
+    where no tile fits in shared memory."""
     return int8_sm90_tile(C, 2 if _int8_sm90_stages(2, C) >= 3 else 1, T, B)
 
 
@@ -384,18 +393,28 @@ def wn_layer_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
 
 
 def first_design(name: str, *args, n_valid: int | None = None):
-    """The first CUDA design of the standard int8 layer
-    (``csrc/wn_block_int8.cu``'s ``t2s_wn_layer_int8``: 64-row blocks,
-    ``mma.sync`` s8, ``cp.async``), kept so that the sm90 kernel can be
-    timed and checked beside it on the same inputs; no path calls it.
-    ``name`` is ``"wn_layer_int8"`` and the arguments are that wrapper's
-    (CUDA tensors, already checked by a call of the wrapper); ``skip_acc``
-    is updated in place.  It counts no launch."""
-    if name != "wn_layer_int8":
+    """The first CUDA design of the standard or the partial int8 layer
+    (``csrc/wn_block_int8.cu``'s ``t2s_wn_layer_int8`` /
+    ``t2s_wn_layer_partial_int8``: 64-row blocks, ``mma.sync`` s8,
+    ``cp.async``), kept so that the sm90 kernel can be timed and checked
+    beside it on the same inputs; no path calls it.  ``name`` is
+    ``"wn_layer_int8"`` or ``"wn_layer_partial_int8"`` and the arguments
+    are that wrapper's (CUDA tensors, already checked by a call of the
+    wrapper); the standard layer's ``skip_acc`` is updated in place.  It
+    counts no launch."""
+    if name not in ("wn_layer_int8", "wn_layer_partial_int8"):
         raise ValueError(f"no first design of {name!r}")
-    qx, sx, skip_acc = args[0], args[1], args[13]
+    qx = args[0]
     B, T, C = qx.shape
     n_valid = T if n_valid is None else int(n_valid)
+    if name == "wn_layer_partial_int8":
+        rs_out, Cp = args[10].shape
+        out = torch.empty((B, T, rs_out), dtype=F32, device=qx.device)
+        _run(LIB.get().t2s_wn_layer_partial_int8, qx.device,
+             *[t.data_ptr() for t in args[:12]], out.data_ptr(), B, T,
+             n_valid, C, Cp, args[2].shape[-1], rs_out, int(args[12]))
+        return out
+    sx, skip_acc = args[1], args[13]
     qx_out = torch.empty_like(qx)
     sx_out = torch.empty_like(sx)
     x_new = torch.empty((B, T, C), dtype=F32, device=qx.device)  # scratch
@@ -453,7 +472,10 @@ def wn_layer_partial_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in,
     CUDA: int8 ``qx`` [B, T, C], ``qspect`` [B, T, M], ``qw_in`` [3, 2Cp,
     C], ``qw_cond`` [2Cp, M], ``qw_rs`` [rs_out, Cp] (output-major); f32
     ``sx`` / ``sspect`` [B, T, 1], ``sw_in`` / ``b_in`` / ``sw_cond`` /
-    ``b_cond`` [2Cp], ``sw_rs`` [rs_out]."""
+    ``b_cond`` [2Cp], ``sw_rs`` [rs_out].  Launches the ``PART`` form of
+    ``csrc/wn_block_int8_sm90.cu`` with :func:`int8_sm90_plan` of width Cp;
+    ``first_design("wn_layer_partial_int8", ...)`` runs the first design on
+    the same arguments."""
     if _on_cpu(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond, sw_cond,
                b_cond, qw_rs, sw_rs):
         return wn_layer_partial_int8_plain(
@@ -473,14 +495,15 @@ def wn_layer_partial_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in,
         ("qw_rs", qw_rs, (rs_out, Cp), I8), ("sw_rs", sw_rs, (rs_out,), F32),
     ):
         _check(name, t, shape, dt)
+    plan = int8_sm90_plan(Cp, T, B)
     out = torch.empty((B, T, rs_out), dtype=F32, device=qx.device)
     wn_layer_partial_int8.launches += 1
-    _run(LIB.get().t2s_wn_layer_partial_int8, qx.device, qx.data_ptr(),
-         sx.data_ptr(), qspect.data_ptr(), sspect.data_ptr(),
+    _run(LIB_SM90.get().t2s_wn_layer_partial_int8_sm90, qx.device,
+         qx.data_ptr(), sx.data_ptr(), qspect.data_ptr(), sspect.data_ptr(),
          qw_in.data_ptr(), sw_in.data_ptr(), b_in.data_ptr(),
          qw_cond.data_ptr(), sw_cond.data_ptr(), b_cond.data_ptr(),
          qw_rs.data_ptr(), sw_rs.data_ptr(), out.data_ptr(), B, T, n_valid,
-         C, Cp, M, rs_out, dilation)
+         C, Cp, M, rs_out, dilation, plan["nc"], plan["stages"])
     return out
 
 
