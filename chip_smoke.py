@@ -9,25 +9,26 @@ Phases, each of which passes or raises (the script then exits non-zero):
 2. build the hand-written kernels from ``csrc/`` (the bf16 WN-layer
    library and its Hopper redesign of the standard, final, ``dcond``
    standard and final and tensor-parallel partial layers, the int8
-   WN-layer library and its Hopper redesign of the standard and the
-   tensor-parallel partial layer on s8 ``wgmma``, the
-   padded WN-layer library, the gated activation, the k=3 conv backward
-   and its Hopper redesign, one ``nvcc`` each, all started together) and
-   print the times, and for the three Hopper files the ``HGMMA`` /
-   ``IGMMA`` count per kernel and the registers, stack frames and spills
-   ``-Xptxas -v`` reports;
+   WN-layer library and its Hopper redesign of the standard, the
+   tensor-parallel partial, the final and the first layer on s8
+   ``wgmma``, the padded WN-layer library, the gated activation, the k=3
+   conv backward and its Hopper redesign, one ``nvcc`` each, all started
+   together) and print the times, and for the three Hopper files the
+   ``HGMMA`` / ``IGMMA`` count per kernel and the registers, stack frames
+   and spills ``-Xptxas -v`` reports (the s8 final and first layers must
+   show neither);
 3. compare each of the six projecting kernels with its plain PyTorch version on the
    card at the reference width (C=512, M=640) over batch sizes, dilations,
    valid lengths and flow widths, and the standard and final layers also at
    the edges of their 128-row tile (T and n_valid off the tile grid, a
-   halo of a whole tile, batch 3, nothing valid), the s8 standard layer
-   there also against its first design and run twice (bitwise equal); time
-   them with CUDA events at one vocode's shapes and compute the card's
-   bound for the same work; time the standard, final and s8 standard
-   layers at batch 1 and 3 beside their first design
-   (``wn_block.first_design``, ``wn_block_int8.first_design``), the
-   first and the int8 final layers at batch 3 with their bound, and the
-   two products of the standard layer as one library call each;
+   halo of a whole tile, batch 3, nothing valid), the s8 standard, final
+   and first layers there also against their first design and run twice
+   (bitwise equal); time them with CUDA events at one vocode's shapes and
+   compute the card's bound for the same work; time the standard, final
+   and s8 standard, first and final layers at batch 1 and 3 beside their
+   first design (``wn_block.first_design``, ``wn_block_int8.
+   first_design``), the bf16 first layer at batch 3 with its bound, and
+   the two products of the standard layer as one library call each;
 4. bf16 main path: synthesize a small batch of Korean texts end to end at
    full reference width (seeded random weights) through the fused vocoder
    and the denoiser, write the WAVs, check the audio, the launch counts
@@ -42,6 +43,7 @@ Phases, each of which passes or raises (the script then exits non-zero):
    pass;
 7. run the port's CLI (``python -m text2speech_tpu_torch.inference``) on
    random weights with ``--fused_vocoder`` and with ``--int8_vocoder``;
+   then phase 25;
 8. training kernels: the gated activation's forward and backward kernel
    and the k=3 dilated conv's backward kernel against their plain versions
    (the last also against autograd of ``F.conv1d`` and its first design,
@@ -99,9 +101,9 @@ Phases, each of which passes or raises (the script then exits non-zero):
     whole layer's plain res/skip product; times and bounds at B=1, T=6400
     for p = 2 and 4, both beside their first design in turns at batch 1
     and 3, and the bf16 one's 64- against its 128-row tile at batch 1;
-    the s8 standard layer with one against two column groups at batch 1
-    and 3, and the s8 partial layer so at p = 8, and at p = 4, 2 its
-    wrapper against the kernel alone;
+    the s8 standard and final layers with one against two column groups
+    at batch 1 and 3, and the s8 partial layer so at p = 8, and at p = 4,
+    2 its wrapper against the kernel alone;
 18. the tensor-parallel vocoder at full width on the main path's mel, p = 2
     and 4, all shards on the one card, bf16 and int8: 96 p launches of the
     bf16 partial kernel (12 p + 84 p with int8) and none of the whole-layer
@@ -137,9 +139,16 @@ Phases, each of which passes or raises (the script then exits non-zero):
     memory; a resume in a process of its own; 2 steps each with
     ``--remat``, ``--bf16`` and ``--grad_accum 2``; the trained checkpoint
     through ``Synthesizer.load_checkpoints(taco_ckpt_dir=)`` into a decode
-    and the fused vocoder.  Phases 22-24 print the seconds they take.
+    and the fused vocoder.  Phases 22-24 print the seconds they take;
+25. the vocoder CLIs at full width: ``python -m text2speech_tpu_torch.
+    mel2samp`` on a synthetic wav, ``python -m text2speech_tpu_torch.
+    waveglow_inference --int8`` and ``--fused`` (with the denoiser) on its
+    mel and a port checkpoint saved from seeded weights, each WAV's
+    format and length; ``waveglow_inference.main --int8`` in this process
+    launching the s8 standard, first and final layers 72 / 12 / 12 times.
 
-Phases 12-21 run between phases 7 and 8, phases 22-24 after phase 11.  The line before the last is a
+Phase 25 runs right after phase 7, phases 12-21 between it and phase 8,
+phases 22-24 after phase 11.  The line before the last is a
 JSON object with one record per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -189,10 +198,12 @@ KERNELS = {
     "wn_layer_first": ("wn_block.cu", PALLAS + "wn_block.py:459"),
     "wn_layer": ("wn_block_sm90.cu", PALLAS + "wn_block.py:398"),
     "wn_layer_final": ("wn_block_sm90.cu", PALLAS + "wn_block.py:528"),
-    "wn_layer_first_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:338"),
+    "wn_layer_first_int8": ("wn_block_int8_sm90.cu",
+                            PALLAS + "wn_block_int8.py:338"),
     "wn_layer_int8": ("wn_block_int8_sm90.cu",
                       PALLAS + "wn_block_int8.py:268"),
-    "wn_layer_final_int8": ("wn_block_int8.cu", PALLAS + "wn_block_int8.py:510"),
+    "wn_layer_final_int8": ("wn_block_int8_sm90.cu",
+                            PALLAS + "wn_block_int8.py:510"),
 }
 # the composed-conditioning flavours (the DCOND instantiations)
 DCOND_KERNELS = {
@@ -292,6 +303,28 @@ def ptxas_registers(log: str) -> str:
             name, spill = None, ""
     names = demangled(n for n, _ in out)
     return "; ".join(f"{names[n]}: {regs}" for n, regs in out)
+
+
+def require_no_local_memory(lib, roles: dict) -> None:
+    """Raise when an instantiation of ``lib``'s ``kernel`` template whose
+    first template argument is in ``roles`` ({code: name}) has a stack
+    frame or spills in the build's ``-Xptxas -v`` output: in a ``wgmma``
+    kernel that means an array in local memory (read from the mangled
+    names, ``...kernelILi<role>ELi<nc>E...``)."""
+    name = None
+    for line in lib.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        r = re.search(r"kernelILi(\d+)ELi(\d+)E", name or "")
+        if m and r and int(r.group(1)) in roles and any(
+                int(v) for v in m.groups()):
+            raise RuntimeError(
+                f"{lib.source.name}: the {roles[int(r.group(1))]} role with "
+                f"{r.group(2)} column group(s) has a {m.group(1)} B stack "
+                f"frame and {m.group(2)}/{m.group(3)} B of spills")
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -555,8 +588,42 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
                 raise RuntimeError(f"{tag}: two runs differ")
             seed += 1
             k = layer_inputs(B, T, nv, C, M, seed, dev, E=8)
-            check_pair("wn_layer_final", layer_args(k, d)["wn_layer_final"],
-                       nv, f"{shape} d={d} E=8")
+            args = layer_args(k, d)
+            check_pair("wn_layer_final", args["wn_layer_final"], nv,
+                       f"{shape} d={d} E=8")
+            # the s8 final layer: against its plain version (every row) and
+            # its first design; run twice, bitwise equal
+            a8 = args["wn_layer_final_int8"]
+            got = wq.wn_layer_final_int8(*a8, n_valid=nv)
+            tag = f"wn_layer_final_int8 {shape} d={d} E=8"
+            for ref, want in (
+                    ("plain", wq.wn_layer_final_int8_plain(*a8, n_valid=nv)),
+                    ("first design", wq.first_design(
+                        "wn_layer_final_int8", *a8, n_valid=nv))):
+                err = (got - want).abs().max().item()
+                print(f"  {tag} vs {ref}: max_abs_err={err:.6g} (bound "
+                      f"{INT8_FINAL_ATOL})")
+                if not torch.isfinite(got).all() or err > INT8_FINAL_ATOL:
+                    raise RuntimeError(f"{tag}: disagrees with its {ref}")
+                if ref == "plain":
+                    note("wn_layer_final_int8", err)
+            if not torch.equal(got, wq.wn_layer_final_int8(*a8, n_valid=nv)):
+                raise RuntimeError(f"{tag}: two runs differ")
+            # the s8 first layer likewise, the skip on every row
+            seed += 1
+            n_half = 4 if d == 1 else 3
+            k = layer_inputs(B, T, nv, C, M, seed, dev, n_half=n_half)
+            a8 = layer_args(k, d)["wn_layer_first_int8"]
+            got = wq.wn_layer_first_int8(*a8, n_valid=nv)
+            tag = f"wn_layer_first_int8 {shape} d={d} n_half={n_half}"
+            note("wn_layer_first_int8", compare_int8(
+                f"{tag} vs plain", got,
+                wq.wn_layer_first_int8_plain(*a8, n_valid=nv), T))
+            compare_int8(f"{tag} vs first design", got, wq.first_design(
+                "wn_layer_first_int8", *a8, n_valid=nv), T)
+            again = wq.wn_layer_first_int8(*a8, n_valid=nv)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise RuntimeError(f"{tag}: two runs differ")
 
     # times at one vocode's shapes: B=1, 200 mel frames = 6400 groups
     B, T = 1, 6400
@@ -600,12 +667,12 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
 
 
 def time_beside_first_design(rec: dict, C: int, M: int) -> None:
-    """The sm90 standard, final and s8 standard layers and their first
-    design on the same inputs at one vocode's shapes, batch 1 and 3 x 6400
-    groups, timed in turns (first, sm90, sm90, first); the two agree within
-    the kernel bounds.  Adds ``prev_ms`` (the first design at batch 1),
-    ``ms_b3``, ``prev_ms_b3`` and ``bound_ms_b3`` to the three rows of
-    ``rec``."""
+    """The sm90 standard and final layers and the s8 standard, first and
+    final layers beside their first design on the same inputs at one
+    vocode's shapes, batch 1 and 3 x 6400 groups, timed in turns (first,
+    sm90, sm90, first); the two agree within the kernel bounds.  Adds
+    ``prev_ms`` (the first design at batch 1), ``ms_b3``, ``prev_ms_b3``
+    and ``bound_ms_b3`` to the five rows of ``rec``."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
@@ -621,9 +688,13 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
                 B, T, T, C, M, 95, dev, E=8), 128)["wn_layer_final"],
             "wn_layer_int8": layer_args(layer_inputs(B, T, T, C, M, 94, dev),
                                         64)["wn_layer_int8"],
+            "wn_layer_first_int8": layer_args(layer_inputs(
+                B, T, T, C, M, 93, dev, n_half=4), 1)["wn_layer_first_int8"],
+            "wn_layer_final_int8": layer_args(layer_inputs(
+                B, T, T, C, M, 92, dev, E=8), 128)["wn_layer_final_int8"],
         }
         for name, args in runs.items():
-            mod = wq if name == "wn_layer_int8" else wb
+            mod = wq if name.endswith("int8") else wb
             kern = getattr(mod, name)
 
             def first(*a, n_valid=None, name=name, mod=mod):
@@ -637,6 +708,14 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
             elif name == "wn_layer_int8":
                 compare_int8(tag, call_std(kern, args, T),
                              call_std(first, args, T), T)
+            elif name == "wn_layer_first_int8":
+                compare_int8(tag, kern(*args), first(*args), T)
+            elif name == "wn_layer_final_int8":
+                err = (kern(*args) - first(*args)).abs().max().item()
+                print(f"  {tag}: max_abs_err={err:.6g} (bound "
+                      f"{INT8_FINAL_ATOL})")
+                if err > INT8_FINAL_ATOL:
+                    raise RuntimeError(f"{tag}: the designs disagree")
             else:
                 compare(tag, kern(*args), first(*args))
             outs = kern(*args)
@@ -652,9 +731,11 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
             first_ms, sm90 = times["first"], times["sm90"]
             ms, prev = sum(sm90) / 2, sum(first_ms) / 2
             if mod is wq:
-                plan = wq.int8_sm90_plan(C, T, B)
+                role = {"wn_layer_first_int8": "first",
+                        "wn_layer_final_int8": "final"}.get(name, "std")
+                plan = wq.int8_sm90_plan(C, T, B, role=role)
                 smem = wq.LIB_SM90.get().t2s_wn_int8_sm90_smem_bytes(
-                    plan["nc"], C, plan["stages"])
+                    plan["nc"], C, plan["stages"], wq.INT8_SM90_ROLES[role])
                 ring = (f"{plan['nc']} column groups, {plan['stages']} "
                         f"stages of K=128 bytes")
             else:
@@ -678,30 +759,33 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
             else:
                 rec[name]["ms_b3"], rec[name]["prev_ms_b3"] = ms, prev
                 rec[name]["bound_ms_b3"] = bound
+        # what FIRST's structure costs without its taps: the s8 standard
+        # layer at n_valid = 0 runs the same products (in-act K = M, the
+        # res/skip product, the requantization); the s8 final layer there
+        # is the conditioning's product and the end projection alone
+        std, fin = runs["wn_layer_int8"], runs["wn_layer_final_int8"]
+        print(f"  structure B={B} T={T}: wn_layer_int8 at n_valid=0 "
+              f"{time_ms(lambda: wq.wn_layer_int8(*std, n_valid=0)):.4f} ms, "
+              f"wn_layer_final_int8 at n_valid=0 "
+              f"{time_ms(lambda: wq.wn_layer_final_int8(*fin, n_valid=0)):.4f}"
+              f" ms")
 
 
 def time_at_batch3(rec: dict, fns: dict, C: int, M: int) -> None:
-    """The first-design kernels of the main paths (rows 1, 6, 7: the bf16
-    and int8 first layers, the int8 final layer) at batch 3 x 6400 groups,
-    the served batch: their time and bound (``ms_b3``, ``bound_ms_b3``)."""
+    """The first-design kernel of the main paths (row 1: the bf16 first
+    layer) at batch 3 x 6400 groups, the served batch: its time and bound
+    (``ms_b3``, ``bound_ms_b3``)."""
     dev = torch.device("cuda")
-    B, T = 3, 6400
-    timed = {}
-    timed.update(layer_args(
-        layer_inputs(B, T, T, C, M, 89, dev, n_half=4), 1))
-    timed.update(layer_args(layer_inputs(B, T, T, C, M, 88, dev, E=8), 128))
-    for name in ("wn_layer_first", "wn_layer_first_int8",
-                 "wn_layer_final_int8"):
-        kern = fns[name][0]
-        args = timed[name]
-        outs = kern(*args)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        tensors = [t for t in (*args, *outs) if torch.is_tensor(t)]
-        bound, by = bound_ms(work(name, B, T, C, M), tensors)
-        ms = time_ms(lambda: kern(*args))
-        print(f"  {name} B={B} T={T}: {ms:.4f} ms ({bound / ms:.1%} of the "
-              f"{bound:.4f} ms bound by {by})")
-        rec[name]["ms_b3"], rec[name]["bound_ms_b3"] = ms, bound
+    B, T, name = 3, 6400, "wn_layer_first"
+    kern = fns[name][0]
+    args = layer_args(layer_inputs(B, T, T, C, M, 89, dev, n_half=4),
+                      1)[name]
+    tensors = [t for t in (*args, *kern(*args)) if torch.is_tensor(t)]
+    bound, by = bound_ms(work(name, B, T, C, M), tensors)
+    ms = time_ms(lambda: kern(*args))
+    print(f"  {name} B={B} T={T}: {ms:.4f} ms ({bound / ms:.1%} of the "
+          f"{bound:.4f} ms bound by {by})")
+    rec[name]["ms_b3"], rec[name]["bound_ms_b3"] = ms, bound
 
 
 TEXTS = [
@@ -937,6 +1021,89 @@ def cli_run(flag: str) -> None:
               f"{r.stdout.strip()}")
         if r.returncode != 0:
             raise RuntimeError(f"CLI failed:\n{r.stderr}")
+
+
+def cli_vocoder() -> None:
+    """Phase 25: the vocoder CLIs at full width.  A port WaveGlow training
+    checkpoint saved from seeded weights (the end convs perturbed, so that
+    every coupling moves the audio); ``python -m
+    text2speech_tpu_torch.mel2samp`` writes the log-mel of a synthetic
+    2 s wav; ``python -m text2speech_tpu_torch.waveglow_inference`` vocodes
+    it with ``--int8`` and with ``--fused`` (and the denoiser) in processes
+    of their own, each writing a PCM16 WAV of frames x hop samples; then
+    ``waveglow_inference.main`` with ``--int8`` in this process, whose one
+    vocode launches rows 5-7 (the s8 standard, first and final layers)
+    72 / 12 / 12 times and no other WN-layer kernel."""
+    from scipy.io import wavfile
+
+    from text2speech_tpu_torch import waveglow_inference
+    from text2speech_tpu_torch.config import WaveGlowConfig
+    from text2speech_tpu_torch.models.waveglow import TrainableWaveGlow
+    from text2speech_tpu_torch.train.checkpoint import CheckpointManager
+    from text2speech_tpu_torch.train.state import create_train_state
+
+    cfg = WaveGlowConfig()
+    sr, hop = cfg.sampling_rate, cfg.hop_length
+    with tempfile.TemporaryDirectory() as d:
+        g = torch.Generator().manual_seed(11)
+        model = TrainableWaveGlow(cfg, generator=g, device="cuda")
+        with torch.no_grad():
+            for k in range(cfg.n_flows):
+                w = model.params[f"wn{k}/end/kernel"]
+                w.copy_(0.01 * torch.randn(w.shape, generator=g))
+        CheckpointManager(f"{d}/ckpt").save(
+            1, create_train_state(model.params, cfg.learning_rate))
+        del model
+        torch.cuda.empty_cache()
+        rng = np.random.RandomState(11)
+        t = np.arange(2 * sr) / sr
+        wav = (0.3 * np.sin(2 * np.pi * (200 + 300 * t) * t)
+               + 0.01 * rng.randn(t.size))
+        wavfile.write(f"{d}/chirp.wav", sr, (wav * 32767).astype(np.int16))
+        with open(f"{d}/wavs.txt", "w") as f:
+            f.write("chirp.wav\n")
+        cmd = [sys.executable, "-m", "text2speech_tpu_torch.mel2samp", "-f",
+               f"{d}/wavs.txt", "-o", f"{d}/mels"]
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        print(f"[cli] {' '.join(cmd[1:3])} -> rc {r.returncode}: "
+              f"{r.stdout.strip()}")
+        if r.returncode != 0:
+            raise RuntimeError(f"mel2samp CLI failed:\n{r.stderr}")
+        mel = np.load(f"{d}/mels/chirp.npy")
+        frames = 1 + t.size // hop
+        if mel.shape != (cfg.n_mel_channels, frames) or \
+                not np.isfinite(mel).all():
+            raise RuntimeError(f"mel2samp wrote {mel.shape}, want "
+                               f"({cfg.n_mel_channels}, {frames})")
+        with open(f"{d}/mels.txt", "w") as f:
+            f.write(f"{d}/mels/chirp.npy\n")
+        base = ["-f", f"{d}/mels.txt", "-w", f"{d}/ckpt", "-s", "0.6"]
+        for flag in ("--int8", "--fused"):
+            out = f"{d}/out{flag}"
+            cmd = [sys.executable, "-m",
+                   "text2speech_tpu_torch.waveglow_inference", *base, "-o",
+                   out, "-d", "0.1", flag]
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=600)
+            print(f"[cli] {' '.join(cmd[1:3])} {flag} -d 0.1 -> rc "
+                  f"{r.returncode}: {r.stdout.strip()}")
+            if r.returncode != 0:
+                raise RuntimeError(f"waveglow_inference CLI failed:\n"
+                                   f"{r.stderr}")
+            rate, pcm = wavfile.read(f"{out}/chirp_synthesis.wav")
+            if (rate != sr or pcm.dtype != np.int16
+                    or pcm.shape != (frames * hop,)
+                    or np.abs(pcm).max() < 16000):
+                raise RuntimeError(f"waveglow_inference {flag}: {pcm.dtype} "
+                                   f"{pcm.shape} at {rate} Hz, peak "
+                                   f"{np.abs(pcm).max()}")
+        reset_counts()
+        waveglow_inference.main([*base, "-o", f"{d}/in_process", "--int8"])
+        launches = all_counts()
+        print(f"[cli] waveglow_inference.main --int8: launches {launches}")
+        if launches != want_counts(cfg, int8=True):
+            raise RuntimeError(f"waveglow_inference --int8 launched "
+                               f"{launches}, want {want_counts(cfg, True)}")
 
 
 # ---------------------------------------------------------------------------
@@ -1818,8 +1985,9 @@ def tile_alternatives(C: int = 512, M: int = 640) -> None:
     """What the plans' tiles buy, on the same inputs, timed in turns (each
     tile, then each in reverse): the s8 standard layer with one and two
     column groups (consumer warpgroups on its 64 rows) at batch 1 and 3 x
-    6400 groups; kernel 8's s8 form at p = 8 (Cp = 64: one gate chunk, so
-    the second column group sits out the in-act product) with one and two
+    6400 groups, and the s8 final layer so; kernel 8's s8 form at p = 8
+    (Cp = 64: one gate chunk, so the second column group sits out the
+    in-act product) with one and two
     column groups at batch 1 and 3, the choice of ``wn_block_int8.
     int8_sm90_plan`` there, and at p = 4 and 2 its wrapper back to back
     against the kernel alone (raw launches into one output buffer: the
@@ -1859,6 +2027,23 @@ def tile_alternatives(C: int = 512, M: int = 640) -> None:
 
         in_turns(f"wn_layer_int8 B={B} (the plan's: {plan['nc']} column "
                  f"groups)", {f"{nc} column groups": s8(nc) for nc in (1, 2)})
+
+        # the s8 final layer: two column groups split its chunks and the
+        # skip_acc w_end term with them; one group takes them all
+        af = layer_args(layer_inputs(B, T, T, C, M, 87, dev, E=8),
+                        128)["wn_layer_final_int8"]
+        fout = torch.empty(B, T, 8, device=dev)
+        fptrs = [t.data_ptr() for t in (*af[:14], fout)]
+
+        def final8(nc):
+            stages = wq.int8_sm90_tile(C, nc, T, B, role="final")["stages"]
+            return lambda: wq.LIB_SM90.get().t2s_wn_layer_final_int8_sm90(
+                *fptrs, B, T, T, C, M, 8, 128, nc, stages, stream)
+
+        plan = wq.int8_sm90_plan(C, T, B, role="final")
+        in_turns(f"wn_layer_final_int8 B={B} (the plan's: {plan['nc']} "
+                 f"column groups, {plan['stages']} stages)",
+                 {f"{nc} column groups": final8(nc) for nc in (1, 2)})
 
         qx, sx = wq.quantize_rows(k["x"])
         qsp, ssp = wq.quantize_rows(k["spect"])
@@ -3330,6 +3515,10 @@ def main() -> int:
         print(f"[build] {lib.source.name} SASS: {hgmma_counts(lib.path)}")
         print(f"[build] {lib.source.name} registers (-Xptxas -v): "
               f"{ptxas_registers(lib.build_log)}")
+    # the s8 final and first layers' redesign keeps no array in local memory
+    require_no_local_memory(wq.LIB_SM90, {
+        code: role for role, code in wq.INT8_SM90_ROLES.items()
+        if role in ("final", "first")})
 
     print("[kernels] kernel vs plain at C=512, M=640")
     rec = check_kernels()
@@ -3342,6 +3531,7 @@ def main() -> int:
     long_form(bf16["synth"], bf16["mel"], "bf16", int8=False)
     cli_run("--fused_vocoder")
     cli_run("--int8_vocoder")
+    print(f"[time] phase 25: {sync_time(cli_vocoder)[1]:.2f} s")
 
     print("[kernels] composed-conditioning kernels vs plain at C=512, L=8")
     rec.update(check_dcond_kernels())

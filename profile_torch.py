@@ -31,10 +31,10 @@ kernels by their (mangled) names: ``wn_sm90_kernel<ROLE, NWG, BK, DCOND>``
 of ``csrc/wn_block_sm90.cu`` (ROLE 0 standard, 1 final, 2 partial; DCOND 1
 for the composed vocoder's standard and final layers),
 ``wn_int8_sm90_kernel<ROLE, NC>`` of ``csrc/wn_block_int8_sm90.cu`` (ROLE
-0 the int8 standard layer, 1 the int8 tensor-parallel partial layer) and
-the first design's ``wn_layer_kernel`` / ``wn_layer_int8_kernel`` of
-``csrc/wn_block.cu`` / ``csrc/wn_block_int8.cu`` (the first layers, the
-int8 final layer, the layer-0 partial form).  One JSON line per stage,
+0 the int8 standard layer, 1 the int8 tensor-parallel partial layer, 2
+the int8 final layer, 3 the int8 first layer) and the first design's
+``wn_layer_kernel`` of ``csrc/wn_block.cu`` (the bf16 first layers, the
+layer-0 partial form).  One JSON line per stage,
 then the card's name and power limit.  Needs a GPU; imports nothing of
 JAX.
 """

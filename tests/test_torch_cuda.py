@@ -462,12 +462,152 @@ def test_sm90_int8_layer_takes_the_first_designs_widths(dev, C, M):
 
 
 def test_int8_sm90_plan_is_the_kernels(dev):
-    """The plan's shared memory is what the kernel asks for."""
-    for C in (128, 512, 2816):
-        for B in (1, 3):
-            plan = wq.int8_sm90_plan(C, 6400, B)
-            assert wq.LIB_SM90.get().t2s_wn_int8_sm90_smem_bytes(
-                plan["nc"], C, plan["stages"]) == plan["smem"]
+    """The plan's shared memory is what the kernel asks for, for every
+    role."""
+    for role, code in wq.INT8_SM90_ROLES.items():
+        for C in (128, 512, 1408 if role == "final" else 2688):
+            for B in (1, 3):
+                plan = wq.int8_sm90_plan(C, 6400, B, role=role)
+                assert wq.LIB_SM90.get().t2s_wn_int8_sm90_smem_bytes(
+                    plan["nc"], C, plan["stages"], code) == plan["smem"]
+
+
+# --- the int8 final and first layers on wgmma (FINAL, FIRST) ---------------
+
+# (B, T, n_valid, d): T - 1 valid, n_valid off the 64-row tile, nothing
+# valid, batch 3, a halo past a whole tile
+S8_END_EDGES = [(1, 1000, 999, 1), (2, 777, 700, 64), (2, 1000, 0, 1),
+                (3, 1000, 937, 128), (1, 333, 332, 400)]
+
+
+def _final_int8_args(q, d):
+    return (q["qx"], q["sx"], q["qspect"], q["sspect"], q["qw_in"],
+            q["sw_in"], q["b_in"], q["qw_cond"], q["sw_cond"], q["b_cond"],
+            q["w_eff"], q["acc"], q["w_end"], q["b_eff"], d)
+
+
+def _first_int8_args(q, d):
+    return (q["x0"], q["qspect"], q["sspect"], q["start_k"], q["start_b"],
+            *q["fold"], q["qw_cond"], q["sw_cond"], q["b_cond"], q["qw_rs"],
+            q["sw_rs"], q["b_rs"], d)
+
+
+@pytest.mark.parametrize("E", [1, 8])
+@pytest.mark.parametrize("B,T,nv,d", S8_END_EDGES)
+@pytest.mark.parametrize("C,M", [(512, 640), (128, 192), (640, 64)])
+def test_sm90_final_int8_agrees_with_plain_and_first_design(dev, C, M, B, T,
+                                                            nv, d, E):
+    """FINAL at the edges of its 64-row tile, C 128 / 512 / 640, M % 128 !=
+    0: against the plain version and the first design within 0.02 on every
+    row, skip_acc untouched, two runs bitwise equal."""
+    q = int8_inputs(dev, B, T, nv, C, M, 5 * d + E + C, E=E)
+    args = _final_int8_args(q, d)
+    acc = q["acc"].clone()
+    got = wq.wn_layer_final_int8(*args, n_valid=nv)
+    assert got.shape == (B, T, E) and torch.isfinite(got).all()
+    assert torch.equal(wq.wn_layer_final_int8(*args, n_valid=nv), got)
+    assert torch.equal(q["acc"], acc)
+    want = wq.wn_layer_final_int8_plain(*args, n_valid=nv)
+    first = wq.first_design("wn_layer_final_int8", *args, n_valid=nv)
+    assert (got - want).abs().max().item() <= 0.02
+    assert (got - first).abs().max().item() <= 0.02
+
+
+@pytest.mark.parametrize("n_half", [1, 2, 3, 4])
+@pytest.mark.parametrize("B,T,nv,d", S8_END_EDGES)
+@pytest.mark.parametrize("C,M", [(512, 640), (128, 192), (640, 64)])
+def test_sm90_first_int8_agrees_with_plain_and_first_design(dev, C, M, B, T,
+                                                            nv, d, n_half):
+    """FIRST at the edges of its 64-row tile, n_half 1..4, C 128 / 512 /
+    640, M % 128 != 0: against the plain version and the first design by
+    the int8 rule, the skip on every row; rows past n_valid hold a zero
+    payload with the floor scale; two runs bitwise equal."""
+    q = int8_inputs(dev, B, T, nv, C, M, 7 * d + n_half + C, n_half=n_half)
+    args = _first_int8_args(q, d)
+    got = wq.wn_layer_first_int8(*args, n_valid=nv)
+    again = wq.wn_layer_first_int8(*args, n_valid=nv)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = wq.wn_layer_first_int8_plain(*args, n_valid=nv)
+    first = wq.first_design("wn_layer_first_int8", *args, n_valid=nv)
+    close_int8(got, want, T)
+    close_int8(got, first, T)
+    assert (got[0][:, nv:] == 0).all()
+    assert torch.equal(got[1][:, nv:], want[1][:, nv:])
+
+
+@pytest.mark.parametrize("role,C", [("final", 1024), ("final", 1408),
+                                    ("first", 1664), ("first", 2688)])
+def test_sm90_end_layers_take_wide_widths(dev, role, C):
+    """One column group (FIRST past C = 1536) and shallow rings, up to the
+    first designs' widest widths, against the first design (the plain
+    version's f32 products are exact only up to K = 1040)."""
+    B, T, nv, d, M = 2, 300, 271, 8, 64
+    if role == "final":
+        q = int8_inputs(dev, B, T, nv, C, M, C, E=8)
+        args = _final_int8_args(q, d)
+        got = wq.wn_layer_final_int8(*args, n_valid=nv)
+        first = wq.first_design("wn_layer_final_int8", *args, n_valid=nv)
+        assert (got - first).abs().max().item() <= 0.02
+    else:
+        q = int8_inputs(dev, B, T, nv, C, M, C, n_half=4)
+        args = _first_int8_args(q, d)
+        close_int8(wq.wn_layer_first_int8(*args, n_valid=nv),
+                   wq.first_design("wn_layer_first_int8", *args, n_valid=nv),
+                   T)
+
+
+def test_sm90_end_layers_launch_the_new_roles_and_count_once(dev):
+    """Each wrapper call is one launch of its counter; ``first_design``
+    counts none."""
+    q = int8_inputs(dev, 1, 200, 180, 128, 64, 3, E=8)
+    p = int8_inputs(dev, 1, 200, 180, 128, 64, 4, n_half=2)
+    wq.reset_launch_counts()
+    wq.wn_layer_final_int8(*_final_int8_args(q, 2), n_valid=180)
+    wq.wn_layer_first_int8(*_first_int8_args(p, 1), n_valid=180)
+    wq.first_design("wn_layer_final_int8", *_final_int8_args(q, 2))
+    wq.first_design("wn_layer_first_int8", *_first_int8_args(p, 1))
+    assert wq.launch_counts() == {"wn_layer_first_int8": 1,
+                                  "wn_layer_int8": 0,
+                                  "wn_layer_final_int8": 1}
+
+
+def test_sm90_end_layers_reject_what_the_roles_do_not_take(dev):
+    """n_half past 4, E past 8, C % 128, M % 64, a weight not output-major
+    or on the CPU: each raises before a launch."""
+    B, T = 1, 64
+    q = int8_inputs(dev, B, T, T, 128, 64, 9, E=8)
+    fin = list(_final_int8_args(q, 1))
+    p = int8_inputs(dev, B, T, T, 128, 64, 10, n_half=4)
+    first = list(_first_int8_args(p, 1))
+    wq.reset_launch_counts()
+    bad = list(fin)
+    bad[10], bad[12] = (torch.zeros(128, 9, dtype=torch.bfloat16, device=dev)
+                        for _ in range(2))
+    bad[13] = torch.zeros(9, device=dev)
+    with pytest.raises(ValueError, match="E in"):
+        wq.wn_layer_final_int8(*bad)
+    bad = list(first)
+    bad[0] = torch.zeros(B, T, 5, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="n_half"):
+        wq.wn_layer_first_int8(*bad)
+    bad = list(first)
+    bad[8] = first[8].transpose(0, 1)           # qw_cond not output-major
+    with pytest.raises(ValueError, match="shape|contiguous"):
+        wq.wn_layer_first_int8(*bad)
+    bad = list(fin)
+    bad[4] = fin[4].cpu()
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        wq.wn_layer_final_int8(*bad)
+    q96 = int8_inputs(dev, B, T, T, 128, 96, 11, E=8)
+    with pytest.raises(ValueError, match="M % 64"):
+        wq.wn_layer_final_int8(*_final_int8_args(q96, 1))
+    p96 = int8_inputs(dev, B, T, T, 128, 96, 12, n_half=2)
+    with pytest.raises(ValueError, match="M % 64"):
+        wq.wn_layer_first_int8(*_first_int8_args(p96, 1))
+    q192 = int8_inputs(dev, B, T, T, 192, 64, 13, E=8)
+    with pytest.raises(ValueError, match="C % 128"):
+        wq.wn_layer_final_int8(*_final_int8_args(q192, 1))
+    assert sum(wq.launch_counts().values()) == 0
 
 
 def test_infer_fused_int8_at_reference_depth_launches_12_72_12(dev):
@@ -1212,9 +1352,10 @@ def test_int8_partial_plan_is_the_kernels(dev):
     every rank width of the reference config and a wide one."""
     for Cp in (64, 128, 192, 256, 512, 2816):
         for B in (1, 3):
-            plan = wq.int8_sm90_plan(Cp, 6400, B)
+            plan = wq.int8_sm90_plan(Cp, 6400, B, role="part")
             assert wq.LIB_SM90.get().t2s_wn_int8_sm90_smem_bytes(
-                plan["nc"], Cp, plan["stages"]) == plan["smem"]
+                plan["nc"], Cp, plan["stages"],
+                wq.INT8_SM90_ROLES["part"]) == plan["smem"]
 
 
 def test_partial_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -289,6 +289,9 @@ try:
         res[name] = server(spect, 0.7,
                            generator=torch.Generator().manual_seed(2)).numpy()
     np.savez(out, **res)
+    # rank 0 hosts the TCP store: no rank tears it down while the other
+    # may still be using it
+    dist.barrier()
 finally:
     dist.destroy_process_group()
 """

@@ -365,7 +365,7 @@ def test_partial_ctypes_signature_and_constants():
     assert kinds == [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     assert "(size_t)BM * ((C + QK - 1) / QK * QK)" in src
-    assert "enum Role { STD = 0, PART = 1 };" in src
+    assert "enum Role { STD = 0, PART = 1, FINAL = 2, FIRST = 3 };" in src
     assert "launch<PART, 2>" in src and "launch<PART, 1>" in src
     const = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
     assert int(const["QN"]) == QN and "constexpr int QH = QN / 2;" in src
@@ -374,7 +374,8 @@ def test_partial_ctypes_signature_and_constants():
 
 
 def test_first_design_names():
-    """The first designs reachable beside the sm90 kernel; any other name
-    raises before a tensor is read."""
-    with pytest.raises(ValueError, match="no first design"):
-        tq.first_design("wn_layer_final_int8")
+    """The first designs reachable beside the sm90 kernel (all four int8
+    roles have one); any other name raises before a tensor is read."""
+    for name in ("wn_layer_first_dcond", "wn_layer_partial"):
+        with pytest.raises(ValueError, match="no first design"):
+            tq.first_design(name)

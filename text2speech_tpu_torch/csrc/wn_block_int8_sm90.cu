@@ -1,11 +1,15 @@
-// WaveGlow WN coupling layer in int8, standard and partial roles,
-// redesigned for Hopper (sm_90a): s8 wgmma, TMA and 64-row tiles.
+// WaveGlow WN coupling layer in int8, standard, partial, final and first
+// roles, redesigned for Hopper (sm_90a): s8 wgmma, TMA and 64-row tiles.
 //
 //   STD    replaces text2speech_tpu/ops/pallas/wn_block_int8.py:268
 //          wn_layer_stream2_int8 (body _kernel_stream2_q, :141)
 //   PART   replaces text2speech_tpu/ops/pallas/wn_block_int8.py:447
 //          wn_layer_stream2_partial_int8 (body _kernel_stream2_partial_q,
 //          :410), layers 1..L-1 of the tensor-parallel int8 vocoder
+//   FINAL  replaces text2speech_tpu/ops/pallas/wn_block_int8.py:510
+//          wn_layer_stream2_final_int8 (body _kernel_stream2_final_q, :220)
+//   FIRST  replaces text2speech_tpu/ops/pallas/wn_block_int8.py:338
+//          wn_layer_stream2_first_int8 (body _kernel_stream2_first_q, :178)
 //
 // The function is that of wn_block_int8.cu's STD role, for rows t of one
 // utterance: hidden state qx [T, C] int8 with one f32 scale per row sx [T],
@@ -24,10 +28,10 @@
 //   skip[t]   = bf16(skip_acc[t] + bf16(rs[t,C:]))          (in place)
 //
 // with qx rows outside [0, n_valid) read as zero in every tap.
-// wn_block_int8.cu keeps the first design of this role (64-row blocks,
-// mma.sync s8, cp.async, halo rows gathered by hand); its entry point
-// t2s_wn_layer_int8 stays exported so that the two designs can be timed side
-// by side, and nothing else calls it.
+// wn_block_int8.cu keeps the first design of this role and of the other
+// three (64-row blocks, mma.sync s8, cp.async, halo rows gathered by hand);
+// its entry points stay exported so that the two designs can be timed side
+// by side, and nothing else calls them.
 //
 // What bounds the layer on an H100.  At B=1, T=6400, C=512, M=640 it is
 // 35.2 GOP of s8 products against ~27 MB of activations and 2.7 MB of
@@ -137,6 +141,48 @@
 // store of each [64, 128] f32 chunk from shared memory is untried
 // (PERF.md).
 //
+// FINAL.  The last layer of a flow: the in-act product and its mainloop
+// are the standard layer's, the gate is cast to bf16 (not quantized), and
+// the res/skip product is folded into the rank-E end projection (E <= 8):
+//
+//   out[t] = bf16(gate[t]) w_eff + skip_acc[t] w_end + b_eff     [E], f32
+//
+// as FMAs in the gate stage, on the (row, column) pairs each thread's
+// accumulator holds: no gated tile, res/skip product, residual, amax or
+// scratch.  w_eff and w_end are staged once per block as [C, 8] bf16
+// tables (zero past E) in the gated tile's place, so a thread reads a
+// column's eight weights as one 16-byte load.  Each column group sums
+// its own gate chunks (its skip columns are its gate columns: the
+// skip_acc w_end term is split between the groups alike) into [64, 8] f32
+// in shared memory: after each chunk the quad that shares a thread's rows
+// reduces its partial sums by shuffles and adds them there.  The two
+// groups meet once, and the block's [64, E] rows are stored as one
+// contiguous run.  With the gated tile gone the ring is one stage deeper
+// (five at C = 512).
+//
+// FIRST.  Layer 0 of a flow, on the audio half x0 [T, n_half <= 4] bf16:
+//
+//   taps[t]   = sum_j x0[t+(j-1)d] wp[j]          (rank n_half, f32 sums)
+//   in_act[t] = taps[t] + b_all + s32(qspect[t] . qw_cond) * sspect[t]
+//               * sw_cond + b_cond,  minus b_edge[0] where t < d and
+//               b_edge[1] where t >= n_valid - d
+//   x_new[t]  = t < n_valid ? x0[t] start_k + start_b + rs[t,:C] : 0
+//   skip[t]   = bf16(rs[t,C:])                                 (written)
+//
+// with q, rs and the requantization as in STD and x0 rows outside [0,
+// n_valid) read as zero.  The in-act product is the conditioning alone (K
+// = M, five stages at M = 640; the producer loads no tap boxes), and the
+// rank-n_half taps are f32 FMAs in the gate stage on each thread's
+// accumulator pairs: the block's three tap rows of x0 per row are staged
+// once in shared memory (3 KB; kept in registers, the 24 floats spilled),
+// the chunk's columns of wp are read as bf16 pairs, every load issued
+// without a branch (behind a branch on n_half each load waited for the one
+// before it, and the layer ran slower than its first design at batch 3),
+// then come b_all, the conditioning and the edge take-back in the plain
+// version's order.  The res/skip product, the amax meeting and the
+// requantization are STD's; the residual base is x0[t] start_k + start_b
+// by FMAs.
+//
 // A wait on an mbarrier that does not complete within seconds traps (a
 // launch error) instead of hanging the card.
 
@@ -165,7 +211,10 @@ struct QTile {
   static constexpr int STAGE = B_BYTES + A_BYTES;
 };
 
-enum Role { STD = 0, PART = 1 };
+constexpr int MAX_E = 8;          // FINAL: end projection columns
+constexpr int MAX_NHALF = 4;      // FIRST: audio half channels
+
+enum Role { STD = 0, PART = 1, FINAL = 2, FIRST = 3 };
 
 struct QParams {
   CUtensorMap tm_qx;      // qx as [B, n_valid, CX]; box {128, BM, 1}
@@ -175,24 +224,36 @@ struct QParams {
   CUtensorMap tm_wrs;     // qw_rs [rs_out, C]; box {128, 64}
   int T, n_valid, C, M, d, stages;
   int CX;                 // the hidden state's width: C except in PART
-  int rs_out;             // res/skip columns: 2C in STD
+  int rs_out;             // res/skip columns: 2C in STD and FIRST, 0 in FINAL
   int ntap;               // K stages of one tap (CX / 128); 0 if n_valid == 0
+                          // and in FIRST
   int ncond;              // K stages of the conditioning: ceil(M / 128)
   int nrs;                // K stages of the res/skip product: ceil(C / 128)
+  int E;                  // FINAL: end projection columns
+  int n_half;             // FIRST: audio half channels
   const int8_t* qx;       // [B, T, CX]
   const float* sx;        // [B, T]
   const float* sspect;    // [B, T]
   const float* sw_in;     // [2C]
-  const float* b_in;      // [2C]
+  const float* b_in;      // [2C] (FIRST: b_all, b_in + the folded tap bias)
   const float* sw_cond;   // [2C]
   const float* b_cond;    // [2C]
   const float* sw_rs;     // [2C]
   const float* b_rs;      // [2C]
-  bf16* skip;             // [B, T, C] running skip sum, updated in place
+  bf16* skip;             // [B, T, C] STD: running skip sum, updated in
+                          // place; FINAL: read; FIRST: written
   float* xn;              // [B, T, C] scratch for x_new
   int8_t* qx_out;         // [B, T, C]
   float* sx_out;          // [B, T]
-  float* out;             // PART: [B, T, rs_out]
+  float* out;             // PART: [B, T, rs_out]; FINAL: [B, T, E]
+  const bf16* x0;         // FIRST: [B, T, n_half]
+  const bf16* wp;         // FIRST: composed taps [3, n_half, 2C]
+  const float* b_edge;    // FIRST: [2, 2C] (left, right)
+  const bf16* start_k;    // FIRST: [n_half, C]
+  const float* start_b;   // FIRST: [C]
+  const bf16* w_eff;      // FINAL: w_rs @ w_end [C, E]
+  const bf16* w_end;      // FINAL: [C, E]
+  const float* b_eff;     // FINAL: b_rs @ w_end + b_end [E]
 };
 
 // K-major operand with 128-byte rows and the 128-byte swizzle: 8-row
@@ -244,6 +305,38 @@ __device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t da,
 // tanh(at) * sigmoid(as) in f32, as the first design computes it
 __device__ __forceinline__ float gate_q(float at, float as) {
   return tanhf(at) * (1.f / (1.f + expf(-as)));
+}
+
+// The conditioning's term of one in-act value: (cond * sspect) * sw_cond +
+// b_cond, the plain version's order.
+__device__ __forceinline__ float cond_q(int cond, float ss, float wc,
+                                        float bc) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(cond), ss), wc), bc);
+}
+
+// One in-act value of the int8 taps: taps * sw_in + b_in, plus the
+// conditioning's term.
+__device__ __forceinline__ float inact_q(float taps, float sw, float bi,
+                                         int cond, float ss, float wc,
+                                         float bc) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(taps, sw), bi),
+                   cond_q(cond, ss, wc, bc));
+}
+
+// Eight bf16 (one 16-byte load) as floats, element 0 the low half of v.x.
+__device__ __forceinline__ void unpack_bf16x8(const uint4& v,
+                                              float (&f)[8]) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// The low (e = 0) or high (e = 1) bf16 of a pair as a float.
+__device__ __forceinline__ float bf16_half(unsigned pair, int e) {
+  return __uint_as_float(e ? pair & 0xffff0000u : pair << 16);
 }
 
 // Byte offset of (row r, column c) in the s8 gated tile: 128-column panels
@@ -339,16 +432,19 @@ __device__ __forceinline__ void pass_stages(uint64_t* full, uint64_t* empty,
 // 64 rows.  On return tsum holds the three taps' f32 sum (each tap's s32
 // sums times the scale of its shifted row: st[tap][h] for rows r0 + 8h)
 // and acc the conditioning's s32 sums.
-template <int NC>
+// FIRST has no tap stages (ntap = 0): acc alone, tsum is not touched.
+template <int ROLE, int NC>
 __device__ __forceinline__ void inact_chunk(const QParams& p, uint8_t* ring,
                                             uint64_t* full, uint64_t* empty,
                                             Ring& r, int cg, int tid,
                                             int* acc, float* tsum,
                                             const float (&st)[3][2]) {
   using TL = QTile<NC>;
-  const int nkt = 3 * p.ntap, nk = nkt + p.ncond;
+  const int nkt = ROLE == FIRST ? 0 : 3 * p.ntap, nk = nkt + p.ncond;
+  if (ROLE != FIRST) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) tsum[i] = 0.f;
+    for (int i = 0; i < 64; ++i) tsum[i] = 0.f;
+  }
   int prev = -1;
   for (int ks = 0; ks < nk; ++ks) {
     mbar_wait(&full[r.st], r.ph);
@@ -362,7 +458,7 @@ __device__ __forceinline__ void inact_chunk(const QParams& p, uint8_t* ring,
       wgmma_s8_n128(acc, desc_k128(a + kk * 32), desc_k128(w + kk * 32),
                     first && kk == 0 ? 0 : 1);
     wgmma_commit();
-    if (ks < nkt && (ks + 1) % p.ntap == 0) {
+    if (ROLE != FIRST && ks < nkt && (ks + 1) % p.ntap == 0) {
       // the end of a tap: drain, free both slots, flush with the scales
       wgmma_wait<0>();
       if (tid == 0) {
@@ -415,13 +511,9 @@ __device__ __forceinline__ void gate_store(const QParams& p, int c0, int tid,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int i = 4 * j + 2 * h + e, k = 4 * (j + 8) + 2 * h + e;
-        const float at = __fadd_rn(__fmul_rn(tsum[i], swt), bit);
-        const float as = __fadd_rn(__fmul_rn(tsum[k], sws), bis);
-        const float ct_q = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), ss[h]), wct), bct);
-        const float cs_q = __fadd_rn(
-            __fmul_rn(__fmul_rn(__int2float_rn(acc[k]), ss[h]), wcs), bcs);
-        const float g = gate_q(__fadd_rn(at, ct_q), __fadd_rn(as, cs_q));
+        const float g =
+            gate_q(inact_q(tsum[i], swt, bit, acc[i], ss[h], wct, bct),
+                   inact_q(tsum[k], sws, bis, acc[k], ss[h], wcs, bcs));
         v[h][e] = (unsigned)__float2int_rn(__fmul_rn(g, 127.f)) & 0xffu;
       }
     }
@@ -437,6 +529,222 @@ __device__ __forceinline__ void gate_store(const QParams& p, int c0, int tid,
           G + gated_off(r0 + 8 * h, c0 + 8 * j + 2 * q)) = pairs[j][h];
 }
 
+// FIRST: gate one chunk as gate_store does, the in-act sums being the
+// rank-n_half taps (FMAs of the block's tap rows of x0, sX [64][3][4] f32 in
+// shared memory, zero outside [0, n_valid) and past n_half, with the
+// chunk's columns of wp read as bf16 pairs) plus b_all, plus the
+// conditioning's term, minus the folded start bias where the left or the
+// right tap reads past an edge: the plain version's order after the taps.
+__device__ __forceinline__ void gate_store_first(
+    const QParams& p, int c0, int tid, int t0, const int* acc,
+    const float* sX, const float (&ss)[2], uint8_t* G) {
+  const int lane = tid & 31, q = lane & 3;
+  const int r0 = (tid >> 5) * 16 + (lane >> 2);
+  const int C = p.C, nh = p.n_half;
+  bool left[2], right[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + r0 + 8 * h;
+    left[h] = t < p.d;
+    right[h] = t >= p.n_valid - p.d;
+  }
+  unsigned short pairs[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = c0 + 8 * j + 2 * q;
+    float tp[2][2][2];   // [row][tanh, sigmoid][column of the pair]
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) tp[h][u][0] = tp[h][u][1] = 0.f;
+    // every load is issued (rows past n_half repeat the last one, against
+    // an x0 value of 0), so none waits behind a branch
+#pragma unroll
+    for (int jj = 0; jj < 3; ++jj) {
+      float4 xr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        xr[h] = *reinterpret_cast<const float4*>(
+            sX + ((r0 + 8 * h) * 3 + jj) * MAX_NHALF);
+#pragma unroll
+      for (int i = 0; i < MAX_NHALF; ++i) {
+        const unsigned* w = reinterpret_cast<const unsigned*>(
+            p.wp + (size_t)(jj * nh + min(i, nh - 1)) * 2 * C + c);
+        const unsigned wt = __ldg(w), ws = __ldg(w + C / 2);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float x = i == 0 ? xr[h].x : i == 1 ? xr[h].y
+                        : i == 2 ? xr[h].z : xr[h].w;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            tp[h][0][e] = fmaf(x, bf16_half(wt, e), tp[h][0][e]);
+            tp[h][1][e] = fmaf(x, bf16_half(ws, e), tp[h][1][e]);
+          }
+        }
+      }
+    }
+    unsigned v[2][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ct = c + e, cs = C + ct;
+      const float bat = __ldg(p.b_in + ct), bas = __ldg(p.b_in + cs);
+      const float wct = __ldg(p.sw_cond + ct), wcs = __ldg(p.sw_cond + cs);
+      const float bct = __ldg(p.b_cond + ct), bcs = __ldg(p.b_cond + cs);
+      const float elt = __ldg(p.b_edge + ct), els = __ldg(p.b_edge + cs);
+      const float ert = __ldg(p.b_edge + 2 * C + ct);
+      const float ers = __ldg(p.b_edge + 2 * C + cs);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e, k = 4 * (j + 8) + 2 * h + e;
+        float at = __fadd_rn(__fadd_rn(tp[h][0][e], bat),
+                             cond_q(acc[i], ss[h], wct, bct));
+        float as = __fadd_rn(__fadd_rn(tp[h][1][e], bas),
+                             cond_q(acc[k], ss[h], wcs, bcs));
+        if (left[h]) {
+          at = __fsub_rn(at, elt);
+          as = __fsub_rn(as, els);
+        }
+        if (right[h]) {
+          at = __fsub_rn(at, ert);
+          as = __fsub_rn(as, ers);
+        }
+        v[h][e] = (unsigned)__float2int_rn(__fmul_rn(gate_q(at, as), 127.f))
+                  & 0xffu;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      pairs[j][h] = (unsigned short)(v[h][0] | (v[h][1] << 8));
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<unsigned short*>(
+          G + gated_off(r0 + 8 * h, c0 + 8 * j + 2 * q)) = pairs[j][h];
+}
+
+// FINAL: one gate chunk (columns c0 .. c0 + 63 and their sigmoid partners)
+// in f32, cast to bf16, times the chunk's rows of w_eff, plus the running
+// skip sum's columns c0 .. c0 + 63 times w_end's, into partial sums fs
+// [2 rows][8]; the quad that shares the rows reduces them by shuffles and
+// adds them to the column group's [64, 8] sums in shared memory (`fin`,
+// each element owned by one thread).  W holds w_eff and then w_end as
+// [C, 8] bf16 tables, zero past E.  Registers: the 32 gate values are
+// computed first, which frees the 128 accumulator registers, and only then
+// are the skip pairs loaded and the partial sums kept (interleaved, they
+// spilled at two column groups' 168 registers).
+__device__ __forceinline__ void final_accum(const QParams& p, int c0, int tid,
+                                            int b, int t0, const int* acc,
+                                            const float* tsum,
+                                            const float (&ss)[2],
+                                            const uint8_t* W, float* fin) {
+  const int lane = tid & 31, q = lane & 3;
+  const int rl = (tid >> 5) * 16 + (lane >> 2);
+  const int C = p.C;
+  float gb[8][2][2];   // [tile][column of the pair][row]
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ct = c0 + 8 * j + 2 * q + e, cs = C + ct;
+      const float swt = __ldg(p.sw_in + ct), sws = __ldg(p.sw_in + cs);
+      const float bit = __ldg(p.b_in + ct), bis = __ldg(p.b_in + cs);
+      const float wct = __ldg(p.sw_cond + ct), wcs = __ldg(p.sw_cond + cs);
+      const float bct = __ldg(p.b_cond + ct), bcs = __ldg(p.b_cond + cs);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e, k = 4 * (j + 8) + 2 * h + e;
+        const float g =
+            gate_q(inact_q(tsum[i], swt, bit, acc[i], ss[h], wct, bct),
+                   inact_q(tsum[k], sws, bis, acc[k], ss[h], wcs, bcs));
+        gb[j][e][h] = __bfloat162float(__float2bfloat16(g));
+      }
+    }
+  }
+  unsigned sk[8][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int t = t0 + rl + 8 * h;
+    const unsigned* row = reinterpret_cast<const unsigned*>(
+        p.skip + ((size_t)b * p.T + t) * C + c0 + 2 * q);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sk[j][h] = t < p.T ? __ldg(row + 4 * j) : 0u;
+  }
+  float fs[2][MAX_E];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int u = 0; u < MAX_E; ++u) fs[h][u] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ct = c0 + 8 * j + 2 * q + e;
+      float we[MAX_E], wd[MAX_E];
+      unpack_bf16x8(*reinterpret_cast<const uint4*>(W + (size_t)ct * 16), we);
+      unpack_bf16x8(
+          *reinterpret_cast<const uint4*>(W + (size_t)(C + ct) * 16), wd);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float a = bf16_half(sk[j][h], e);
+#pragma unroll
+        for (int u = 0; u < MAX_E; ++u)
+          fs[h][u] = fmaf(a, wd[u], fmaf(gb[j][e][h], we[u], fs[h][u]));
+      }
+    }
+  }
+  // lane q of the quad adds columns 2q, 2q + 1 (static indices only)
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int u = 0; u < MAX_E; ++u) {
+      float v = fs[h][u];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if ((u >> 1) == q) fin[(rl + 8 * h) * MAX_E + u] += v;
+    }
+}
+
+// FINAL, after the last chunk: the column groups' sums meet, and the first
+// group writes out = sums + b_eff, the block's [64, E] f32 rows (one
+// contiguous run of memory) an element a thread.
+template <int NC>
+__device__ __forceinline__ void final_store(const QParams& p, int cg, int tid,
+                                            int b, int t0, const float* fin) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(NC * 128) : "memory");
+  if (cg != 0) return;
+  const int E = p.E;
+  const int rows = min(BM, p.T - t0);
+  float* o = p.out + ((size_t)b * p.T + t0) * E;
+  for (int i = tid; i < rows * E; i += 128) {
+    const int r = i / E, u = i - r * E;
+    float v = fin[r * MAX_E + u];
+    if (NC == 2) v += fin[(BM + r) * MAX_E + u];
+    o[i] = v + __ldg(p.b_eff + u);
+  }
+}
+
+// FIRST: the residual base x0[t] start_k + start_b at columns n, n + 1 (n
+// even), from the row's x0 (xc: its centre tap row in sX, zero past
+// n_half); the plain version's order: the product, then the bias.
+__device__ __forceinline__ void first_base(const QParams& p, const float* xc,
+                                           int n, float& base0,
+                                           float& base1) {
+  const float4 x4 = *reinterpret_cast<const float4*>(xc);
+  const float x[MAX_NHALF] = {x4.x, x4.y, x4.z, x4.w};
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < MAX_NHALF; ++i) {   // branch-free, as the taps
+    const unsigned w = __ldg(reinterpret_cast<const unsigned*>(
+        p.start_k + (size_t)min(i, p.n_half - 1) * p.C + n));
+    s0 = fmaf(x[i], bf16_half(w, 0), s0);
+    s1 = fmaf(x[i], bf16_half(w, 1), s1);
+  }
+  base0 = __fadd_rn(s0, __ldg(p.start_b + n));
+  base1 = __fadd_rn(s1, __ldg(p.start_b + n + 1));
+}
+
 // The res/skip product in chunks of N = 128, A from the gated tile: each
 // warpgroup takes the chunks n0 + 128 cg (column group cg of NC).  The
 // residual chunks park x_new in the scratch and keep each row's running
@@ -449,13 +757,16 @@ __device__ __forceinline__ void gate_store(const QParams& p, int c0, int tid,
 // parked values) before its first store, and the chunk's are issued before
 // its K loop, so their latency hides behind the products: interleaved with
 // stores, every load would wait for the store before it, which may alias
-// it.
-template <int NC>
+// it.  FIRST: the residual base is x0[t] start_k + start_b from the
+// block's x0 rows (sX), and the skip chunks write bf16(rs) (no running
+// sum).
+template <int ROLE, int NC>
 __device__ __forceinline__ void rs_phase(const QParams& p, uint8_t* ring,
                                          uint64_t* full, uint64_t* empty,
                                          Ring& r, int cg, int tid, int b,
                                          int t0, const uint8_t* G,
-                                         float* xamax, const float (&sc)[2]) {
+                                         float* xamax, const float (&sc)[2],
+                                         const float* sX) {
   using TL = QTile<NC>;
   const int C = p.C, T = p.T;
   const uint32_t g = smem_u32(G);
@@ -481,6 +792,7 @@ __device__ __forceinline__ void rs_phase(const QParams& p, uint8_t* ring,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         in[j][h] = 0;
+        if (ROLE == FIRST) continue;
         if (nc < C) {
           if (t[h] < p.n_valid)
             in[j][h] = __ldg(reinterpret_cast<const unsigned short*>(
@@ -525,14 +837,22 @@ __device__ __forceinline__ void rs_phase(const QParams& p, uint8_t* ring,
           for (int h = 0; h < 2; ++h) {
             float x0 = 0.f, x1 = 0.f;
             if (t[h] < p.n_valid) {
-              const float q0 = (float)(signed char)(in[j][h] & 0xffu);
-              const float q1 = (float)(signed char)(in[j][h] >> 8);
               const float v0 = __fadd_rn(
                   __fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), w0), b0);
               const float v1 = __fadd_rn(
                   __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), w1), b1);
-              x0 = __fadd_rn(__fmul_rn(q0, sc[h]), v0);
-              x1 = __fadd_rn(__fmul_rn(q1, sc[h]), v1);
+              float base0, base1;
+              if (ROLE == FIRST) {
+                first_base(p, sX + ((rl + 8 * h) * 3 + 1) * MAX_NHALF, n,
+                           base0, base1);
+              } else {
+                const float q0 = (float)(signed char)(in[j][h] & 0xffu);
+                const float q1 = (float)(signed char)(in[j][h] >> 8);
+                base0 = __fmul_rn(q0, sc[h]);
+                base1 = __fmul_rn(q1, sc[h]);
+              }
+              x0 = __fadd_rn(base0, v0);
+              x1 = __fadd_rn(base1, v1);
             }
             xv[j - j0][h] = make_float2(x0, x1);
             amax[h] = fmaxf(amax[h], fmaxf(fabsf(x0), fabsf(x1)));
@@ -561,10 +881,14 @@ __device__ __forceinline__ void rs_phase(const QParams& p, uint8_t* ring,
           const float v1 = __fadd_rn(
               __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), w1), b1);
           __nv_bfloat162 sum;
-          memcpy(&sum, &in[j][h], 4);
-          sum = __floats2bfloat162_rn(
-              __low2float(sum) + __bfloat162float(__float2bfloat16(v0)),
-              __high2float(sum) + __bfloat162float(__float2bfloat16(v1)));
+          if (ROLE == FIRST) {
+            sum = __floats2bfloat162_rn(v0, v1);
+          } else {
+            memcpy(&sum, &in[j][h], 4);
+            sum = __floats2bfloat162_rn(
+                __low2float(sum) + __bfloat162float(__float2bfloat16(v0)),
+                __high2float(sum) + __bfloat162float(__float2bfloat16(v1)));
+          }
           unsigned u;
           memcpy(&u, &sum, 4);
           in[j][h] = u;
@@ -708,6 +1032,7 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
   __shared__ float xamax[NC == 2 ? 128 : 1];  // two column groups' row amax
   // 1024-byte alignment for the 128-byte swizzle (the launch adds 1 KB)
   uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // the gated tile; FINAL: the end projection's tables and `fin`
   uint8_t* G = ring + p.stages * TL::STAGE;
   const int b = blockIdx.y, t0 = blockIdx.x * BM;
   const int warp = threadIdx.x >> 5;
@@ -738,21 +1063,70 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
         const int s = t + (j - 1) * p.d;
-        st[j][h] = t < p.T && s >= 0 && s < p.n_valid
+        st[j][h] = ROLE != FIRST && t < p.T && s >= 0 && s < p.n_valid
                        ? p.sx[(size_t)b * p.T + s] : 0.f;
       }
       ss[h] = t < p.T ? p.sspect[(size_t)b * p.T + t] : 0.f;
+    }
+    // FIRST: the block's tap rows of x0, sX [64][3][4] f32 after the gated
+    // tile (0 outside [0, n_valid) and past n_half)
+    float* sX = reinterpret_cast<float*>(G + (size_t)BM * p.nrs * QK);
+    if (ROLE == FIRST) {
+      for (int i = threadIdx.x; i < BM * 3 * MAX_NHALF; i += NC * 128) {
+        const int row = i / (3 * MAX_NHALF), j = i / MAX_NHALF % 3;
+        const int c = i % MAX_NHALF;
+        const int t = t0 + row, s = t + (j - 1) * p.d;
+        sX[i] = t < p.T && s >= 0 && s < p.n_valid && c < p.n_half
+                    ? __bfloat162float(
+                          p.x0[((size_t)b * p.T + s) * p.n_half + c])
+                    : 0.f;
+      }
+      asm volatile("bar.sync 1, %0;\n" ::"r"(NC * 128) : "memory");
+    }
+    // FINAL: the column groups' [64, 8] end projection sums, after the
+    // tables
+    float* fin = reinterpret_cast<float*>(G + (size_t)p.C * 4 * MAX_E);
+    if (ROLE == FINAL) {
+      // w_eff and w_end as [C, 8] bf16 tables, zero past E, a row of 16
+      // bytes a thread (its loads all issued before the store); the sums
+      // at 0
+#pragma unroll 4
+      for (int row = threadIdx.x; row < 2 * p.C; row += NC * 128) {
+        const unsigned short* src = reinterpret_cast<const unsigned short*>(
+            row < p.C ? p.w_eff + (size_t)row * p.E
+                      : p.w_end + (size_t)(row - p.C) * p.E);
+        unsigned v[MAX_E];
+#pragma unroll
+        for (int u = 0; u < MAX_E; ++u) v[u] = u < p.E ? __ldg(src + u) : 0u;
+        *reinterpret_cast<uint4*>(G + (size_t)row * 16) =
+            make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16,
+                       v[4] | v[5] << 16, v[6] | v[7] << 16);
+      }
+      for (int i = threadIdx.x; i < NC * BM * MAX_E; i += NC * 128)
+        fin[i] = 0.f;
+      asm volatile("bar.sync 1, %0;\n" ::"r"(NC * 128) : "memory");
     }
     int acc[64];
     float tsum[64];
     Ring r;
     for (int c0 = 0; c0 < p.C; c0 += QH * NC) {
-      if (ROLE == PART && c0 + QH * cg >= p.C) {   // no chunk of this group
+      const int cc = c0 + QH * cg;   // this group's gate chunk
+      if (ROLE == PART && cc >= p.C) {   // no chunk of this group
         pass_stages(full, empty, r, 3 * p.ntap + p.ncond, tid, p.stages);
         continue;
       }
-      inact_chunk<NC>(p, ring, full, empty, r, cg, tid, acc, tsum, st);
-      gate_store(p, c0 + QH * cg, tid, acc, tsum, ss, G);
+      inact_chunk<ROLE, NC>(p, ring, full, empty, r, cg, tid, acc, tsum, st);
+      if (ROLE == FINAL)
+        final_accum(p, cc, tid, b, t0, acc, tsum, ss, G,
+                    fin + cg * BM * MAX_E);
+      else if (ROLE == FIRST)
+        gate_store_first(p, cc, tid, t0, acc, sX, ss, G);
+      else
+        gate_store(p, cc, tid, acc, tsum, ss, G);
+    }
+    if (ROLE == FINAL) {
+      final_store<NC>(p, cg, tid, b, t0, fin);
+      return;
     }
     // every gated column -> visible to the wgmma of both warpgroups (async
     // proxy)
@@ -762,17 +1136,26 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
       part_phase<NC>(p, ring, full, empty, r, cg, tid, b, t0, G);
     } else {
       const float sc[2] = {st[1][0], st[1][1]};
-      rs_phase<NC>(p, ring, full, empty, r, cg, tid, b, t0, G, xamax, sc);
+      rs_phase<ROLE, NC>(p, ring, full, empty, r, cg, tid, b, t0, G, xamax,
+                         sc, sX);
     }
   }
 }
 
 // --- host -------------------------------------------------------------------
 
-// the ring and the gated tile [64, C] in whole 128-column panels
-size_t smem_bytes(int nc, int C, int stages) {
-  return 1024 + (size_t)stages * (nc * B_STAGE + A_BYTES) +
-         (size_t)BM * ((C + QK - 1) / QK * QK);
+// the ring and the gated tile [64, C] in whole 128-column panels (FIRST:
+// and the block's x0 tap rows [64][3][4] f32); FINAL: the ring, the end
+// projection's two [C, 8] bf16 tables and the two column groups' [64, 8]
+// f32 sums
+size_t smem_bytes(int role, int nc, int C, int stages) {
+  const size_t ring = 1024 + (size_t)stages * (nc * B_STAGE + A_BYTES);
+  if (role == FINAL)
+    return ring + (size_t)C * 2 * MAX_E * sizeof(bf16) +
+           2 * BM * MAX_E * sizeof(float);
+  const size_t gated = (size_t)BM * ((C + QK - 1) / QK * QK);
+  if (role == FIRST) return ring + gated + BM * 3 * MAX_NHALF * sizeof(float);
+  return ring + gated;
 }
 
 int encode_s8(CUtensorMap* m, const void* ptr, int rank,
@@ -790,10 +1173,13 @@ int encode_maps(QParams& p, const void* qx, const void* qspect,
   const cuuint32_t abox[3] = {QK, BM, 1};
   const cuuint32_t wbox[2] = {QK, 64};
   int e;
-  {
+  if (qx) {   // the taps (FIRST has none)
     const cuuint64_t dims[3] = {CX, nv, (cuuint64_t)B};
     const cuuint64_t str[2] = {CX, T * CX};
     if ((e = encode_s8(&p.tm_qx, qx, 3, dims, str, abox))) return e;
+    const cuuint64_t wdims[2] = {CX, 6 * C};
+    const cuuint64_t wstr[1] = {CX};
+    if ((e = encode_s8(&p.tm_win, qw_in, 2, wdims, wstr, wbox))) return e;
   }
   {
     const cuuint64_t dims[3] = {M, T, (cuuint64_t)B};
@@ -801,15 +1187,11 @@ int encode_maps(QParams& p, const void* qx, const void* qspect,
     if ((e = encode_s8(&p.tm_qspect, qspect, 3, dims, str, abox))) return e;
   }
   {
-    const cuuint64_t dims[2] = {CX, 6 * C};
-    const cuuint64_t str[1] = {CX};
-    if ((e = encode_s8(&p.tm_win, qw_in, 2, dims, str, wbox))) return e;
-  }
-  {
     const cuuint64_t dims[2] = {M, 2 * C};
     const cuuint64_t str[1] = {M};
     if ((e = encode_s8(&p.tm_wcond, qw_cond, 2, dims, str, wbox))) return e;
   }
+  if (!qw_rs) return 0;   // FINAL: no res/skip product
   // a box past C (the partial layer's Cp % 128 == 64) is zero-filled
   const cuuint64_t dims[2] = {C, (cuuint64_t)p.rs_out};
   const cuuint64_t str[1] = {C};
@@ -818,7 +1200,7 @@ int encode_maps(QParams& p, const void* qx, const void* qspect,
 
 template <int ROLE, int NC>
 int launch(const QParams& p, int B, void* stream) {
-  const size_t smem = smem_bytes(NC, p.C, p.stages);
+  const size_t smem = smem_bytes(ROLE, NC, p.C, p.stages);
   cudaError_t e = cudaFuncSetAttribute(
       wn_int8_sm90_kernel<ROLE, NC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -829,7 +1211,7 @@ int launch(const QParams& p, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// What both roles set: widths, K stages and the tap and conditioning
+// What every role sets: widths, K stages and the tap and conditioning
 // operands.
 void fill_common(QParams& p, int T, int n_valid, int CX, int C, int M,
                  int d, int stages, const void* qx, const void* sx,
@@ -857,8 +1239,9 @@ void fill_common(QParams& p, int T, int n_valid, int CX, int C, int M,
 // dtypes, contiguity and alignment are checked there before the call.
 extern "C" {
 
-size_t t2s_wn_int8_sm90_smem_bytes(int nc, int C, int stages) {
-  return smem_bytes(nc, C, stages);
+// `role`: 0 standard, 1 partial, 2 final, 3 first
+size_t t2s_wn_int8_sm90_smem_bytes(int nc, int C, int stages, int role) {
+  return smem_bytes(role, nc, C, stages);
 }
 
 int t2s_wn_layer_int8_sm90(
@@ -908,6 +1291,68 @@ int t2s_wn_layer_partial_int8_sm90(
   if (e) return e;
   return nc == 2 ? launch<PART, 2>(p, B, stream)
                  : launch<PART, 1>(p, B, stream);
+}
+
+// The last layer of a flow with its folded end projection: the standard
+// layer's taps and conditioning, w_eff and w_end [C, E] bf16, skip_acc
+// [B, T, C] bf16 (read), b_eff [E]; out [B, T, E] f32.
+int t2s_wn_layer_final_int8_sm90(
+    const void* qx, const void* sx, const void* qspect, const void* sspect,
+    const void* qw_in, const void* sw_in, const void* b_in,
+    const void* qw_cond, const void* sw_cond, const void* b_cond,
+    const void* w_eff, const void* skip_acc, const void* w_end,
+    const void* b_eff, void* out, int B, int T, int n_valid, int C, int M,
+    int E, int d, int nc, int stages, void* stream) {
+  if (stages < 2 || stages > MAX_STAGES || (nc != 1 && nc != 2) || E < 1 ||
+      E > MAX_E)
+    return (int)cudaErrorInvalidValue;
+  QParams p;
+  memset(&p, 0, sizeof(p));
+  fill_common(p, T, n_valid, C, C, M, d, stages, qx, sx, sspect, sw_in, b_in,
+              sw_cond, b_cond, nullptr);
+  p.E = E;
+  p.w_eff = (const bf16*)w_eff; p.w_end = (const bf16*)w_end;
+  p.b_eff = (const float*)b_eff;
+  p.skip = (bf16*)skip_acc; p.out = (float*)out;
+  const int e = encode_maps(p, qx, qspect, qw_in, qw_cond, nullptr, B);
+  if (e) return e;
+  return nc == 2 ? launch<FINAL, 2>(p, B, stream)
+                 : launch<FINAL, 1>(p, B, stream);
+}
+
+// The start projection and layer 0 of a flow: the audio half x0 [B, T,
+// n_half] bf16 under the composed taps wp [3, n_half, 2C] bf16 with b_all
+// and b_edge [2, 2C], the int8 conditioning and res/skip of the standard
+// layer, start_k [n_half, C] bf16 and start_b [C]; writes qx_out, sx_out
+// and skip_out [B, T, C] bf16, with xn the f32 scratch.
+int t2s_wn_layer_first_int8_sm90(
+    const void* x0, const void* qspect, const void* sspect, const void* wp,
+    const void* b_all, const void* b_edge, const void* qw_cond,
+    const void* sw_cond, const void* b_cond, const void* qw_rs,
+    const void* sw_rs, const void* b_rs, const void* start_k,
+    const void* start_b, void* xn, void* qx_out, void* sx_out,
+    void* skip_out, int B, int T, int n_valid, int C, int M, int n_half,
+    int d, int nc, int stages, void* stream) {
+  if (stages < 2 || stages > MAX_STAGES || (nc != 1 && nc != 2) ||
+      n_half < 1 || n_half > MAX_NHALF)
+    return (int)cudaErrorInvalidValue;
+  QParams p;
+  memset(&p, 0, sizeof(p));
+  fill_common(p, T, n_valid, C, C, M, d, stages, nullptr, nullptr, sspect,
+              nullptr, b_all, sw_cond, b_cond, sw_rs);
+  p.ntap = 0;
+  p.rs_out = 2 * C;
+  p.n_half = n_half;
+  p.x0 = (const bf16*)x0; p.wp = (const bf16*)wp;
+  p.b_edge = (const float*)b_edge;
+  p.start_k = (const bf16*)start_k; p.start_b = (const float*)start_b;
+  p.b_rs = (const float*)b_rs;
+  p.skip = (bf16*)skip_out; p.xn = (float*)xn;
+  p.qx_out = (int8_t*)qx_out; p.sx_out = (float*)sx_out;
+  const int e = encode_maps(p, nullptr, qspect, nullptr, qw_cond, qw_rs, B);
+  if (e) return e;
+  return nc == 2 ? launch<FIRST, 2>(p, B, stream)
+                 : launch<FIRST, 1>(p, B, stream);
 }
 
 }  // extern "C"

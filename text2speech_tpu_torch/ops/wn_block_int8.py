@@ -26,11 +26,10 @@ tensors as the kernels.
 
 Each role has a plain version (``*_plain``), used for CPU tensors and as the
 reference the CUDA kernels are checked against, and a wrapper that launches
-the kernel for CUDA tensors or raises; nothing falls back.  The standard
-and the partial layer launch ``csrc/wn_block_int8_sm90.cu`` (s8 ``wgmma``,
-TMA, two warpgroups on a 64-row tile; :func:`int8_sm90_plan` picks the
-tile), the first and final layers ``csrc/wn_block_int8.cu``, which keeps
-the first design of the standard and partial layers
+the kernel for CUDA tensors or raises; nothing falls back.  Every wrapper
+launches a role of ``csrc/wn_block_int8_sm90.cu`` (s8 ``wgmma``, TMA, two
+warpgroups on a 64-row tile; :func:`int8_sm90_plan` picks the tile per
+role); ``csrc/wn_block_int8.cu`` keeps the first design of all four roles
 (:func:`first_design`).  The plain versions are EXACT in their
 integer products without an integer matmul: s8 values cast to f32 multiply
 and add exactly while every partial sum stays below 2^24, which holds for
@@ -63,7 +62,9 @@ LIB = CudaLibrary("wn_block_int8", {
 LIB_SM90 = CudaLibrary("wn_block_int8_sm90", {
     "t2s_wn_layer_int8_sm90": [_P] * 17 + [_I] * 8 + [_P],
     "t2s_wn_layer_partial_int8_sm90": [_P] * 13 + [_I] * 10 + [_P],
-    "t2s_wn_int8_sm90_smem_bytes": [_I] * 3,
+    "t2s_wn_layer_final_int8_sm90": [_P] * 15 + [_I] * 9 + [_P],
+    "t2s_wn_layer_first_int8_sm90": [_P] * 18 + [_I] * 9 + [_P],
+    "t2s_wn_int8_sm90_smem_bytes": [_I] * 4,
 })
 
 I8 = torch.int8
@@ -251,56 +252,72 @@ def _rs_checks(C, qw_rs, sw_rs, b_rs):
 # restated): a block is 64 rows, ``nc`` consumer warpgroups (column groups)
 # and one producer warpgroup; a ring stage holds ``nc`` [128, 128] int8
 # weight tiles and the [64, 128] int8 activation tile (K = 128 bytes, one
-# swizzled row); the gated tile is [64, C] int8 in whole 128-column panels;
-# 1 KB aligns the ring, and 608 bytes of static shared memory hold its
-# mbarriers (six stages at most) and the two column groups' row maxima.
+# swizzled row); beside the ring, the gated tile [64, C] int8 in whole
+# 128-column panels (the first role adds the block's x0 tap rows, [64, 3,
+# 4] f32), or in the final role the end projection's two [C, 8] bf16
+# tables and the two column groups' [64, 8] f32 sums; 1 KB aligns the
+# ring, and 608 bytes of static shared memory hold its mbarriers (six
+# stages at most) and the two column groups' row maxima.
 INT8_SM90_K = 128
 INT8_SM90_MAX_STAGES = 6
 INT8_SM90_STATIC_SMEM = 608
+# the kernel's roles (its ``enum Role``)
+INT8_SM90_ROLES = {"std": 0, "part": 1, "final": 2, "first": 3}
 
 
 def _int8_sm90_stage_bytes(nc: int) -> int:
     return nc * 128 * INT8_SM90_K + 64 * INT8_SM90_K
 
 
-def int8_sm90_smem_bytes(nc: int, C: int, stages: int) -> int:
+def int8_sm90_smem_bytes(nc: int, C: int, stages: int,
+                         role: str = "std") -> int:
     """Dynamic shared memory of one block (the kernel's ``smem_bytes``)."""
-    return (1024 + stages * _int8_sm90_stage_bytes(nc)
-            + 64 * -(-C // INT8_SM90_K) * INT8_SM90_K)
+    ring = 1024 + stages * _int8_sm90_stage_bytes(nc)
+    if role == "final":
+        return ring + C * 8 * 2 * 2 + 2 * 64 * 8 * 4
+    gated = 64 * -(-C // INT8_SM90_K) * INT8_SM90_K
+    return ring + gated + (64 * 3 * 4 * 4 if role == "first" else 0)
 
 
-def _int8_sm90_stages(nc: int, C: int) -> int:
+def _int8_sm90_stages(nc: int, C: int, role: str = "std") -> int:
     free = (SM90_SMEM_LIMIT - INT8_SM90_STATIC_SMEM
-            - int8_sm90_smem_bytes(nc, C, 0))
+            - int8_sm90_smem_bytes(nc, C, 0, role))
     return min(INT8_SM90_MAX_STAGES,
                max(free, 0) // _int8_sm90_stage_bytes(nc))
 
 
-def int8_sm90_tile(C: int, nc: int, T: int = 1, B: int = 1) -> dict:
-    """The tile of ``csrc/wn_block_int8_sm90.cu`` with ``nc`` column groups
-    on 64-row blocks, its ring as deep as fits (up to six stages).  Raises
-    ValueError where fewer than two stages fit."""
-    stages = _int8_sm90_stages(nc, C)
+def int8_sm90_tile(C: int, nc: int, T: int = 1, B: int = 1,
+                   role: str = "std") -> dict:
+    """The tile of ``csrc/wn_block_int8_sm90.cu``'s ``role`` ("std",
+    "part", "final" or "first") with ``nc`` column groups on 64-row blocks,
+    its ring as deep as fits (up to six stages).  Raises ValueError where
+    fewer than two stages fit."""
+    if role not in INT8_SM90_ROLES:
+        raise ValueError(f"no role {role!r} of the sm90 int8 kernel")
+    stages = _int8_sm90_stages(nc, C, role)
     if stages < 2:
         raise ValueError(f"no tile of the sm90 int8 WN-layer kernel fits "
                          f"C={C} in {SM90_SMEM_LIMIT} bytes of shared memory")
     return {"nc": nc, "bm": 64, "stages": stages, "threads": 128 * (nc + 1),
-            "smem": int8_sm90_smem_bytes(nc, C, stages),
+            "smem": int8_sm90_smem_bytes(nc, C, stages, role),
             "grid": (-(-T // 64), B)}
 
 
-def int8_sm90_plan(C: int, T: int = 1, B: int = 1) -> dict:
-    """Tile of ``csrc/wn_block_int8_sm90.cu`` for width ``C`` and ``B``
-    utterances of ``T`` rows: two column groups where three ring stages of
-    them fit beside the gated tile (C <= 1664), else one.  The partial
-    layer's ``C`` is the rank's gate width Cp (its gated tile and res/skip
-    K; the taps' K is the hidden state's).  At Cp = 64 (p = 8 at C = 512) a
-    rank has one gate chunk, and the second group sits out the in-act
-    product and shares the res/skip chunks: there one and two groups ran
-    within 3% of each other, two ahead at batch 3 (``chip_smoke.py``'s
-    tile line, PERF.md), so the rule holds there too.  Raises ValueError
-    where no tile fits in shared memory."""
-    return int8_sm90_tile(C, 2 if _int8_sm90_stages(2, C) >= 3 else 1, T, B)
+def int8_sm90_plan(C: int, T: int = 1, B: int = 1, role: str = "std") -> dict:
+    """Tile of ``csrc/wn_block_int8_sm90.cu``'s ``role`` for width ``C``
+    and ``B`` utterances of ``T`` rows: two column groups where three ring
+    stages of them fit beside the gated tile (C <= 1664; the first layer
+    adds 3 KB, C <= 1536), else one; the final layer keeps no gated tile,
+    so two groups fit to C = 3200 and its ring is one stage deeper at
+    C = 512.  The partial layer's ``C`` is the rank's gate width
+    Cp (its gated tile and res/skip K; the taps' K is the hidden state's).
+    At Cp = 64 (p = 8 at C = 512) a rank has one gate chunk, and the second
+    group sits out the in-act product and shares the res/skip chunks: there
+    one and two groups ran within 3% of each other, two ahead at batch 3
+    (``chip_smoke.py``'s tile line, PERF.md), so the rule holds there too.
+    Raises ValueError where no tile fits in shared memory."""
+    nc = 2 if _int8_sm90_stages(2, C, role) >= 3 else 1
+    return int8_sm90_tile(C, nc, T, B, role)
 
 
 def wn_layer_first_int8(x0, qspect, sspect, start_k, start_b, wp, b_all,
@@ -311,7 +328,10 @@ def wn_layer_first_int8(x0, qspect, sspect, start_k, start_b, wp, b_all,
 
     CUDA: bf16 ``x0`` [B, T, n_half <= 4], ``start_k`` [n_half, C], ``wp``
     [3, n_half, 2C]; int8 ``qspect`` [B, T, M], ``qw_cond`` [2C, M],
-    ``qw_rs`` [2C, C] (output-major); f32 scales and biases."""
+    ``qw_rs`` [2C, C] (output-major); f32 scales and biases.  Launches the
+    ``FIRST`` role of ``csrc/wn_block_int8_sm90.cu`` with
+    :func:`int8_sm90_plan`; ``first_design("wn_layer_first_int8", ...)``
+    runs the first design on the same arguments."""
     if _on_cpu(x0, qspect, sspect, start_k, start_b, wp, b_all, b_edge,
                qw_cond, sw_cond, b_cond, qw_rs, sw_rs, b_rs):
         return wn_layer_first_int8_plain(
@@ -333,20 +353,33 @@ def wn_layer_first_int8(x0, qspect, sspect, start_k, start_b, wp, b_all,
         *_rs_checks(C, qw_rs, sw_rs, b_rs),
     ):
         _check(name, t, shape, dt)
-    qx_out = torch.empty((B, T, C), dtype=I8, device=x0.device)
-    sx_out = torch.empty((B, T, 1), dtype=F32, device=x0.device)
-    skip = torch.empty((B, T, C), dtype=bf, device=x0.device)
-    x_new = torch.empty((B, T, C), dtype=F32, device=x0.device)  # scratch
+    plan = int8_sm90_plan(C, T, B, role="first")
+    qx_out, sx_out, skip, x_new = _first_outputs(x0, C)
     wn_layer_first_int8.launches += 1
-    _run(LIB.get().t2s_wn_layer_first_int8, x0.device, x0.data_ptr(),
-         qspect.data_ptr(), sspect.data_ptr(), wp.data_ptr(),
-         b_all.data_ptr(), b_edge.data_ptr(), qw_cond.data_ptr(),
-         sw_cond.data_ptr(), b_cond.data_ptr(), qw_rs.data_ptr(),
-         sw_rs.data_ptr(), b_rs.data_ptr(), start_k.data_ptr(),
-         start_b.data_ptr(), x_new.data_ptr(), qx_out.data_ptr(),
-         sx_out.data_ptr(), skip.data_ptr(), B, T, n_valid, C, M, n_half,
-         dilation)
+    _run(LIB_SM90.get().t2s_wn_layer_first_int8_sm90, x0.device,
+         *_first_ptrs(x0, qspect, sspect, start_k, start_b, wp, b_all, b_edge,
+                      qw_cond, sw_cond, b_cond, qw_rs, sw_rs, b_rs, x_new,
+                      qx_out, sx_out, skip),
+         B, T, n_valid, C, M, n_half, dilation, plan["nc"], plan["stages"])
     return qx_out, sx_out, skip
+
+
+def _first_outputs(x0, C: int):
+    """The first layer's outputs (qx, sx, skip) and its x_new scratch."""
+    B, T, dev = x0.shape[0], x0.shape[1], x0.device
+    return (torch.empty((B, T, C), dtype=I8, device=dev),
+            torch.empty((B, T, 1), dtype=F32, device=dev),
+            torch.empty((B, T, C), dtype=torch.bfloat16, device=dev),
+            torch.empty((B, T, C), dtype=F32, device=dev))
+
+
+def _first_ptrs(x0, qspect, sspect, start_k, start_b, wp, b_all, b_edge,
+                qw_cond, sw_cond, b_cond, qw_rs, sw_rs, b_rs, x_new, qx_out,
+                sx_out, skip):
+    """The first layer's pointers in the order of both designs' C entries."""
+    return [t.data_ptr() for t in (
+        x0, qspect, sspect, wp, b_all, b_edge, qw_cond, sw_cond, b_cond,
+        qw_rs, sw_rs, b_rs, start_k, start_b, x_new, qx_out, sx_out, skip)]
 
 
 def wn_layer_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
@@ -393,20 +426,39 @@ def wn_layer_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
 
 
 def first_design(name: str, *args, n_valid: int | None = None):
-    """The first CUDA design of the standard or the partial int8 layer
-    (``csrc/wn_block_int8.cu``'s ``t2s_wn_layer_int8`` /
-    ``t2s_wn_layer_partial_int8``: 64-row blocks, ``mma.sync`` s8,
-    ``cp.async``), kept so that the sm90 kernel can be timed and checked
-    beside it on the same inputs; no path calls it.  ``name`` is
-    ``"wn_layer_int8"`` or ``"wn_layer_partial_int8"`` and the arguments
-    are that wrapper's (CUDA tensors, already checked by a call of the
-    wrapper); the standard layer's ``skip_acc`` is updated in place.  It
-    counts no launch."""
-    if name not in ("wn_layer_int8", "wn_layer_partial_int8"):
+    """The first CUDA design of an int8 layer (``csrc/wn_block_int8.cu``'s
+    ``t2s_wn_layer_int8`` / ``t2s_wn_layer_partial_int8`` /
+    ``t2s_wn_layer_first_int8`` / ``t2s_wn_layer_final_int8``: 64-row
+    blocks, ``mma.sync`` s8, ``cp.async``), kept so that the sm90 kernel
+    can be timed and checked beside it on the same inputs; no path calls
+    it.  ``name`` is ``"wn_layer_int8"``, ``"wn_layer_partial_int8"``,
+    ``"wn_layer_first_int8"`` or ``"wn_layer_final_int8"`` and the
+    arguments are that wrapper's (CUDA tensors, already checked by a call
+    of the wrapper); the standard layer's ``skip_acc`` is updated in place.
+    It counts no launch."""
+    if name not in ("wn_layer_int8", "wn_layer_partial_int8",
+                    "wn_layer_first_int8", "wn_layer_final_int8"):
         raise ValueError(f"no first design of {name!r}")
+    if name == "wn_layer_first_int8":
+        x0, start_k, d = args[0], args[3], int(args[14])
+        B, T, n_half = x0.shape
+        C, M = start_k.shape[-1], args[1].shape[-1]
+        n_valid = T if n_valid is None else int(n_valid)
+        qx_out, sx_out, skip, x_new = _first_outputs(x0, C)
+        _run(LIB.get().t2s_wn_layer_first_int8, x0.device,
+             *_first_ptrs(*args[:14], x_new, qx_out, sx_out, skip),
+             B, T, n_valid, C, M, n_half, d)
+        return qx_out, sx_out, skip
     qx = args[0]
     B, T, C = qx.shape
     n_valid = T if n_valid is None else int(n_valid)
+    if name == "wn_layer_final_int8":
+        E = args[12].shape[-1]
+        out = torch.empty((B, T, E), dtype=F32, device=qx.device)
+        _run(LIB.get().t2s_wn_layer_final_int8, qx.device,
+             *[t.data_ptr() for t in args[:14]], out.data_ptr(), B, T,
+             n_valid, C, args[2].shape[-1], E, int(args[14]))
+        return out
     if name == "wn_layer_partial_int8":
         rs_out, Cp = args[10].shape
         out = torch.empty((B, T, rs_out), dtype=F32, device=qx.device)
@@ -431,7 +483,10 @@ def wn_layer_final_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
     """Last int8 WN layer + folded end projection -> [B, T, E] f32.
 
     CUDA: taps and conditioning as :func:`wn_layer_int8`; ``w_eff`` and
-    ``w_end`` [C, E <= 8] bf16, ``b_eff`` [E] f32, ``skip_acc`` bf16."""
+    ``w_end`` [C, E <= 8] bf16, ``b_eff`` [E] f32, ``skip_acc`` bf16.
+    Launches the ``FINAL`` role of ``csrc/wn_block_int8_sm90.cu`` with
+    :func:`int8_sm90_plan`; ``first_design("wn_layer_final_int8", ...)``
+    runs the first design on the same arguments."""
     if _on_cpu(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond, sw_cond,
                b_cond, w_eff, skip_acc, w_end, b_eff):
         return wn_layer_final_int8_plain(
@@ -451,14 +506,16 @@ def wn_layer_final_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
         ("w_end", w_end, (C, E), bf), ("b_eff", b_eff, (E,), F32),
     ):
         _check(name, t, shape, dt)
+    plan = int8_sm90_plan(C, T, B, role="final")
     out = torch.empty((B, T, E), dtype=F32, device=qx.device)
     wn_layer_final_int8.launches += 1
-    _run(LIB.get().t2s_wn_layer_final_int8, qx.device, qx.data_ptr(),
-         sx.data_ptr(), qspect.data_ptr(), sspect.data_ptr(),
+    _run(LIB_SM90.get().t2s_wn_layer_final_int8_sm90, qx.device,
+         qx.data_ptr(), sx.data_ptr(), qspect.data_ptr(), sspect.data_ptr(),
          qw_in.data_ptr(), sw_in.data_ptr(), b_in.data_ptr(),
          qw_cond.data_ptr(), sw_cond.data_ptr(), b_cond.data_ptr(),
          w_eff.data_ptr(), skip_acc.data_ptr(), w_end.data_ptr(),
-         b_eff.data_ptr(), out.data_ptr(), B, T, n_valid, C, M, E, dilation)
+         b_eff.data_ptr(), out.data_ptr(), B, T, n_valid, C, M, E, dilation,
+         plan["nc"], plan["stages"])
     return out
 
 

@@ -31,6 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_file", default=None,
                    help="another run's checkpoint directory to warm-start "
                         "from")
+    p.add_argument("--wav_dir", default="./wav/",
+                   help="accepted for the reference CLI's sake and unused, "
+                        "as in the reference")
     p.add_argument("--log_dir", default="logdir-tacotron")
     p.add_argument("--checkpoint_path", type=str, default=None)
     p.add_argument("--logger_path", default=None)
