@@ -7,27 +7,30 @@ Phases, each of which passes or raises (the script then exits non-zero):
 
 1. require CUDA; print the card's name and power limit; turn TF32 off;
 2. build the hand-written kernels from ``csrc/`` (the bf16 WN-layer
-   library and its Hopper redesign of the standard, final, ``dcond``
-   standard and final and tensor-parallel partial layers, the int8
+   library and its Hopper redesign of the first, standard, final, ``dcond``
+   first, standard and final and tensor-parallel partial layers, the int8
    WN-layer library and its Hopper redesign of the standard, the
    tensor-parallel partial, the final and the first layer on s8
    ``wgmma``, the padded WN-layer library, the gated activation, the k=3
    conv backward and its Hopper redesign, one ``nvcc`` each, all started
    together) and print the times, and for the three Hopper files the
    ``HGMMA`` / ``IGMMA`` count per kernel and the registers, stack frames
-   and spills ``-Xptxas -v`` reports (the s8 final and first layers must
-   show neither);
+   and spills ``-Xptxas -v`` reports (the bf16 first layers and the s8
+   final and first layers must show neither);
 3. compare each of the six projecting kernels with its plain PyTorch version on the
    card at the reference width (C=512, M=640) over batch sizes, dilations,
    valid lengths and flow widths, and the standard and final layers also at
    the edges of their 128-row tile (T and n_valid off the tile grid, a
    halo of a whole tile, batch 3, nothing valid), the s8 standard, final
    and first layers there also against their first design and run twice
-   (bitwise equal); time them with CUDA events at one vocode's shapes and
-   compute the card's bound for the same work; time the standard, final
-   and s8 standard, first and final layers at batch 1 and 3 beside their
-   first design (``wn_block.first_design``, ``wn_block_int8.
-   first_design``), the bf16 first layer at batch 3 with its bound, and
+   (bitwise equal), the bf16 first layer against its plain version and its
+   first design over n_half 2-4, d 1, 64, 128, n_valid = T, < T, < d and
+   0, batch 1 and 3, C 512 and 256; time them with CUDA events at one
+   vocode's shapes and compute the card's bound for the same work; time
+   the first, standard and final and s8 standard, first and final layers
+   at batch 1 and 3 beside their first design (``wn_block.first_design``,
+   ``wn_block_int8.first_design``), with ``structure`` lines (the bf16 and
+   s8 standard layers at n_valid = 0: the first layers' skeletons), and
    the two products of the standard layer as one library call each;
 4. bf16 main path: synthesize a small batch of Korean texts end to end at
    full reference width (seeded random weights) through the fused vocoder
@@ -70,11 +73,12 @@ Phases, each of which passes or raises (the script then exits non-zero):
 12. the three composed-conditioning (``dcond``) kernels against their plain
     versions at C=512, L=8: batches 1 and 3, every dilation 1..128,
     ``n_valid < T``, the first and the last ``cond_index``, flow widths;
-    the standard and final ones (the sm90 kernel) also at the edges of
-    their tile and against their first design (the final one leaving
-    ``skip_acc`` untouched); times and bounds, the standard and final ones
-    at batch 1 and 3 beside their first design in turns, the first one at
-    batch 3;
+    all three (the sm90 kernel) also at the edges of their tile and
+    against their first design (the final one leaving ``skip_acc``
+    untouched; the first one over n_half, d, n_valid < d and 0, C 512 and
+    256); times and bounds, all three at batch 1 and 3 beside their first
+    design in turns, and a ``structure`` line (the standard one at n_valid
+    = 0: the first one's skeleton);
 13. the composed vocoder at full width on the main path's mel
     (``precompute_composed_cond`` once, ``infer_fused(composed_cond=...)``):
     12/72/12 launches of the ``dcond`` wrappers and none of the projecting
@@ -139,7 +143,11 @@ Phases, each of which passes or raises (the script then exits non-zero):
     memory; a resume in a process of its own; 2 steps each with
     ``--remat``, ``--bf16`` and ``--grad_accum 2``; the trained checkpoint
     through ``Synthesizer.load_checkpoints(taco_ckpt_dir=)`` into a decode
-    and the fused vocoder.  Phases 22-24 print the seconds they take;
+    and the fused vocoder; that checkpoint alone through the inference
+    CLI's Griffin-Lim path (``--taco_checkpoint DIR --griffin_lim_iters 8``,
+    in this process with no WN-layer launch, then in a process of its own:
+    a WAV of hop x (frames - 1) samples).  Phases 22-24 print the seconds
+    they take;
 25. the vocoder CLIs at full width: ``python -m text2speech_tpu_torch.
     mel2samp`` on a synthetic wav, ``python -m text2speech_tpu_torch.
     waveglow_inference --int8`` and ``--fused`` (with the denoiser) on its
@@ -195,7 +203,7 @@ INT8_FINAL_ATOL = 0.02
 PALLAS = "text2speech_tpu/ops/pallas/"
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
-    "wn_layer_first": ("wn_block.cu", PALLAS + "wn_block.py:459"),
+    "wn_layer_first": ("wn_block_sm90.cu", PALLAS + "wn_block.py:459"),
     "wn_layer": ("wn_block_sm90.cu", PALLAS + "wn_block.py:398"),
     "wn_layer_final": ("wn_block_sm90.cu", PALLAS + "wn_block.py:528"),
     "wn_layer_first_int8": ("wn_block_int8_sm90.cu",
@@ -207,7 +215,8 @@ KERNELS = {
 }
 # the composed-conditioning flavours (the DCOND instantiations)
 DCOND_KERNELS = {
-    "wn_layer_first_dcond": ("wn_block.cu", PALLAS + "wn_block_dcond.py:100"),
+    "wn_layer_first_dcond": ("wn_block_sm90.cu",
+                             PALLAS + "wn_block_dcond.py:100"),
     "wn_layer_dcond": ("wn_block_sm90.cu", PALLAS + "wn_block_dcond.py:43"),
     "wn_layer_final_dcond": ("wn_block_sm90.cu",
                              PALLAS + "wn_block_dcond.py:162"),
@@ -625,6 +634,39 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise RuntimeError(f"{tag}: two runs differ")
 
+    # the sm90 first layer at its edges against its plain version and its
+    # first design, the skip on every row: n_half 2-4, d 1, 64 and the
+    # config's largest (128), n_valid = T, < T, < d and 0, batch 1 and 3,
+    # the reference width and a narrower one the plan takes
+    def first_bf16(*a, n_valid):
+        return wb.first_design("wn_layer_first", *a, n_valid=n_valid)
+
+    for width in (C, 256):
+        for B, T, nv, d, n_half in ((1, 1000, 1000, 1, 2),
+                                    (3, 777, 700, 64, 3),
+                                    (1, 1000, 50, 64, 4),
+                                    (2, 1000, 0, 128, 2),
+                                    (3, 6450, 6401, 128, 4),
+                                    (1, 1000, 937, 128, 3)):
+            seed += 1
+            k = layer_inputs(B, T, nv, width, M, seed, dev, n_half=n_half)
+            args = layer_args(k, d)["wn_layer_first"]
+            got = wb.wn_layer_first(*args, n_valid=nv)
+            tag = (f"wn_layer_first edge C={width} B={B} T={T} n_valid={nv}"
+                   f" d={d} n_half={n_half}")
+            for ref, fn in (("plain", wb.wn_layer_first_plain),
+                            ("first design", first_bf16)):
+                want = fn(*args, n_valid=nv)
+                if got[0][:, nv:].any() or want[0][:, nv:].any():
+                    raise RuntimeError(f"{tag}: rows past n_valid are not "
+                                       f"zero")
+                errs = [compare(f"{tag} vs {ref} skip", got[1], want[1])]
+                if nv:
+                    errs.append(compare(f"{tag} vs {ref} x", got[0],
+                                        want[0]))
+                if ref == "plain" and width == C:
+                    note("wn_layer_first", max(errs))
+
     # times at one vocode's shapes: B=1, 200 mel frames = 6400 groups
     B, T = 1, 6400
     timed = {}
@@ -648,7 +690,6 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
               f"{r['bound_by']})")
 
     time_beside_first_design(rec, C, M)
-    time_at_batch3(rec, fns, C, M)
 
     # yardsticks of the tensor-core rates: the standard layer's two
     # products (in-act, res/skip) as one library call each, at batch 1 and
@@ -667,12 +708,16 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
 
 
 def time_beside_first_design(rec: dict, C: int, M: int) -> None:
-    """The sm90 standard and final layers and the s8 standard, first and
-    final layers beside their first design on the same inputs at one
+    """The sm90 first, standard and final layers and the s8 standard, first
+    and final layers beside their first design on the same inputs at one
     vocode's shapes, batch 1 and 3 x 6400 groups, timed in turns (first,
     sm90, sm90, first); the two agree within the kernel bounds.  Adds
     ``prev_ms`` (the first design at batch 1), ``ms_b3``, ``prev_ms_b3``
-    and ``bound_ms_b3`` to the five rows of ``rec``."""
+    and ``bound_ms_b3`` to the six rows of ``rec``.  The ``structure``
+    lines time the skeletons the first layers share with the standard
+    ones: the sm90 standard layer at n_valid = 0 (the bf16 first layer's
+    products without its tap stage, residual base or edge take-back) and
+    the s8 standard and final layers there."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
@@ -682,6 +727,8 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
         # inputs of their own for each layer: the timing loops update the
         # standard layers' skip sums in place
         runs = {
+            "wn_layer_first": layer_args(layer_inputs(
+                B, T, T, C, M, 91, dev, n_half=4), 1)["wn_layer_first"],
             "wn_layer": layer_args(layer_inputs(B, T, T, C, M, 96, dev),
                                    64)["wn_layer"],
             "wn_layer_final": layer_args(layer_inputs(
@@ -703,6 +750,10 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
             tag = f"{name} sm90 vs first design B={B}"
             if name == "wn_layer":
                 got, want = call_std(kern, args, T), call_std(first, args, T)
+                compare(f"{tag} x", got[0], want[0])
+                compare(f"{tag} skip", got[1], want[1])
+            elif name == "wn_layer_first":
+                got, want = kern(*args), first(*args)
                 compare(f"{tag} x", got[0], want[0])
                 compare(f"{tag} skip", got[1], want[1])
             elif name == "wn_layer_int8":
@@ -739,9 +790,12 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
                 ring = (f"{plan['nc']} column groups, {plan['stages']} "
                         f"stages of K=128 bytes")
             else:
-                plan = wb.sm90_plan(C, T, B)
+                role = "first" if name == "wn_layer_first" else "std"
+                plan = wb.sm90_plan(C, T, B, role=role)
                 smem = wb.LIB_SM90.get().t2s_wn_sm90_smem_bytes(
-                    plan["nwg"], plan["bk"], C, plan["stages"])
+                    plan["nwg"], plan["bk"], C, plan["stages"],
+                    wb.SM90_ROLES["final" if name == "wn_layer_final"
+                                  else role])
                 ring = f"{plan['stages']} stages of K={plan['bk']}"
             if smem != plan["smem"]:
                 raise RuntimeError(f"{name} plan: {plan['smem']} B of shared "
@@ -759,33 +813,23 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
             else:
                 rec[name]["ms_b3"], rec[name]["prev_ms_b3"] = ms, prev
                 rec[name]["bound_ms_b3"] = bound
-        # what FIRST's structure costs without its taps: the s8 standard
-        # layer at n_valid = 0 runs the same products (in-act K = M, the
-        # res/skip product, the requantization); the s8 final layer there
-        # is the conditioning's product and the end projection alone
+        # what FIRST's structure costs without its taps: the sm90 standard
+        # layer at n_valid = 0 runs the bf16 first layer's products (in-act
+        # K = M, the res/skip product) without its tap stage, residual base
+        # or edge take-back; the s8 standard layer there runs the same
+        # products as the s8 FIRST and the requantization; the s8 final
+        # layer there is the conditioning's product and the end projection
+        # alone
         std, fin = runs["wn_layer_int8"], runs["wn_layer_final_int8"]
+        bstd = runs["wn_layer"]
+        print(f"  structure B={B} T={T}: wn_layer at n_valid=0 "
+              f"{time_ms(lambda: call_std(wb.wn_layer, bstd, 0)):.4f} ms "
+              f"(the bf16 first layer's skeleton)")
         print(f"  structure B={B} T={T}: wn_layer_int8 at n_valid=0 "
               f"{time_ms(lambda: wq.wn_layer_int8(*std, n_valid=0)):.4f} ms, "
               f"wn_layer_final_int8 at n_valid=0 "
               f"{time_ms(lambda: wq.wn_layer_final_int8(*fin, n_valid=0)):.4f}"
               f" ms")
-
-
-def time_at_batch3(rec: dict, fns: dict, C: int, M: int) -> None:
-    """The first-design kernel of the main paths (row 1: the bf16 first
-    layer) at batch 3 x 6400 groups, the served batch: its time and bound
-    (``ms_b3``, ``bound_ms_b3``)."""
-    dev = torch.device("cuda")
-    B, T, name = 3, 6400, "wn_layer_first"
-    kern = fns[name][0]
-    args = layer_args(layer_inputs(B, T, T, C, M, 89, dev, n_half=4),
-                      1)[name]
-    tensors = [t for t in (*args, *kern(*args)) if torch.is_tensor(t)]
-    bound, by = bound_ms(work(name, B, T, C, M), tensors)
-    ms = time_ms(lambda: kern(*args))
-    print(f"  {name} B={B} T={T}: {ms:.4f} ms ({bound / ms:.1%} of the "
-          f"{bound:.4f} ms bound by {by})")
-    rec[name]["ms_b3"], rec[name]["bound_ms_b3"] = ms, bound
 
 
 TEXTS = [
@@ -1252,6 +1296,40 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
                 if ref == "plain":
                     note("wn_layer_dcond", err)
 
+    # the sm90 dcond first layer likewise (as phase 3 does for the bf16
+    # one): n_half 2-4, d 1, 64, 128, n_valid = T, < T, < d and 0, batch 1
+    # and 3, the reference width and a narrower one
+    for width in (C, 256):
+        for B, T, nv, d, n_half in ((1, 1000, 1000, 1, 2),
+                                    (3, 777, 700, 64, 3),
+                                    (1, 1000, 50, 64, 4),
+                                    (2, 1000, 0, 128, 2),
+                                    (3, 6450, 6401, 128, 4),
+                                    (1, 1000, 937, 128, 3)):
+            seed += 1
+            g = torch.Generator().manual_seed(seed)
+            cond_all = torch.randn(B, T, 2 * width * L, generator=g).to(
+                dev, torch.bfloat16)
+            k = layer_inputs(B, T, nv, width, 64, seed, dev, n_half=n_half)
+            args = dcond_args(k, cond_all, 0, d)["wn_layer_first_dcond"]
+            got = wd.wn_layer_first_dcond(*args, n_valid=nv)
+            tag = (f"wn_layer_first_dcond edge C={width} B={B} T={T} "
+                   f"n_valid={nv} d={d} n_half={n_half}")
+            for ref, want in (
+                    ("plain", wd.wn_layer_first_dcond_plain(*args,
+                                                            n_valid=nv)),
+                    ("first design", wb.first_design(
+                        "wn_layer_first_dcond", *args, n_valid=nv))):
+                if got[0][:, nv:].any() or want[0][:, nv:].any():
+                    raise RuntimeError(f"{tag}: rows past n_valid are not "
+                                       f"zero")
+                errs = [compare(f"{tag} vs {ref} skip", got[1], want[1])]
+                if nv:
+                    errs.append(compare(f"{tag} vs {ref} x", got[0],
+                                        want[0]))
+                if ref == "plain" and width == C:
+                    note("wn_layer_first_dcond", max(errs))
+
     B, T = 1, 6400
     cond_all = cond_for(B, T, 77)
     timed = {}
@@ -1281,40 +1359,52 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
         print(f"  {name} B={B} T={T}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (by "
               f"{r['bound_by']})")
-    for name in ("wn_layer_dcond", "wn_layer_final_dcond"):
+    for name in DCOND_KERNELS:
         time_dcond_beside_first_design(name, rec[name], C, L)
-    time_first_dcond_at_batch3(rec["wn_layer_first_dcond"], C, L)
     return rec
 
 
 def time_dcond_beside_first_design(name: str, r: dict, C: int,
                                    L: int) -> None:
-    """The sm90 dcond standard or final layer and its first design on the
-    same inputs at the composed vocode's shapes, batch 1 and 3 x 6400
-    groups, timed in turns (first, sm90, sm90, first); the two agree within
-    the kernel bounds.  Adds ``prev_ms`` (the first design at batch 1),
-    ``ms_b3``, ``prev_ms_b3`` and ``bound_ms_b3`` to the row ``r``."""
+    """The sm90 dcond first, standard or final layer and its first design
+    on the same inputs at the composed vocode's shapes, batch 1 and 3 x
+    6400 groups, timed in turns (first, sm90, sm90, first); the two agree
+    within the kernel bounds.  Adds ``prev_ms`` (the first design at batch
+    1), ``ms_b3``, ``prev_ms_b3`` and ``bound_ms_b3`` to the row ``r``.
+    With the standard layer, a ``structure`` line: it at n_valid = 0 is the
+    dcond first layer's skeleton (the gate of b_in + cond and the whole
+    res/skip ring, without the tap stage or the residual base)."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
 
     dev = torch.device("cuda")
     T = 6400
     std = name == "wn_layer_dcond"
+    first_layer = name == "wn_layer_first_dcond"
     kern = getattr(wd, name)
     for B in (1, 3):
         g = torch.Generator().manual_seed(78 + B)
         cond_all = torch.randn(B, T, 2 * C * L, generator=g).to(
             dev, torch.bfloat16)
-        li = 3 if std else L - 1
-        args = dcond_args(layer_inputs(B, T, T, C, 64, 93, dev,
-                                       E=None if std else 8),
-                          cond_all, li, 64 if std else 128)[name]
+        li = 3 if std else 0 if first_layer else L - 1
+        d = 64 if std else 1 if first_layer else 128
+        args = dcond_args(layer_inputs(
+            B, T, T, C, 64, 93, dev, n_half=4 if first_layer else None,
+            E=8 if name == "wn_layer_final_dcond" else None),
+            cond_all, li, d)[name]
 
         def first(*a, n_valid=None):
             return wb.first_design(name, *a, n_valid=n_valid)
 
         bt = 2 * B * T
-        if std:
+        if first_layer:
+            got, want = kern(*args), first(*args)
+            compare(f"{name} sm90 vs first design B={B} x", got[0], want[0])
+            compare(f"{name} sm90 vs first design B={B} skip", got[1],
+                    want[1])
+            outs = got
+            ops = bt * 3 * 4 * 2 * C + bt * 4 * C + bt * C * 2 * C
+        elif std:
             got = call_std(kern, args, T)
             want = call_std(first, args, T)
             compare(f"{name} sm90 vs first design B={B} x", got[0], want[0])
@@ -1337,43 +1427,25 @@ def time_dcond_beside_first_design(name: str, r: dict, C: int,
                         (lambda: first(*args), firsts)):
             acc.append(time_ms(fn))
         ms, prev = sum(sm90) / 2, sum(firsts) / 2
-        plan = wb.sm90_plan(C, T, B)
+        plan = wb.sm90_plan(C, T, B, role="first" if first_layer else "std")
         blocks = plan["grid"][0] * plan["grid"][1]
+        chunk = ("1 tap stage" if first_layer
+                 else f"{3 * C // plan['bk']}")
         print(f"  {name} B={B} T={T}: sm90 {sm90[0]:.4f} / "
               f"{sm90[1]:.4f} ms ({bound / ms:.1%} of the {bound:.4f} ms "
               f"bound by {by}), first design {firsts[0]:.4f} / "
               f"{firsts[1]:.4f} ms ({bound / prev:.1%}); sm90 tile "
               f"{plan['bm']} rows, {plan['stages']} stages of K={plan['bk']}"
-              f" ({3 * C // plan['bk']} per gate-pair chunk), "
+              f" ({chunk} per gate-pair chunk), "
               f"{plan['smem']} B shared, {blocks} blocks")
+        if std:
+            print(f"  structure B={B} T={T}: wn_layer_dcond at n_valid=0 "
+                  f"{time_ms(lambda: call_std(kern, args, 0)):.4f} ms (the "
+                  f"dcond first layer's skeleton)")
         if B == 1:
             r["prev_ms"] = prev
         else:
             r["ms_b3"], r["prev_ms_b3"], r["bound_ms_b3"] = ms, prev, bound
-
-
-def time_first_dcond_at_batch3(r: dict, C: int, L: int) -> None:
-    """Kernel 10 (the dcond first layer) at batch 3 x 6400 groups: its time
-    and bound (``ms_b3``, ``bound_ms_b3`` of the row ``r``)."""
-    from text2speech_tpu_torch.ops import wn_block_dcond as wd
-
-    dev = torch.device("cuda")
-    B, T = 3, 6400
-    g = torch.Generator().manual_seed(87)
-    cond_all = torch.randn(B, T, 2 * C * L, generator=g).to(dev,
-                                                            torch.bfloat16)
-    args = dcond_args(layer_inputs(B, T, T, C, 64, 86, dev, n_half=4),
-                      cond_all, 0, 1)["wn_layer_first_dcond"]
-    outs = wd.wn_layer_first_dcond(*args)
-    bt = 2 * B * T
-    bound, by = bound_ms(
-        {"bf16": bt * 3 * 4 * 2 * C + bt * 4 * C + bt * C * 2 * C},
-        [t[..., : 2 * C] if t is cond_all else t
-         for t in (*args, *outs) if torch.is_tensor(t)])
-    ms = time_ms(lambda: wd.wn_layer_first_dcond(*args))
-    print(f"  wn_layer_first_dcond B={B} T={T}: {ms:.4f} ms ({bound / ms:.1%}"
-          f" of the {bound:.4f} ms bound by {by})")
-    r["ms_b3"], r["bound_ms_b3"] = ms, bound
 
 
 def composed_path(synth, mel: torch.Tensor, rel32_bf16: float) -> dict:
@@ -3382,6 +3454,63 @@ def cli_taco(corpus: str, log_dir: str, num_steps: int, *flags):
     return trainer, seconds, peak
 
 
+GL_ITERS = 8
+GL_MAX_STEPS = 200
+
+
+def cli_griffin_lim(ckpt: str, d: str) -> None:
+    """The inference CLI's vocoder-free path on the Tacotron checkpoint
+    ``ckpt`` (a checkpoint directory alone): ``synthesize_griffin_lim`` in
+    this process (no WN-layer kernel launched; the waveform finite, hop x
+    (frames - 1) samples of its mel), then ``python -m
+    text2speech_tpu_torch.inference --taco_checkpoint ckpt
+    --griffin_lim_iters 8`` in a process of its own, its WAV read back.
+    The checkpoint's stop gate, trained for a few steps, fires at the
+    first frame, so both runs take ``--hparams`` with ``gate_threshold``
+    1.0: the decode runs ``--max_steps`` frames."""
+    from scipy.io import wavfile
+
+    from text2speech_tpu_torch import inference
+    from text2speech_tpu_torch.config import HParams, WaveGlowConfig
+
+    hp_json = os.path.join(d, "gl_hparams.json")
+    with open(hp_json, "w") as f:
+        json.dump({"sample_rate": 22050, "gate_threshold": 1.0}, f)
+    argv = ["--taco_checkpoint", ckpt, "--griffin_lim_iters", str(GL_ITERS),
+            "--max_steps", str(GL_MAX_STEPS), "--hparams", hp_json]
+    args = inference.build_parser().parse_args(
+        argv + ["--out", os.path.join(d, "gl_in_process.wav")])
+    hp = HParams.load(hp_json)                     # as the CLI builds it
+    reset_counts()
+    wav, frames = inference.synthesize_griffin_lim(args, hp,
+                                                   WaveGlowConfig(), "cuda")
+    torch.cuda.synchronize()
+    print(f"[gl] synthesize_griffin_lim: {frames} mel frames -> "
+          f"{wav.shape[0]} samples, peak {np.abs(wav).max():.4g}, launches "
+          f"{all_counts()}")
+    if (frames != GL_MAX_STEPS
+            or wav.shape != (hp.hop_length * (frames - 1),)
+            or not np.isfinite(wav).all() or any(all_counts().values())):
+        raise RuntimeError("Griffin-Lim path: bad waveform or WN launches")
+    out = os.path.join(d, "gl.wav")
+    r = subprocess.run([sys.executable, "-m", "text2speech_tpu_torch.inference",
+                        *argv, "--out", out], capture_output=True, text=True,
+                       timeout=600)
+    line = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    print(f"[gl] python -m text2speech_tpu_torch.inference "
+          f"{' '.join(argv[2:6])} -> rc {r.returncode}: {line}")
+    m = re.search(r"Griffin-Lim on (\d+) mel frames", line)
+    if r.returncode != 0 or not m:
+        raise RuntimeError(f"Griffin-Lim CLI failed:\n{r.stderr[-3000:]}")
+    sr, pcm = wavfile.read(out)
+    n = hp.hop_length * (int(m.group(1)) - 1)
+    if sr != hp.sample_rate or pcm.dtype != np.int16 or pcm.shape != (n,) \
+            or not pcm.any():
+        raise RuntimeError(f"Griffin-Lim CLI: WAV {sr} Hz {pcm.dtype} "
+                           f"{pcm.shape}, want {hp.sample_rate} Hz int16 "
+                           f"({n},)")
+
+
 def taco_rate(trainer, batch, n: int = 2) -> float:
     """Seconds per optimizer step of ``trainer`` on one batch already on
     the card, warm: the host clock around ``n`` steps and a synchronise."""
@@ -3404,7 +3533,8 @@ def tacotron_train_path(synth, info: str) -> None:
     in a process of its own; 2 steps each with ``--remat``, ``--bf16`` and
     ``--grad_accum 2``; the trained checkpoint through
     ``Synthesizer.load_checkpoints(taco_ckpt_dir=)`` into a decode and the
-    fused vocoder.  Prints the seconds of each part."""
+    fused vocoder, and through the CLI's Griffin-Lim path.  Prints the
+    seconds of each part."""
     from text2speech_tpu_torch.config import HParams
 
     hp = HParams()
@@ -3477,6 +3607,7 @@ def tacotron_train_path(synth, info: str) -> None:
             raise RuntimeError("trained Tacotron: bad decode or audio")
         if all_counts() != want_counts(synth.wg_cfg, False):
             raise RuntimeError("trained Tacotron: wrong vocoder launches")
+        part("Griffin-Lim CLI", lambda: cli_griffin_lim(ckpt, d))
     print(f"[time] phase 24 parts, seconds: "
           f"{ {k: round(v, 2) for k, v in secs.items()} }; in all "
           f"{sum(secs.values()):.2f}")
@@ -3515,7 +3646,9 @@ def main() -> int:
         print(f"[build] {lib.source.name} SASS: {hgmma_counts(lib.path)}")
         print(f"[build] {lib.source.name} registers (-Xptxas -v): "
               f"{ptxas_registers(lib.build_log)}")
-    # the s8 final and first layers' redesign keeps no array in local memory
+    # the bf16 first layers' role and the s8 final and first layers keep no
+    # array in local memory
+    require_no_local_memory(wb.LIB_SM90, {wb.SM90_ROLES["first"]: "first"})
     require_no_local_memory(wq.LIB_SM90, {
         code: role for role, code in wq.INT8_SM90_ROLES.items()
         if role in ("final", "first")})

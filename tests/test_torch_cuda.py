@@ -199,6 +199,101 @@ def test_sm90_wrappers_raise_where_no_tile_fits(dev):
                                   "wn_layer_final": 0}
 
 
+# --- the bf16 first layers on wgmma (FIRST, FIRST + DCOND) ------------------
+
+# (B, T, n_valid, d): all valid, n_valid off the tile at batch 3, n_valid
+# < d, nothing valid, the 128-row tile; d up to the config's largest, 128
+FIRST_EDGES = [(1, 1000, 1000, 1), (3, 777, 700, 64), (1, 1000, 50, 64),
+               (2, 1000, 0, 128), (3, 6450, 6401, 128)]
+
+
+def _first_args(k, d, cond_all=None):
+    """Row 1's wrapper arguments, or with ``cond_all`` row 10's."""
+    fold = wb.fold_first_taps(k["start_k"], k["start_b"], k["w_in"],
+                              k["b_in"])
+    head = (k["start_k"], k["start_b"], *fold)
+    if cond_all is not None:
+        return (k["x0"], cond_all, *head, k["w_rs"], k["b_rs"], d)
+    return (k["x0"], k["spect"], *head, k["w_cond"], k["b_cond"], k["w_rs"],
+            k["b_rs"], d)
+
+
+def _close_first(got, want, nv):
+    assert not got[0][:, nv:].any() and not want[0][:, nv:].any()
+    if nv:
+        close(got[0], want[0])
+    close(got[1], want[1])                    # the skip on every row
+
+
+@pytest.mark.parametrize("n_half", [2, 3, 4])
+@pytest.mark.parametrize("B,T,nv,d", FIRST_EDGES)
+@pytest.mark.parametrize("C,M", [(512, 640), (256, 96)])
+def test_sm90_first_agrees_with_plain_and_first_design(dev, C, M, B, T, nv,
+                                                       d, n_half):
+    """Row 1, the sm90 kernel's FIRST role (the tap stage on the tensor
+    cores, the conditioning's K = M stages, the edge take-back, the
+    residual base), against its plain version and its first design
+    (``first_design("wn_layer_first", ...)``), within the kernel bounds."""
+    k = inputs(dev, B, T, nv, C, M, 3 * d + n_half + C, n_half=n_half)
+    args = _first_args(k, d)
+    got = wb.wn_layer_first(*args, n_valid=nv)
+    _close_first(got, wb.wn_layer_first_plain(*args, n_valid=nv), nv)
+    _close_first(got, wb.first_design("wn_layer_first", *args, n_valid=nv),
+                 nv)
+
+
+@pytest.mark.parametrize("n_half", [2, 3, 4])
+@pytest.mark.parametrize("B,T,nv,d", FIRST_EDGES)
+@pytest.mark.parametrize("C", [512, 256])
+def test_sm90_first_dcond_agrees_with_plain_and_first_design(dev, C, B, T,
+                                                             nv, d, n_half):
+    """Row 10, FIRST with DCOND (the tap stage the whole in-act product,
+    slice 0 of ``cond_all`` in the gate), against its plain version and
+    its first design."""
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    k = inputs(dev, B, T, nv, C, 64, 5 * d + n_half + C, n_half=n_half)
+    args = _first_args(k, d, cond_all_for(dev, B, T, C, 3, d + n_half))
+    got = wd.wn_layer_first_dcond(*args, n_valid=nv)
+    _close_first(got, wd.wn_layer_first_dcond_plain(*args, n_valid=nv), nv)
+    _close_first(got, wb.first_design("wn_layer_first_dcond", *args,
+                                      n_valid=nv), nv)
+
+
+def test_sm90_first_layers_count_once_and_first_design_none(dev):
+    """Each wrapper call is one launch of its counter, under the names the
+    paths count (12 per vocode each); ``first_design`` counts none."""
+    from text2speech_tpu_torch.ops import wn_block_dcond as wd
+
+    k = inputs(dev, 1, 200, 180, 128, 64, 6, n_half=2)
+    args = _first_args(k, 1)
+    dargs = _first_args(k, 1, cond_all_for(dev, 1, 200, 128, 2, 6))
+    wb.reset_launch_counts()
+    wd.reset_launch_counts()
+    wb.wn_layer_first(*args, n_valid=180)
+    wd.wn_layer_first_dcond(*dargs, n_valid=180)
+    wb.first_design("wn_layer_first", *args, n_valid=180)
+    wb.first_design("wn_layer_first_dcond", *dargs, n_valid=180)
+    assert wb.launch_counts() == {"wn_layer_first": 1, "wn_layer": 0,
+                                  "wn_layer_final": 0}
+    assert wd.launch_counts() == {"wn_layer_first_dcond": 1,
+                                  "wn_layer_dcond": 0,
+                                  "wn_layer_final_dcond": 0}
+
+
+def test_sm90_plan_is_the_kernels(dev):
+    """The plan's shared memory is what the kernel asks for, for every role
+    of ``csrc/wn_block_sm90.cu``, up to the first design's widest width."""
+    lib = wb.LIB_SM90.get()
+    for role, code in wb.SM90_ROLES.items():
+        for C in (128, 512, 1024, 1408):
+            for B in (1, 3):
+                plan = wb.sm90_plan(C, 6400, B, role=role)
+                assert lib.t2s_wn_sm90_smem_bytes(
+                    plan["nwg"], plan["bk"], C, plan["stages"],
+                    code) == plan["smem"]
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(dev):
     B, T, C, M = 1, 64, 128, 64
     k = inputs(dev, B, T, T, C, M, 7)

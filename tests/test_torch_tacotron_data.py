@@ -334,8 +334,8 @@ def test_inference_cli_takes_checkpoint_directories(tmp_path):
     args = inference.build_parser().parse_args(
         ["--taco_checkpoint", "t", "--waveglow_checkpoint", "w"])
     assert (args.taco_checkpoint, args.waveglow_checkpoint) == ("t", "w")
-    with pytest.raises(SystemExit):
-        inference.main(["--taco_checkpoint", "t"])
+    with pytest.raises(SystemExit):     # a vocoder needs its Tacotron
+        inference.main(["--random_init", "0", "--waveglow_checkpoint", "w"])
     with pytest.raises(SystemExit):     # one source of weights at a time
         inference.build_parser().parse_args(
             ["--taco_checkpoint", "t", "--random_init", "0"])
@@ -343,3 +343,7 @@ def test_inference_cli_takes_checkpoint_directories(tmp_path):
         with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
             inference.main(["--taco_checkpoint", "t",
                             "--waveglow_checkpoint", "w"])
+        # a Tacotron checkpoint alone takes the Griffin-Lim path, on the
+        # card as well
+        with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+            inference.main(["--taco_checkpoint", "t"])

@@ -15,6 +15,12 @@
 //   PART   replaces text2speech_tpu/ops/pallas/wn_block.py:642
 //          wn_layer_stream2_partial (body _kernel_stream2_partial, :612),
 //          layers 1..L-1 of the tensor-parallel vocoder
+//   FIRST  replaces text2speech_tpu/ops/pallas/wn_block.py:459
+//          wn_layer_stream2_first (pallas_call :497; body
+//          _kernel_stream2_first, :281, project_cond=True)
+//   FIRST, DCOND  replaces text2speech_tpu/ops/pallas/wn_block_dcond.py:100
+//          wn_layer_stream2_first_dcond (pallas_call :133; the same body
+//          with project_cond=False, reading slice 0 of cond_all)
 //
 // The function is that of wn_block.cu's STD and FINAL roles, for rows t of
 // one utterance (hidden x [T, C], grouped mel spect [T, M], dilation d,
@@ -49,9 +55,9 @@
 // these roles (64-row blocks, mma.sync, cp.async) and the layer-0 form of
 // the partial layer (K = n_half <= 4, which gives wgmma nothing to do); its
 // entry points t2s_wn_layer, t2s_wn_layer_final, t2s_wn_layer_dcond,
-// t2s_wn_layer_final_dcond and t2s_wn_layer_partial stay exported so that
-// the two designs can be timed side by side, and nothing else calls the
-// first four.
+// t2s_wn_layer_final_dcond, t2s_wn_layer_first, t2s_wn_layer_first_dcond
+// and t2s_wn_layer_partial stay exported so that the two designs can be
+// timed side by side, and nothing else calls the first six.
 //
 // What bounds the layer on an H100.  At B=3, T=6400, C=512, M=640 the
 // standard layer is 106 GFLOP of bf16 products against ~60 MB of
@@ -138,6 +144,38 @@
 // call is 8.8 GFLOP against ~42 MB, 26 MB of it the f32 output: 0.0126 ms
 // at 3.35 TB/s, bound by bytes.  The tile is sm90_plan's for width Cp.
 //
+// FIRST.  Layer 0 of a flow, with the start projection composed onto its
+// taps (ops/wn_block.py fold_first_taps, once per checkpoint), on the audio
+// half x0 [T, n_half <= 4] bf16, rows outside [0, n_valid) read as zero:
+//
+//   in_act[t] = sum_j x0[t+(j-1)d] wp[j] + b_all + cond[t]          (f32)
+//               - b_edge[0] where t < d, - b_edge[1] where t >= n_valid - d
+//   cond[t]   = spect[t] W_cond + b_cond, or with DCOND f32(cond_all[t, 0:2C])
+//   x_out[t]  = t < n_valid ? bf16(x0[t] start_k + start_b + rs[t, :C]) : 0
+//   skip[t]   = bf16(rs[t, C:])                    (written; no running sum)
+//
+// with acts and rs as in STD.  The in-act product is the conditioning
+// (K = M: ten stages of 64 at M = 640, spect and w_cond boxes, no tap
+// boxes; with DCOND none) and, before it, the rank-n_half taps as one more
+// stage of a single K = 16 product on the tensor cores: its A tile holds
+// x0's three tap rows of each block row, x0[t + (j - 1) d, i] at column
+// j n_half + i (zero outside [0, n_valid), past T and past 3 n_half),
+// staged once per block by the consumers in the ring's A layout after the
+// gated tile; its B tile is the chunk's columns of wp as rows [3 n_half,
+// 2C], loaded by TMA with the rows past 3 n_half zero-filled.  The gate is
+// STD's (b_all in b_in's place; with DCOND the cond_all pairs after it),
+// then the edge take-back.  With DCOND the tap stage is the whole in-act
+// product.  The res/skip product is STD's; its epilogue adds the residual
+// base x0[t] start_k + start_b (n_half FMAs, masked past n_valid) and
+// stores the skip without reading it.  Taps as f32 FMAs in the gate (as
+// the int8 kernel computes them) ran slower than the first design at
+// batch 3 on an H100 (PERF.md): with one block of 384 threads an SM, the
+// gate's loads of wp and the FMA chains leave the tensor cores idle.  At
+// B=3, T=6400, C=512, M=640 the layer is 45 GFLOP (the conditioning's and
+// the res/skip products) against ~66 MB: 0.046 ms at the bf16 peak, bound
+// by operations; with DCOND 20 GFLOP against ~79 MB (x0, the 2C-wide slice
+// of cond_all, the two outputs): 0.024 ms, bound by bytes.
+//
 // A wait on an mbarrier that does not complete within seconds traps (a
 // launch error) instead of hanging the card.
 
@@ -152,6 +190,8 @@ constexpr int GHALF = GN / 2;
 constexpr int MAX_STAGES = 4;
 constexpr int MAX_E = 8;
 constexpr int EG = 4;  // column tiles per res/skip epilogue group
+constexpr int MAX_NHALF = 4;  // FIRST: audio half channels
+constexpr int TAP_ROWS = 16;  // FIRST: K of the tap stage (3 n_half <= 12)
 
 // The block's shape: NWG consumer warpgroups of 64 rows, K = BK per ring
 // stage (32 or 64).  A slot holds four [BK, 64] weight boxes and the
@@ -168,30 +208,38 @@ struct Tile {
   static constexpr uint32_t A_SBO = 8 * BK * 2;
 };
 
-enum Role { STD = 0, FINAL = 1, PART = 2 };
+enum Role { STD = 0, FINAL = 1, PART = 2, FIRST = 3 };
 
 struct Params {
   CUtensorMap tm_x;      // x as [B, n_valid, CX]; box {BK, BM, 1}
   CUtensorMap tm_spect;  // spect [B, T, M]; box {BK, BM, 1}
   CUtensorMap tm_win;    // w_in as [3CX, 2C]; box {64, BK}, 128B swizzle
   CUtensorMap tm_wcond;  // w_cond [M, 2C]; box {64, BK}, 128B swizzle
-  CUtensorMap tm_wrs;    // STD, PART: w_rs [C, rs_out]; box {64, BK}
+  CUtensorMap tm_wrs;    // STD, PART, FIRST: w_rs [C, rs_out]; box {64, BK}
+  CUtensorMap tm_wp;     // FIRST: wp as [3 n_half, 2C]; box {64, 16}
   int T, n_valid, C, M, d, rs_out, E;
   int CX;                // the hidden state's width: C except in PART
   int ktap;              // 3CX, or 0 when n_valid == 0 (every tap reads 0)
+                         // and in FIRST (its taps are FMAs)
   int stages;
   const bf16* x;         // [B, T, C]
   const bf16* cond_all;  // DCOND: [B, T, cond_ld]; the layer reads columns
   int cond_ld, cond_off; //   [cond_off, cond_off + 2C) in place
-  const float* b_in;     // [2C]
+  const float* b_in;     // [2C] (FIRST: b_all, b_in + the folded tap bias)
   const float* b_cond;   // [2C]
-  const float* b_rs;     // STD: [rs_out]
-  bf16* skip;            // [B, T, C] running skip sum (STD: updated in place)
-  bf16* x_out;           // STD: [B, T, C]
+  const float* b_rs;     // STD, FIRST: [rs_out]
+  bf16* skip;            // [B, T, C] running skip sum (STD: updated in place;
+                         // FINAL: read; FIRST: written)
+  bf16* x_out;           // STD, FIRST: [B, T, C]
   const bf16* w_eff;     // FINAL: w_rs @ w_end [C, E]
   const bf16* w_end;     // FINAL: [C, E]
   const float* b_eff;    // FINAL: [E]
   float* out;            // FINAL: [B, T, E]; PART: [B, T, rs_out]
+  int n_half;            // FIRST: audio half channels
+  const bf16* x0;        // FIRST: [B, T, n_half]
+  const float* b_edge;   // FIRST: [2, 2C] (left, right)
+  const bf16* start_k;   // FIRST: [n_half, C]
+  const float* start_b;  // FIRST: [C]
 };
 
 
@@ -241,6 +289,17 @@ __device__ __forceinline__ void produce(const Params& p, uint8_t* ring,
   const int nk = (p.ktap + p.M + BK - 1) / BK;  // M % BK: zero fill
   Ring r;
   for (int c0 = 0; c0 < C; c0 += GHALF) {
+    if (ROLE == FIRST) {  // the taps' stage: the chunk's 16 rows of wp
+      mbar_wait(&empty[r.st], r.ph ^ 1);
+      uint8_t* slot = ring + r.st * STAGE;
+      uint64_t* bar = &full[r.st];
+      mbar_expect_tx(bar, 4 * TAP_ROWS * 64 * 2);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        tma_load_2d(slot + q * B_BOX, &p.tm_wp,
+                    (q < 2 ? c0 : C + c0) + (q & 1) * 64, 0, bar);
+      r.next(p.stages);
+    }
     for (int ks = 0; ks < nk; ++ks) {
       mbar_wait(&empty[r.st], r.ph ^ 1);
       uint8_t* slot = ring + r.st * STAGE;
@@ -310,16 +369,49 @@ __device__ __forceinline__ void prefetch_cond(const Params& p, int wg,
   }
 }
 
+// Byte offset of (row r, k) in a ring A tile [BM, BK] bf16: rows of BK
+// values, 16-byte chunks swizzled by the row as TMA's 128-byte (BK = 64)
+// or 64-byte (BK = 32) swizzle lays them out.
+template <int BK>
+__device__ __forceinline__ uint32_t a_off(int r, int k) {
+  return BK == 64 ? (uint32_t)(r * 128 + (((k >> 3) ^ (r & 7)) << 4) +
+                               ((k & 7) << 1))
+                  : (uint32_t)(r * 64 + (((k >> 3) ^ ((r >> 1) & 3)) << 4) +
+                               ((k & 7) << 1));
+}
+
+// FIRST: this warpgroup's 64 rows of the tap stage's A tile xa [BM, BK]
+// (the ring's A layout): x0[t + (j - 1) d, i] at column j n_half + i, zero
+// outside [0, n_valid), past T and from column 3 n_half on.  The partial
+// layer's layer-0 form has the same A tile.
+template <int BK>
+__device__ __forceinline__ void stage_taps(const Params& p, int wg, int tid,
+                                           int b, int t0, uint8_t* xa) {
+  const int nh = p.n_half;
+  for (int i = tid; i < 64 * BK; i += 128) {
+    const int r = wg * 64 + i / BK, k = i % BK;
+    const int j = k / nh, c = k - j * nh;
+    const int t = t0 + r, s = t + (j - 1) * p.d;
+    *reinterpret_cast<bf16*>(xa + a_off<BK>(r, k)) =
+        j < 3 && t < p.T && s >= 0 && s < p.n_valid
+            ? p.x0[((size_t)b * p.T + s) * nh + c]
+            : __float2bfloat16(0.f);
+  }
+}
+
 // The in-act product of one gate-pair chunk for this warpgroup's 64 rows.
-// DCOND: the chunk's conditioning is prefetched into L2 first.
-template <int NWG, int BK, bool DCOND>
+// DCOND: the chunk's conditioning is prefetched into L2 first.  FIRST: the
+// tap stage comes first, one K = 16 product of the block's tap tile xa
+// and the slot's wp rows.
+template <int ROLE, int NWG, int BK, bool DCOND>
 __device__ __forceinline__ void inact_chunk(const Params& p, uint8_t* ring,
                                             uint64_t* full, uint64_t* empty,
                                             Ring& r, int wg, int tid,
                                             float* acc, int b, int t0,
-                                            int c0) {
+                                            int c0, const uint8_t* xa) {
   using TL = Tile<NWG, BK>;
-  const int nk = (p.ktap + p.M + BK - 1) / BK;  // M % BK: zero fill
+  // M % BK: zero fill
+  const int nk = (ROLE == FIRST) + (p.ktap + p.M + BK - 1) / BK;
   if (DCOND) prefetch_cond(p, wg, tid, b, t0, c0);
   zero(acc);
   int prev = -1;
@@ -328,10 +420,16 @@ __device__ __forceinline__ void inact_chunk(const Params& p, uint8_t* ring,
     const uint32_t s = smem_u32(ring + r.st * TL::STAGE);
     const uint32_t a = s + TL::B_STAGE + wg * 64 * BK * 2;
     wgmma_fence();
+    if (ROLE == FIRST && ks == 0) {
+      wgmma_n256<0, 1>(acc,
+                       desc_a_ring<NWG, BK>(smem_u32(xa) + wg * 64 * BK * 2),
+                       desc_b<BK>(s), 1);
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_n256<0, 1>(acc, desc_a_ring<NWG, BK>(a + kk * 32),
-                       desc_b<BK>(s + kk * 2048), 1);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_n256<0, 1>(acc, desc_a_ring<NWG, BK>(a + kk * 32),
+                         desc_b<BK>(s + kk * 2048), 1);
+    }
     wgmma_commit();
     wgmma_wait<1>();
     if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
@@ -348,8 +446,10 @@ __device__ __forceinline__ void inact_chunk(const Params& p, uint8_t* ring,
 // conditioning: the bf16 pairs (c, c + 1) and (C + c, C + c + 1) of
 // cond_all's slice for rows t < T (the order of the plain version's sums;
 // rows at or past n_valid are gated, and reach the skip sum, like any
-// other, as in the first design).
-template <int BM, bool DCOND>
+// other, as in the first design).  FIRST: b_in is b_all, and after the
+// conditioning the folded start bias is taken back where the left (t < d)
+// or the right (t >= n_valid - d) tap reads past an edge (b_edge [2, 2C]).
+template <int ROLE, int BM, bool DCOND>
 __device__ __forceinline__ void gate_store(const Params& p, int b, int t0,
                                            int c0, int wg, int tid,
                                            const float* acc, uint8_t* G) {
@@ -357,6 +457,7 @@ __device__ __forceinline__ void gate_store(const Params& p, int b, int t0,
   const int r0 = wg * 64 + (tid >> 5) * 16 + (lane >> 2);
   const int C = p.C;
   const __nv_bfloat162* crow[2];
+  bool left[2], right[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int t = t0 + r0 + 8 * h;
@@ -364,6 +465,8 @@ __device__ __forceinline__ void gate_store(const Params& p, int b, int t0,
         : reinterpret_cast<const __nv_bfloat162*>(
               p.cond_all + ((size_t)b * p.T + t) * p.cond_ld + p.cond_off +
               c0 + 2 * q);
+    left[h] = ROLE == FIRST && t < p.d;
+    right[h] = ROLE == FIRST && t >= p.n_valid - p.d;
   }
   const int ntile = C - c0 < GHALF ? 8 : 16;
 #pragma unroll
@@ -391,12 +494,55 @@ __device__ __forceinline__ void gate_store(const Params& p, int b, int t0,
         as0 += __low2float(cs);
         as1 += __high2float(cs);
       }
+      if (left[h]) {
+        at0 -= p.b_edge[c];
+        at1 -= p.b_edge[c + 1];
+        as0 -= p.b_edge[C + c];
+        as1 -= p.b_edge[C + c + 1];
+      }
+      if (right[h]) {
+        at0 -= p.b_edge[2 * C + c];
+        at1 -= p.b_edge[2 * C + c + 1];
+        as0 -= p.b_edge[3 * C + c];
+        as1 -= p.b_edge[3 * C + c + 1];
+      }
       __nv_bfloat162 v;
       v.x = __float2bfloat16(gate_f32(at0, as0));
       v.y = __float2bfloat16(gate_f32(at1, as1));
       *reinterpret_cast<__nv_bfloat162*>(G + gated_off<BM>(r0 + 8 * h, c)) = v;
     }
   }
+}
+
+// --- FIRST ------------------------------------------------------------------
+
+__device__ __forceinline__ float bf16_half(unsigned pair, int e) {
+  return __uint_as_float(e ? pair & 0xffff0000u : pair << 16);
+}
+
+// FIRST: the residual base x0[t] start_k + start_b of rows r0 and r0 + 8
+// (xc: their x0 rows as bf16 pairs, zero past n_half) at columns n, n + 1:
+// n_half FMAs, every load issued (rows of start_k past n_half repeat the
+// last against an x0 of 0), then the bias (the plain version's order).
+__device__ __forceinline__ void first_base(const Params& p,
+                                           const uint2 (&xc)[2], int n,
+                                           float2 (&base)[2]) {
+  float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int i = 0; i < MAX_NHALF; ++i) {
+    const unsigned w = __ldg(reinterpret_cast<const unsigned*>(
+        p.start_k + (size_t)min(i, p.n_half - 1) * p.C + n));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float x = bf16_half(i < 2 ? xc[h].x : xc[h].y, i & 1);
+      s[h][0] = fmaf(x, bf16_half(w, 0), s[h][0]);
+      s[h][1] = fmaf(x, bf16_half(w, 1), s[h][1]);
+    }
+  }
+  const float2 sb = __ldg(reinterpret_cast<const float2*>(p.start_b + n));
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    base[h] = make_float2(s[h][0] + sb.x, s[h][1] + sb.y);
 }
 
 // PART's epilogue of one res/skip chunk: the f32 partial, zero at rows
@@ -428,8 +574,9 @@ __device__ __forceinline__ void part_store(const Params& p, int b, int t0,
   }
 }
 
-// STD, PART: the res/skip product in chunks of N = 256, A from the gated
-// tile, with STD's residual and skip epilogue or PART's f32 partial.
+// STD, PART, FIRST: the res/skip product in chunks of N = 256, A from the
+// gated tile, with STD's residual and skip epilogue, PART's f32 partial or
+// FIRST's (the residual base from x0, the skip written, not summed).
 template <int ROLE, int NWG, int BK>
 __device__ __forceinline__ void rs_phase(const Params& p, uint8_t* ring,
                                          uint64_t* full, uint64_t* empty,
@@ -437,11 +584,31 @@ __device__ __forceinline__ void rs_phase(const Params& p, uint8_t* ring,
                                          int t0, const uint8_t* G) {
   constexpr int BM = NWG * 64;
   constexpr int STAGE = Tile<NWG, BK>::STAGE;
+  // FIRST's residual bases take twice the registers of STD's bf16 inputs
+  constexpr int NG = ROLE == FIRST ? EG / 2 : EG;
   const int C = p.C, T = p.T;
   const bool has_res = p.rs_out == 2 * C;
   const uint32_t g = smem_u32(G) + wg * 64 * 128;
   const int lane = tid & 31, q = lane & 3;
   const int r0 = wg * 64 + (tid >> 5) * 16 + (lane >> 2);
+  // FIRST: x0[t] of rows r0, r0 + 8 as bf16 pairs, zero past n_half and
+  // at rows t >= n_valid (whose residual is masked)
+  uint2 xc[2] = {make_uint2(0, 0), make_uint2(0, 0)};
+  if (ROLE == FIRST) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = t0 + r0 + 8 * h;
+      unsigned short v[MAX_NHALF] = {0, 0, 0, 0};
+      if (t < p.n_valid)
+#pragma unroll
+        for (int i = 0; i < MAX_NHALF; ++i)
+          if (i < p.n_half)
+            v[i] = reinterpret_cast<const unsigned short*>(
+                p.x0)[((size_t)b * T + t) * p.n_half + i];
+      xc[h] = make_uint2(v[0] | (unsigned)v[1] << 16,
+                         v[2] | (unsigned)v[3] << 16);
+    }
+  }
   float acc[128];
   for (int n0 = 0; n0 < p.rs_out; n0 += GN) {
     const int nn = min(GN, p.rs_out - n0);
@@ -471,19 +638,24 @@ __device__ __forceinline__ void rs_phase(const Params& p, uint8_t* ring,
       continue;
     }
 
-    // epilogue in groups of EG column tiles: every load of a group (bias,
-    // residual input, running skip) is issued before its stores, which may
-    // alias them as far as the compiler knows
+    // epilogue in groups of NG column tiles: every load of a group (bias,
+    // residual input or FIRST's base, running skip) is issued before its
+    // stores, which may alias them as far as the compiler knows
 #pragma unroll
-    for (int jg = 0; jg < GN / 8; jg += EG) {
+    for (int jg = 0; jg < GN / 8; jg += NG) {
       if (8 * jg >= nn) break;
-      float bias[EG][2];
-      __nv_bfloat162 in[EG][2];
+      float bias[NG][2];
+      __nv_bfloat162 in[NG][2];
+      float2 base[NG][2];   // FIRST: x0[t] start_k + start_b
 #pragma unroll
-      for (int jj = 0; jj < EG; ++jj) {
+      for (int jj = 0; jj < NG; ++jj) {
         const int n = n0 + 8 * (jg + jj) + 2 * q;
         bias[jj][0] = p.b_rs[n];
         bias[jj][1] = p.b_rs[n + 1];
+        if (ROLE == FIRST) {
+          if (n < C) first_base(p, xc, n, base[jj]);
+          continue;
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int t = t0 + r0 + 8 * h;
@@ -502,7 +674,7 @@ __device__ __forceinline__ void rs_phase(const Params& p, uint8_t* ring,
         }
       }
 #pragma unroll
-      for (int jj = 0; jj < EG; ++jj) {
+      for (int jj = 0; jj < NG; ++jj) {
         const int j = jg + jj;
         const int n = n0 + 8 * j + 2 * q;
 #pragma unroll
@@ -512,6 +684,18 @@ __device__ __forceinline__ void rs_phase(const Params& p, uint8_t* ring,
           const float v0 = acc[4 * j + 2 * h] + bias[jj][0];
           const float v1 = acc[4 * j + 2 * h + 1] + bias[jj][1];
           const size_t row = ((size_t)b * T + t) * C;
+          if (ROLE == FIRST) {
+            if (n < C) {
+              const bool ok = t < p.n_valid;
+              *reinterpret_cast<__nv_bfloat162*>(p.x_out + row + n) =
+                  __floats2bfloat162_rn(ok ? base[jj][h].x + v0 : 0.f,
+                                        ok ? base[jj][h].y + v1 : 0.f);
+            } else {
+              *reinterpret_cast<__nv_bfloat162*>(p.skip + row + n - C) =
+                  __floats2bfloat162_rn(v0, v1);
+            }
+            continue;
+          }
           const float i0 = __low2float(in[jj][h]), i1 = __high2float(in[jj][h]);
           if (has_res && n < C) {  // zero past n_valid: in[] is zero there
             const bool ok = t < p.n_valid;
@@ -657,12 +841,25 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
   } else {
     if (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
     const int wg = warp >> 2, tid = threadIdx.x & 127;
+    // FIRST: the tap stage's A tile [BM, BK], after the gated tile
+    uint8_t* xa = G + (size_t)BM * p.C * 2;
+    if (ROLE == FIRST) {
+      // DCOND: one short stage a chunk hides little, so every chunk's
+      // cond_all lines are asked for now
+      if (DCOND)
+        for (int c0 = 0; c0 < p.C; c0 += GHALF)
+          prefetch_cond(p, wg, tid, b, t0, c0);
+      stage_taps<BK>(p, wg, tid, b, t0, xa);
+      // the warpgroup's tap rows -> visible to its wgmma (async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    }
     float acc[128];
     Ring r;
     for (int c0 = 0; c0 < p.C; c0 += GHALF) {
-      inact_chunk<NWG, BK, DCOND>(p, ring, full, empty, r, wg, tid, acc, b,
-                                  t0, c0);
-      gate_store<BM, DCOND>(p, b, t0, c0, wg, tid, acc, G);
+      inact_chunk<ROLE, NWG, BK, DCOND>(p, ring, full, empty, r, wg, tid,
+                                        acc, b, t0, c0, xa);
+      gate_store<ROLE, BM, DCOND>(p, b, t0, c0, wg, tid, acc, G);
     }
     // the warpgroup's gated rows -> visible to its wgmma (async proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -700,14 +897,13 @@ int encode_taps(Params& p, const void* x, const void* w_in, int B, int bm,
                 CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// The maps of the in-kernel projection: the taps', spect and w_cond.
-int encode_inact(Params& p, const void* x, const void* spect, const void* w_in,
-                 const void* w_cond, int B, int bm, int bk) {
+// The conditioning's maps: spect and w_cond.
+int encode_cond(Params& p, const void* spect, const void* w_cond, int B,
+                int bm, int bk) {
   const cuuint64_t C = p.C, M = p.M, T = p.T;
   const cuuint32_t abox[3] = {(cuuint32_t)bk, (cuuint32_t)bm, 1};
   const cuuint32_t wbox[2] = {64, (cuuint32_t)bk};
   int e;
-  if ((e = encode_taps(p, x, w_in, B, bm, bk))) return e;
   {
     const cuuint64_t dims[3] = {M, T, (cuuint64_t)B};
     const cuuint64_t str[2] = {M * 2, T * M * 2};
@@ -720,18 +916,28 @@ int encode_inact(Params& p, const void* x, const void* spect, const void* w_in,
                 CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// The maps of the in-kernel projection: the taps', spect and w_cond.
+int encode_inact(Params& p, const void* x, const void* spect, const void* w_in,
+                 const void* w_cond, int B, int bm, int bk) {
+  const int e = encode_taps(p, x, w_in, B, bm, bk);
+  return e ? e : encode_cond(p, spect, w_cond, B, bm, bk);
+}
+
 size_t stage_bytes(int nwg, int bk) {
   return (size_t)(4 * bk * 64 * 2 + nwg * 64 * bk * 2);
 }
 
-size_t smem_bytes(int nwg, int bk, int C, int stages) {
+// the ring, the gated tile [BM, C] and, in FIRST, the tap stage's A tile
+// [BM, BK]
+size_t smem_bytes(int role, int nwg, int bk, int C, int stages) {
   return 1024 + (size_t)stages * stage_bytes(nwg, bk) +
-         (size_t)nwg * 64 * C * 2;
+         (size_t)nwg * 64 * C * 2 +
+         (role == FIRST ? (size_t)nwg * 64 * bk * 2 : 0);
 }
 
 template <int ROLE, int NWG, int BK, bool DCOND>
 int launch(const Params& p, int B, void* stream) {
-  const size_t smem = smem_bytes(NWG, BK, p.C, p.stages);
+  const size_t smem = smem_bytes(ROLE, NWG, BK, p.C, p.stages);
   cudaError_t e = cudaFuncSetAttribute(
       wn_sm90_kernel<ROLE, NWG, BK, DCOND>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -761,6 +967,15 @@ int encode_wrs(Params& p, const void* w_rs, int bk) {
                 CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// FIRST: the tap stage's map, wp [3, n_half, 2C] as [3 n_half, 2C] rows;
+// a box of 16 rows reads zeros past 3 n_half.
+int encode_wp(Params& p, const void* wp) {
+  const cuuint64_t dims[2] = {2 * (cuuint64_t)p.C, 3 * (cuuint64_t)p.n_half};
+  const cuuint64_t str[1] = {(cuuint64_t)p.C * 4};
+  const cuuint32_t box[2] = {64, TAP_ROWS};
+  return encode(&p.tm_wp, wp, 2, dims, str, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 void fill_common(Params& p, int T, int n_valid, int C, int M, int d,
                  int stages, const void* x, const void* b_in,
                  const void* b_cond, const void* skip_acc) {
@@ -782,8 +997,9 @@ void fill_common(Params& p, int T, int n_valid, int C, int M, int d,
 // alignment are checked there before the call.
 extern "C" {
 
-size_t t2s_wn_sm90_smem_bytes(int nwg, int bk, int C, int stages) {
-  return smem_bytes(nwg, bk, C, stages);
+// `role`: 0 standard, 1 final, 2 partial, 3 first
+size_t t2s_wn_sm90_smem_bytes(int nwg, int bk, int C, int stages, int role) {
+  return smem_bytes(role, nwg, bk, C, stages);
 }
 
 int t2s_wn_layer_sm90(const void* x, const void* spect, const void* w_in,
@@ -875,6 +1091,72 @@ int t2s_wn_layer_final_dcond_sm90(const void* x, const void* cond_all,
   const int e = encode_taps(p, x, w_in, B, 64 * nwg, bk);
   if (e) return e;
   return dispatch<FINAL, true>(p, B, nwg, bk, stream);
+}
+
+// The first layer: the start projection composed onto layer 0's taps (x0
+// [B, T, n_half] bf16 under wp [3, n_half, 2C] bf16 with b_all and b_edge
+// [2, 2C] f32), the conditioning's product spect [B, T, M] x w_cond [M, 2C]
+// + b_cond, the res/skip w_rs [C, 2C] + b_rs, the residual base start_k
+// [n_half, C] bf16, start_b [C]; writes x_out and skip_out [B, T, C].
+int t2s_wn_layer_first_sm90(const void* x0, const void* spect, const void* wp,
+                            const void* b_all, const void* b_edge,
+                            const void* w_cond, const void* b_cond,
+                            const void* w_rs, const void* b_rs,
+                            const void* start_k, const void* start_b,
+                            void* x_out, void* skip_out, int B, int T,
+                            int n_valid, int C, int M, int n_half, int d,
+                            int nwg, int bk, int stages, void* stream) {
+  if (n_half < 1 || n_half > MAX_NHALF) return (int)cudaErrorInvalidValue;
+  Params p;
+  memset(&p, 0, sizeof(p));
+  fill_common(p, T, n_valid, C, M, d, stages, nullptr, b_all, b_cond,
+              skip_out);
+  p.ktap = 0;
+  p.rs_out = 2 * C;
+  p.b_rs = (const float*)b_rs;
+  p.x_out = (bf16*)x_out;
+  p.n_half = n_half;
+  p.x0 = (const bf16*)x0;
+  p.b_edge = (const float*)b_edge;
+  p.start_k = (const bf16*)start_k;
+  p.start_b = (const float*)start_b;
+  int e = encode_cond(p, spect, w_cond, B, 64 * nwg, bk);
+  if (e || (e = encode_wrs(p, w_rs, bk)) || (e = encode_wp(p, wp))) return e;
+  return dispatch<FIRST>(p, B, nwg, bk, stream);
+}
+
+// The first layer of the composed-conditioning vocoder: as
+// t2s_wn_layer_first_sm90, the conditioning read from columns [cond_off,
+// cond_off + 2C) of cond_all [B, T, cond_ld] in place (no in-act product).
+int t2s_wn_layer_first_dcond_sm90(const void* x0, const void* cond_all,
+                                  const void* wp, const void* b_all,
+                                  const void* b_edge, const void* w_rs,
+                                  const void* b_rs, const void* start_k,
+                                  const void* start_b, void* x_out,
+                                  void* skip_out, int B, int T, int n_valid,
+                                  int C, int cond_ld, int cond_off,
+                                  int n_half, int d, int nwg, int bk,
+                                  int stages, void* stream) {
+  if (n_half < 1 || n_half > MAX_NHALF) return (int)cudaErrorInvalidValue;
+  Params p;
+  memset(&p, 0, sizeof(p));
+  fill_common(p, T, n_valid, C, 0, d, stages, nullptr, b_all, nullptr,
+              skip_out);
+  p.ktap = 0;
+  p.rs_out = 2 * C;
+  p.b_rs = (const float*)b_rs;
+  p.x_out = (bf16*)x_out;
+  p.cond_all = (const bf16*)cond_all;
+  p.cond_ld = cond_ld;
+  p.cond_off = cond_off;
+  p.n_half = n_half;
+  p.x0 = (const bf16*)x0;
+  p.b_edge = (const float*)b_edge;
+  p.start_k = (const bf16*)start_k;
+  p.start_b = (const float*)start_b;
+  int e = encode_wrs(p, w_rs, bk);
+  if (e || (e = encode_wp(p, wp))) return e;
+  return dispatch<FIRST, true>(p, B, nwg, bk, stream);
 }
 
 int t2s_wn_layer_final_sm90(const void* x, const void* spect,

@@ -21,6 +21,12 @@ def dynamic_range_compression(x: torch.Tensor, C: float = 1.0,
     return torch.log(torch.clamp_min(x, clip_val) * C)
 
 
+def dynamic_range_decompression(x: torch.Tensor,
+                                C: float = 1.0) -> torch.Tensor:
+    """exp(x) / C, the inverse of :func:`dynamic_range_compression`."""
+    return torch.exp(x) / C
+
+
 @functools.lru_cache(maxsize=8)
 def _mel_basis(sample_rate: int, n_fft: int, n_mels: int, fmin: float,
                fmax: float) -> np.ndarray:

@@ -111,3 +111,8 @@ def istft(magnitude: torch.Tensor, phase: torch.Tensor,
         correction.astype(np.float32)).to(signal.device)[None, :]
     signal = signal * (float(n_fft) / hop)
     return signal[:, n_fft // 2: -(n_fft // 2)]
+
+
+def num_frames(n_samples: int, hop_length: int) -> int:
+    """Frame count of a centred STFT (librosa's ``center=True``)."""
+    return 1 + n_samples // hop_length

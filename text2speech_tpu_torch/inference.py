@@ -10,8 +10,10 @@
 ``--weights`` is the ``.npz`` written by ``export_torch_weights.py`` from the
 JAX package's checkpoints; ``--taco_checkpoint DIR --waveglow_checkpoint
 DIR`` read this package's own training checkpoints (``tacotron_train``,
-``waveglow_train``); ``--random_init SEED`` synthesizes from seeded
-random weights when no checkpoint exists (noise, but the whole path runs).
+``waveglow_train``); ``--taco_checkpoint DIR`` alone synthesizes without a
+vocoder, by Griffin-Lim on the mel (``--griffin_lim_iters``, default 60);
+``--random_init SEED`` synthesizes from seeded random weights when no
+checkpoint exists (noise, but the whole path runs).
 ``--stream`` decodes in chunks and writes each piece of audio as soon as it
 clears the vocoder's receptive field (the first after about one chunk, not
 the whole decode).
@@ -49,10 +51,14 @@ def build_parser() -> argparse.ArgumentParser:
                      help="seeded random weights instead of a checkpoint")
     src.add_argument("--taco_checkpoint",
                      help="Tacotron training checkpoint directory of this "
-                     "package (tacotron_train); needs --waveglow_checkpoint")
+                     "package (tacotron_train); without "
+                     "--waveglow_checkpoint the mel is inverted by "
+                     "Griffin-Lim")
     p.add_argument("--waveglow_checkpoint", default=None,
                    help="WaveGlow training checkpoint directory of this "
                    "package (waveglow_train)")
+    p.add_argument("--griffin_lim_iters", type=int, default=60,
+                   help="Griffin-Lim iterations of the vocoder-free path")
     p.add_argument("--text", default="이 것은 제작되고 있는 중입니다.")
     p.add_argument("--out", default="tone_440.wav")
     p.add_argument("--sigma", type=float, default=0.666)
@@ -110,6 +116,46 @@ def _read_texts(args) -> list:
 
 def _request(text: str, speaker_id):
     return text if speaker_id is None else (text, speaker_id)
+
+
+def synthesize_griffin_lim(args, hp, wg_cfg, device, keep_masks=None,
+                           phase=None):
+    """The vocoder-free path of ``--taco_checkpoint DIR`` alone, on
+    ``device``: the Tacotron checkpoint's mel of ``--text``, then root
+    ``inference.py``'s chain: ``dynamic_range_decompression``, max(1e-10,
+    pinv(offline mel basis) @ .), ``** hp.power``, ``griffin_lim`` of
+    ``--griffin_lim_iters`` rounds from a generator seeded 0 (or from
+    ``phase``); writes ``--out`` and returns (the waveform [hop (T - 1)]
+    f32, the mel's frame count T).
+    ``keep_masks`` are the decoder's prenet masks (a test hands the JAX
+    package's)."""
+    from .dsp.audio import griffin_lim, mel_to_linear, save_wav
+    from .dsp.mel import dynamic_range_decompression
+    from .infer import N_SYMBOLS, Synthesizer, load_tacotron_checkpoint
+    from .models.tacotron2 import Tacotron2
+    from .models.waveglow import WaveGlow
+
+    taco = Tacotron2(hp, N_SYMBOLS, args.num_speakers, device=device)
+    load_tacotron_checkpoint(taco, args.taco_checkpoint)
+    # the vocoder stays at its initialisation: text_to_mel needs no weights
+    # of it (as the JAX package's load_synthesizer with wg_ckpt_dir=None)
+    synth = Synthesizer(hp, taco.eval(), wg_cfg,
+                        WaveGlow(wg_cfg, device=device).eval(),
+                        use_denoiser=False)
+    mel, lengths = synth.text_to_mel([args.text], max_steps=args.max_steps,
+                                     speaker_id=args.speaker_id,
+                                     keep_masks=keep_masks)
+    frames = int(lengths[0])
+    if frames < 2:      # the inverse STFT of one frame has no samples
+        raise ValueError(f"the decoder stopped after {frames} frame(s): "
+                         f"Griffin-Lim needs two or more")
+    S = mel_to_linear(dynamic_range_decompression(mel[:, :, :frames]),
+                      hp) ** hp.power
+    gen = torch.Generator(device=device).manual_seed(0)
+    wav = griffin_lim(S, hp, gen, n_iters=args.griffin_lim_iters,
+                      phase=phase)[0].cpu().numpy()
+    save_wav(wav, args.out, args.sample_rate)
+    return wav, frames
 
 
 def serve_batch(args, srv) -> None:
@@ -200,11 +246,8 @@ def serve_http(args, synth, srv) -> None:
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if bool(args.taco_checkpoint) != bool(args.waveglow_checkpoint):
-        # the JAX CLI vocodes a Tacotron checkpoint alone with Griffin-Lim,
-        # which the port does not have yet
-        parser.error("--taco_checkpoint and --waveglow_checkpoint go "
-                     "together")
+    if args.waveglow_checkpoint and not args.taco_checkpoint:
+        parser.error("--waveglow_checkpoint needs --taco_checkpoint")
     if not torch.cuda.is_available():
         raise RuntimeError("text2speech_tpu_torch.inference needs a CUDA GPU "
                            "(no CUDA device is visible)")
@@ -218,6 +261,12 @@ def main(argv=None) -> None:
     # serving keeps the denoiser available whatever -d says: HTTP requests
     # carry their own strengths
     use_denoiser = args.denoiser_strength > 0 or args.serve_slots > 0
+    if args.taco_checkpoint and not args.waveglow_checkpoint:
+        wav, frames = synthesize_griffin_lim(args, hp, wg_cfg, "cuda")
+        print(f"wrote {args.out} ({wav.shape[0]} samples at "
+              f"{args.sample_rate} Hz, Griffin-Lim on {frames} mel frames, "
+              f"{args.griffin_lim_iters} iterations)")
+        return
     if args.weights or args.taco_checkpoint:
         from .infer import load_synthesizer
 

@@ -14,9 +14,9 @@ roles are in :mod:`.wn_block_dcond`.  Each role has
 * a wrapper (:func:`wn_layer_first`, :func:`wn_layer`,
   :func:`wn_layer_final`, :func:`wn_layer_partial`) that launches a
   hand-written Hopper kernel for CUDA tensors, and takes the plain version
-  only for CPU tensors.  The standard, final and partial layers launch
-  ``csrc/wn_block_sm90.cu`` (wgmma, TMA, 128-row tiles; :func:`sm90_plan`
-  picks the tile), the first layer and the partial layer's layer-0 form
+  only for CPU tensors.  The first, standard, final and partial layers
+  launch ``csrc/wn_block_sm90.cu`` (wgmma, TMA, 128-row tiles;
+  :func:`sm90_plan` picks the tile), the partial layer's layer-0 form
   ``csrc/wn_block.cu``.  A CUDA tensor the kernel does not take raises;
   nothing falls back.
 
@@ -53,7 +53,9 @@ LIB_SM90 = CudaLibrary("wn_block_sm90", {
     "t2s_wn_layer_dcond_sm90": [_P] * 8 + [_I] * 11 + [_P],
     "t2s_wn_layer_final_dcond_sm90": [_P] * 9 + [_I] * 11 + [_P],
     "t2s_wn_layer_partial_sm90": [_P] * 8 + [_I] * 11 + [_P],
-    "t2s_wn_sm90_smem_bytes": [_I] * 4,
+    "t2s_wn_layer_first_sm90": [_P] * 13 + [_I] * 10 + [_P],
+    "t2s_wn_layer_first_dcond_sm90": [_P] * 11 + [_I] * 11 + [_P],
+    "t2s_wn_sm90_smem_bytes": [_I] * 5,
 })
 
 F32 = torch.float32
@@ -273,47 +275,57 @@ def _check_dims(C: int, M: int, T: int, n_valid: int, d: int,
 # a block is ``nwg`` consumer warpgroups of 64 rows and one producer
 # warpgroup; a ring stage holds a [bk, 256] bf16 weight tile and a
 # [64 nwg, bk] bf16 activation tile; the gated tile is [64 nwg, C] bf16;
-# 1 KB aligns the ring, and 64 bytes of static shared memory hold its
-# mbarriers.
+# the first layer's tap stage has its own [64 nwg, bk] bf16 activation
+# tile after it; 1 KB aligns the ring, and 64 bytes of static shared
+# memory hold its mbarriers.
 SM90_SMEM_LIMIT = 232448       # shared memory a block may use on an H100
 SM90_STATIC_SMEM = 64
 SM90_MAX_STAGES = 4
 SM90_SMS = 132                 # streaming multiprocessors of an H100 SXM
+# the kernel's roles (its ``enum Role``); the ``dcond`` forms share them
+SM90_ROLES = {"std": 0, "final": 1, "part": 2, "first": 3}
 
 
 def _sm90_stage_bytes(nwg: int, bk: int) -> int:
     return bk * 256 * 2 + nwg * 64 * bk * 2
 
 
-def sm90_smem_bytes(nwg: int, bk: int, C: int, stages: int) -> int:
+def sm90_smem_bytes(nwg: int, bk: int, C: int, stages: int,
+                    role: str = "std") -> int:
     """Dynamic shared memory of one block (the kernel's ``smem_bytes``)."""
-    return 1024 + stages * _sm90_stage_bytes(nwg, bk) + nwg * 64 * C * 2
+    taps = nwg * 64 * bk * 2 if role == "first" else 0
+    return (1024 + stages * _sm90_stage_bytes(nwg, bk) + nwg * 64 * C * 2
+            + taps)
 
 
-def _sm90_stages(nwg: int, bk: int, C: int) -> int:
-    free = SM90_SMEM_LIMIT - SM90_STATIC_SMEM - sm90_smem_bytes(nwg, bk, C, 0)
+def _sm90_stages(nwg: int, bk: int, C: int, role: str) -> int:
+    free = (SM90_SMEM_LIMIT - SM90_STATIC_SMEM
+            - sm90_smem_bytes(nwg, bk, C, 0, role))
     return min(SM90_MAX_STAGES, max(free, 0) // _sm90_stage_bytes(nwg, bk))
 
 
-def sm90_plan(C: int, T: int = 1, B: int = 1) -> dict:
-    """Tile of ``csrc/wn_block_sm90.cu`` for gate width ``C`` and ``B``
-    utterances of ``T`` rows, the same for all five of its layers (the
-    ``dcond`` layers' ring stage is the in-kernel projection's; only their
-    K, 3C in place of 3C + M, is shorter; the partial layer's ``C`` is the
-    rank's width Cp, its taps' K the hidden state's).  Rows: 128-row
-    blocks (two consumer warpgroups) where the gated tile fits (C <= 512)
-    and the grid fills the card's SMs at least once, else 64-row blocks,
-    twice as many.  K per stage: 64 where three or more such stages fit
-    beside the gated tile, else 32; the ring is as deep as fits, up to four
-    stages.  Raises ValueError where no tile fits in shared memory."""
+def sm90_plan(C: int, T: int = 1, B: int = 1, role: str = "std") -> dict:
+    """Tile of ``csrc/wn_block_sm90.cu``'s ``role`` (a key of
+    :data:`SM90_ROLES`) for gate width ``C`` and ``B`` utterances of ``T``
+    rows (the ``dcond`` layers' ring stage is the in-kernel projection's;
+    only their K, 3C in place of 3C + M, is shorter; the partial layer's
+    ``C`` is the rank's width Cp, its taps' K the hidden state's).  Rows:
+    128-row blocks (two consumer warpgroups) where the gated tile fits (C
+    <= 512) and the grid fills the card's SMs at least once, else 64-row
+    blocks, twice as many.  K per stage: 64 where three or more such
+    stages fit beside the gated tile (and the first layer's tap tile),
+    else 32; the ring is as deep as fits, up to four stages.  Raises
+    ValueError where no tile fits in shared memory."""
+    if role not in SM90_ROLES:
+        raise ValueError(f"no role {role!r} of the sm90 WN-layer kernel")
     nwg = 2 if C <= 512 and B * -(-T // 128) >= SM90_SMS else 1
-    bk = 64 if _sm90_stages(nwg, 64, C) >= 3 else 32
-    stages = _sm90_stages(nwg, bk, C)
+    bk = 64 if _sm90_stages(nwg, 64, C, role) >= 3 else 32
+    stages = _sm90_stages(nwg, bk, C, role)
     if stages >= 2:
         bm = 64 * nwg
         return {"nwg": nwg, "bm": bm, "bk": bk, "stages": stages,
                 "threads": 128 * (nwg + 1),
-                "smem": sm90_smem_bytes(nwg, bk, C, stages),
+                "smem": sm90_smem_bytes(nwg, bk, C, stages, role),
                 "grid": (-(-T // bm), B)}
     raise ValueError(f"no tile of the sm90 WN-layer kernel fits C={C} in "
                      f"{SM90_SMEM_LIMIT} bytes of shared memory")
@@ -338,7 +350,10 @@ def wn_layer_first(x0, spect, start_k, start_b, wp, b_all, b_edge, w_cond,
     [n_half, C], ``wp`` [3, n_half, 2C], ``w_cond`` [M, 2C], ``w_rs``
     [C, 2C]; f32 biases, ``b_edge`` [2, 2C].  ``wp``, ``b_all``, ``b_edge``
     are :func:`fold_first_taps` of the layer's weights, folded once per
-    checkpoint by the caller."""
+    checkpoint by the caller.  CUDA: the ``FIRST`` role of
+    ``csrc/wn_block_sm90.cu`` with :func:`sm90_plan` ``(role="first")``;
+    ``first_design("wn_layer_first", ...)`` runs the first design on the
+    same arguments."""
     if _on_cpu(x0, spect, start_k, start_b, wp, b_all, b_edge, w_cond,
                b_cond, w_rs, b_rs):
         return wn_layer_first_plain(x0, spect, start_k, start_b, wp, b_all,
@@ -360,15 +375,17 @@ def wn_layer_first(x0, spect, start_k, start_b, wp, b_all, b_edge, w_cond,
         ("w_rs", w_rs, (C, 2 * C), bf), ("b_rs", b_rs, (2 * C,), F32),
     ):
         _check(name, t, shape, dt)
+    plan = sm90_plan(C, T, B, role="first")
     x_out = torch.empty((B, T, C), dtype=bf, device=x0.device)
     skip = torch.empty((B, T, C), dtype=bf, device=x0.device)
     wn_layer_first.launches += 1
-    _run(LIB.get().t2s_wn_layer_first, x0.device, x0.data_ptr(),
+    _run(LIB_SM90.get().t2s_wn_layer_first_sm90, x0.device, x0.data_ptr(),
          spect.data_ptr(), wp.data_ptr(), b_all.data_ptr(),
          b_edge.data_ptr(), w_cond.data_ptr(), b_cond.data_ptr(),
          w_rs.data_ptr(), b_rs.data_ptr(), start_k.data_ptr(),
          start_b.data_ptr(), x_out.data_ptr(), skip.data_ptr(), B, T,
-         n_valid, C, M, n_half, dilation)
+         n_valid, C, M, n_half, dilation, plan["nwg"], plan["bk"],
+         plan["stages"])
     return x_out, skip
 
 
@@ -456,22 +473,55 @@ def wn_layer_final(x, spect, w_in, b_in, w_cond, b_cond, w_eff, skip_acc,
     return out
 
 
+FIRST_DESIGNS = ("wn_layer_first", "wn_layer", "wn_layer_final",
+                 "wn_layer_first_dcond", "wn_layer_dcond",
+                 "wn_layer_final_dcond", "wn_layer_partial")
+
+
 def first_design(name: str, *args, n_valid: int | None = None):
-    """The first CUDA design of the standard, the final, the ``dcond``
-    standard or final, or the partial layer (``csrc/wn_block.cu``'s
-    ``t2s_wn_layer`` / ``t2s_wn_layer_final`` / ``t2s_wn_layer_dcond`` /
-    ``t2s_wn_layer_final_dcond`` / ``t2s_wn_layer_partial``: 64-row blocks,
-    ``mma.sync``, ``cp.async``), kept so that the sm90 kernel can be timed
-    and checked beside it on the same inputs; no path calls it.  ``name``
-    is ``"wn_layer"``, ``"wn_layer_final"``, ``"wn_layer_dcond"``,
-    ``"wn_layer_final_dcond"`` or ``"wn_layer_partial"`` (without
-    ``b_edge``) and the arguments are that wrapper's (CUDA tensors, already
-    checked by a call of the wrapper); the standard layers update
-    ``skip_acc`` in place.  It counts no launch."""
+    """The first CUDA design of the first, the standard, the final, the
+    ``dcond`` first, standard or final, or the partial layer
+    (``csrc/wn_block.cu``'s ``t2s_wn_layer_first`` / ``t2s_wn_layer`` /
+    ``t2s_wn_layer_final`` / ``t2s_wn_layer_first_dcond`` /
+    ``t2s_wn_layer_dcond`` / ``t2s_wn_layer_final_dcond`` /
+    ``t2s_wn_layer_partial``: 64-row blocks, ``mma.sync``, ``cp.async``),
+    kept so that the sm90 kernel can be timed and checked beside it on the
+    same inputs; no path calls it.  ``name`` is ``"wn_layer_first"``,
+    ``"wn_layer"``, ``"wn_layer_final"``, ``"wn_layer_first_dcond"``,
+    ``"wn_layer_dcond"``, ``"wn_layer_final_dcond"`` or
+    ``"wn_layer_partial"`` (without ``b_edge``) and the arguments are that
+    wrapper's (CUDA tensors, already checked by a call of the wrapper); the
+    standard layers update ``skip_acc`` in place.  It counts no launch."""
+    if name not in FIRST_DESIGNS:
+        raise ValueError(f"no first design of {name!r}")
     x, spect = args[0], args[1]
     B, T, C = x.shape
     n_valid = T if n_valid is None else int(n_valid)
     lib = LIB.get()
+    if name in ("wn_layer_first", "wn_layer_first_dcond"):
+        C, d = args[2].shape[-1], int(args[-1])     # start_k [n_half, C]
+        x_out = torch.empty((B, T, C), dtype=torch.bfloat16, device=x.device)
+        skip = torch.empty_like(x_out)
+        n_half = x.shape[-1]
+        if name == "wn_layer_first":
+            (x0, spect, start_k, start_b, wp, b_all, b_edge, w_cond, b_cond,
+             w_rs, b_rs) = args[:-1]
+            _run(lib.t2s_wn_layer_first, x.device, x0.data_ptr(),
+                 spect.data_ptr(), wp.data_ptr(), b_all.data_ptr(),
+                 b_edge.data_ptr(), w_cond.data_ptr(), b_cond.data_ptr(),
+                 w_rs.data_ptr(), b_rs.data_ptr(), start_k.data_ptr(),
+                 start_b.data_ptr(), x_out.data_ptr(), skip.data_ptr(), B,
+                 T, n_valid, C, spect.shape[-1], n_half, d)
+        else:
+            x0, cond_all, start_k, start_b, wp, b_all, b_edge, w_rs, b_rs = \
+                args[:-1]
+            _run(lib.t2s_wn_layer_first_dcond, x.device, x0.data_ptr(),
+                 cond_all.data_ptr(), wp.data_ptr(), b_all.data_ptr(),
+                 b_edge.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(),
+                 start_k.data_ptr(), start_b.data_ptr(), x_out.data_ptr(),
+                 skip.data_ptr(), B, T, n_valid, C, cond_all.shape[-1], 0,
+                 n_half, d)
+        return x_out, skip
     if name == "wn_layer_partial":
         w_rs, d = args[6], args[7]
         Cp, rs_out = w_rs.shape
@@ -510,8 +560,6 @@ def first_design(name: str, *args, n_valid: int | None = None):
              skip_acc.data_ptr(), B, T, n_valid, C, M, w_rs.shape[-1],
              args[-1])
         return x_out, skip_acc
-    if name != "wn_layer_final":
-        raise ValueError(f"no first design of {name!r}")
     E = args[8].shape[-1]
     out = torch.empty((B, T, E), dtype=F32, device=x.device)
     _run(lib.t2s_wn_layer_final, x.device, *ptrs, out.data_ptr(), B, T,

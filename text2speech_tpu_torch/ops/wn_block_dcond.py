@@ -12,11 +12,10 @@ reads slice 0), widened to f32 and added to the tap sums and ``b_in``.
 ``models/waveglow_fused.py`` materialises it once per flow from the mel
 frames and the phase-expanded weights of ``precompute_composed_cond``.
 
-For CUDA tensors the standard and final layers launch the ``DCOND`` forms
-of ``csrc/wn_block_sm90.cu`` (wgmma, TMA, 128-row tiles; ``sm90_plan`` picks
-the tile, as for the in-kernel projection's layers) and the first layer the
-``DCOND`` instantiation of ``csrc/wn_block.cu``; the plain versions run only
-for CPU tensors.  The slice is read in place through a row stride and a column
+For CUDA tensors the three layers launch the ``DCOND`` forms of
+``csrc/wn_block_sm90.cu`` (wgmma, TMA, 128-row tiles; ``sm90_plan`` picks
+the tile, as for the in-kernel projection's layers); the plain versions run
+only for CPU tensors.  The slice is read in place through a row stride and a column
 offset, never copied.  Each wrapper counts its kernel launches in
 ``launches``.
 """
@@ -25,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from .wn_block import (F32, LIB, LIB_SM90, _check, _on_cpu, _run,
+from .wn_block import (F32, LIB_SM90, _check, _on_cpu, _run,
                        final_body, first_body, sm90_plan, std_body)
 
 
@@ -86,7 +85,10 @@ def wn_layer_first_dcond(x0, cond_all, start_k, start_b, wp, b_all, b_edge,
                          n_valid: int | None = None):
     """:func:`wn_layer_first` with pre-materialised conditioning: slice 0 of
     ``cond_all`` [B, T, 2C * L] bf16, read in place (row stride 2C * L), in
-    place of ``spect``, ``w_cond`` and ``b_cond``."""
+    place of ``spect``, ``w_cond`` and ``b_cond``.  CUDA: the sm90 kernel's
+    ``FIRST`` form with ``DCOND``; ``wn_block.first_design(
+    "wn_layer_first_dcond", ...)`` runs the first design on the same
+    arguments."""
     if _on_cpu(x0, cond_all, start_k, start_b, wp, b_all, b_edge, w_rs, b_rs):
         return wn_layer_first_dcond_plain(x0, cond_all, start_k, start_b, wp,
                                           b_all, b_edge, w_rs, b_rs,
@@ -106,14 +108,16 @@ def wn_layer_first_dcond(x0, cond_all, start_k, start_b, wp, b_all, b_edge,
         ("w_rs", w_rs, (C, 2 * C), bf), ("b_rs", b_rs, (2 * C,), F32),
     ):
         _check(name, t, shape, dt)
+    plan = sm90_plan(C, T, B, role="first")
     x_out = torch.empty((B, T, C), dtype=bf, device=x0.device)
     skip = torch.empty((B, T, C), dtype=bf, device=x0.device)
     wn_layer_first_dcond.launches += 1
-    _run(LIB.get().t2s_wn_layer_first_dcond, x0.device, x0.data_ptr(),
-         cond_all.data_ptr(), wp.data_ptr(), b_all.data_ptr(),
+    _run(LIB_SM90.get().t2s_wn_layer_first_dcond_sm90, x0.device,
+         x0.data_ptr(), cond_all.data_ptr(), wp.data_ptr(), b_all.data_ptr(),
          b_edge.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(),
          start_k.data_ptr(), start_b.data_ptr(), x_out.data_ptr(),
-         skip.data_ptr(), B, T, n_valid, C, ld, off, n_half, dilation)
+         skip.data_ptr(), B, T, n_valid, C, ld, off, n_half, dilation,
+         plan["nwg"], plan["bk"], plan["stages"])
     return x_out, skip
 
 
