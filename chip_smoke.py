@@ -8,15 +8,17 @@ Phases, each of which passes or raises (the script then exits non-zero):
 1. require CUDA; print the card's name and power limit; turn TF32 off;
 2. build the hand-written kernels from ``csrc/`` (the bf16 WN-layer
    library and its Hopper redesign of the first, standard, final, ``dcond``
-   first, standard and final and tensor-parallel partial layers, the int8
+   first, standard and final and tensor-parallel partial layers (both
+   forms), the int8
    WN-layer library and its Hopper redesign of the standard, the
    tensor-parallel partial, the final and the first layer on s8
    ``wgmma``, the padded WN-layer library, the gated activation, the k=3
    conv backward and its Hopper redesign, one ``nvcc`` each, all started
    together) and print the times, and for the three Hopper files the
    ``HGMMA`` / ``IGMMA`` count per kernel and the registers, stack frames
-   and spills ``-Xptxas -v`` reports (the bf16 first layers and the s8
-   final and first layers must show neither);
+   and spills ``-Xptxas -v`` reports (the bf16 first layers, the partial
+   layer's layer-0 form and the s8 final and first layers must show
+   neither);
 3. compare each of the six projecting kernels with its plain PyTorch version on the
    card at the reference width (C=512, M=640) over batch sizes, dilations,
    valid lengths and flow widths, and the standard and final layers also at
@@ -98,13 +100,19 @@ Phases, each of which passes or raises (the script then exits non-zero):
 17. the two tensor-parallel partial kernels against their plain versions
     at C=512, M=640 for p = 2, 4, 8 ranks: batches 1 and 3, every dilation
     1..128, ``n_valid < T``, ``rs_out`` 2C and C, the layer-0 form (n_half
-    2..4 with the edge-bias rows); both sm90 forms also against their
-    first design, the int8 one equal to its plain version bit for bit,
+    2..4 with the edge-bias rows; the sm90 ``PART_FIRST`` role, also at p
+    = 1, d 1 and 64, n_valid = T, < T, 1 and 0, T = 6400 and off the tile,
+    M 640 and 96, and the ranks' sum against the whole first layer); all
+    three sm90 forms (``PART``, ``PART_FIRST``, s8 ``PART``) also against
+    their first design, the int8 one equal to its plain version bit for bit,
     also at the edges of its tile (nothing valid, T - 1, off the tile, d
     = 400, batch 3); the sum of the p partials plus the bias against the
     whole layer's plain res/skip product; times and bounds at B=1, T=6400
     for p = 2 and 4, both beside their first design in turns at batch 1
-    and 3, and the bf16 one's 64- against its 128-row tile at batch 1;
+    and 3, the layer-0 form so too at d = 1 with its bound and share, after
+    a ``structure`` line (the sm90 ``PART`` form at n_valid = 0: the
+    layer-0 role's skeleton), and the bf16 one's 64- against its 128-row
+    tile at batch 1;
     the s8 standard and final layers with one against two column groups
     at batch 1 and 3, and the s8 partial layer so at p = 8, and at p = 4,
     2 its wrapper against the kernel alone;
@@ -153,10 +161,16 @@ Phases, each of which passes or raises (the script then exits non-zero):
     waveglow_inference --int8`` and ``--fused`` (with the denoiser) on its
     mel and a port checkpoint saved from seeded weights, each WAV's
     format and length; ``waveglow_inference.main --int8`` in this process
-    launching the s8 standard, first and final layers 72 / 12 / 12 times.
+    launching the s8 standard, first and final layers 72 / 12 / 12 times;
+26. corpus preprocessing: ``python -m text2speech_tpu_torch.preprocess`` on
+    a KSS-shaped corpus of 200 synthetic WAVs of 1-10 s at 44,100 Hz with
+    silent lead-ins and tails, in a process of its own with ``--trim_impl
+    device`` and then ``host``: equal npz arrays and ``train.txt``, the
+    native WAV decoder built and used for every load, the port's npz
+    feeder batching the output on the card, mel frames per second of each.
 
 Phase 25 runs right after phase 7, phases 12-21 between it and phase 8,
-phases 22-24 after phase 11.  The line before the last is a
+phases 22-24 after phase 11, phase 26 last.  The line before the last is a
 JSON object with one record per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -1859,15 +1873,30 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
 
     def check_bf16(tag, args, kw, nv):
+        """Either sm90 form (``PART``, or ``PART_FIRST`` with ``b_edge`` in
+        ``kw``) against its plain version and its first design; one launch
+        a call, none for the first design."""
+        n0 = wb.wn_layer_partial.launches
         got = wb.wn_layer_partial(*args, n_valid=nv, **kw)
         want = wb.wn_layer_partial_plain(*args, n_valid=nv, **kw)
+        first = wb.first_design("wn_layer_partial", *args, n_valid=nv, **kw)
+        if wb.wn_layer_partial.launches != n0 + 1:
+            raise RuntimeError(f"{tag}: {wb.wn_layer_partial.launches - n0}"
+                               f" launches counted, want 1")
         if got.dtype != torch.float32 or got[:, nv:].any():
             raise RuntimeError(f"{tag}: not f32, or rows past n_valid not 0")
         note("wn_layer_partial", compare(f"wn_layer_partial {tag}", got, want))
-        if not kw:      # the sm90 form: also its first design
-            compare(f"wn_layer_partial {tag} vs first design", got,
-                    wb.first_design("wn_layer_partial", *args, n_valid=nv))
+        compare(f"wn_layer_partial {tag} vs first design", got, first)
         return got
+
+    def layer0(k, p, i, d, nv, tag):
+        """Rank i of p's layer-0 form on ``k``'s first-layer inputs."""
+        w_in, b_in, w_c, b_c, w_rs = rank_share(k, p, i, False)
+        wp, b_all, b_edge = wb.fold_first_taps(k["start_k"], k["start_b"],
+                                               w_in, b_in)
+        return check_bf16(f"{tag} rank {i}", (k["x0"], k["spect"], wp, b_all,
+                                              w_c, b_c, w_rs, d),
+                          {"b_edge": b_edge}, nv)
 
     def check_int8(tag, args, nv):
         """The s8 wgmma form: equal to the plain version bit for bit, and
@@ -1896,12 +1925,7 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
                 seed += 1
                 k = layer_inputs(B, T, nv, C, M, seed, dev, n_half=n_half)
                 for i in (0, p - 1):
-                    w_in, b_in, w_c, b_c, w_rs = rank_share(k, p, i, False)
-                    wp, b_all, b_edge = wb.fold_first_taps(
-                        k["start_k"], k["start_b"], w_in, b_in)
-                    check_bf16(f"{shape} n_half={n_half} rank {i}",
-                               (k["x0"], k["spect"], wp, b_all, w_c, b_c,
-                                w_rs, 1), {"b_edge": b_edge}, nv)
+                    layer0(k, p, i, 1, nv, f"{shape} n_half={n_half}")
             for li in range(8):           # every dilation of the WN ladder
                 d = 2 ** li
                 seed += 1
@@ -1934,6 +1958,41 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
                     note("wn_layer_partial", compare(
                         f"sum of {p} partials + bias vs the whole layer {tag}",
                         (total + k["b_rs"])[:, :nv], rs[:, :nv]))
+
+    # the layer-0 form (sm90 PART_FIRST) over rank widths Cp = 512 .. 64,
+    # n_half 2-4, d 1 (layer 0's) and 64, n_valid = T, < T, 1 and 0, batch
+    # 1 and 3, T = 6400 and off the 128-row tile, M 640 and a narrower 96;
+    # the first and the last rank
+    for p in (1, 2, 4, 8):
+        for B, T, nv, d, m, n_half in ((1, 6400, 6400, 1, M, 4),
+                                       (3, 6400, 6321, 1, M, 3),
+                                       (3, 777, 700, 64, M, 2),
+                                       (1, 777, 1, 64, M, 3),
+                                       (3, 1000, 0, 1, M, 4),
+                                       (2, 333, 50, 1, 96, 2)):
+            seed += 1
+            k = layer_inputs(B, T, nv, C, m, seed, dev, n_half=n_half)
+            for i in (0, p - 1) if p > 1 else (0,):
+                layer0(k, p, i, d, nv, f"layer 0 p={p} B={B} T={T} "
+                       f"n_valid={nv} d={d} M={m} n_half={n_half}")
+        # the ranks' layer-0 partials + the res/skip bias against the whole
+        # first layer's plain res/skip term (its residual half before the
+        # base x0 start_k + start_b)
+        B, T, nv = 3, 777, 700
+        seed += 1
+        k = layer_inputs(B, T, nv, C, M, seed, dev, n_half=4)
+        total = sum(layer0(k, p, i, 1, nv, f"layer 0 sum p={p}")
+                    for i in range(p))
+        wp, b_all, b_edge = wb.fold_first_taps(k["start_k"], k["start_b"],
+                                               k["w_in"], k["b_in"])
+        in_act = wb._edge_bias_suppress(
+            wb._taps(k["x0"], wp, 1, nv) + b_all
+            + wb._cond(k["spect"], k["w_cond"], k["b_cond"]), b_edge, 1, nv)
+        rs = (wb._gate(in_act, torch.bfloat16).float() @ k["w_rs"].float()
+              + k["b_rs"])
+        note("wn_layer_partial", compare(
+            f"sum of {p} layer-0 partials + bias vs the whole first layer",
+            (total + k["b_rs"])[:, :nv], rs[:, :nv]))
 
     # kernel 8's s8 form at the edges of its 64-row tile: nothing valid,
     # n_valid = T - 1 and off the tile, a halo past a tile (d = 400), the
@@ -1985,6 +2044,7 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
                 rec[name].update(r)
     for name in PARTIAL_KERNELS:
         time_partial_beside_first_design(name, rec[name], C, M)
+    time_partial_first_beside_first_design(C, M)
     return rec
 
 
@@ -2051,6 +2111,90 @@ def time_partial_beside_first_design(name: str, r: dict, C: int,
             elif p == 4:
                 r["ms_b3"], r["prev_ms_b3"], r["bound_ms_b3"] = (ms, prev,
                                                                  bound)
+
+
+def time_partial_first_beside_first_design(C: int, M: int) -> None:
+    """Kernel 4's layer-0 form, the sm90 ``PART_FIRST`` role, and its first
+    design (``csrc/wn_block.cu`` ``PART_FIRST``) on the same inputs, rank 0
+    of p = 2 and 4, d = 1 (layer 0's), n_half = 4, rs_out = 2C, batch 1
+    and 3 x 6400 groups, in turns (first, sm90, sm90, first), with the
+    card's bound, each one's share of it, the plain version's time and the
+    kernel alone (raw launches, without the wrapper's host work); before
+    it a ``structure``
+    line: the sm90 ``PART`` form at n_valid = 0 (no tap stage, so the
+    conditioning's stages, the gate, the res/skip product and the f32
+    write: the layer-0 role without its tap stage and edge take-back)."""
+    from text2speech_tpu_torch.ops import wn_block as wb
+
+    dev = torch.device("cuda")
+    T = 6400
+    for B in (1, 3):
+        k = layer_inputs(B, T, T, C, M, 89, dev, n_half=4)
+        ks = layer_inputs(B, T, T, C, M, 88, dev)
+        for p in (2, 4):
+            Cp = C // p
+            skel = (ks["x"], ks["spect"], *rank_share(ks, p, 0, False), 1)
+            skel_ms = time_ms(lambda: wb.wn_layer_partial(*skel, n_valid=0))
+            print(f"  structure p={p} B={B} T={T}: wn_layer_partial (PART) "
+                  f"at n_valid=0 {skel_ms:.4f} ms (the layer-0 form's "
+                  f"skeleton)")
+            w_in, b_in, w_c, b_c, w_rs = rank_share(k, p, 0, False)
+            wp, b_all, b_edge = wb.fold_first_taps(k["start_k"],
+                                                   k["start_b"], w_in, b_in)
+            args = (k["x0"], k["spect"], wp, b_all, w_c, b_c, w_rs, 1)
+
+            def sm90(args=args, b_edge=b_edge):
+                return wb.wn_layer_partial(*args, b_edge=b_edge)
+
+            def first(args=args, b_edge=b_edge):
+                return wb.first_design("wn_layer_partial", *args,
+                                       b_edge=b_edge)
+
+            out = sm90()
+            tag = f"wn_layer_partial layer 0 sm90 vs first design p={p} B={B}"
+            compare(tag, out, first())
+            # taps (K = 16 on the tensor cores), conditioning, res/skip
+            ops = 2 * B * T * ((16 + M) * 2 * Cp + Cp * 2 * C)
+            tensors = [t for t in (*args, b_edge, out) if torch.is_tensor(t)]
+            bound, by = bound_ms({"bf16": ops}, tensors)
+            times = {"first": [], "sm90": []}
+            for n, fn in (("first", first), ("sm90", sm90), ("sm90", sm90),
+                          ("first", first)):
+                times[n].append(time_ms(fn))
+            ms, prev = sum(times["sm90"]) / 2, sum(times["first"]) / 2
+            plain_ms = time_ms(lambda: wb.wn_layer_partial_plain(
+                *args, b_edge=b_edge))
+            plan = wb.sm90_plan(Cp, T, B, role="part_first")
+            # the kernel alone: raw launches into one output buffer (the
+            # wrapper's host work per call can outlast the kernel at B=1)
+            stream = torch.cuda.current_stream().cuda_stream
+            ptrs = [t.data_ptr() for t in (*args[:4], b_edge, *args[4:7],
+                                           out)]
+
+            def alone(ptrs=ptrs, plan=plan, Cp=Cp):
+                return wb.LIB_SM90.get().t2s_wn_layer_partial_first_sm90(
+                    *ptrs, B, T, T, 4, Cp, M, 2 * C, 1, plan["nwg"],
+                    plan["bk"], plan["stages"], stream)
+
+            if alone():
+                raise RuntimeError("part_first: launch failed")
+            alone_ms = time_ms(alone)
+            smem = wb.LIB_SM90.get().t2s_wn_sm90_smem_bytes(
+                plan["nwg"], plan["bk"], Cp, plan["stages"],
+                wb.SM90_ROLES["part_first"])
+            if smem != plan["smem"]:
+                raise RuntimeError(f"part_first plan: {plan['smem']} B of "
+                                   f"shared memory, the kernel asks {smem}")
+            print(f"  wn_layer_partial layer 0 (PART_FIRST) p={p} B={B} "
+                  f"T={T}: sm90 {times['sm90'][0]:.4f} / "
+                  f"{times['sm90'][1]:.4f} ms ({bound / ms:.1%} of the "
+                  f"{bound:.4f} ms bound by {by}), kernel alone "
+                  f"{alone_ms:.4f} ms, first design "
+                  f"{times['first'][0]:.4f} / {times['first'][1]:.4f} ms "
+                  f"({bound / prev:.1%}), plain {plain_ms:.4f} ms; tile "
+                  f"{plan['bm']} rows, {plan['stages']} stages of "
+                  f"K={plan['bk']}, {plan['smem']} B shared, "
+                  f"{plan['grid'][0] * B} blocks")
 
 
 def tile_alternatives(C: int = 512, M: int = 640) -> None:
@@ -3511,6 +3655,133 @@ def cli_griffin_lim(ckpt: str, d: str) -> None:
                            f"({n},)")
 
 
+# ---------------------------------------------------------------------------
+# corpus preprocessing: the CLI on a KSS-shaped synthetic corpus
+# ---------------------------------------------------------------------------
+
+# KSS ships 12,853 WAVs of 1-10+ s at 44,100 Hz; a synthetic corpus of this
+# many, written from a numpy seed, stands in for it
+PRE_WAVS = 200
+PRE_SR = 44100
+
+
+def write_kss_corpus(root: str) -> str:
+    """PRE_WAVS synthetic utterances of 1-10 s at 44,100 Hz (a voiced tone
+    with harmonics under a syllable-rate envelope, in noise), each with a
+    silent lead-in and tail of 0.1-0.6 s, and ``transcript.txt`` in KSS's
+    six columns (path, script, expanded script, decomposed script,
+    duration, translation); every tenth row's expanded script has another
+    word count, which gives two items of one WAV."""
+    import unicodedata
+
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(13)
+    lines = []
+    for i in range(PRE_WAVS):
+        sub = f"{1 + i % 4}"
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        n = int(PRE_SR * rng.uniform(1.0, 10.0))
+        t = np.arange(n) / PRE_SR
+        f0 = rng.uniform(90, 260)
+        voice = sum(np.sin(2 * np.pi * f0 * h * t) / h for h in (1, 2, 3))
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(3, 6) * t)
+        sig = 0.25 * voice * env + 0.01 * rng.randn(n)
+        lead, tail = (np.zeros(int(PRE_SR * rng.uniform(0.1, 0.6)))
+                      for _ in range(2))
+        sig = np.concatenate([lead, sig, tail])
+        name = f"{sub}/{sub}_{i:04d}.wav"
+        wavfile.write(os.path.join(root, name), PRE_SR,
+                      (np.clip(sig, -1, 1) * 32767).astype(np.int16))
+        text = TACO_TEXTS[i % len(TACO_TEXTS)]
+        expanded = text if i % 10 else text.replace(" ", "")
+        lines.append(f"{name}|{text}|{expanded}|"
+                     f"{unicodedata.normalize('NFD', text)}|"
+                     f"{len(sig) / PRE_SR:.1f}|synthetic")
+    with open(os.path.join(root, "transcript.txt"), "w",
+              encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return root
+
+
+def preprocess_path(info: str) -> None:
+    """Phase 26: ``python -m text2speech_tpu_torch.preprocess`` on the card,
+    each in a process of its own, with ``--trim_impl device`` and then
+    ``--trim_impl host`` on a KSS-shaped corpus (:func:`write_kss_corpus`,
+    the reference hparams: 44,800 Hz, so every WAV is resampled): the two
+    outputs' npz arrays and ``train.txt`` equal, the native WAV decoder
+    built and used for every file, the port's npz feeder (the Tacotron
+    trainer's reader of preprocess output) batching the output on the
+    card; mel frames per second of each placement."""
+    from text2speech_tpu_torch.config import HParams
+    from text2speech_tpu_torch.data.npz_dataset import NpzDataFeeder
+    from text2speech_tpu_torch.data.preprocess import parse_transcript
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        corpus = write_kss_corpus(os.path.join(d, "kss"))
+        # a row with two scripts loads its WAV once for each
+        n_rows = len(parse_transcript(corpus))
+        print(f"[preprocess] corpus: {PRE_WAVS} WAVs at {PRE_SR} Hz, "
+              f"{n_rows} transcript items, written in "
+              f"{time.perf_counter() - t0:.2f} s")
+        outs, rates = {}, {}
+        for impl in ("device", "host"):
+            out = os.path.join(d, f"out_{impl}")
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "text2speech_tpu_torch.preprocess",
+                 "--in_dir", corpus, "--out_dir", out, "--trim_impl", impl,
+                 "--num_workers", "8"],
+                capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            rate = re.search(r"\((\d+) mel frames/sec\)", r.stdout)
+            nat = re.search(r"native WAV decoder built: (\d+) files", r.stdout)
+            wrote = re.search(r"Wrote (\d+) utterances, (\d+) mel frames",
+                              r.stdout)
+            if r.returncode != 0 or not (rate and nat and wrote):
+                raise RuntimeError(f"preprocess CLI --trim_impl {impl} failed "
+                                   f"(rc {r.returncode}):\n{r.stdout[-2000:]}"
+                                   f"\n{r.stderr[-3000:]}")
+            if int(nat.group(1)) != n_rows:
+                raise RuntimeError(f"preprocess --trim_impl {impl}: "
+                                   f"{nat.group(1)} of {n_rows} WAV loads "
+                                   f"decoded natively")
+            rates[impl] = int(rate.group(1))
+            outs[impl] = out
+            print(f"[preprocess] --trim_impl {impl}: {wrote.group(1)} "
+                  f"utterances, {wrote.group(2)} mel frames, "
+                  f"{rates[impl]} mel frames/s ({wall:.2f} s with the "
+                  f"process start), {nat.group(1)} WAV loads decoded "
+                  f"natively; "
+                  f"{info}")
+        rows = {impl: open(os.path.join(o, "train.txt"),
+                           encoding="utf-8").read().splitlines()
+                for impl, o in outs.items()}
+        if rows["device"] != rows["host"] or not rows["device"]:
+            raise RuntimeError("preprocess: train.txt differs between the "
+                               "trim placements")
+        for row in rows["device"]:
+            npz = row.split("|")[6]
+            with np.load(os.path.join(outs["device"], npz)) as a, \
+                    np.load(os.path.join(outs["host"], npz)) as b:
+                if sorted(a.files) != sorted(b.files) or not all(
+                        np.array_equal(a[k], b[k]) for k in a.files):
+                    raise RuntimeError(f"preprocess: {npz} differs between "
+                                       f"the trim placements")
+        dups = sum("-2.npz" in r for r in rows["device"])
+        feeder = NpzDataFeeder([outs["device"]], HParams(), device="cuda")
+        batch = feeder.sample_batch()
+        if batch.mel.device.type != "cuda" or batch.mel.shape[1] != 80 \
+                or not torch.isfinite(batch.mel).all():
+            raise RuntimeError(f"npz feeder: mel {batch.mel.shape} on "
+                               f"{batch.mel.device}")
+        print(f"[preprocess] device and host trim: {len(rows['device'])} "
+              f"rows ({dups} second items of one WAV) and their npz arrays "
+              f"equal; NpzDataFeeder: {len(feeder.corpus_files[0])} files, "
+              f"batch mel {tuple(batch.mel.shape)} on the card")
+
+
 def taco_rate(trainer, batch, n: int = 2) -> float:
     """Seconds per optimizer step of ``trainer`` on one batch already on
     the card, warm: the host clock around ``n`` steps and a synchronise."""
@@ -3646,9 +3917,11 @@ def main() -> int:
         print(f"[build] {lib.source.name} SASS: {hgmma_counts(lib.path)}")
         print(f"[build] {lib.source.name} registers (-Xptxas -v): "
               f"{ptxas_registers(lib.build_log)}")
-    # the bf16 first layers' role and the s8 final and first layers keep no
-    # array in local memory
-    require_no_local_memory(wb.LIB_SM90, {wb.SM90_ROLES["first"]: "first"})
+    # the bf16 first layers' roles (the first layer's and the partial
+    # layer's layer-0 form) and the s8 final and first layers keep no array
+    # in local memory
+    require_no_local_memory(wb.LIB_SM90, {
+        wb.SM90_ROLES[role]: role for role in wb.SM90_TAP_ROLES})
     require_no_local_memory(wq.LIB_SM90, {
         code: role for role, code in wq.INT8_SM90_ROLES.items()
         if role in ("final", "first")})
@@ -3700,6 +3973,8 @@ def main() -> int:
     ladder_launches, t = sync_time(ladder_path)
     print(f"[time] phase 23: {t:.2f} s")
     tacotron_train_path(bf16["synth"], info)
+    print(f"[time] phase 26: {sync_time(lambda: preprocess_path(info))[1]:.2f}"
+          f" s")
 
     launches = {**{n: bf16["launches"][n] for n in list(KERNELS)[:3]},
                 **{n: int8_launches[n] for n in list(KERNELS)[3:]},

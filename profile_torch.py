@@ -29,11 +29,12 @@ trace), the idle share (1 - busy / wall), the number of kernels and the
 kernels that took most of the device time, and under "named" the WN-layer
 kernels by their (mangled) names: ``wn_sm90_kernel<ROLE, NWG, BK, DCOND>``
 of ``csrc/wn_block_sm90.cu`` (ROLE 0 standard, 1 final, 2 partial, 3
-first; DCOND 1 for the composed vocoder's layers),
-``wn_int8_sm90_kernel<ROLE, NC>`` of ``csrc/wn_block_int8_sm90.cu`` (ROLE
-0 the int8 standard layer, 1 the int8 tensor-parallel partial layer, 2
-the int8 final layer, 3 the int8 first layer) and the first design's
-``wn_layer_kernel`` of ``csrc/wn_block.cu`` (the layer-0 partial form).  One JSON line per stage,
+first, 4 the partial layer's layer-0 form; DCOND 1 for the composed
+vocoder's layers), ``wn_int8_sm90_kernel<ROLE, NC>`` of
+``csrc/wn_block_int8_sm90.cu`` (ROLE 0 the int8 standard layer, 1 the int8
+tensor-parallel partial layer, 2 the int8 final layer, 3 the int8 first
+layer) and the first design's ``wn_layer_kernel`` of ``csrc/wn_block.cu``
+(no served path launches it now).  One JSON line per stage,
 then the card's name and power limit.  Needs a GPU; imports nothing of
 JAX.
 """

@@ -1374,6 +1374,86 @@ def test_partial_first_form_kernel_matches_plain(dev, n_half, p):
         close(got, want)
 
 
+def partial_first_args(k, C, p, i, d):
+    """Rank i of p's layer-0 arguments (the rank's columns of the composed
+    taps, folded once) and its b_edge."""
+    Cp = C // p
+    cols = torch.from_numpy(rank_cols(C, Cp, i)).to(k["x0"].device)
+    wp, b_all, b_edge = wb.fold_first_taps(
+        k["start_k"], k["start_b"], k["w_in"][..., cols], k["b_in"][cols])
+    return (k["x0"], k["spect"], wp, b_all,
+            k["w_cond"][:, cols].contiguous(), k["b_cond"][cols].contiguous(),
+            k["w_rs"][i * Cp:(i + 1) * Cp].contiguous(), d), b_edge
+
+
+@pytest.mark.parametrize("p", [1, 2, 4, 8])       # Cp = 512, 256, 128, 64
+@pytest.mark.parametrize("B,T,nv,d,M,n_half", [
+    (1, 6400, 6400, 1, 640, 4),     # n_valid = T, one utterance
+    (3, 6400, 6321, 1, 640, 3),     # the served batch, n_valid < T
+    (3, 777, 700, 64, 640, 2),      # T off the 128-row tile, d = 64
+    (1, 777, 1, 64, 640, 3),        # n_valid = 1
+    (3, 1000, 0, 1, 640, 4),        # nothing valid
+    (2, 333, 50, 1, 96, 2)])        # a narrower M
+def test_sm90_partial_first_matches_plain_and_first_design(dev, p, B, T, nv,
+                                                           d, M, n_half):
+    """The layer-0 form on the sm90 kernel's ``PART_FIRST`` role: the first
+    and the last rank against the plain version and the first design
+    (``csrc/wn_block.cu`` ``PART_FIRST``); one launch a call, none for the
+    first design; zero from n_valid on."""
+    C = 512
+    k = inputs(dev, B, T, nv, C, M, 17 * p + d + nv, n_half=n_half)
+    for i in (0, p - 1) if p > 1 else (0,):
+        args, b_edge = partial_first_args(k, C, p, i, d)
+        wb.wn_layer_partial.launches = 0
+        got = wb.wn_layer_partial(*args, b_edge=b_edge, n_valid=nv)
+        assert wb.wn_layer_partial.launches == 1
+        first = wb.first_design("wn_layer_partial", *args, b_edge=b_edge,
+                                n_valid=nv)
+        assert wb.wn_layer_partial.launches == 1
+        want = wb.wn_layer_partial_plain(*args, b_edge=b_edge, n_valid=nv)
+        assert got.dtype == torch.float32 and got.shape == (B, T, 2 * C)
+        assert torch.isfinite(got).all() and (got[:, nv:] == 0).all()
+        if nv:
+            close(got, want)
+            close(got, first)
+        else:
+            assert not got.any() and not first.any()
+
+
+def test_sm90_partial_first_ranks_sum_to_the_first_layer(dev):
+    """The p = 4 ranks' layer-0 partials plus the res/skip bias: the whole
+    first layer's skip, and its hidden state once the residual base x0
+    start_k + start_b is added (as the TP path does after the sum)."""
+    B, T, nv, C, M, p = 2, 777, 700, 512, 640, 4
+    k = inputs(dev, B, T, nv, C, M, 31, n_half=4)
+    total = sum(wb.wn_layer_partial(*a, b_edge=e, n_valid=nv) for a, e in
+                (partial_first_args(k, C, p, i, 1) for i in range(p)))
+    fold = wb.fold_first_taps(k["start_k"], k["start_b"], k["w_in"],
+                              k["b_in"])
+    x_out, skip = wb.wn_layer_first_plain(
+        k["x0"], k["spect"], k["start_k"], k["start_b"], *fold, k["w_cond"],
+        k["b_cond"], k["w_rs"], k["b_rs"], 1, n_valid=nv)
+    rs = total + k["b_rs"]
+    base = k["x0"].float() @ k["start_k"].float() + k["start_b"]
+    close(rs[:, :nv, C:], skip[:, :nv])
+    close(base[:, :nv] + rs[:, :nv, :C], x_out[:, :nv])
+
+
+def test_partial_first_design_counts_no_launch(dev):
+    """``first_design("wn_layer_partial", ..., b_edge=)`` runs the first
+    design's layer-0 form and counts nothing; the wrapper counts one."""
+    k = inputs(dev, 1, 200, 180, 512, 64, 5, n_half=3)
+    args, b_edge = partial_first_args(k, 512, 2, 1, 1)
+    wb.wn_layer_partial.launches = 0
+    first = wb.first_design("wn_layer_partial", *args, b_edge=b_edge,
+                            n_valid=180)
+    assert wb.wn_layer_partial.launches == 0
+    close(wb.wn_layer_partial(*args, b_edge=b_edge, n_valid=180), first)
+    assert wb.wn_layer_partial.launches == 1
+    with pytest.raises(ValueError, match="takes no b_edge"):
+        wb.first_design("wn_layer", *args, b_edge=b_edge)
+
+
 @pytest.mark.parametrize("p,d,rs_full", [(2, 1, True), (4, 128, False),
                                          (8, 400, True)])
 def test_partial_int8_kernel_matches_plain(dev, p, d, rs_full):

@@ -234,7 +234,8 @@ def test_port_imports_with_jax_blocked():
         "          'server', 'http_serve', 'ops.wn_block_padded',\n"
         "          'train.tacotron', 'train.state', 'data.dataset',\n"
         "          'data.npz_dataset', 'utils.run_dirs', 'utils.infolog',\n"
-        "          'tacotron_train', 'waveglow_inference', 'mel2samp'):\n"
+        "          'tacotron_train', 'waveglow_inference', 'mel2samp',\n"
+        "          'data.preprocess', 'native', 'preprocess'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )

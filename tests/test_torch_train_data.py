@@ -64,9 +64,11 @@ def corpus(tmp_path_factory):
 
 def test_load_wav_matches_jax(corpus, monkeypatch):
     """Bit-equal to the JAX package's loader at the file's own rate.  A
-    resampled file is bit-equal to its scipy path (the port's is that
-    path) and within one f32 step of its native decoder, which sums the
-    polyphase taps in another order."""
+    resampled file too: both take their native decoder first (the same
+    C++ source).  It is within one f32 step of the JAX package's scipy
+    path, which sums the polyphase taps in another order; with the port's
+    native decoder out of the way, the port's scipy path is that one bit
+    for bit."""
     for name in ("u0.wav", "u5.wav", "u6.wav"):
         path = str(corpus / name)
         got, want = load_wav(path, 22050), jax_load_wav(path, 22050)
@@ -77,10 +79,14 @@ def test_load_wav_matches_jax(corpus, monkeypatch):
     got = load_wav(path, 22050)
     assert got.dtype == np.float32 and got.ndim == 1
     assert abs(len(got) - 10900 * 22050 / 16000) <= 1
-    np.testing.assert_allclose(got, jax_load_wav(path, 22050), atol=2.0 ** -23)
-    from text2speech_tpu import native
-    monkeypatch.setattr(native, "load_wav_native", lambda path, sr: None)
     np.testing.assert_array_equal(got, jax_load_wav(path, 22050))
+    from text2speech_tpu import native
+    from text2speech_tpu_torch import native as torch_native
+    monkeypatch.setattr(native, "load_wav_native", lambda path, sr: None)
+    np.testing.assert_allclose(got, jax_load_wav(path, 22050), atol=2.0 ** -23)
+    monkeypatch.setattr(torch_native, "load_wav_native", lambda path, sr: None)
+    np.testing.assert_array_equal(load_wav(path, 22050),
+                                  jax_load_wav(path, 22050))
 
 
 def test_mel_filterbank_is_the_jax_package_s():

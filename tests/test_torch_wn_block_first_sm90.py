@@ -379,12 +379,15 @@ def test_first_role_constants_and_c_interface():
     restate; the two new entries take what ``ops/wn_block.py`` declares (13
     pointers and 10 ints, 11 and 11, each with the stream)."""
     src = SRC.read_text()
-    assert "enum Role { STD = 0, FINAL = 1, PART = 2, FIRST = 3 };" in src
-    assert twb.SM90_ROLES == {"std": 0, "final": 1, "part": 2, "first": 3}
+    assert ("enum Role { STD = 0, FINAL = 1, PART = 2, FIRST = 3, "
+            "PART_FIRST = 4 };") in src
+    assert twb.SM90_ROLES == {"std": 0, "final": 1, "part": 2, "first": 3,
+                              "part_first": 4}
     const = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
     assert const["MAX_NHALF"] == "4"
     assert int(const["TAP_ROWS"]) == 16 >= 3 * 4     # one k16 step
-    assert "(role == FIRST ? (size_t)nwg * 64 * bk * 2 : 0)" in src
+    assert "return role == FIRST || role == PART_FIRST;" in src
+    assert "(tap_stage_role(role) ? (size_t)nwg * 64 * bk * 2 : 0)" in src
     decls = dict(re.findall(r"^(?:int|size_t) (t2s_\w+)\(([^)]*)\)", src,
                             re.M))
     P, I = ctypes.c_void_p, ctypes.c_int

@@ -21,6 +21,10 @@
 //   FIRST, DCOND  replaces text2speech_tpu/ops/pallas/wn_block_dcond.py:100
 //          wn_layer_stream2_first_dcond (pallas_call :133; the same body
 //          with project_cond=False, reading slice 0 of cond_all)
+//   PART_FIRST  replaces text2speech_tpu/ops/pallas/wn_block.py:642
+//          wn_layer_stream2_partial with b_edge (pallas_call :683; body
+//          _kernel_stream2_partial, :612, edge_bias=True), layer 0 of the
+//          tensor-parallel vocoder
 //
 // The function is that of wn_block.cu's STD and FINAL roles, for rows t of
 // one utterance (hidden x [T, C], grouped mel spect [T, M], dilation d,
@@ -52,12 +56,11 @@
 //
 // with W_rs the rank's rows [Cp, rs_out]: no bias, residual or skip sum
 // (they need the sum over ranks).  wn_block.cu keeps the first design of
-// these roles (64-row blocks, mma.sync, cp.async) and the layer-0 form of
-// the partial layer (K = n_half <= 4, which gives wgmma nothing to do); its
-// entry points t2s_wn_layer, t2s_wn_layer_final, t2s_wn_layer_dcond,
+// these roles (64-row blocks, mma.sync, cp.async); its entry points
+// t2s_wn_layer, t2s_wn_layer_final, t2s_wn_layer_dcond,
 // t2s_wn_layer_final_dcond, t2s_wn_layer_first, t2s_wn_layer_first_dcond
-// and t2s_wn_layer_partial stay exported so that the two designs can be
-// timed side by side, and nothing else calls the first six.
+// and t2s_wn_layer_partial (with and without b_edge) stay exported so that
+// the two designs can be timed side by side, and nothing else calls them.
 //
 // What bounds the layer on an H100.  At B=3, T=6400, C=512, M=640 the
 // standard layer is 106 GFLOP of bf16 products against ~60 MB of
@@ -176,6 +179,24 @@
 // by operations; with DCOND 20 GFLOP against ~79 MB (x0, the 2C-wide slice
 // of cond_all, the two outputs): 0.024 ms, bound by bytes.
 //
+// PART_FIRST.  Layer 0 of a flow under tensor parallelism: FIRST's in-act
+// product on the rank's gate-paired columns (wp [3, n_half, 2Cp], b_all,
+// b_edge [2, 2Cp] from fold_first_taps of the rank's w_in and b_in, w_cond
+// [M, 2Cp], b_cond), then PART's res/skip product and epilogue:
+//
+//   in_act[t] = sum_j x0[t+(j-1)d] wp[j] + b_all + spect[t] W_cond + b_cond
+//               - b_edge[0] where t < d, - b_edge[1] where t >= n_valid - d
+//   part[t]   = t < n_valid ? acts[t] W_rs : 0           [rs_out], f32
+//
+// with no residual base, bias or skip: they follow the sum over ranks.  So
+// it is FIRST's tap stage (x0's tap tile staged once, wp's 16 rows of the
+// chunk by TMA), the conditioning's K = M stages, PART's gate (a half chunk
+// at Cp % 128 == 64: wp and w_cond boxes past the rank's columns belong to
+// the sigmoid half or are zero-filled) with FIRST's edge take-back, and
+// part_store.  At B=3, T=6400, M=640, Cp = 256 (p = 2), rs_out = 2C =
+// 1024 the call is 23 GFLOP against ~104 MB (spect 24.6 MB, the f32
+// partial 78.6 MB): 0.031 ms at 3.35 TB/s, bound by bytes.
+//
 // A wait on an mbarrier that does not complete within seconds traps (a
 // launch error) instead of hanging the card.
 
@@ -208,7 +229,12 @@ struct Tile {
   static constexpr uint32_t A_SBO = 8 * BK * 2;
 };
 
-enum Role { STD = 0, FINAL = 1, PART = 2, FIRST = 3 };
+enum Role { STD = 0, FINAL = 1, PART = 2, FIRST = 3, PART_FIRST = 4 };
+
+// FIRST and PART_FIRST: the rank-n_half composed taps as one K = 16 stage
+__host__ __device__ constexpr bool tap_stage_role(int role) {
+  return role == FIRST || role == PART_FIRST;
+}
 
 struct Params {
   CUtensorMap tm_x;      // x as [B, n_valid, CX]; box {BK, BM, 1}
@@ -216,11 +242,12 @@ struct Params {
   CUtensorMap tm_win;    // w_in as [3CX, 2C]; box {64, BK}, 128B swizzle
   CUtensorMap tm_wcond;  // w_cond [M, 2C]; box {64, BK}, 128B swizzle
   CUtensorMap tm_wrs;    // STD, PART, FIRST: w_rs [C, rs_out]; box {64, BK}
-  CUtensorMap tm_wp;     // FIRST: wp as [3 n_half, 2C]; box {64, 16}
+  CUtensorMap tm_wp;     // FIRST, PART_FIRST: wp as [3 n_half, 2C]; box
+                         // {64, 16}
   int T, n_valid, C, M, d, rs_out, E;
   int CX;                // the hidden state's width: C except in PART
   int ktap;              // 3CX, or 0 when n_valid == 0 (every tap reads 0)
-                         // and in FIRST (its taps are FMAs)
+                         // and in FIRST, PART_FIRST (one tap stage)
   int stages;
   const bf16* x;         // [B, T, C]
   const bf16* cond_all;  // DCOND: [B, T, cond_ld]; the layer reads columns
@@ -234,10 +261,11 @@ struct Params {
   const bf16* w_eff;     // FINAL: w_rs @ w_end [C, E]
   const bf16* w_end;     // FINAL: [C, E]
   const float* b_eff;    // FINAL: [E]
-  float* out;            // FINAL: [B, T, E]; PART: [B, T, rs_out]
-  int n_half;            // FIRST: audio half channels
-  const bf16* x0;        // FIRST: [B, T, n_half]
-  const float* b_edge;   // FIRST: [2, 2C] (left, right)
+  float* out;            // FINAL: [B, T, E]; PART, PART_FIRST: [B, T,
+                         // rs_out]
+  int n_half;            // FIRST, PART_FIRST: audio half channels
+  const bf16* x0;        // FIRST, PART_FIRST: [B, T, n_half]
+  const float* b_edge;   // FIRST, PART_FIRST: [2, 2C] (left, right)
   const bf16* start_k;   // FIRST: [n_half, C]
   const float* start_b;  // FIRST: [C]
 };
@@ -289,7 +317,7 @@ __device__ __forceinline__ void produce(const Params& p, uint8_t* ring,
   const int nk = (p.ktap + p.M + BK - 1) / BK;  // M % BK: zero fill
   Ring r;
   for (int c0 = 0; c0 < C; c0 += GHALF) {
-    if (ROLE == FIRST) {  // the taps' stage: the chunk's 16 rows of wp
+    if (tap_stage_role(ROLE)) {  // the tap stage: the chunk's 16 rows of wp
       mbar_wait(&empty[r.st], r.ph ^ 1);
       uint8_t* slot = ring + r.st * STAGE;
       uint64_t* bar = &full[r.st];
@@ -380,10 +408,9 @@ __device__ __forceinline__ uint32_t a_off(int r, int k) {
                                ((k & 7) << 1));
 }
 
-// FIRST: this warpgroup's 64 rows of the tap stage's A tile xa [BM, BK]
-// (the ring's A layout): x0[t + (j - 1) d, i] at column j n_half + i, zero
-// outside [0, n_valid), past T and from column 3 n_half on.  The partial
-// layer's layer-0 form has the same A tile.
+// FIRST, PART_FIRST: this warpgroup's 64 rows of the tap stage's A tile xa
+// [BM, BK] (the ring's A layout): x0[t + (j - 1) d, i] at column j n_half +
+// i, zero outside [0, n_valid), past T and from column 3 n_half on.
 template <int BK>
 __device__ __forceinline__ void stage_taps(const Params& p, int wg, int tid,
                                            int b, int t0, uint8_t* xa) {
@@ -400,9 +427,9 @@ __device__ __forceinline__ void stage_taps(const Params& p, int wg, int tid,
 }
 
 // The in-act product of one gate-pair chunk for this warpgroup's 64 rows.
-// DCOND: the chunk's conditioning is prefetched into L2 first.  FIRST: the
-// tap stage comes first, one K = 16 product of the block's tap tile xa
-// and the slot's wp rows.
+// DCOND: the chunk's conditioning is prefetched into L2 first.  FIRST,
+// PART_FIRST: the tap stage comes first, one K = 16 product of the block's
+// tap tile xa and the slot's wp rows.
 template <int ROLE, int NWG, int BK, bool DCOND>
 __device__ __forceinline__ void inact_chunk(const Params& p, uint8_t* ring,
                                             uint64_t* full, uint64_t* empty,
@@ -411,7 +438,7 @@ __device__ __forceinline__ void inact_chunk(const Params& p, uint8_t* ring,
                                             int c0, const uint8_t* xa) {
   using TL = Tile<NWG, BK>;
   // M % BK: zero fill
-  const int nk = (ROLE == FIRST) + (p.ktap + p.M + BK - 1) / BK;
+  const int nk = tap_stage_role(ROLE) + (p.ktap + p.M + BK - 1) / BK;
   if (DCOND) prefetch_cond(p, wg, tid, b, t0, c0);
   zero(acc);
   int prev = -1;
@@ -420,7 +447,7 @@ __device__ __forceinline__ void inact_chunk(const Params& p, uint8_t* ring,
     const uint32_t s = smem_u32(ring + r.st * TL::STAGE);
     const uint32_t a = s + TL::B_STAGE + wg * 64 * BK * 2;
     wgmma_fence();
-    if (ROLE == FIRST && ks == 0) {
+    if (tap_stage_role(ROLE) && ks == 0) {
       wgmma_n256<0, 1>(acc,
                        desc_a_ring<NWG, BK>(smem_u32(xa) + wg * 64 * BK * 2),
                        desc_b<BK>(s), 1);
@@ -446,9 +473,10 @@ __device__ __forceinline__ void inact_chunk(const Params& p, uint8_t* ring,
 // conditioning: the bf16 pairs (c, c + 1) and (C + c, C + c + 1) of
 // cond_all's slice for rows t < T (the order of the plain version's sums;
 // rows at or past n_valid are gated, and reach the skip sum, like any
-// other, as in the first design).  FIRST: b_in is b_all, and after the
-// conditioning the folded start bias is taken back where the left (t < d)
-// or the right (t >= n_valid - d) tap reads past an edge (b_edge [2, 2C]).
+// other, as in the first design).  FIRST, PART_FIRST: b_in is b_all, and
+// after the conditioning the folded start bias is taken back where the
+// left (t < d) or the right (t >= n_valid - d) tap reads past an edge
+// (b_edge [2, 2C]).
 template <int ROLE, int BM, bool DCOND>
 __device__ __forceinline__ void gate_store(const Params& p, int b, int t0,
                                            int c0, int wg, int tid,
@@ -465,8 +493,8 @@ __device__ __forceinline__ void gate_store(const Params& p, int b, int t0,
         : reinterpret_cast<const __nv_bfloat162*>(
               p.cond_all + ((size_t)b * p.T + t) * p.cond_ld + p.cond_off +
               c0 + 2 * q);
-    left[h] = ROLE == FIRST && t < p.d;
-    right[h] = ROLE == FIRST && t >= p.n_valid - p.d;
+    left[h] = tap_stage_role(ROLE) && t < p.d;
+    right[h] = tap_stage_role(ROLE) && t >= p.n_valid - p.d;
   }
   const int ntile = C - c0 < GHALF ? 8 : 16;
 #pragma unroll
@@ -545,10 +573,10 @@ __device__ __forceinline__ void first_base(const Params& p,
     base[h] = make_float2(s[h][0] + sb.x, s[h][1] + sb.y);
 }
 
-// PART's epilogue of one res/skip chunk: the f32 partial, zero at rows
-// t >= n_valid.  Lanes q and q ^ 1 of a quad swap half of their pairs, so
-// that an even lane holds four columns of row r0 and an odd lane four of
-// row r0 + 8; each stores them as one 16-byte vector.
+// PART's and PART_FIRST's epilogue of one res/skip chunk: the f32 partial,
+// zero at rows t >= n_valid.  Lanes q and q ^ 1 of a quad swap half of
+// their pairs, so that an even lane holds four columns of row r0 and an odd
+// lane four of row r0 + 8; each stores them as one 16-byte vector.
 __device__ __forceinline__ void part_store(const Params& p, int b, int t0,
                                            int r0, int q, int n0, int nn,
                                            const float* acc) {
@@ -574,9 +602,10 @@ __device__ __forceinline__ void part_store(const Params& p, int b, int t0,
   }
 }
 
-// STD, PART, FIRST: the res/skip product in chunks of N = 256, A from the
-// gated tile, with STD's residual and skip epilogue, PART's f32 partial or
-// FIRST's (the residual base from x0, the skip written, not summed).
+// STD, PART, FIRST, PART_FIRST: the res/skip product in chunks of N = 256,
+// A from the gated tile, with STD's residual and skip epilogue, the f32
+// partial (PART, PART_FIRST) or FIRST's (the residual base from x0, the
+// skip written, not summed).
 template <int ROLE, int NWG, int BK>
 __device__ __forceinline__ void rs_phase(const Params& p, uint8_t* ring,
                                          uint64_t* full, uint64_t* empty,
@@ -633,7 +662,7 @@ __device__ __forceinline__ void rs_phase(const Params& p, uint8_t* ring,
     }
     wgmma_wait<0>();
     if (prev >= 0 && tid == 0) mbar_arrive(&empty[prev]);
-    if (ROLE == PART) {
+    if (ROLE == PART || ROLE == PART_FIRST) {
       part_store(p, b, t0, r0, q, n0, nn, acc);
       continue;
     }
@@ -841,9 +870,10 @@ __global__ void __launch_bounds__((NWG + 1) * 128, 1)
   } else {
     if (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
     const int wg = warp >> 2, tid = threadIdx.x & 127;
-    // FIRST: the tap stage's A tile [BM, BK], after the gated tile
+    // FIRST, PART_FIRST: the tap stage's A tile [BM, BK], after the gated
+    // tile
     uint8_t* xa = G + (size_t)BM * p.C * 2;
-    if (ROLE == FIRST) {
+    if (tap_stage_role(ROLE)) {
       // DCOND: one short stage a chunk hides little, so every chunk's
       // cond_all lines are asked for now
       if (DCOND)
@@ -927,12 +957,12 @@ size_t stage_bytes(int nwg, int bk) {
   return (size_t)(4 * bk * 64 * 2 + nwg * 64 * bk * 2);
 }
 
-// the ring, the gated tile [BM, C] and, in FIRST, the tap stage's A tile
-// [BM, BK]
+// the ring, the gated tile [BM, C] and, in FIRST and PART_FIRST, the tap
+// stage's A tile [BM, BK]
 size_t smem_bytes(int role, int nwg, int bk, int C, int stages) {
   return 1024 + (size_t)stages * stage_bytes(nwg, bk) +
          (size_t)nwg * 64 * C * 2 +
-         (role == FIRST ? (size_t)nwg * 64 * bk * 2 : 0);
+         (tap_stage_role(role) ? (size_t)nwg * 64 * bk * 2 : 0);
 }
 
 template <int ROLE, int NWG, int BK, bool DCOND>
@@ -967,8 +997,8 @@ int encode_wrs(Params& p, const void* w_rs, int bk) {
                 CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// FIRST: the tap stage's map, wp [3, n_half, 2C] as [3 n_half, 2C] rows;
-// a box of 16 rows reads zeros past 3 n_half.
+// FIRST, PART_FIRST: the tap stage's map, wp [3, n_half, 2C] as [3 n_half,
+// 2C] rows; a box of 16 rows reads zeros past 3 n_half.
 int encode_wp(Params& p, const void* wp) {
   const cuuint64_t dims[2] = {2 * (cuuint64_t)p.C, 3 * (cuuint64_t)p.n_half};
   const cuuint64_t str[1] = {(cuuint64_t)p.C * 4};
@@ -997,7 +1027,7 @@ void fill_common(Params& p, int T, int n_valid, int C, int M, int d,
 // alignment are checked there before the call.
 extern "C" {
 
-// `role`: 0 standard, 1 final, 2 partial, 3 first
+// `role`: 0 standard, 1 final, 2 partial, 3 first, 4 partial first
 size_t t2s_wn_sm90_smem_bytes(int nwg, int bk, int C, int stages, int role) {
   return smem_bytes(role, nwg, bk, C, stages);
 }
@@ -1064,6 +1094,35 @@ int t2s_wn_layer_partial_sm90(const void* x, const void* spect,
   int e = encode_inact(p, x, spect, w_in, w_cond, B, 64 * nwg, bk);
   if (e || (e = encode_wrs(p, w_rs, bk))) return e;
   return dispatch<PART>(p, B, nwg, bk, stream);
+}
+
+// One rank's share of layer 0 under tensor parallelism: the audio half x0
+// [B, T, n_half] bf16 under the rank's columns of the composed taps wp [3,
+// n_half, 2Cp] bf16 with b_all and b_edge [2, 2Cp] f32 (fold_first_taps of
+// the rank's w_in, b_in), w_cond [M, 2Cp] with b_cond [2Cp], its res/skip
+// rows w_rs [Cp, rs_out]; out [B, T, rs_out] f32 is written whole.
+int t2s_wn_layer_partial_first_sm90(const void* x0, const void* spect,
+                                    const void* wp, const void* b_all,
+                                    const void* b_edge, const void* w_cond,
+                                    const void* b_cond, const void* w_rs,
+                                    void* out, int B, int T, int n_valid,
+                                    int n_half, int Cp, int M, int rs_out,
+                                    int d, int nwg, int bk, int stages,
+                                    void* stream) {
+  if (n_half < 1 || n_half > MAX_NHALF) return (int)cudaErrorInvalidValue;
+  Params p;
+  memset(&p, 0, sizeof(p));
+  fill_common(p, T, n_valid, Cp, M, d, stages, nullptr, b_all, b_cond,
+              nullptr);
+  p.ktap = 0;
+  p.rs_out = rs_out;
+  p.out = (float*)out;
+  p.n_half = n_half;
+  p.x0 = (const bf16*)x0;
+  p.b_edge = (const float*)b_edge;
+  int e = encode_cond(p, spect, w_cond, B, 64 * nwg, bk);
+  if (e || (e = encode_wrs(p, w_rs, bk)) || (e = encode_wp(p, wp))) return e;
+  return dispatch<PART_FIRST>(p, B, nwg, bk, stream);
 }
 
 // The final layer of the composed-conditioning vocoder: K = 3C (no spect

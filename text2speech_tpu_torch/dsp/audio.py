@@ -3,13 +3,16 @@
 
 Pre-emphasis and its inverse, amplitude <-> dB, spectrogram normalisation,
 the offline linear and mel spectrograms (``amp_to_db(.) - ref_level_db``),
-and Griffin-Lim inversion with ``inv_linear_spectrogram`` /
-``inv_mel_spectrogram``.  Each runs on its input's device in float32; keep
-TF32 off on a GPU (``torch.backends.cuda.matmul.allow_tf32 = False``) so the
-products stay float32, as the JAX package's ``Precision.HIGHEST``.  The
-JAX package's PRNG key of ``griffin_lim`` becomes a ``torch.Generator`` or
-the initial phase itself.  The mu-law family and silence trimming wait for
-the preprocessing slice.
+the mu-law family, the batched silence-trim bounds
+(:func:`trim_bounds_batch`) and Griffin-Lim inversion with
+``inv_linear_spectrogram`` / ``inv_mel_spectrogram``.  Each runs on its
+input's device in float32; keep TF32 off on a GPU
+(``torch.backends.cuda.matmul.allow_tf32 = False``) so the products stay
+float32, as the JAX package's ``Precision.HIGHEST``.  The JAX package's
+PRNG key of ``griffin_lim`` becomes a ``torch.Generator`` or the initial
+phase itself.  ``start_and_end_indices`` and the per-utterance silence trim
+(``trim_silence_bounds``, ``trim_silence``) are host numpy, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -30,8 +33,16 @@ from .stft import STFTParams, istft, stft_mag_phase, stft_magnitude
 def load_wav(path: str, sr: int) -> np.ndarray:
     """Load a wav as float32 in [-1, 1] at sample rate ``sr``: integer PCM
     scaled by its full range, channels averaged, polyphase resampling when
-    the file's rate differs.  This is the JAX package's scipy path; its
-    native C++ decoder waits for the preprocess slice."""
+    the file's rate differs.  The native C++ decoder and resampler first
+    (:mod:`..native`, equal to scipy's on the taps it is handed), scipy's
+    path where the library is unavailable or the format is not one it
+    decodes."""
+    from ..native import load_wav_native
+
+    y = load_wav_native(path, sr)
+    if y is not None:
+        return y
+
     from scipy.io import wavfile
     from scipy.signal import resample_poly
 
@@ -148,6 +159,127 @@ def denormalize_spec(D: torch.Tensor, hp) -> torch.Tensor:
     if hp.symmetric_mels:
         return ((D + mad) * -mld / (2 * mad)) + mld
     return (D * -mld / mad) + mld
+
+
+# ---------------------------------------------------------------------------
+# mu-law family
+# ---------------------------------------------------------------------------
+
+
+def _log1p_of(mu: float, like: torch.Tensor) -> torch.Tensor:
+    """log1p(mu) as a float32 operation (the JAX package's
+    ``jnp.log1p(mu)``), on ``like``'s device."""
+    return torch.log1p(torch.tensor(float(mu), dtype=torch.float32,
+                                    device=like.device))
+
+
+def mulaw(x: torch.Tensor, mu: float = 256) -> torch.Tensor:
+    """sign(x) log1p(mu |x|) / log1p(mu) in float32."""
+    x = x.float()
+    return torch.sign(x) * torch.log1p(mu * torch.abs(x)) / _log1p_of(mu, x)
+
+
+def inv_mulaw(y: torch.Tensor, mu: float = 256) -> torch.Tensor:
+    """The inverse of :func:`mulaw`."""
+    y = y.float()
+    return torch.sign(y) * (1.0 / mu) * (
+        torch.pow(1.0 + mu, torch.abs(y)) - 1.0)
+
+
+def mulaw_quantize(x: torch.Tensor, mu: int = 256) -> torch.Tensor:
+    """Mu-law codes in [0, mu) as int32: the companded value scaled to
+    [0, mu - 1] and truncated toward zero (the reference's ``astype(int)``;
+    the values are never negative, so this is the floor)."""
+    mu = mu - 1
+    return ((mulaw(x, mu) + 1) / 2 * mu).to(torch.int32)
+
+
+def inv_mulaw_quantize(y: torch.Tensor, mu: int = 256) -> torch.Tensor:
+    mu = mu - 1
+    return inv_mulaw(2.0 * y.float() / mu - 1.0, mu)
+
+
+def start_and_end_indices(quantized: np.ndarray, silence_threshold: int = 2):
+    """First and last sample whose mu-law code deviates from mid-scale by
+    more than ``silence_threshold``.  Host numpy (an output of variable
+    length follows)."""
+    nonsilent = np.abs(quantized - 127) > silence_threshold
+    idx = np.flatnonzero(nonsilent)
+    start = int(idx[0]) if idx.size else 0
+    end = int(idx[-1]) if idx.size else len(quantized) - 1
+    return start, end
+
+
+# ---------------------------------------------------------------------------
+# silence trim (librosa.effects.trim semantics)
+# ---------------------------------------------------------------------------
+
+
+def _frame_rms_db(y: np.ndarray, frame_length: int,
+                  hop_length: int) -> np.ndarray:
+    pad = frame_length // 2
+    yp = np.pad(y, pad, mode="constant")
+    n_frames = 1 + (len(yp) - frame_length) // hop_length
+    idx = (np.arange(n_frames)[:, None] * hop_length
+           + np.arange(frame_length)[None, :])
+    mse = np.mean(yp[idx].astype(np.float64) ** 2, axis=1)
+    amin = 1e-10
+    ref = max(mse.max(), amin)
+    return 10.0 * np.log10(np.maximum(amin, mse)) - 10.0 * np.log10(ref)
+
+
+def trim_silence_bounds(y: np.ndarray, top_db: float, frame_length: int,
+                        hop_length: int) -> tuple[int, int]:
+    """[start, end) sample bounds of the non-silent span of one utterance
+    (``librosa.effects.trim``: frames of mean square within ``top_db`` of
+    the loudest frame).  Host numpy."""
+    db = _frame_rms_db(y, frame_length, hop_length)
+    nonsilent = np.flatnonzero(db > -top_db)
+    if nonsilent.size == 0:
+        return 0, 0
+    start = int(nonsilent[0]) * hop_length
+    end = min(len(y), int(nonsilent[-1] + 1) * hop_length)
+    return start, end
+
+
+def trim_silence(y: np.ndarray, hp) -> np.ndarray:
+    s, e = trim_silence_bounds(y, hp.trim_top_db, hp.trim_fft_size,
+                               hp.trim_hop_size)
+    return y[s:e]
+
+
+def trim_bounds_batch(y: torch.Tensor, lengths: torch.Tensor, top_db: float,
+                      frame_length: int, hop_length: int):
+    """[start, end) bounds of each row's non-silent span, on ``y``'s device:
+    the batched counterpart of :func:`trim_silence_bounds` over a
+    zero-padded batch ``y`` [B, T] of true lengths ``lengths`` [B] -> (start,
+    end) int32 [B].
+
+    Each frame's mean square is a difference of a float64 running sum of
+    the squared samples (no convolution: cuDNN would take it in TF32, and
+    float32 sums could move a frame across the threshold against the host's
+    float64 mean), then the host's dB and threshold in float64.  Zero
+    padding past a row's length adds silent frames only, so each row's
+    bounds are those of its true-length signal."""
+    pad = frame_length // 2
+    yp = torch.nn.functional.pad(y.to(torch.float64), (pad, pad))
+    cs = torch.nn.functional.pad(torch.cumsum(yp * yp, dim=1), (1, 0))
+    n = 1 + (yp.shape[1] - frame_length) // hop_length
+    starts = torch.arange(n, device=y.device) * hop_length
+    mse = (cs[:, starts + frame_length] - cs[:, starts]) / frame_length
+    amin = 1e-10
+    ref = torch.clamp_min(mse.max(dim=1, keepdim=True).values, amin)
+    db = 10.0 * torch.log10(torch.clamp_min(mse, amin)) - 10.0 * torch.log10(
+        ref)
+    nonsilent = db > -top_db
+    any_ns = nonsilent.any(dim=1)
+    first = torch.argmax(nonsilent.to(torch.int8), dim=1)
+    last = n - 1 - torch.argmax(nonsilent.flip(1).to(torch.int8), dim=1)
+    zero = torch.zeros_like(first)
+    start = torch.where(any_ns, first * hop_length, zero)
+    end = torch.where(any_ns, torch.minimum(
+        lengths.to(first), (last + 1) * hop_length), zero)
+    return start.to(torch.int32), end.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,8 @@ roles are in :mod:`.wn_block_dcond`.  Each role has
   only for CPU tensors.  The first, standard, final and partial layers
   launch ``csrc/wn_block_sm90.cu`` (wgmma, TMA, 128-row tiles;
   :func:`sm90_plan` picks the tile), the partial layer's layer-0 form
-  ``csrc/wn_block.cu``.  A CUDA tensor the kernel does not take raises;
-  nothing falls back.
+  too, as the kernel's ``PART_FIRST`` role.  A CUDA tensor the kernel does
+  not take raises; nothing falls back.
 
 Layout is channels-last ``[B, T, C]``.  Rows at or past ``n_valid`` read as
 zero in every dilated tap (the conv's zero padding at the true length),
@@ -53,6 +53,7 @@ LIB_SM90 = CudaLibrary("wn_block_sm90", {
     "t2s_wn_layer_dcond_sm90": [_P] * 8 + [_I] * 11 + [_P],
     "t2s_wn_layer_final_dcond_sm90": [_P] * 9 + [_I] * 11 + [_P],
     "t2s_wn_layer_partial_sm90": [_P] * 8 + [_I] * 11 + [_P],
+    "t2s_wn_layer_partial_first_sm90": [_P] * 9 + [_I] * 11 + [_P],
     "t2s_wn_layer_first_sm90": [_P] * 13 + [_I] * 10 + [_P],
     "t2s_wn_layer_first_dcond_sm90": [_P] * 11 + [_I] * 11 + [_P],
     "t2s_wn_sm90_smem_bytes": [_I] * 5,
@@ -275,15 +276,18 @@ def _check_dims(C: int, M: int, T: int, n_valid: int, d: int,
 # a block is ``nwg`` consumer warpgroups of 64 rows and one producer
 # warpgroup; a ring stage holds a [bk, 256] bf16 weight tile and a
 # [64 nwg, bk] bf16 activation tile; the gated tile is [64 nwg, C] bf16;
-# the first layer's tap stage has its own [64 nwg, bk] bf16 activation
-# tile after it; 1 KB aligns the ring, and 64 bytes of static shared
-# memory hold its mbarriers.
+# the tap stage of the first layer and of the partial layer's layer-0
+# form has its own [64 nwg, bk] bf16 activation tile after it; 1 KB
+# aligns the ring, and 64 bytes of static shared memory hold its
+# mbarriers.
 SM90_SMEM_LIMIT = 232448       # shared memory a block may use on an H100
 SM90_STATIC_SMEM = 64
 SM90_MAX_STAGES = 4
 SM90_SMS = 132                 # streaming multiprocessors of an H100 SXM
 # the kernel's roles (its ``enum Role``); the ``dcond`` forms share them
-SM90_ROLES = {"std": 0, "final": 1, "part": 2, "first": 3}
+SM90_ROLES = {"std": 0, "final": 1, "part": 2, "first": 3, "part_first": 4}
+# the roles with a tap stage (and its tile)
+SM90_TAP_ROLES = ("first", "part_first")
 
 
 def _sm90_stage_bytes(nwg: int, bk: int) -> int:
@@ -293,7 +297,7 @@ def _sm90_stage_bytes(nwg: int, bk: int) -> int:
 def sm90_smem_bytes(nwg: int, bk: int, C: int, stages: int,
                     role: str = "std") -> int:
     """Dynamic shared memory of one block (the kernel's ``smem_bytes``)."""
-    taps = nwg * 64 * bk * 2 if role == "first" else 0
+    taps = nwg * 64 * bk * 2 if role in SM90_TAP_ROLES else 0
     return (1024 + stages * _sm90_stage_bytes(nwg, bk) + nwg * 64 * C * 2
             + taps)
 
@@ -309,13 +313,14 @@ def sm90_plan(C: int, T: int = 1, B: int = 1, role: str = "std") -> dict:
     :data:`SM90_ROLES`) for gate width ``C`` and ``B`` utterances of ``T``
     rows (the ``dcond`` layers' ring stage is the in-kernel projection's;
     only their K, 3C in place of 3C + M, is shorter; the partial layer's
-    ``C`` is the rank's width Cp, its taps' K the hidden state's).  Rows:
+    ``C`` is the rank's width Cp, its taps' K the hidden state's, and its
+    layer-0 form, ``"part_first"``, has the first layer's tap tile).  Rows:
     128-row blocks (two consumer warpgroups) where the gated tile fits (C
     <= 512) and the grid fills the card's SMs at least once, else 64-row
     blocks, twice as many.  K per stage: 64 where three or more such
-    stages fit beside the gated tile (and the first layer's tap tile),
-    else 32; the ring is as deep as fits, up to four stages.  Raises
-    ValueError where no tile fits in shared memory."""
+    stages fit beside the gated tile (and the tap tile), else 32; the
+    ring is as deep as fits, up to four stages.  Raises ValueError where
+    no tile fits in shared memory."""
     if role not in SM90_ROLES:
         raise ValueError(f"no role {role!r} of the sm90 WN-layer kernel")
     nwg = 2 if C <= 512 and B * -(-T // 128) >= SM90_SMS else 1
@@ -478,7 +483,8 @@ FIRST_DESIGNS = ("wn_layer_first", "wn_layer", "wn_layer_final",
                  "wn_layer_final_dcond", "wn_layer_partial")
 
 
-def first_design(name: str, *args, n_valid: int | None = None):
+def first_design(name: str, *args, n_valid: int | None = None,
+                 b_edge=None):
     """The first CUDA design of the first, the standard, the final, the
     ``dcond`` first, standard or final, or the partial layer
     (``csrc/wn_block.cu``'s ``t2s_wn_layer_first`` / ``t2s_wn_layer`` /
@@ -489,11 +495,14 @@ def first_design(name: str, *args, n_valid: int | None = None):
     same inputs; no path calls it.  ``name`` is ``"wn_layer_first"``,
     ``"wn_layer"``, ``"wn_layer_final"``, ``"wn_layer_first_dcond"``,
     ``"wn_layer_dcond"``, ``"wn_layer_final_dcond"`` or
-    ``"wn_layer_partial"`` (without ``b_edge``) and the arguments are that
-    wrapper's (CUDA tensors, already checked by a call of the wrapper); the
-    standard layers update ``skip_acc`` in place.  It counts no launch."""
+    ``"wn_layer_partial"`` (with ``b_edge``, its layer-0 form: the first
+    design's ``PART_FIRST``) and the arguments are that wrapper's (CUDA
+    tensors, already checked by a call of the wrapper); the standard layers
+    update ``skip_acc`` in place.  It counts no launch."""
     if name not in FIRST_DESIGNS:
         raise ValueError(f"no first design of {name!r}")
+    if b_edge is not None and name != "wn_layer_partial":
+        raise ValueError(f"{name!r} takes no b_edge")
     x, spect = args[0], args[1]
     B, T, C = x.shape
     n_valid = T if n_valid is None else int(n_valid)
@@ -526,8 +535,9 @@ def first_design(name: str, *args, n_valid: int | None = None):
         w_rs, d = args[6], args[7]
         Cp, rs_out = w_rs.shape
         out = torch.empty((B, T, rs_out), dtype=F32, device=x.device)
-        ptrs = [t.data_ptr() for t in args[:7]]    # b_edge: none
-        _run(lib.t2s_wn_layer_partial, x.device, *ptrs[:4], None, *ptrs[4:],
+        ptrs = [t.data_ptr() for t in args[:7]]
+        edge = None if b_edge is None else b_edge.data_ptr()
+        _run(lib.t2s_wn_layer_partial, x.device, *ptrs[:4], edge, *ptrs[4:],
              out.data_ptr(), B, T, n_valid, C, Cp, spect.shape[-1], rs_out,
              int(d))
         return out
@@ -586,9 +596,12 @@ def wn_layer_partial(x, spect, w_in, b_in, w_cond, b_cond, w_rs,
     composed taps), ``spect`` [B, T, M], ``w_in`` [3, K, 2Cp], ``w_cond``
     [M, 2Cp], ``w_rs`` [Cp, rs_out]; f32 ``b_in``, ``b_cond`` [2Cp].  The
     layers 1..L-1 launch ``csrc/wn_block_sm90.cu``'s ``PART`` form with
-    :func:`sm90_plan` of width Cp; the layer-0 form (``b_edge``) launches
-    ``csrc/wn_block.cu``, whose rank-n_half taps give ``wgmma`` nothing to
-    do."""
+    :func:`sm90_plan` of width Cp; the layer-0 form (``b_edge``; ``w_in``
+    and ``b_in`` are then :func:`fold_first_taps`'s wp and b_all of the
+    rank's columns) its ``PART_FIRST`` role with ``sm90_plan(Cp, T, B,
+    role="part_first")``: the rank-n_half taps as one K = 16 stage of the
+    in-act product.  ``first_design("wn_layer_partial", ..., b_edge=)``
+    runs the first design of either form."""
     ts = [x, spect, w_in, b_in, w_cond, b_cond, w_rs]
     if b_edge is not None:
         ts.append(b_edge)
@@ -615,21 +628,23 @@ def wn_layer_partial(x, spect, w_in, b_in, w_cond, b_cond, w_rs,
         ("b_cond", b_cond, (2 * Cp,), F32), ("w_rs", w_rs, (Cp, rs_out), bf),
     ):
         _check(name, t, shape, dt)
-    plan = sm90_plan(Cp, T, B) if b_edge is None else None
+    plan = sm90_plan(Cp, T, B, role="part" if b_edge is None
+                     else "part_first")
     out = torch.empty((B, T, rs_out), dtype=F32, device=x.device)
     wn_layer_partial.launches += 1
-    if plan is not None:
+    if b_edge is None:
         _run(LIB_SM90.get().t2s_wn_layer_partial_sm90, x.device,
              x.data_ptr(), spect.data_ptr(), w_in.data_ptr(),
              b_in.data_ptr(), w_cond.data_ptr(), b_cond.data_ptr(),
              w_rs.data_ptr(), out.data_ptr(), B, T, n_valid, K, Cp, M,
              rs_out, dilation, plan["nwg"], plan["bk"], plan["stages"])
     else:
-        _run(LIB.get().t2s_wn_layer_partial, x.device, x.data_ptr(),
-             spect.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
-             b_edge.data_ptr(), w_cond.data_ptr(), b_cond.data_ptr(),
-             w_rs.data_ptr(), out.data_ptr(), B, T, n_valid, K, Cp, M,
-             rs_out, dilation)
+        _run(LIB_SM90.get().t2s_wn_layer_partial_first_sm90, x.device,
+             x.data_ptr(), spect.data_ptr(), w_in.data_ptr(),
+             b_in.data_ptr(), b_edge.data_ptr(), w_cond.data_ptr(),
+             b_cond.data_ptr(), w_rs.data_ptr(), out.data_ptr(), B, T,
+             n_valid, K, Cp, M, rs_out, dilation, plan["nwg"], plan["bk"],
+             plan["stages"])
     return out
 
 
