@@ -12,13 +12,14 @@ Phases, each of which passes or raises (the script then exits non-zero):
    forms), the int8
    WN-layer library and its Hopper redesign of the standard, the
    tensor-parallel partial, the final and the first layer on s8
-   ``wgmma``, the padded WN-layer library, the gated activation, the k=3
-   conv backward and its Hopper redesign, one ``nvcc`` each, all started
-   together) and print the times, and for the three Hopper files the
-   ``HGMMA`` / ``IGMMA`` count per kernel and the registers, stack frames
-   and spills ``-Xptxas -v`` reports (the bf16 first layers, the partial
-   layer's layer-0 form and the s8 final and first layers must show
-   neither);
+   ``wgmma``, the padded WN-layer library and the Hopper redesign of its
+   stream pair, the gated activation, the k=3 conv backward and its
+   Hopper redesign, one ``nvcc`` each, all started together) and print
+   the times, and for the four Hopper files the ``HGMMA`` / ``IGMMA``
+   count per kernel and the registers, stack frames and spills
+   ``-Xptxas -v`` reports (the bf16 first layers, the partial layer's
+   layer-0 form, the s8 final and first layers and both roles of the
+   padded stream kernel must show neither);
 3. compare each of the six projecting kernels with its plain PyTorch version on the
    card at the reference width (C=512, M=640) over batch sizes, dilations,
    valid lengths and flow widths, and the standard and final layers also at
@@ -137,7 +138,14 @@ Phases, each of which passes or raises (the script then exits non-zero):
 22. the four padded-layout kernels (the oracle family, kernels 12-15)
     against their plain versions at B=1, T=6400 (``pad_tiles``: Tp =
     6656), C=512, M=640, E=8 for d = 1, 64, 128 at full and short
-    ``n_valid``, pad tiles exactly zero; times and bounds;
+    ``n_valid``, pad tiles exactly zero; times and bounds; then rows 14-15
+    (``csrc/wn_block_padded_sm90.cu`` STREAM and STREAM_FINAL) against
+    their plain versions and their first design over d = 0, 1, 63, 64,
+    128, n_valid = T, T - 301, 1, 0, batch 1 and 3, rs_out 2C and C, E 8
+    and 1 and C=192, M=96; the in-place skip sum between guard rows, the
+    final layer's skip sum untouched; both timed at batch 1 and 3 beside
+    the first design in turns, with the plain version, the bound and
+    128-row blocks beside the plan's 64-row ones;
 23. their own path, the parity ladder across kernels: the unpadded
     standard layer (kernel 2) against the stream kernel (14), the unpadded
     final layer (3) against the stream final (15), the ``dcond`` layer (9)
@@ -333,21 +341,28 @@ def require_no_local_memory(lib, roles: dict) -> None:
     first template argument is in ``roles`` ({code: name}) has a stack
     frame or spills in the build's ``-Xptxas -v`` output: in a ``wgmma``
     kernel that means an array in local memory (read from the mangled
-    names, ``...kernelILi<role>ELi<nc>E...``)."""
-    name = None
+    names, ``...kernelILi<role>ELi<nc>E...`` or ``...kernelILi<role>EE...``).
+    Raises too when no instantiation of a role in ``roles`` was reported."""
+    name, found = None, set()
     for line in lib.build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
-        r = re.search(r"kernelILi(\d+)ELi(\d+)E", name or "")
-        if m and r and int(r.group(1)) in roles and any(
-                int(v) for v in m.groups()):
-            raise RuntimeError(
-                f"{lib.source.name}: the {roles[int(r.group(1))]} role with "
-                f"{r.group(2)} column group(s) has a {m.group(1)} B stack "
-                f"frame and {m.group(2)}/{m.group(3)} B of spills")
+        r = re.search(r"kernelILi(\d+)E(?:Li(\d+)E)?", name or "")
+        if m and r and int(r.group(1)) in roles:
+            found.add(int(r.group(1)))
+            if any(int(v) for v in m.groups()):
+                form = (f" with {r.group(2)} column group(s) or "
+                        f"warpgroup(s)" if r.group(2) else "")
+                raise RuntimeError(
+                    f"{lib.source.name}: the {roles[int(r.group(1))]} role"
+                    f"{form} has a {m.group(1)} B stack frame and "
+                    f"{m.group(2)}/{m.group(3)} B of spills")
+    if set(roles) - found:
+        raise RuntimeError(f"{lib.source.name}: no -Xptxas -v report of the "
+                           f"roles {sorted(set(roles) - found)}")
 
 
 def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -3022,11 +3037,14 @@ PADDED_KERNELS = {
     "wn_layer_padded": ("wn_block_padded.cu",
                         PALLAS + "wn_block_padded.py:104"),
     "wn_layer_spect": ("wn_block_padded.cu", PALLAS + "wn_block_padded.py:165"),
-    "wn_layer_stream": ("wn_block_padded.cu",
+    "wn_layer_stream": ("wn_block_padded_sm90.cu",
                         PALLAS + "wn_block_padded.py:302"),
-    "wn_layer_stream_final": ("wn_block_padded.cu",
+    "wn_layer_stream_final": ("wn_block_padded_sm90.cu",
                               PALLAS + "wn_block_padded.py:353"),
 }
+# rows 14-15's roles in csrc/wn_block_padded_sm90.cu
+PADDED_SM90_ROLES = {"wn_layer_stream": "STREAM",
+                     "wn_layer_stream_final": "STREAM_FINAL"}
 # Rungs of the ladder between two kernels.  Both sides take the same bf16
 # inputs and accumulate in f32 in another order; the final-layer rung also
 # rounds at other places (kernel 3 folds w_rs into the end projection once
@@ -3094,11 +3112,149 @@ def padded_work(name: str, B, T, C, M, E) -> dict:
     }[name]}
 
 
+def stream_case_args(B, T, nv, C, M, E, seed, dev, d, rs_half=False):
+    """``padded_args``' tuples of rows 14 and 15 (without ``n_valid``),
+    the stream layer's res/skip weights [C, C] (the final layer's) with
+    ``rs_half``."""
+    k = padded_inputs(B, T, nv, C, M, E, seed, dev, n_cond=1)
+    a = padded_args(k, d)
+    if rs_half:
+        std = a["wn_layer_stream"]
+        a["wn_layer_stream"] = (*std[:6], k["w_rs_last"], k["b_rs_last"],
+                                *std[8:])
+    return {n: a[n] for n in PADDED_SM90_ROLES}
+
+
+def check_stream_sm90(rec: dict, C: int = 512, M: int = 640,
+                      E: int = 8) -> dict:
+    """Rows 14 and 15 (``csrc/wn_block_padded_sm90.cu`` STREAM and
+    STREAM_FINAL) against their plain versions on the same inputs: d = 0,
+    1, 63, 64, 128 at n_valid = T - 301, T, 1 and 0 (B=1, T=6400), batch 3
+    at d = 1, 64, 128, a width with C % 128 == 64 (C=192, M=96, T=1024, B 1
+    and 3) and one that leaves room for one window slot only (C=1024, M=64,
+    d 127 and 128); rs_out 2C and C and E 8 and 1 alternate.  The first
+    case of each batch, width and dilation is also held against the first
+    design (``wn_block_padded.first_design``).  Pad tiles exactly zero; the
+    stream layer's skip sum is updated in place in a buffer with guard rows
+    on both sides, which stay as they were; the final layer leaves its skip
+    sum as it found it; the plan's shared memory is the kernel's own
+    (``t2s_wn_padded_sm90_smem_bytes``).  Then the two times at B=1 and 3,
+    d=64, beside the first design in turns (first, sm90, sm90, first), the
+    plain version and the bound (``ms``, ``prev_ms``, ``plain_ms``,
+    ``bound_ms`` and their ``_b3`` forms in ``rec``).  Returns the seconds
+    of the cases and of the times."""
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    dev = torch.device("cuda")
+    bt, T, bf = wp.BT_PAD, 6400, torch.bfloat16
+    lib = wp.LIB_SM90.get()
+    cases = [(1, T, C, M, d, nv) for d in (0, 1, 63, 64, 128)
+             for nv in (T - 301, T, 1, 0)]
+    cases += [(3, T, C, M, d, nv) for d in (1, 64, 128) for nv in (T - 301, T)]
+    cases += [(1, 1024, 192, 96, 0, 1024), (3, 1024, 192, 96, 63, 723),
+              (1, 1024, 192, 96, 128, 1), (3, 1024, 192, 96, 1, 0)]
+    # C = 1024 at d = 127, 128: the plan's one window slot
+    cases += [(1, 1024, 1024, 64, 128, 1000), (3, 512, 1024, 64, 127, 512)]
+    guard = 64                     # bf16 values of guard on each side
+    seen = set()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (B, Tc, Cc, Mc, d, nv) in enumerate(cases):
+        rs_half, Ec = i % 2 == 1, 1 if i % 3 == 1 else E
+        vs_first = (B, Tc, Cc, d) not in seen
+        seen.add((B, Tc, Cc, d))
+        for role, code in wp.PADDED_SM90_ROLES.items():
+            plan = wp.padded_sm90_plan(Cc, Tc, B, d, role)
+            smem = lib.t2s_wn_padded_sm90_smem_bytes(
+                code, Cc, d, plan["nwin"], plan["nwst"])
+            if smem != plan["smem"]:
+                raise RuntimeError(f"{role} C={Cc} d={d} plan: "
+                                   f"{plan['smem']} B of shared memory, the "
+                                   f"kernel asks {smem}")
+        a = stream_case_args(B, Tc, nv, Cc, Mc, Ec, 700 + i, dev, d, rs_half)
+        tag = (f"B={B} T={Tc} C={Cc} M={Mc} d={d} n_valid={nv} rs_out="
+               f"{Cc if rs_half else 2 * Cc}")
+        args = a["wn_layer_stream"]
+        acc = args[-2]
+        buf = torch.full((acc.numel() + 2 * guard,), 7.0, dtype=bf,
+                         device=dev)
+        skip = buf[guard:guard + acc.numel()].view_as(acc)
+        skip.copy_(acc)
+        got = wp.wn_layer_stream(*args[:-2], skip, d, n_valid=nv)
+        if got[1].data_ptr() != skip.data_ptr():
+            raise RuntimeError(f"wn_layer_stream {tag}: skip not in place")
+        if (buf[:guard] != 7).any() or (buf[-guard:] != 7).any():
+            raise RuntimeError(f"wn_layer_stream {tag}: the in-place skip "
+                               f"sum wrote outside its rows")
+        want = wp.wn_layer_stream_plain(*args[:-2], acc, d, nv)
+        first = (wp.first_design("wn_layer_stream", *args[:-2], acc.clone(),
+                                 d, n_valid=nv) if vs_first else (None,) * 2)
+        outs = [(f"wn_layer_stream[{j}]", g, w, f)
+                for j, (g, w, f) in enumerate(zip(got, want, first))]
+        args = a["wn_layer_stream_final"]
+        keep = args[-4].clone()
+        got = wp.wn_layer_stream_final(*args, n_valid=nv)
+        if not torch.equal(args[-4], keep):
+            raise RuntimeError(f"wn_layer_stream_final {tag}: skip_acc "
+                               f"changed")
+        outs.append((f"wn_layer_stream_final E={Ec}", got,
+                     wp.wn_layer_stream_final_plain(*args, nv),
+                     wp.first_design("wn_layer_stream_final", *args,
+                                     n_valid=nv) if vs_first else None))
+        for name, g, w, f in outs:
+            if g[:, :bt].any() or g[:, -bt:].any():
+                raise RuntimeError(f"{name} {tag}: pad tiles not zero")
+            err = compare(f"{name} {tag}", g, w)
+            if f is not None:
+                compare(f"{name} {tag} vs first design", g, f)
+            r = rec[name.split("[")[0].split()[0]]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for B in (1, 3):
+        a = stream_case_args(B, T, T, C, M, E, 790 + B, dev, 64)
+        for name, args in a.items():
+            kern, plain = getattr(wp, name), getattr(wp, name + "_plain")
+
+            def first(name=name, args=args):
+                return wp.first_design(name, *args)
+
+            turns = [time_ms(f, iters=10 if f is first else 50)
+                     for f in (first, lambda: kern(*args),
+                               lambda: kern(*args), first)]
+            outs = kern(*args)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            tensors = [t for t in (*args, *outs) if torch.is_tensor(t)]
+            bound, by = bound_ms(padded_work(name, B, T, C, M, E), tensors)
+            ms, prev = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            plain_ms = time_ms(lambda: plain(*args), warmup=1, iters=3)
+            sfx = "" if B == 1 else "_b3"
+            rec[name].update({"ms" + sfx: ms, "prev_ms" + sfx: prev,
+                              "plain_ms" + sfx: plain_ms,
+                              "bound_ms" + sfx: bound})
+            if B == 1:
+                rec[name]["bound_by"] = by
+            role = "stream_final" if name.endswith("final") else "stream"
+            plan = wp.padded_sm90_plan(C, T, B, 64, role)
+            print(f"[kernels] {name} ({PADDED_SM90_ROLES[name]}) B={B} T={T} "
+                  f"d=64: sm90 {turns[1]:.4f} / {turns[2]:.4f} ms, first "
+                  f"design {turns[0]:.4f} / {turns[3]:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms (by {by}; "
+                  f"{100 * bound / ms:.2f}% of it, first design "
+                  f"{100 * bound / prev:.2f}%), {plan['tiles']} tiles of "
+                  f"{plan['bm']} rows, {plan['nwin']} window / "
+                  f"{plan['nwst']} weight slots")
+    torch.cuda.synchronize()
+    return {"rows 14-15 cases": t1 - t0,
+            "rows 14-15 times": time.perf_counter() - t1}
+
+
 def check_padded_kernels(C: int = 512, M: int = 640, E: int = 8) -> dict:
     """The four padded kernels against their plain versions at B=1,
     T=6400 (Tp = 6656), C=512, M=640, E=8 for d in {1, 64, 128} at full
-    and short ``n_valid``; pad tiles exactly zero; then times and bounds
-    at d=64."""
+    and short ``n_valid``; pad tiles exactly zero; then rows 12-13's times
+    and bounds at d=64; then rows 14-15's own cases and times
+    (``check_stream_sm90``).  Prints the seconds of each part."""
     from text2speech_tpu_torch.ops import wn_block_padded as wp
 
     dev = torch.device("cuda")
@@ -3106,6 +3262,8 @@ def check_padded_kernels(C: int = 512, M: int = 640, E: int = 8) -> dict:
     rec = {n: {"max_abs_err": 0.0, "library_ms": None}
            for n in PADDED_KERNELS}
     B, T, seed = 1, 6400, 300
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for d in (1, 64, 128):
         for nv in (T, T - 301):
             seed += 1
@@ -3123,8 +3281,12 @@ def check_padded_kernels(C: int = 512, M: int = 640, E: int = 8) -> dict:
                     err = compare(tag, g, w)
                     rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"],
                                                    err)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     k = padded_inputs(B, T, T, C, M, E, 399, dev)
     for name, args in padded_args(k, 64).items():
+        if name in PADDED_SM90_ROLES:   # timed by check_stream_sm90
+            continue
         kern, plain = getattr(wp, name), getattr(wp, name + "_plain")
         outs = kern(*args)
         outs = outs if isinstance(outs, tuple) else (outs,)
@@ -3137,6 +3299,12 @@ def check_padded_kernels(C: int = 512, M: int = 640, E: int = 8) -> dict:
         print(f"  {name} B={B} T={T} (Tp={T + 2 * bt}): kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms (by {r['bound_by']})")
+    torch.cuda.synchronize()
+    parts = {"rows 12-15 vs plain": t1 - t0,
+             "rows 12-13 times": time.perf_counter() - t1,
+             **check_stream_sm90(rec, C, M, E)}
+    print("[time] phase 22 parts, seconds: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     return rec
 
 
@@ -3146,9 +3314,10 @@ def ladder_path(C: int = 512, M: int = 640, E: int = 8) -> dict:
     (the unpadded standard layer) against 14 and kernel 3 (the unpadded
     final layer, end projection folded) against 15 on the valid rows,
     kernel 9 (``dcond``) against 12 on the same stacked conditioning, and
-    13 against 14 (two loop structures, and two sets of GEMM, gate and
-    epilogue code in ``csrc/wn_block_padded.cu``).  Returns the padded
-    kernels' launch counts of this run."""
+    13 against 14 (two implementations: the f32 FMA kernel of
+    ``csrc/wn_block_padded.cu`` and the ``wgmma`` kernel of
+    ``csrc/wn_block_padded_sm90.cu``).  Returns the padded kernels' launch
+    counts of this run."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
     from text2speech_tpu_torch.ops import wn_block_padded as wp
@@ -3903,7 +4072,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = (wb.LIB, wb.LIB_SM90, wq.LIB, wq.LIB_SM90, gated.LIB,
-            wn_backward.LIB, wn_backward.LIB_SM90, wp.LIB)
+            wn_backward.LIB, wn_backward.LIB_SM90, wp.LIB, wp.LIB_SM90)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
@@ -3913,7 +4082,8 @@ def main() -> int:
         print(lib.build_log.strip())
     print(f"[build] {len(libs)} libraries built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    for lib in (wb.LIB_SM90, wq.LIB_SM90, wn_backward.LIB_SM90):
+    for lib in (wb.LIB_SM90, wq.LIB_SM90, wn_backward.LIB_SM90,
+                wp.LIB_SM90):
         print(f"[build] {lib.source.name} SASS: {hgmma_counts(lib.path)}")
         print(f"[build] {lib.source.name} registers (-Xptxas -v): "
               f"{ptxas_registers(lib.build_log)}")
@@ -3925,6 +4095,9 @@ def main() -> int:
     require_no_local_memory(wq.LIB_SM90, {
         code: role for role, code in wq.INT8_SM90_ROLES.items()
         if role in ("final", "first")})
+    # rows 14-15's kernel, both roles
+    require_no_local_memory(wp.LIB_SM90, {
+        code: role for role, code in wp.PADDED_SM90_ROLES.items()})
 
     print("[kernels] kernel vs plain at C=512, M=640")
     rec = check_kernels()
@@ -3995,7 +4168,9 @@ def main() -> int:
         # 3 (the WN layers; the main paths' other WN layers too, with the
         # bound there) and the conv backward's f32 form
         **{k: rec[n][k] for k in ("prev_ms", "ms_b3", "prev_ms_b3",
-                                  "bound_ms_b3", "f32") if k in rec[n]},
+                                  "bound_ms_b3", "plain_ms_b3", "f32")
+           if k in rec[n]},
+        **({"role": PADDED_SM90_ROLES[n]} if n in PADDED_SM90_ROLES else {}),
     } for n, (src, repl) in {**KERNELS, **DCOND_KERNELS, **PARTIAL_KERNELS,
                              **TRAIN_KERNELS, **PADDED_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))

@@ -1668,6 +1668,138 @@ def test_padded_wrappers_reject_what_the_kernels_do_not_take(dev):
                           p["x"], 1)
 
 
+# --- rows 14-15 on csrc/wn_block_padded_sm90.cu (STREAM, STREAM_FINAL) -----
+
+
+def stream_case(dev, B, T, n_valid, C, M, E, d, seed, rs_half):
+    """Rows 14-15's argument tuples (without n_valid) on the pad tiles:
+    seeded bf16 inputs, hidden state, mel and skip sum zero past n_valid;
+    the stream layer's res/skip weights [C, 2C] or, with ``rs_half``,
+    [C, C] (the final layer's)."""
+    from text2speech_tpu_torch.ops.wn_block_padded import pad_tiles
+
+    k = inputs(dev, B, T, n_valid, C, M, seed, E=E)
+    g = torch.Generator().manual_seed(seed + 1)
+    w_last = (torch.randn(C, C, generator=g) * C ** -0.5).to(dev,
+                                                             torch.bfloat16)
+    b_last = (torch.randn(C, generator=g) * 0.1).to(dev)
+    xp, sp, acc = (pad_tiles(k[n]) for n in ("x", "spect", "acc"))
+    head = (xp, sp, k["w_in"], k["b_in"], k["w_cond"], k["b_cond"])
+    rs = (w_last, b_last) if rs_half else (k["w_rs"], k["b_rs"])
+    return ((*head, *rs, acc, d),
+            (*head, w_last, b_last, acc, k["w_end"], k["b_end"], d))
+
+
+STREAM_CASES = (
+    [(1, 6400, 512, 640, d, nv) for d in (0, 1, 63, 64, 128)
+     for nv in (6400, 6099, 1, 0)]
+    + [(3, 6400, 512, 640, d, 6099) for d in (1, 64, 128)]
+    + [(1, 1024, 192, 96, 63, 723), (3, 1024, 192, 96, 128, 1)]
+    # C = 1024 at d = 128: the plan's one window slot
+    + [(1, 256, 1024, 64, 128, 200)])
+
+
+@pytest.mark.parametrize("case", range(len(STREAM_CASES)))
+def test_stream_sm90_matches_plain_and_first_design(dev, case):
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    B, T, C, M, d, nv = STREAM_CASES[case]
+    rs_half, E = case % 2 == 1, 1 if case % 3 == 1 else 8
+    std, fin = stream_case(dev, B, T, nv, C, M, E, d, 40 + case, rs_half)
+    bt = wp.BT_PAD
+    acc = std[-2]
+    x_new, skip = wp.wn_layer_stream(*std[:-2], acc.clone(), d, n_valid=nv)
+    want = wp.wn_layer_stream_plain(*std[:-2], acc, d, nv)
+    first = wp.first_design("wn_layer_stream", *std[:-2], acc.clone(), d,
+                            n_valid=nv)
+    keep = fin[-4].clone()
+    out = wp.wn_layer_stream_final(*fin, n_valid=nv)
+    assert torch.equal(fin[-4], keep)
+    pairs = list(zip((x_new, skip), want, first)) + [
+        (out, wp.wn_layer_stream_final_plain(*fin, nv),
+         wp.first_design("wn_layer_stream_final", *fin, n_valid=nv))]
+    for g, w, f in pairs:
+        assert not g[:, :bt].any() and not g[:, -bt:].any()
+        if not w.any():          # x_new at n_valid = 0: zero, exactly
+            assert not g.any() and not f.any()
+            continue
+        close(g, w)
+        close(g, f)
+    assert not wp.unpad_tiles(x_new)[:, nv:].any()
+
+
+def test_stream_sm90_skip_sum_in_place_between_guards(dev):
+    """The skip sum is updated in place in a buffer with guard values on
+    both sides: the guards stay, the returned tensor is the argument."""
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    std, _ = stream_case(dev, 1, 1024, 1000, 512, 640, 8, 64, 7, False)
+    acc = std[-2]
+    buf = torch.full((acc.numel() + 128,), 7.0, dtype=torch.bfloat16,
+                     device=dev)
+    skip = buf[64:64 + acc.numel()].view_as(acc)
+    skip.copy_(acc)
+    _, got = wp.wn_layer_stream(*std[:-2], skip, 64, n_valid=1000)
+    assert got.data_ptr() == skip.data_ptr()
+    assert (buf[:64] == 7).all() and (buf[-64:] == 7).all()
+    close(got, wp.wn_layer_stream_plain(*std[:-2], acc, 64, 1000)[1])
+
+
+def test_stream_sm90_plan_is_the_kernels_shared_memory(dev):
+    """The plan's shared memory is what the kernel's own query gives, at
+    every accepted width's edge and dilation, in both roles."""
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    lib = wp.LIB_SM90.get()
+    for role, code in wp.PADDED_SM90_ROLES.items():
+        for C in (64, 192, 512, 1024):
+            for d in (0, 1, 63, 96, 97, 128):
+                p = wp.padded_sm90_plan(C, 6400, 1, d, role)
+                assert lib.t2s_wn_padded_sm90_smem_bytes(
+                    code, C, d, p["nwin"], p["nwst"]) == p["smem"]
+
+
+def test_stream_sm90_first_design_counts_no_launch(dev):
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    std, fin = stream_case(dev, 1, 512, 512, 128, 64, 8, 1, 3, False)
+    wp.reset_launch_counts()
+    wp.first_design("wn_layer_stream", *std[:-2], std[-2].clone(), 1)
+    wp.first_design("wn_layer_stream_final", *fin)
+    torch.cuda.synchronize()
+    assert not any(wp.launch_counts().values())
+    wp.wn_layer_stream(*std[:-2], std[-2].clone(), 1)
+    wp.wn_layer_stream_final(*fin)
+    assert wp.launch_counts() == {"wn_layer_padded": 0, "wn_layer_spect": 0,
+                                  "wn_layer_stream": 1,
+                                  "wn_layer_stream_final": 1}
+
+
+def test_stream_sm90_wrappers_raise_on_what_the_kernel_refuses(dev):
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    std, fin = stream_case(dev, 1, 256, 256, 128, 64, 8, 1, 5, False)
+    head, acc = std[:-2], std[-2]
+    with pytest.raises(ValueError, match="dilation"):
+        wp.wn_layer_stream(*head, acc.clone(), 129)
+    with pytest.raises(ValueError, match="pad tile"):
+        wp.wn_layer_stream(*head, acc.clone(), 1, bt=64)
+    w_bad = torch.zeros(128, 96, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="w_rs"):
+        wp.wn_layer_stream(*head[:-2], w_bad, head[-1], acc.clone(), 1)
+    with pytest.raises(ValueError, match="skip only"):
+        wp.wn_layer_stream_final(*std[:-2], acc, fin[-3], fin[-2], 1)
+    w_end = torch.zeros(128, 9, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="E in"):
+        wp.wn_layer_stream_final(*fin[:-3], w_end, fin[-2], 1)
+    with pytest.raises(ValueError, match="in place"):
+        wp.wn_layer_stream(*head, std[0], 1)
+    # a width past the plan's shared memory
+    big, _ = stream_case(dev, 1, 256, 256, 2048, 32, 8, 1, 6, False)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        wp.wn_layer_stream(*big[:-2], big[-2], 1)
+
+
 # --- Tacotron training on the card ------------------------------------------
 
 

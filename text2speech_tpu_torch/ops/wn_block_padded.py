@@ -14,9 +14,13 @@ state; the skip outputs are not masked there.
 
 Four roles, each with a plain version (``*_plain``, f32 matmuls over the
 input dtype's values, used for CPU tensors and as the reference the CUDA
-kernels are checked against) and a wrapper that launches the hand-written
-Hopper kernel of ``csrc/wn_block_padded.cu`` for CUDA tensors (a CUDA
-tensor the kernel does not take raises; nothing falls back):
+kernels are checked against) and a wrapper that launches a hand-written
+Hopper kernel for CUDA tensors (a CUDA tensor the kernel does not take
+raises; nothing falls back): ``csrc/wn_block_padded.cu`` (f32 FMAs) for
+the first two, ``csrc/wn_block_padded_sm90.cu`` (``wgmma``, TMA; its
+``STREAM`` and ``STREAM_FINAL`` roles, :func:`padded_sm90_plan` picks the
+ring depths) for the stream pair, whose first design stays reachable through
+:func:`first_design`:
 
 * :func:`wn_layer_padded` (``:104 wn_layer_padded``): the layer's own 2C
   slice ``cond_index`` of a pre-materialized ``cond_p`` that already holds
@@ -32,7 +36,8 @@ tensor the kernel does not take raises; nothing falls back):
 The JAX tile is 512 rows; the port's pad width is its own:
 :data:`BT_PAD` = 128, the largest dilation of the reference config
 (2^(L-1)), which also divides the smoke's T = 6400.  It is a layout
-constant, not the CUDA block's row tile (a block covers 32 rows).
+constant, not a CUDA block's row tile (a first-design block covers 32
+rows, a ``wn_block_padded_sm90.cu`` block 64).
 
 The plain versions of ``spect`` and ``stream`` are two implementations
 too: whole-array shifted matmuls against a walk over the pad tiles with a
@@ -59,6 +64,11 @@ LIB = CudaLibrary("wn_block_padded", {
     "t2s_wn_spect": [_P] * 10 + [_I] * 8 + [_P],
     "t2s_wn_stream": [_P] * 10 + [_I] * 8 + [_P],
     "t2s_wn_stream_final": [_P] * 12 + [_I] * 7 + [_P],
+})
+LIB_SM90 = CudaLibrary("wn_block_padded_sm90", {
+    "t2s_wn_stream_sm90": [_P] * 10 + [_I] * 10 + [_P],
+    "t2s_wn_stream_final_sm90": [_P] * 12 + [_I] * 9 + [_P],
+    "t2s_wn_padded_sm90_smem_bytes": [_I] * 5,
 })
 
 F32 = torch.float32
@@ -238,6 +248,69 @@ def wn_layer_stream_final_plain(xp, spect_p, w_in, b_in, w_cond, b_cond,
 
 
 # ---------------------------------------------------------------------------
+# the launch plan of csrc/wn_block_padded_sm90.cu (its constants, restated)
+# ---------------------------------------------------------------------------
+
+# A block is one consumer warpgroup of PADDED_SM90_BM = 64 rows and one
+# producer warp (128-row blocks of two warpgroups were timed and lost,
+# PERF.md).  Its dynamic shared memory: 1 KB of alignment, the gated tile
+# [64, C] bf16, ``nwin`` window slots (``padded_window``: the rows [t0 - d,
+# t0 + 64 + d) of a 64-channel K chunk, 128 bytes a row, in one or two TMA
+# boxes of at most 256 rows), ``nwst`` weight slots of [64, 128] bf16 and,
+# in the final role, w_end staged as [C, 8] bf16; twelve mbarriers are
+# static.
+PADDED_SM90_ROLES = {"stream": 0, "stream_final": 1}
+PADDED_SM90_BM = 64
+PADDED_SM90_SMEM_LIMIT = 232448     # shared memory a block may use, H100
+PADDED_SM90_STATIC_SMEM = 96
+PADDED_SM90_WSLOT = 2 * 64 * 64 * 2
+PADDED_SM90_MAX_WST = 4
+
+
+def padded_window(d: int) -> tuple:
+    """(boxes, rows per box) of a window slot: 64 + 2d rows in one TMA box,
+    or two where that passes 256; a box's rows are a multiple of 8."""
+    rows = PADDED_SM90_BM + 2 * d
+    nb = 2 if rows > 256 else 1
+    return nb, (-(-rows // nb) + 7) // 8 * 8
+
+
+def padded_sm90_smem_bytes(role: str, C: int, d: int, nwin: int,
+                           nwst: int) -> int:
+    """Dynamic shared memory of one block (the kernel's ``padded_smem``)."""
+    nb, h = padded_window(d)
+    return (1024 + PADDED_SM90_BM * C * 2 + nwin * nb * h * 128
+            + nwst * PADDED_SM90_WSLOT
+            + (C * 8 * 2 if role == "stream_final" else 0))
+
+
+def padded_sm90_plan(C: int, T: int, B: int, d: int,
+                     role: str = "stream") -> dict:
+    """Ring depths of ``csrc/wn_block_padded_sm90.cu``'s ``role`` (a key of
+    :data:`PADDED_SM90_ROLES`) for gate width ``C``, ``B`` utterances of
+    ``T`` real rows and dilation ``d``: two window slots where they fit
+    beside the gated tile and two weight slots, else one; the weight ring
+    as deep as fits, up to four.  ``tiles`` is the count of 64-row tiles,
+    which the persistent grid walks.  Raises ValueError where nothing fits
+    in shared memory."""
+    if role not in PADDED_SM90_ROLES:
+        raise ValueError(f"no role {role!r} of the padded sm90 kernel")
+    free = PADDED_SM90_SMEM_LIMIT - PADDED_SM90_STATIC_SMEM
+    for nwin in (2, 1):
+        nwst = min(PADDED_SM90_MAX_WST,
+                   (free - padded_sm90_smem_bytes(role, C, d, nwin, 0))
+                   // PADDED_SM90_WSLOT)
+        if nwst >= 2:
+            return {"bm": PADDED_SM90_BM, "nwin": nwin, "nwst": nwst,
+                    "window": padded_window(d),
+                    "smem": padded_sm90_smem_bytes(role, C, d, nwin, nwst),
+                    "tiles": B * (T // PADDED_SM90_BM)}
+    raise ValueError(f"the padded sm90 kernel ({role}) does not fit C={C} at "
+                     f"dilation {d} in {PADDED_SM90_SMEM_LIMIT} bytes of "
+                     f"shared memory")
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -362,8 +435,11 @@ def wn_layer_spect(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
 def wn_layer_stream(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
                     skip_acc, dilation: int, n_valid: int | None = None,
                     bt: int = BT_PAD):
-    """The contract of :func:`wn_layer_spect` through the one-tile-behind
-    kernel (skip sum in place on CUDA, as there)."""
+    """The contract of :func:`wn_layer_spect` from another implementation
+    (skip sum in place on CUDA, as there): the plain version walks the TPU
+    kernel's one-tile-behind ring; on CUDA ``csrc/wn_block_padded_sm90.cu``'s
+    STREAM role reads each x window once per K chunk, on the tensor
+    cores."""
     if _on_cpu(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
                skip_acc):
         return wn_layer_stream_plain(xp, spect_p, w_in, b_in, w_cond, b_cond,
@@ -372,13 +448,14 @@ def wn_layer_stream(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
     B, Tp, C, M, rs_out, n_valid = _spect_args(
         "wn_layer_stream", xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs,
         b_rs, skip_acc, dilation, n_valid, bt)
+    plan = padded_sm90_plan(C, Tp - 2 * bt, B, dilation, "stream")
     x_out = torch.empty_like(xp)
     wn_layer_stream.launches += 1
-    _run(LIB.get().t2s_wn_stream, xp.device, xp.data_ptr(),
+    _run(LIB_SM90.get().t2s_wn_stream_sm90, xp.device, xp.data_ptr(),
          spect_p.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
          w_cond.data_ptr(), b_cond.data_ptr(), w_rs.data_ptr(),
          b_rs.data_ptr(), skip_acc.data_ptr(), x_out.data_ptr(), B, Tp, bt,
-         n_valid, C, M, rs_out, dilation)
+         n_valid, C, M, rs_out, dilation, plan["nwin"], plan["nwst"])
     return x_out, skip_acc
 
 
@@ -406,13 +483,48 @@ def wn_layer_stream_final(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs,
         raise ValueError(f"kernel takes E in [1, 8], got {E}")
     _check("w_end", w_end, (C, E), torch.bfloat16)
     _check("b_end", b_end, (E,), F32)
+    plan = padded_sm90_plan(C, Tp - 2 * bt, B, dilation, "stream_final")
     out = torch.empty((B, Tp, E), dtype=F32, device=xp.device)
     wn_layer_stream_final.launches += 1
-    _run(LIB.get().t2s_wn_stream_final, xp.device, xp.data_ptr(),
+    _run(LIB_SM90.get().t2s_wn_stream_final_sm90, xp.device, xp.data_ptr(),
          spect_p.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
          w_cond.data_ptr(), b_cond.data_ptr(), w_rs.data_ptr(),
          b_rs.data_ptr(), skip_acc.data_ptr(), w_end.data_ptr(),
-         b_end.data_ptr(), out.data_ptr(), B, Tp, bt, C, M, E, dilation)
+         b_end.data_ptr(), out.data_ptr(), B, Tp, bt, C, M, E, dilation,
+         plan["nwin"], plan["nwst"])
+    return out
+
+
+FIRST_DESIGNS = ("wn_layer_stream", "wn_layer_stream_final")
+
+
+def first_design(name: str, *args, n_valid: int | None = None):
+    """The first CUDA design of the stream pair (``csrc/wn_block_padded.cu``'s
+    ``t2s_wn_stream`` / ``t2s_wn_stream_final``: f32 FMAs, 32-row blocks,
+    the TPU's one-tile-behind grid), kept so that the sm90 kernel can be
+    timed and checked beside it on the same inputs; no path calls it.
+    ``name`` is ``"wn_layer_stream"`` or ``"wn_layer_stream_final"`` and the
+    arguments are that wrapper's (CUDA tensors, already checked by a call
+    of the wrapper; ``bt`` is :data:`BT_PAD`); the stream layer updates
+    ``skip_acc`` in place.  It counts no launch."""
+    if name not in FIRST_DESIGNS:
+        raise ValueError(f"no first design of {name!r}")
+    xp, spect_p = args[0], args[1]
+    B, Tp, C = xp.shape
+    M, bt = spect_p.shape[-1], BT_PAD
+    n_valid = Tp - 2 * bt if n_valid is None else int(n_valid)
+    lib = LIB.get()
+    ptrs = [t.data_ptr() for t in args[:-1]]
+    if name == "wn_layer_stream":
+        skip_acc, w_rs = args[8], args[6]
+        x_out = torch.empty_like(xp)
+        _run(lib.t2s_wn_stream, xp.device, *ptrs, x_out.data_ptr(), B, Tp,
+             bt, n_valid, C, M, w_rs.shape[-1], int(args[-1]))
+        return x_out, skip_acc
+    E = args[9].shape[-1]
+    out = torch.empty((B, Tp, E), dtype=F32, device=xp.device)
+    _run(lib.t2s_wn_stream_final, xp.device, *ptrs, out.data_ptr(), B, Tp,
+         bt, C, M, E, int(args[-1]))
     return out
 
 
