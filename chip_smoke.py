@@ -12,14 +12,14 @@ Phases, each of which passes or raises (the script then exits non-zero):
    forms), the int8
    WN-layer library and its Hopper redesign of the standard, the
    tensor-parallel partial, the final and the first layer on s8
-   ``wgmma``, the padded WN-layer library and the Hopper redesign of its
-   stream pair, the gated activation, the k=3 conv backward and its
-   Hopper redesign, one ``nvcc`` each, all started together) and print
-   the times, and for the four Hopper files the ``HGMMA`` / ``IGMMA``
-   count per kernel and the registers, stack frames and spills
-   ``-Xptxas -v`` reports (the bf16 first layers, the partial layer's
-   layer-0 form, the s8 final and first layers and both roles of the
-   padded stream kernel must show neither);
+   ``wgmma``, the padded WN-layer library and the Hopper redesigns of its
+   stream pair and of its spect / padded pair, the gated activation, the
+   k=3 conv backward and its Hopper redesign, one ``nvcc`` each, all
+   started together) and print the times, and for the five Hopper files
+   the ``HGMMA`` / ``IGMMA`` count per kernel and the registers, stack
+   frames and spills ``-Xptxas -v`` reports (the bf16 first layers, the
+   partial layer's layer-0 form, the s8 final and first layers and both
+   roles of each padded Hopper kernel must show neither);
 3. compare each of the six projecting kernels with its plain PyTorch version on the
    card at the reference width (C=512, M=640) over batch sizes, dilations,
    valid lengths and flow widths, and the standard and final layers also at
@@ -138,14 +138,16 @@ Phases, each of which passes or raises (the script then exits non-zero):
 22. the four padded-layout kernels (the oracle family, kernels 12-15)
     against their plain versions at B=1, T=6400 (``pad_tiles``: Tp =
     6656), C=512, M=640, E=8 for d = 1, 64, 128 at full and short
-    ``n_valid``, pad tiles exactly zero; times and bounds; then rows 14-15
-    (``csrc/wn_block_padded_sm90.cu`` STREAM and STREAM_FINAL) against
-    their plain versions and their first design over d = 0, 1, 63, 64,
-    128, n_valid = T, T - 301, 1, 0, batch 1 and 3, rs_out 2C and C, E 8
-    and 1 and C=192, M=96; the in-place skip sum between guard rows, the
-    final layer's skip sum untouched; both timed at batch 1 and 3 beside
-    the first design in turns, with the plain version, the bound and
-    128-row blocks beside the plan's 64-row ones;
+    ``n_valid``, pad tiles exactly zero; then rows 13 and 12
+    (``csrc/wn_block_padded_tiles_sm90.cu`` SPECT and PADDED) and rows
+    14-15 (``csrc/wn_block_padded_sm90.cu`` STREAM and STREAM_FINAL)
+    against their plain versions and their first design over d = 0, 1,
+    63, 64, 128, n_valid = T, T - 301, 1, 0, batch 1 and 3, rs_out 2C and
+    C (cond_index 0 and 1, E 8 and 1) and C=192, M=96, and each kernel at
+    the widest width its plan takes; the in-place skip sums between guard
+    rows, the final layer's skip sum and row 12's ``cond_p`` untouched;
+    all four timed at batch 1 and 3 beside the first design in turns,
+    with the plain version and the bound;
 23. their own path, the parity ladder across kernels: the unpadded
     standard layer (kernel 2) against the stream kernel (14), the unpadded
     final layer (3) against the stream final (15), the ``dcond`` layer (9)
@@ -3034,9 +3036,10 @@ def conv_backward_path() -> int:
 # layer, the oracle side of the parity ladder (no serving or training path
 # runs it, as in the JAX package)
 PADDED_KERNELS = {
-    "wn_layer_padded": ("wn_block_padded.cu",
+    "wn_layer_padded": ("wn_block_padded_tiles_sm90.cu",
                         PALLAS + "wn_block_padded.py:104"),
-    "wn_layer_spect": ("wn_block_padded.cu", PALLAS + "wn_block_padded.py:165"),
+    "wn_layer_spect": ("wn_block_padded_tiles_sm90.cu",
+                       PALLAS + "wn_block_padded.py:165"),
     "wn_layer_stream": ("wn_block_padded_sm90.cu",
                         PALLAS + "wn_block_padded.py:302"),
     "wn_layer_stream_final": ("wn_block_padded_sm90.cu",
@@ -3045,6 +3048,10 @@ PADDED_KERNELS = {
 # rows 14-15's roles in csrc/wn_block_padded_sm90.cu
 PADDED_SM90_ROLES = {"wn_layer_stream": "STREAM",
                      "wn_layer_stream_final": "STREAM_FINAL"}
+# rows 13 and 12's roles in csrc/wn_block_padded_tiles_sm90.cu (the name's
+# role in ``wn_block_padded.padded_tiles_plan``, and in the source)
+PADDED_TILES_ROLES = {"wn_layer_spect": ("spect", "SPECT"),
+                      "wn_layer_padded": ("padded", "PADDED")}
 # Rungs of the ladder between two kernels.  Both sides take the same bf16
 # inputs and accumulate in f32 in another order; the final-layer rung also
 # rounds at other places (kernel 3 folds w_rs into the end projection once
@@ -3112,17 +3119,192 @@ def padded_work(name: str, B, T, C, M, E) -> dict:
     }[name]}
 
 
+def tiles_case_args(B, T, nv, C, M, seed, dev, d, rs_half=False,
+                    n_cond=2) -> dict:
+    """Rows 13 and 12's argument tuples (without ``n_valid``; row 12's
+    without ``cond_index``) on the ``pad_tiles`` layout, drawn on the card
+    from one seed for both: hidden state, mel, skip sum and a conditioning
+    of ``n_cond`` 2C slices zero past ``nv``; res/skip weights [C, 2C] or,
+    with ``rs_half``, [C, C]."""
+    from text2speech_tpu_torch.ops.wn_block_padded import pad_tiles
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).to(dtype)
+
+    mask = (torch.arange(T, device=dev) < nv)[None, :, None]
+    rs_out = C if rs_half else 2 * C
+    xp, sp, acc = (pad_tiles(rn(B, T, w, scale=s) * mask)
+                   for w, s in ((C, 1.0), (M, 1.0), (C, 0.5)))
+    cond = pad_tiles(rn(B, T, 2 * C * n_cond) * mask)
+    w_in = rn(3, C, 2 * C, scale=(3 * C) ** -0.5)
+    b_in = rn(2 * C, scale=0.1, dtype=f32)
+    w_cond = rn(M, 2 * C, scale=M ** -0.5)
+    b_cond = rn(2 * C, scale=0.1, dtype=f32)
+    w_rs = rn(C, rs_out, scale=C ** -0.5)
+    b_rs = rn(rs_out, scale=0.1, dtype=f32)
+    return {"wn_layer_spect": (xp, sp, w_in, b_in, w_cond, b_cond, w_rs,
+                               b_rs, acc, d),
+            "wn_layer_padded": (xp, cond, w_in, b_in, w_rs, b_rs, d)}
+
+
 def stream_case_args(B, T, nv, C, M, E, seed, dev, d, rs_half=False):
-    """``padded_args``' tuples of rows 14 and 15 (without ``n_valid``),
-    the stream layer's res/skip weights [C, C] (the final layer's) with
-    ``rs_half``."""
-    k = padded_inputs(B, T, nv, C, M, E, seed, dev, n_cond=1)
-    a = padded_args(k, d)
-    if rs_half:
-        std = a["wn_layer_stream"]
-        a["wn_layer_stream"] = (*std[:6], k["w_rs_last"], k["b_rs_last"],
-                                *std[8:])
-    return {n: a[n] for n in PADDED_SM90_ROLES}
+    """Rows 14 and 15's argument tuples (without ``n_valid``): row 13's
+    draw on the card (``tiles_case_args``), then the final layer's [C, C]
+    res/skip weights and end projection from the next seed; the stream
+    layer takes the final layer's res/skip weights with ``rs_half``."""
+    t = tiles_case_args(B, T, nv, C, M, seed, dev, d,
+                        n_cond=1)["wn_layer_spect"]
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def rn(*shape, scale, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).to(dtype)
+
+    w_last = rn(C, C, scale=C ** -0.5)
+    b_last = rn(C, scale=0.1, dtype=torch.float32)
+    w_end = rn(C, E, scale=C ** -0.5)
+    b_end = rn(E, scale=0.1, dtype=torch.float32)
+    head, rs, acc = t[:6], ((w_last, b_last) if rs_half else t[6:8]), t[8]
+    return {"wn_layer_stream": (*head, *rs, acc, d),
+            "wn_layer_stream_final": (*head, w_last, b_last, acc, w_end,
+                                      b_end, d)}
+
+
+def check_tiles_sm90(rec: dict, C: int = 512, M: int = 640) -> dict:
+    """Rows 13 and 12 (``csrc/wn_block_padded_tiles_sm90.cu`` SPECT and
+    PADDED) against their plain versions on the same inputs: d = 0, 1, 63,
+    64, 128 at n_valid = T - 301, T, 1 and 0 (B=1, T=6400), batch 3 at d =
+    1, 64, 128, a width with C % 128 == 64 (C=192, M=96, T=1024, B 1 and
+    3) and the widest widths the plan takes, with two stages (SPECT alone
+    at C=1408, both at C=1280); rs_out 2C and C and cond_index 0 and 1
+    alternate, and each case's seeded inputs serve both roles.  The first
+    case of each batch, width and dilation is also held against the first
+    design (``wn_block_padded.first_design``).  Pad tiles exactly zero;
+    SPECT's skip sum is updated in place in a buffer with guard rows on
+    both sides, which stay as they were; PADDED leaves ``cond_p`` as it
+    found it; the plan's shared memory is the kernel's own
+    (``t2s_wn_padded_tiles_sm90_smem_bytes``).  Then the two times at B=1
+    and 3, d=64, beside the first design in turns (first, sm90, sm90,
+    first), the plain version and the bound (``ms``, ``prev_ms``,
+    ``plain_ms``, ``bound_ms`` and their ``_b3`` forms in ``rec``).
+    Returns the seconds of the cases and of the times."""
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    dev = torch.device("cuda")
+    bt, T, bf = wp.BT_PAD, 6400, torch.bfloat16
+    lib = wp.LIB_TILES.get()
+    both = tuple(PADDED_TILES_ROLES)
+    cases = [(1, T, C, M, d, nv, both) for d in (0, 1, 63, 64, 128)
+             for nv in (T - 301, T, 1, 0)]
+    cases += [(3, T, C, M, d, nv, both) for d in (1, 64, 128)
+              for nv in (T - 301, T)]
+    cases += [(1, 1024, 192, 96, 0, 1024, both),
+              (3, 1024, 192, 96, 63, 723, both),
+              (1, 1024, 192, 96, 128, 1, both),
+              (3, 1024, 192, 96, 1, 0, both)]
+    cases += [(1, 512, 1408, 64, 128, 450, ("wn_layer_spect",)),
+              (3, 512, 1280, 64, 127, 512, both)]
+    guard = 64                     # bf16 values of guard on each side
+    seen = set()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (B, Tc, Cc, Mc, d, nv, names) in enumerate(cases):
+        rs_half, ci = i % 2 == 1, i // 2 % 2
+        vs_first = (B, Cc, d) not in seen
+        seen.add((B, Cc, d))
+        for name in names:
+            role, _ = PADDED_TILES_ROLES[name]
+            plan = wp.padded_tiles_plan(Cc, Tc, B, d, role)
+            smem = lib.t2s_wn_padded_tiles_sm90_smem_bytes(
+                wp.PADDED_TILES_ROLES[role], Cc, plan["nst"])
+            if smem != plan["smem"]:
+                raise RuntimeError(f"{name} C={Cc} plan: {plan['smem']} B "
+                                   f"of shared memory, the kernel asks "
+                                   f"{smem}")
+        a = tiles_case_args(B, Tc, nv, Cc, Mc, 900 + i, dev, d, rs_half)
+        tag = (f"B={B} T={Tc} C={Cc} M={Mc} d={d} n_valid={nv} rs_out="
+               f"{Cc if rs_half else 2 * Cc}")
+        outs = []
+        if "wn_layer_spect" in names:
+            args = a["wn_layer_spect"]
+            acc = args[-2]
+            buf = torch.full((acc.numel() + 2 * guard,), 7.0, dtype=bf,
+                             device=dev)
+            skip = buf[guard:guard + acc.numel()].view_as(acc)
+            skip.copy_(acc)
+            got = wp.wn_layer_spect(*args[:-2], skip, d, n_valid=nv)
+            if got[1].data_ptr() != skip.data_ptr():
+                raise RuntimeError(f"wn_layer_spect {tag}: skip not in "
+                                   f"place")
+            if (buf[:guard] != 7).any() or (buf[-guard:] != 7).any():
+                raise RuntimeError(f"wn_layer_spect {tag}: the in-place "
+                                   f"skip sum wrote outside its rows")
+            want = wp.wn_layer_spect_plain(*args[:-2], acc, d, nv)
+            first = (wp.first_design("wn_layer_spect", *args[:-2],
+                                     acc.clone(), d, n_valid=nv)
+                     if vs_first else (None,) * 2)
+            outs += [(f"wn_layer_spect[{j}]", g, w, f)
+                     for j, (g, w, f) in enumerate(zip(got, want, first))]
+        if "wn_layer_padded" in names:
+            args = a["wn_layer_padded"]
+            keep = args[1].clone()
+            got = wp.wn_layer_padded(*args, ci, n_valid=nv)
+            if not torch.equal(args[1], keep):
+                raise RuntimeError(f"wn_layer_padded {tag}: cond_p changed")
+            want = wp.wn_layer_padded_plain(*args, ci, nv)
+            first = (wp.first_design("wn_layer_padded", *args, ci,
+                                     n_valid=nv)
+                     if vs_first else (None,) * 2)
+            outs += [(f"wn_layer_padded[{j}] cond_index={ci}", g, w, f)
+                     for j, (g, w, f) in enumerate(zip(got, want, first))]
+        for name, g, w, f in outs:
+            if g[:, :bt].any() or g[:, -bt:].any():
+                raise RuntimeError(f"{name} {tag}: pad tiles not zero")
+            err = compare(f"{name} {tag}", g, w)
+            if f is not None:
+                compare(f"{name} {tag} vs first design", g, f)
+            r = rec[name.split("[")[0]]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for B in (1, 3):
+        a = tiles_case_args(B, T, T, C, M, 990 + B, dev, 64, n_cond=1)
+        for name, args in a.items():
+            kern, plain = getattr(wp, name), getattr(wp, name + "_plain")
+
+            def first(name=name, args=args):
+                return wp.first_design(name, *args)
+
+            turns = [time_ms(f, iters=10 if f is first else 50)
+                     for f in (first, lambda: kern(*args),
+                               lambda: kern(*args), first)]
+            outs = kern(*args)
+            tensors = [t for t in (*args, *outs) if torch.is_tensor(t)]
+            bound, by = bound_ms(padded_work(name, B, T, C, M, 8), tensors)
+            ms, prev = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+            plain_ms = time_ms(lambda: plain(*args), warmup=1, iters=3)
+            sfx = "" if B == 1 else "_b3"
+            rec[name].update({"ms" + sfx: ms, "prev_ms" + sfx: prev,
+                              "plain_ms" + sfx: plain_ms,
+                              "bound_ms" + sfx: bound})
+            if B == 1:
+                rec[name]["bound_by"] = by
+            role, code = PADDED_TILES_ROLES[name]
+            plan = wp.padded_tiles_plan(C, T, B, 64, role)
+            print(f"[kernels] {name} ({code}) B={B} T={T} d=64: sm90 "
+                  f"{turns[1]:.4f} / {turns[2]:.4f} ms, first design "
+                  f"{turns[0]:.4f} / {turns[3]:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms (by {by}; "
+                  f"{100 * bound / ms:.2f}% of it, first design "
+                  f"{100 * bound / prev:.2f}%), {plan['tiles']} tiles of "
+                  f"{plan['bm']} rows, {plan['nst']} stages")
+    torch.cuda.synchronize()
+    return {"rows 12-13 cases": t1 - t0,
+            "rows 12-13 times": time.perf_counter() - t1}
 
 
 def check_stream_sm90(rec: dict, C: int = 512, M: int = 640,
@@ -3252,8 +3434,8 @@ def check_stream_sm90(rec: dict, C: int = 512, M: int = 640,
 def check_padded_kernels(C: int = 512, M: int = 640, E: int = 8) -> dict:
     """The four padded kernels against their plain versions at B=1,
     T=6400 (Tp = 6656), C=512, M=640, E=8 for d in {1, 64, 128} at full
-    and short ``n_valid``; pad tiles exactly zero; then rows 12-13's times
-    and bounds at d=64; then rows 14-15's own cases and times
+    and short ``n_valid``; pad tiles exactly zero; then rows 12-13's own
+    cases and times (``check_tiles_sm90``) and rows 14-15's
     (``check_stream_sm90``).  Prints the seconds of each part."""
     from text2speech_tpu_torch.ops import wn_block_padded as wp
 
@@ -3283,25 +3465,8 @@ def check_padded_kernels(C: int = 512, M: int = 640, E: int = 8) -> dict:
                                                    err)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    k = padded_inputs(B, T, T, C, M, E, 399, dev)
-    for name, args in padded_args(k, 64).items():
-        if name in PADDED_SM90_ROLES:   # timed by check_stream_sm90
-            continue
-        kern, plain = getattr(wp, name), getattr(wp, name + "_plain")
-        outs = kern(*args)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        tensors = [t for t in (*args, *outs) if torch.is_tensor(t)]
-        r = rec[name]
-        r["bound_ms"], r["bound_by"] = bound_ms(
-            padded_work(name, B, T, C, M, E), tensors)
-        r["ms"] = time_ms(lambda: kern(*args))
-        r["plain_ms"] = time_ms(lambda: plain(*args))
-        print(f"  {name} B={B} T={T} (Tp={T + 2 * bt}): kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms (by {r['bound_by']})")
-    torch.cuda.synchronize()
     parts = {"rows 12-15 vs plain": t1 - t0,
-             "rows 12-13 times": time.perf_counter() - t1,
+             **check_tiles_sm90(rec, C, M),
              **check_stream_sm90(rec, C, M, E)}
     print("[time] phase 22 parts, seconds: "
           + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
@@ -3314,10 +3479,10 @@ def ladder_path(C: int = 512, M: int = 640, E: int = 8) -> dict:
     (the unpadded standard layer) against 14 and kernel 3 (the unpadded
     final layer, end projection folded) against 15 on the valid rows,
     kernel 9 (``dcond``) against 12 on the same stacked conditioning, and
-    13 against 14 (two implementations: the f32 FMA kernel of
-    ``csrc/wn_block_padded.cu`` and the ``wgmma`` kernel of
-    ``csrc/wn_block_padded_sm90.cu``).  Returns the padded kernels' launch
-    counts of this run."""
+    13 against 14 (two implementations: the three-tile ``wgmma`` kernel of
+    ``csrc/wn_block_padded_tiles_sm90.cu`` and the one-window ``wgmma``
+    kernel of ``csrc/wn_block_padded_sm90.cu``).  Returns the padded
+    kernels' launch counts of this run."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
     from text2speech_tpu_torch.ops import wn_block_padded as wp
@@ -4072,7 +4237,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = (wb.LIB, wb.LIB_SM90, wq.LIB, wq.LIB_SM90, gated.LIB,
-            wn_backward.LIB, wn_backward.LIB_SM90, wp.LIB, wp.LIB_SM90)
+            wn_backward.LIB, wn_backward.LIB_SM90, wp.LIB, wp.LIB_SM90,
+            wp.LIB_TILES)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
@@ -4083,7 +4249,7 @@ def main() -> int:
     print(f"[build] {len(libs)} libraries built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
     for lib in (wb.LIB_SM90, wq.LIB_SM90, wn_backward.LIB_SM90,
-                wp.LIB_SM90):
+                wp.LIB_SM90, wp.LIB_TILES):
         print(f"[build] {lib.source.name} SASS: {hgmma_counts(lib.path)}")
         print(f"[build] {lib.source.name} registers (-Xptxas -v): "
               f"{ptxas_registers(lib.build_log)}")
@@ -4095,9 +4261,11 @@ def main() -> int:
     require_no_local_memory(wq.LIB_SM90, {
         code: role for role, code in wq.INT8_SM90_ROLES.items()
         if role in ("final", "first")})
-    # rows 14-15's kernel, both roles
+    # rows 14-15's kernel and rows 12-13's, both roles of each
     require_no_local_memory(wp.LIB_SM90, {
         code: role for role, code in wp.PADDED_SM90_ROLES.items()})
+    require_no_local_memory(wp.LIB_TILES, {
+        code: role for role, code in wp.PADDED_TILES_ROLES.items()})
 
     print("[kernels] kernel vs plain at C=512, M=640")
     rec = check_kernels()
@@ -4171,6 +4339,8 @@ def main() -> int:
                                   "bound_ms_b3", "plain_ms_b3", "f32")
            if k in rec[n]},
         **({"role": PADDED_SM90_ROLES[n]} if n in PADDED_SM90_ROLES else {}),
+        **({"role": PADDED_TILES_ROLES[n][1]} if n in PADDED_TILES_ROLES
+           else {}),
     } for n, (src, repl) in {**KERNELS, **DCOND_KERNELS, **PARTIAL_KERNELS,
                              **TRAIN_KERNELS, **PADDED_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))

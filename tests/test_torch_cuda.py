@@ -1800,6 +1800,132 @@ def test_stream_sm90_wrappers_raise_on_what_the_kernel_refuses(dev):
         wp.wn_layer_stream(*big[:-2], big[-2], 1)
 
 
+# --- rows 12-13 on csrc/wn_block_padded_tiles_sm90.cu (SPECT, PADDED) ------
+
+
+def tiles_case(dev, B, T, n_valid, C, M, d, seed, rs_half, n_cond=2):
+    """Rows 13 and 12's argument tuples (without n_valid and, for row 12,
+    without ``cond_index``) on the pad tiles: seeded bf16 inputs, hidden
+    state, mel, skip sum and conditioning zero past n_valid; res/skip
+    weights [C, 2C] or, with ``rs_half``, [C, C]."""
+    from text2speech_tpu_torch.ops.wn_block_padded import pad_tiles
+
+    k = inputs(dev, B, T, n_valid, C, M, seed,
+               rs_out=C if rs_half else 2 * C)
+    g = torch.Generator().manual_seed(seed + 1)
+    mask = (torch.arange(T) < n_valid)[None, :, None].to(dev)
+    cond = (torch.randn(B, T, 2 * C * n_cond, generator=g).to(
+        dev, torch.bfloat16) * mask)
+    xp, sp, acc = (pad_tiles(k[n]) for n in ("x", "spect", "acc"))
+    spect = (xp, sp, k["w_in"], k["b_in"], k["w_cond"], k["b_cond"],
+             k["w_rs"], k["b_rs"], acc, d)
+    padded = (xp, pad_tiles(cond), k["w_in"], k["b_in"], k["w_rs"],
+              k["b_rs"], d)
+    return spect, padded
+
+
+TILES_CASES = (
+    [(1, 6400, 512, 640, d, nv) for d in (0, 1, 63, 64, 128)
+     for nv in (6400, 6099, 1, 0)]
+    + [(3, 6400, 512, 640, d, 6099) for d in (1, 64, 128)]
+    + [(1, 1024, 192, 96, 63, 723), (3, 1024, 192, 96, 128, 1)]
+    # the widest widths the plan takes, with two stages: SPECT's 1408 (past
+    # PADDED's, whose cond slot leaves room for 1280), both at 1280
+    + [(1, 256, 1408, 64, 128, 200), (1, 256, 1280, 64, 1, 256)])
+
+
+@pytest.mark.parametrize("case", range(len(TILES_CASES)))
+def test_tiles_sm90_matches_plain_and_first_design(dev, case):
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    B, T, C, M, d, nv = TILES_CASES[case]
+    rs_half, ci = case % 2 == 1, case % 3 % 2
+    spect, padded = tiles_case(dev, B, T, nv, C, M, d, 60 + case, rs_half)
+    bt = wp.BT_PAD
+    acc = spect[-2]
+    sx, ss = wp.wn_layer_spect(*spect[:-2], acc.clone(), d, n_valid=nv)
+    pairs = list(zip(
+        (sx, ss), wp.wn_layer_spect_plain(*spect[:-2], acc, d, nv),
+        wp.first_design("wn_layer_spect", *spect[:-2], acc.clone(), d,
+                        n_valid=nv)))
+    outs = [sx]
+    if C <= 1280:
+        keep = padded[1].clone()
+        px, ps = wp.wn_layer_padded(*padded, ci, n_valid=nv)
+        assert torch.equal(padded[1], keep)
+        pairs += zip((px, ps), wp.wn_layer_padded_plain(*padded, ci, nv),
+                     wp.first_design("wn_layer_padded", *padded, ci,
+                                     n_valid=nv))
+        outs.append(px)
+    for g, w, f in pairs:
+        assert not g[:, :bt].any() and not g[:, -bt:].any()
+        if not w.any():          # x_new at n_valid = 0: zero, exactly
+            assert not g.any() and not f.any()
+            continue
+        close(g, w)
+        close(g, f)
+    for x_new in outs:
+        assert not wp.unpad_tiles(x_new)[:, nv:].any()
+
+
+def test_tiles_sm90_skip_sum_in_place_between_guards(dev):
+    """SPECT's skip sum is updated in place in a buffer with guard values
+    on both sides: the guards stay, the returned tensor is the argument."""
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    spect, _ = tiles_case(dev, 1, 1024, 1000, 512, 640, 64, 8, False)
+    acc = spect[-2]
+    buf = torch.full((acc.numel() + 128,), 7.0, dtype=torch.bfloat16,
+                     device=dev)
+    skip = buf[64:64 + acc.numel()].view_as(acc)
+    skip.copy_(acc)
+    _, got = wp.wn_layer_spect(*spect[:-2], skip, 64, n_valid=1000)
+    assert got.data_ptr() == skip.data_ptr()
+    assert (buf[:64] == 7).all() and (buf[-64:] == 7).all()
+    close(got, wp.wn_layer_spect_plain(*spect[:-2], acc, 64, 1000)[1])
+
+
+def test_tiles_sm90_plan_is_the_kernels_shared_memory(dev):
+    """The plan's shared memory is what the kernel's own query gives, at
+    widths up to the widest and every dilation's edge, in both roles."""
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    lib = wp.LIB_TILES.get()
+    for role, code in wp.PADDED_TILES_ROLES.items():
+        for C in (64, 192, 512, 1024, 1280):
+            for d in (0, 1, 64, 128):
+                p = wp.padded_tiles_plan(C, 6400, 1, d, role)
+                assert lib.t2s_wn_padded_tiles_sm90_smem_bytes(
+                    code, C, p["nst"]) == p["smem"]
+
+
+def test_tiles_sm90_first_design_counts_no_launch(dev):
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    spect, padded = tiles_case(dev, 1, 512, 512, 128, 64, 1, 3, False)
+    wp.reset_launch_counts()
+    wp.first_design("wn_layer_spect", *spect[:-2], spect[-2].clone(), 1)
+    wp.first_design("wn_layer_padded", *padded, 1)
+    torch.cuda.synchronize()
+    assert not any(wp.launch_counts().values())
+    wp.wn_layer_spect(*spect[:-2], spect[-2].clone(), 1)
+    wp.wn_layer_padded(*padded, 1)
+    assert wp.launch_counts() == {"wn_layer_padded": 1, "wn_layer_spect": 1,
+                                  "wn_layer_stream": 0,
+                                  "wn_layer_stream_final": 0}
+
+
+def test_tiles_sm90_wrappers_raise_past_the_widest_width(dev):
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+
+    spect, padded = tiles_case(dev, 1, 256, 256, 1472, 32, 1, 6, False)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        wp.wn_layer_spect(*spect[:-2], spect[-2], 1)
+    _, padded = tiles_case(dev, 1, 256, 256, 1344, 32, 1, 6, False)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        wp.wn_layer_padded(*padded)
+
+
 # --- Tacotron training on the card ------------------------------------------
 
 

@@ -16,11 +16,14 @@ Four roles, each with a plain version (``*_plain``, f32 matmuls over the
 input dtype's values, used for CPU tensors and as the reference the CUDA
 kernels are checked against) and a wrapper that launches a hand-written
 Hopper kernel for CUDA tensors (a CUDA tensor the kernel does not take
-raises; nothing falls back): ``csrc/wn_block_padded.cu`` (f32 FMAs) for
-the first two, ``csrc/wn_block_padded_sm90.cu`` (``wgmma``, TMA; its
-``STREAM`` and ``STREAM_FINAL`` roles, :func:`padded_sm90_plan` picks the
-ring depths) for the stream pair, whose first design stays reachable through
-:func:`first_design`:
+raises; nothing falls back): ``csrc/wn_block_padded_tiles_sm90.cu``
+(``wgmma``, TMA, the TPU kernel's three neighbour tiles as three boxes per
+K chunk; its ``SPECT`` and ``PADDED`` roles, :func:`padded_tiles_plan`
+picks the ring's depth) for the first two, ``csrc/wn_block_padded_sm90.cu``
+(``wgmma``, TMA, one x window per K chunk; its ``STREAM`` and
+``STREAM_FINAL`` roles, :func:`padded_sm90_plan` picks the ring depths) for
+the stream pair.  The first design of all four (``csrc/wn_block_padded.cu``,
+f32 FMAs) stays reachable through :func:`first_design`:
 
 * :func:`wn_layer_padded` (``:104 wn_layer_padded``): the layer's own 2C
   slice ``cond_index`` of a pre-materialized ``cond_p`` that already holds
@@ -37,7 +40,7 @@ The JAX tile is 512 rows; the port's pad width is its own:
 :data:`BT_PAD` = 128, the largest dilation of the reference config
 (2^(L-1)), which also divides the smoke's T = 6400.  It is a layout
 constant, not a CUDA block's row tile (a first-design block covers 32
-rows, a ``wn_block_padded_sm90.cu`` block 64).
+rows, a block of either Hopper kernel 64).
 
 The plain versions of ``spect`` and ``stream`` are two implementations
 too: whole-array shifted matmuls against a walk over the pad tiles with a
@@ -69,6 +72,11 @@ LIB_SM90 = CudaLibrary("wn_block_padded_sm90", {
     "t2s_wn_stream_sm90": [_P] * 10 + [_I] * 10 + [_P],
     "t2s_wn_stream_final_sm90": [_P] * 12 + [_I] * 9 + [_P],
     "t2s_wn_padded_sm90_smem_bytes": [_I] * 5,
+})
+LIB_TILES = CudaLibrary("wn_block_padded_tiles_sm90", {
+    "t2s_wn_spect_tiles_sm90": [_P] * 10 + [_I] * 9 + [_P],
+    "t2s_wn_padded_tiles_sm90": [_P] * 8 + [_I] * 10 + [_P],
+    "t2s_wn_padded_tiles_sm90_smem_bytes": [_I] * 3,
 })
 
 F32 = torch.float32
@@ -311,6 +319,57 @@ def padded_sm90_plan(C: int, T: int, B: int, d: int,
 
 
 # ---------------------------------------------------------------------------
+# the launch plan of csrc/wn_block_padded_tiles_sm90.cu (its constants,
+# restated)
+# ---------------------------------------------------------------------------
+
+# A block is one consumer warpgroup of PADDED_TILES_BM = 64 rows and one
+# producer warp.  Its dynamic shared memory: 1 KB of alignment, the gated
+# tile [64, C] bf16, in the PADDED role a cond slot (the gate chunk's 64
+# tanh and 64 sigmoid columns of ``cond_p``, [64, 128] bf16), and ``nst``
+# ring stages of PADDED_TILES_STAGE bytes (a tap's or a spect [64, 64] box
+# and a [64, 128] weight tile); 2 MAX_ST + 2 mbarriers are static.
+PADDED_TILES_ROLES = {"spect": 0, "padded": 1}
+PADDED_TILES_BM = 64
+PADDED_TILES_STAGE = 64 * 64 * 2 + 2 * 64 * 64 * 2
+PADDED_TILES_CSLOT = 2 * 64 * 64 * 2
+PADDED_TILES_MAX_ST = 8
+PADDED_TILES_STATIC_SMEM = 8 * (2 * PADDED_TILES_MAX_ST + 2)
+
+
+def padded_tiles_smem_bytes(role: str, C: int, nst: int) -> int:
+    """Dynamic shared memory of one block (the kernel's ``tiles_smem``)."""
+    return (1024 + PADDED_TILES_BM * C * 2
+            + (PADDED_TILES_CSLOT if role == "padded" else 0)
+            + nst * PADDED_TILES_STAGE)
+
+
+def padded_tiles_plan(C: int, T: int, B: int, d: int,
+                      role: str = "spect") -> dict:
+    """The ring's depth of ``csrc/wn_block_padded_tiles_sm90.cu``'s ``role``
+    (a key of :data:`PADDED_TILES_ROLES`) for gate width ``C``, ``B``
+    utterances of ``T`` real rows and dilation ``d``: as many stages as fit
+    beside the gated tile (and the cond slot), up to eight, at least two.
+    The three tap boxes are 64 rows each at any ``d``, so the dilation
+    moves nothing here.  ``tiles`` is the count of 64-row tiles, which the
+    persistent grid walks.  Raises ValueError where two stages do not
+    fit in shared memory."""
+    if role not in PADDED_TILES_ROLES:
+        raise ValueError(f"no role {role!r} of the padded tiles kernel")
+    free = PADDED_SM90_SMEM_LIMIT - PADDED_TILES_STATIC_SMEM
+    nst = min(PADDED_TILES_MAX_ST,
+              (free - padded_tiles_smem_bytes(role, C, 0))
+              // PADDED_TILES_STAGE)
+    if nst < 2:
+        raise ValueError(f"the padded tiles kernel ({role}) does not fit "
+                         f"C={C} (dilation {d}) in {PADDED_SM90_SMEM_LIMIT} "
+                         f"bytes of shared memory")
+    return {"bm": PADDED_TILES_BM, "nst": nst,
+            "smem": padded_tiles_smem_bytes(role, C, nst),
+            "tiles": B * (T // PADDED_TILES_BM)}
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -345,7 +404,9 @@ def wn_layer_padded(xp, cond_p, w_in, b_in, w_rs, b_rs, dilation: int,
     pre-materialized conditioning -> (x_new, skip), padded.
 
     CUDA: bf16 ``xp`` [B, Tp, C], ``cond_p`` [B, Tp, 2C n_cond],
-    ``w_in`` [3, C, 2C], ``w_rs`` [C, 2C] or [C, C]; f32 biases."""
+    ``w_in`` [3, C, 2C], ``w_rs`` [C, 2C] or [C, C]; f32 biases; the
+    ``PADDED`` role of ``csrc/wn_block_padded_tiles_sm90.cu`` with
+    :func:`padded_tiles_plan`."""
     if _on_cpu(xp, cond_p, w_in, b_in, w_rs, b_rs):
         return wn_layer_padded_plain(xp, cond_p, w_in, b_in, w_rs, b_rs,
                                      dilation, cond_index, n_valid, bt)
@@ -366,12 +427,14 @@ def wn_layer_padded(xp, cond_p, w_in, b_in, w_rs, b_rs, dilation: int,
         ("w_rs", w_rs, (C, rs_out), bf), ("b_rs", b_rs, (rs_out,), F32),
     ):
         _check(name, t, shape, dt)
+    plan = padded_tiles_plan(C, Tp - 2 * bt, B, dilation, "padded")
     x_out, skip = torch.empty_like(xp), torch.empty_like(xp)
     wn_layer_padded.launches += 1
-    _run(LIB.get().t2s_wn_padded, xp.device, xp.data_ptr(), cond_p.data_ptr(),
-         w_in.data_ptr(), b_in.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(),
-         x_out.data_ptr(), skip.data_ptr(), B, Tp, bt, n_valid, C, n_cond,
-         cond_index, rs_out, dilation)
+    _run(LIB_TILES.get().t2s_wn_padded_tiles_sm90, xp.device, xp.data_ptr(),
+         cond_p.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
+         w_rs.data_ptr(), b_rs.data_ptr(), x_out.data_ptr(), skip.data_ptr(),
+         B, Tp, bt, n_valid, C, n_cond, cond_index, rs_out, dilation,
+         plan["nst"])
     return x_out, skip
 
 
@@ -413,7 +476,8 @@ def wn_layer_spect(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
     ``w_in`` [3, C, 2C], ``w_cond`` [M, 2C], ``w_rs`` [C, 2C] or [C, C];
     f32 biases.  The skip sum is updated IN PLACE on CUDA (the returned
     skip tensor is ``skip_acc``, as the TPU kernel aliases it); the plain
-    version returns a new tensor."""
+    version returns a new tensor.  CUDA: the ``SPECT`` role of
+    ``csrc/wn_block_padded_tiles_sm90.cu`` with :func:`padded_tiles_plan`."""
     if _on_cpu(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
                skip_acc):
         return wn_layer_spect_plain(xp, spect_p, w_in, b_in, w_cond, b_cond,
@@ -422,13 +486,14 @@ def wn_layer_spect(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs, b_rs,
     B, Tp, C, M, rs_out, n_valid = _spect_args(
         "wn_layer_spect", xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs,
         b_rs, skip_acc, dilation, n_valid, bt)
+    plan = padded_tiles_plan(C, Tp - 2 * bt, B, dilation, "spect")
     x_out = torch.empty_like(xp)
     wn_layer_spect.launches += 1
-    _run(LIB.get().t2s_wn_spect, xp.device, xp.data_ptr(),
+    _run(LIB_TILES.get().t2s_wn_spect_tiles_sm90, xp.device, xp.data_ptr(),
          spect_p.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
          w_cond.data_ptr(), b_cond.data_ptr(), w_rs.data_ptr(),
          b_rs.data_ptr(), skip_acc.data_ptr(), x_out.data_ptr(), B, Tp, bt,
-         n_valid, C, M, rs_out, dilation)
+         n_valid, C, M, rs_out, dilation, plan["nst"])
     return x_out, skip_acc
 
 
@@ -495,31 +560,44 @@ def wn_layer_stream_final(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs,
     return out
 
 
-FIRST_DESIGNS = ("wn_layer_stream", "wn_layer_stream_final")
+FIRST_DESIGNS = ("wn_layer_padded", "wn_layer_spect", "wn_layer_stream",
+                 "wn_layer_stream_final")
 
 
 def first_design(name: str, *args, n_valid: int | None = None):
-    """The first CUDA design of the stream pair (``csrc/wn_block_padded.cu``'s
-    ``t2s_wn_stream`` / ``t2s_wn_stream_final``: f32 FMAs, 32-row blocks,
-    the TPU's one-tile-behind grid), kept so that the sm90 kernel can be
-    timed and checked beside it on the same inputs; no path calls it.
-    ``name`` is ``"wn_layer_stream"`` or ``"wn_layer_stream_final"`` and the
-    arguments are that wrapper's (CUDA tensors, already checked by a call
-    of the wrapper; ``bt`` is :data:`BT_PAD`); the stream layer updates
-    ``skip_acc`` in place.  It counts no launch."""
+    """The first CUDA design of the four padded layers
+    (``csrc/wn_block_padded.cu``'s ``t2s_wn_padded``, ``t2s_wn_spect``,
+    ``t2s_wn_stream`` and ``t2s_wn_stream_final``: f32 FMAs, 32-row
+    blocks), kept so that the Hopper kernels can be timed and checked
+    beside it on the same inputs; no path calls it.  ``name`` is one of
+    :data:`FIRST_DESIGNS` and the arguments are that wrapper's (CUDA
+    tensors, already checked by a call of the wrapper; ``bt`` is
+    :data:`BT_PAD`); the spect and stream layers update ``skip_acc`` in
+    place.  It counts no launch."""
     if name not in FIRST_DESIGNS:
         raise ValueError(f"no first design of {name!r}")
-    xp, spect_p = args[0], args[1]
+    xp = args[0]
     B, Tp, C = xp.shape
-    M, bt = spect_p.shape[-1], BT_PAD
+    bt = BT_PAD
     n_valid = Tp - 2 * bt if n_valid is None else int(n_valid)
     lib = LIB.get()
+    if name == "wn_layer_padded":
+        cond_p, w_rs = args[1], args[4]
+        cond_index = int(args[7]) if len(args) > 7 else 0
+        x_out, skip = torch.empty_like(xp), torch.empty_like(xp)
+        _run(lib.t2s_wn_padded, xp.device, *(t.data_ptr() for t in args[:6]),
+             x_out.data_ptr(), skip.data_ptr(), B, Tp, bt, n_valid, C,
+             cond_p.shape[-1] // (2 * C), cond_index, w_rs.shape[-1],
+             int(args[6]))
+        return x_out, skip
+    M = args[1].shape[-1]
     ptrs = [t.data_ptr() for t in args[:-1]]
-    if name == "wn_layer_stream":
+    if name in ("wn_layer_spect", "wn_layer_stream"):
         skip_acc, w_rs = args[8], args[6]
         x_out = torch.empty_like(xp)
-        _run(lib.t2s_wn_stream, xp.device, *ptrs, x_out.data_ptr(), B, Tp,
-             bt, n_valid, C, M, w_rs.shape[-1], int(args[-1]))
+        fn = lib.t2s_wn_spect if name == "wn_layer_spect" else lib.t2s_wn_stream
+        _run(fn, xp.device, *ptrs, x_out.data_ptr(), B, Tp, bt, n_valid, C,
+             M, w_rs.shape[-1], int(args[-1]))
         return x_out, skip_acc
     E = args[9].shape[-1]
     out = torch.empty((B, Tp, E), dtype=F32, device=xp.device)
