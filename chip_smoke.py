@@ -179,8 +179,26 @@ Phases, each of which passes or raises (the script then exits non-zero):
     native WAV decoder built and used for every load, the port's npz
     feeder batching the output on the card, mel frames per second of each.
 
+27. data parallelism (``parallel/mesh.py``) at full width: on an NCCL
+    group of this one rank, a WaveGlow and a Tacotron training step
+    (``grad_accum`` 1 and 2, deterministic kernels) and ``infer_long`` of a
+    600-frame mel through the bf16 and the int8 fused vocoder, each bit for
+    bit its ``mesh=None`` call; then two processes on this card over gloo
+    (CUDA tensors): one WaveGlow step on a global batch of 4 x 16,000
+    samples (2 rows a rank, 96 + 96 gated launches each), the Tacotron
+    step at ``grad_accum`` 1 and 2 on 4 rows of unequal lengths and
+    ``infer_long(mesh=)`` with both fused vocoders (3 windows padded to 4,
+    12 / 72 / 12 WN launches a rank), each against the one-process call on
+    the card; ``python -m torch.distributed.run --nproc_per_node 2 -m
+    text2speech_tpu_torch.waveglow_train`` for 2 steps (one checkpoint)
+    and a resume to 3; a 2 x 2 (data x model) TP grid in four processes on
+    a 64-frame mel, bf16 and int8, against the one-process two-shard
+    server and the single-device fused vocoders, 96 (12 + 84) partial
+    launches a rank.  Gloo on one card copies through the host: the walls
+    measure correctness, not a rate.
+
 Phase 25 runs right after phase 7, phases 12-21 between it and phase 8,
-phases 22-24 after phase 11, phase 26 last.  The line before the last is a
+phases 22-24 after phase 11, phases 26 and 27 last.  The line before the last is a
 JSON object with one record per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Imports nothing of JAX.
 """
@@ -4218,6 +4236,615 @@ def tacotron_train_path(synth, info: str) -> None:
           f"{sum(secs.values()):.2f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 27: data parallelism over torch.distributed groups
+# ---------------------------------------------------------------------------
+
+# Two ranks against one process on the same global batch, both on this card
+# in f32 with TF32 off: the ranks sum the same products in another order
+# (each its rows, then one all-reduce).  WaveGlow: the loss, a mean of terms
+# of about 0.1, to 1e-6 absolute and the gradient norm to 1e-4 relative (the
+# bounds of phase 9); one Adam step moves a parameter by lr g / (|g| + eps),
+# which a difference in the last bits of g moves only where |g| is near eps:
+# 0.1 lr.  Tacotron: the JAX package's DP bounds
+# (tests/test_train_infra.py:80-85, 430): loss 1e-5 relative, parameters and
+# the BatchNorm running statistics 1e-5 absolute; the gradient norm 1e-4
+# relative.  Vocoding: a rank's window rows go through the same kernels at
+# another batch size, where a library call may sum in another order; the
+# audio is held to the main path's kernel-against-plain bounds.
+DP_LOSS_ATOL = 1e-6
+DP_GNORM_RTOL = 1e-4
+DP_PARAM_LR = 0.1
+DP_TACO_LOSS_RTOL = 1e-5
+DP_TACO_ATOL = 1e-5
+DP_TACO_B, DP_TACO_T_IN, DP_TACO_T_OUT = 4, 40, 96
+DP_LONG_FRAMES, DP_GRID_FRAMES = 600, 64
+
+DP_WORKER = r'''
+import json
+import sys
+import time
+
+import torch
+import torch.distributed as dist
+
+from text2speech_tpu_torch.parallel import mesh as pm
+
+role, port, world, rank, inp, out = (sys.argv[1], int(sys.argv[2]),
+                                     int(sys.argv[3]), int(sys.argv[4]),
+                                     sys.argv[5], sys.argv[6])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+assert pm.initialize_distributed(f"tcp://localhost:{port}", world, rank,
+                                 device="cuda")
+
+
+def timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def audio_err(got, want):
+    want = want.to(got.device)
+    return {"max_abs": (got - want).abs().max().item(),
+            "rel_l2": ((got - want).norm() / want.norm()).item(),
+            "peak": want.abs().max().item(), "shape": list(got.shape),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def checksum(tensors):
+    return float(sum(t.detach().double().sum().item() for t in tensors))
+
+
+def dp2(d):
+    from text2speech_tpu_torch.data.dataset import Batch
+    from text2speech_tpu_torch.data.mel2samp import VocoderBatch
+    from text2speech_tpu_torch.models import chunked
+    from text2speech_tpu_torch.models.tacotron2 import Tacotron2
+    from text2speech_tpu_torch.models.waveglow import (TrainableWaveGlow,
+                                                       WaveGlow)
+    from text2speech_tpu_torch.models.waveglow_fused import (
+        prepare_fused, prepare_fused_int8)
+    from text2speech_tpu_torch.ops import gated
+    from text2speech_tpu_torch.ops import wn_block as wb
+    from text2speech_tpu_torch.ops import wn_block_int8 as wq
+    from text2speech_tpu_torch.text import N_SYMBOLS
+    from text2speech_tpu_torch.train.state import (create_tacotron_state,
+                                                   create_train_state)
+    from text2speech_tpu_torch.train.tacotron import make_train_step
+    from text2speech_tpu_torch.train.waveglow import make_wg_train_step
+
+    mesh = pm.make_mesh()
+    res = {"mesh": [list(mesh.shape), mesh.rank()]}
+    cfg = d["wg_cfg"]
+    model = TrainableWaveGlow(cfg, device="cuda")
+    with torch.no_grad():
+        for n, p in model.params.items():
+            p.copy_(d["wg_params"][n])
+    state = create_train_state(model.params, cfg.learning_rate)
+    batch = VocoderBatch(*(t.cuda() for t in d["wg_batch"]))
+    step = make_wg_train_step(model, cfg.sigma, mesh=mesh)
+    gated.reset_launch_counts()
+    (_, m), wall = timed(lambda: step(state, batch))
+    ref = d["wg_ref"]
+    res["wg"] = {
+        "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+        "param_err": max((p.detach().cpu() - ref["params"][n]).abs().max()
+                         .item() for n, p in model.params.items()),
+        "checksum": checksum(model.params.values()),
+        "launches": gated.launch_counts(), "wall": wall}
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    hp = d["taco_hp"]
+    for ga in (1, 2):
+        model = Tacotron2(hp, N_SYMBOLS, device="cuda")
+        model.load_state_dict(d["taco_sd"])
+        state = create_tacotron_state(model, hp)
+        batch = Batch(*(t.cuda() for t in d["taco_batch"]))
+        step = make_train_step(model, hp, ga, mesh)
+        (_, m), wall = timed(lambda: step(
+            state, batch, torch.Generator(device="cuda").manual_seed(5)))
+        ref = d["taco_ref"][ga]
+        sd = model.state_dict()
+        stats = [n for n in sd if n.endswith(("running_mean",
+                                              "running_var"))]
+        res[f"taco{ga}"] = {
+            "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+            "stats_err": max((sd[n].cpu() - ref["sd"][n]).abs().max().item()
+                             for n in stats),
+            "param_err": max((sd[n].cpu() - ref["sd"][n]).abs().max().item()
+                             for n in sd if n not in stats),
+            "checksum": checksum(sd.values()), "wall": wall}
+        del model, state, step
+    torch.cuda.empty_cache()
+
+    wg = WaveGlow(d["voc_cfg"], device="cuda")
+    wg.load_state_dict(d["voc_sd"])
+    wg.eval()
+    mel = d["long_mel"].cuda()
+    noise = tuple(z.cuda() for z in d["long_noise"])
+    for tag, prep in (("bf16", prepare_fused), ("int8", prepare_fused_int8)):
+        fw = prep(wg)
+        wb.reset_launch_counts()
+        wq.reset_launch_counts()
+        with torch.inference_mode():
+            audio, wall = timed(lambda: chunked.infer_long(
+                fw, mel, d["sigma"], chunk_frames=256, noise=noise,
+                mesh=mesh))
+        res[f"long_{tag}"] = {**audio_err(audio, d["long_ref"][tag]),
+                              "launches": {**wb.launch_counts(),
+                                           **wq.launch_counts()},
+                              "wall": wall}
+        del fw
+    return res
+
+
+def grid(d):
+    from text2speech_tpu_torch.models.waveglow import WaveGlow
+    from text2speech_tpu_torch.parallel import tp
+
+    mesh = pm.make_mesh((2, 2), (pm.DATA_AXIS, pm.MODEL_AXIS))
+    res = {"coords": list(mesh.coords)}
+    wg = WaveGlow(d["voc_cfg"], device="cuda")
+    wg.load_state_dict(d["voc_sd"])
+    wg.eval()
+    mel = d["grid_mel"].cuda()
+    noise = tuple(z.cuda() for z in d["grid_noise"])
+    for tag, int8 in (("bf16", False), ("int8", True)):
+        server = tp.TPWaveGlowServer(wg, mesh=mesh, int8=int8)
+        tp.reset_launch_counts()
+        audio, wall = timed(lambda: server(mel, d["sigma"], noise=noise))
+        res[tag] = {"vs_tp": audio_err(audio, d["grid_ref"][tag]),
+                    "vs_fused": audio_err(audio, d["grid_fused"][tag]),
+                    "launches": tp.launch_counts(), "wall": wall,
+                    "ranks": server.ranks, "n_model": server.n_model}
+        del server
+    return res
+
+
+res = {"backend": dist.get_backend(), "device": str(pm.rank_device())}
+try:
+    d = torch.load(inp, weights_only=False, mmap=True)
+    res.update(dp2(d) if role == "dp2" else grid(d))
+    with open(out, "w") as f:
+        json.dump(res, f)
+finally:
+    pm.destroy_distributed()
+'''
+
+
+def run_ranks(role: str, world: int, inputs: str, d: str,
+              timeout: int = 300) -> list:
+    """``world`` processes of ``DP_WORKER`` on this card over one gloo group
+    (the ranks share the card); each writes its results as JSON.  Every
+    process is killed by ``timeout``."""
+    script = os.path.join(d, "dp_worker.py")
+    with open(script, "w", encoding="utf-8") as f:
+        f.write(DP_WORKER)
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    outs = [os.path.join(d, f"{role}{r}.json") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, script, role, str(port), str(world), str(r),
+         inputs, outs[r]], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    logs = []
+    try:
+        deadline = time.time() + timeout
+        for pr in procs:
+            out, _ = pr.communicate(timeout=max(1, deadline - time.time()))
+            logs.append(out)
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait(timeout=30)
+    if any(pr.returncode != 0 for pr in procs):
+        raise RuntimeError(f"{role} ranks failed: rc "
+                           f"{[pr.returncode for pr in procs]}\n"
+                           + "\n".join(log[-3000:] for log in logs))
+    results = []
+    for path in outs:
+        with open(path, encoding="utf-8") as f:
+            results.append(json.load(f))
+    return results
+
+
+def dp_taco_setup(hp):
+    """Seeded full-width Tacotron weights and a batch of 4 rows of unequal
+    lengths, on the CPU."""
+    from text2speech_tpu_torch.data.dataset import Batch
+    from text2speech_tpu_torch.models.tacotron2 import (Tacotron2,
+                                                        init_weights_)
+    from text2speech_tpu_torch.text import N_SYMBOLS
+
+    model = init_weights_(Tacotron2(hp, N_SYMBOLS),
+                          torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(6)
+    B, T_in, T_out = DP_TACO_B, DP_TACO_T_IN, DP_TACO_T_OUT
+    in_len = torch.tensor([40, 33, 27, 18], dtype=torch.int32)
+    out_len = torch.tensor([96, 80, 71, 50], dtype=torch.int32)
+    text = torch.randint(2, 70, (B, T_in), generator=g, dtype=torch.int32)
+    text = torch.where(torch.arange(T_in)[None] < in_len[:, None], text, 0)
+    valid = (torch.arange(T_out)[None] < out_len[:, None]).float()
+    mel = torch.randn(B, hp.n_mel_channels, T_out, generator=g) \
+        * valid[:, None]
+    gate = (torch.arange(T_out)[None] >= out_len[:, None] - 1).float()
+    batch = Batch(text, in_len, mel, gate, torch.zeros(B, dtype=torch.int32),
+                  out_len)
+    return model.state_dict(), batch
+
+
+def dp_wg_setup(cfg, files: str):
+    """Seeded full-width WaveGlow parameters (the ``end`` convs perturbed,
+    as phase 9) and a global batch of 4 x 16,000 samples from the corpus,
+    on the CPU."""
+    from text2speech_tpu_torch.data.mel2samp import (Mel2Samp, VocoderBatch,
+                                                     files_to_list)
+    from text2speech_tpu_torch.models.waveglow import TrainableWaveGlow
+
+    model = TrainableWaveGlow(
+        cfg, generator=torch.Generator().manual_seed(cfg.seed))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in sorted(model.params.items()):
+            if "/end/" in name:
+                p.add_(0.01 * torch.randn(p.shape, generator=g))
+    paths = files_to_list(files)
+    data = Mel2Samp(paths, cfg, device="cuda")
+    batch = data.make_batch(paths[:4], list(range(4)))
+    return ({n: p.detach().clone() for n, p in model.params.items()},
+            VocoderBatch(batch.mel.cpu(), batch.audio.cpu()))
+
+
+def dp_wg_step(cfg, params: dict, batch, grad_accum: int = 1, mesh=None):
+    """One step of a fresh trainable model from ``params`` on the card ->
+    (metrics, updated parameters on the CPU)."""
+    from text2speech_tpu_torch.data.mel2samp import VocoderBatch
+    from text2speech_tpu_torch.models.waveglow import TrainableWaveGlow
+    from text2speech_tpu_torch.train.state import create_train_state
+    from text2speech_tpu_torch.train.waveglow import make_wg_train_step
+
+    model = TrainableWaveGlow(cfg, device="cuda")
+    with torch.no_grad():
+        for n, p in model.params.items():
+            p.copy_(params[n])
+    state = create_train_state(model.params, cfg.learning_rate)
+    _, m = make_wg_train_step(model, cfg.sigma, grad_accum, mesh)(
+        state, VocoderBatch(*(t.cuda() for t in batch)))
+    return m, {n: p.detach().cpu() for n, p in model.params.items()}
+
+
+def dp_taco_step(hp, sd: dict, batch, grad_accum: int = 1, mesh=None):
+    """One step of a fresh full-width Tacotron from ``sd`` on the card,
+    masks from a generator seeded 5 -> (metrics, state dict on the CPU)."""
+    from text2speech_tpu_torch.data.dataset import Batch
+    from text2speech_tpu_torch.models.tacotron2 import Tacotron2
+    from text2speech_tpu_torch.text import N_SYMBOLS
+    from text2speech_tpu_torch.train.state import create_tacotron_state
+    from text2speech_tpu_torch.train.tacotron import make_train_step
+
+    model = Tacotron2(hp, N_SYMBOLS, device="cuda")
+    model.load_state_dict(sd)
+    state = create_tacotron_state(model, hp)
+    _, m = make_train_step(model, hp, grad_accum, mesh)(
+        state, Batch(*(t.cuda() for t in batch)),
+        torch.Generator(device="cuda").manual_seed(5))
+    return m, {n: t.cpu() for n, t in model.state_dict().items()}
+
+
+def dp_one_rank_nccl(cfg, wg_params, wg_batch, hp, taco_sd, taco_batch,
+                     synth, mel, noise) -> None:
+    """The distributed forms on an NCCL group of this one rank: the
+    WaveGlow and the Tacotron step (deterministic kernels) and
+    ``infer_long`` through both fused vocoders bit for bit those of
+    ``mesh=None``."""
+    from text2speech_tpu_torch.models import chunked
+    from text2speech_tpu_torch.models.waveglow_fused import prepare_fused_int8
+    from text2speech_tpu_torch.parallel import mesh as pm
+
+    assert pm.initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0,
+                                     device="cuda")
+    prev = (torch.backends.cudnn.deterministic,
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    try:
+        import torch.distributed as dist
+
+        mesh = pm.make_mesh()
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        same = {}
+        for ga in (1, 2):
+            (m0, p0), (m1, p1) = (dp_wg_step(cfg, wg_params, wg_batch, ga,
+                                             mk) for mk in (None, mesh))
+            same[f"waveglow grad_accum {ga}"] = (
+                all(torch.equal(m0[k], m1[k]) for k in m0)
+                and all(torch.equal(p0[n], p1[n]) for n in p0))
+        for ga in (1, 2):
+            (m0, s0), (m1, s1) = (dp_taco_step(hp, taco_sd, taco_batch, ga,
+                                               mk) for mk in (None, mesh))
+            same[f"tacotron grad_accum {ga}"] = (
+                all(torch.equal(m0[k], m1[k]) for k in m0)
+                and all(torch.equal(s0[n], s1[n]) for n in s0))
+        torch.backends.cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1], warn_only=prev[2])
+        with torch.inference_mode():
+            for tag, fw in (("bf16", synth.fused),
+                            ("int8", prepare_fused_int8(synth.waveglow))):
+                a = chunked.infer_long(fw, mel, SIGMA, chunk_frames=256,
+                                       noise=noise)
+                b = chunked.infer_long(fw, mel, SIGMA, chunk_frames=256,
+                                       noise=noise, mesh=mesh)
+                same[f"infer_long {tag}"] = torch.equal(a, b)
+        print(f"[dp] NCCL group of one rank ({dist.get_backend()}, "
+              f"{pm.rank_device()}), bit-equal to mesh=None: {same}")
+        if not all(same.values()):
+            raise RuntimeError(f"the one-rank distributed form differs from "
+                               f"mesh=None: {same}")
+    finally:
+        torch.backends.cudnn.deterministic = prev[0]
+        torch.use_deterministic_algorithms(prev[1], warn_only=prev[2])
+        pm.destroy_distributed()
+
+
+def dp_check_two_ranks(res: list, ref_wg, cfg, ref_taco, wg_cfg,
+                       info: str) -> None:
+    """Phase 27's two ranks against the one-process numbers."""
+    n = cfg.n_flows * cfg.wn_n_layers
+    for r, out in enumerate(res):
+        if out["backend"] != "gloo" or out["mesh"] != [[2], r]:
+            raise RuntimeError(f"rank {r}: {out['backend']} {out['mesh']}")
+        w = out["wg"]
+        print(f"[dp] rank {r} WaveGlow step (global batch 4 x 16,000, 2 "
+              f"rows here): loss {w['loss']:.8g} vs one process "
+              f"{ref_wg[0]:.8g} (bound {DP_LOSS_ATOL}), grad norm "
+              f"{w['grad_norm']:.8g} vs {ref_wg[1]:.8g} (bound "
+              f"{DP_GNORM_RTOL} relative), updated parameters max-abs "
+              f"{w['param_err']:.3g} (bound {DP_PARAM_LR * cfg.learning_rate:.3g}"
+              f"); gated launches {w['launches']}; wall {w['wall']:.3f} s "
+              f"({info})")
+        if w["launches"] != {"gated_fwd": n, "gated_bwd": n} or \
+                abs(w["loss"] - ref_wg[0]) > DP_LOSS_ATOL or \
+                abs(w["grad_norm"] - ref_wg[1]) > DP_GNORM_RTOL * ref_wg[1] \
+                or w["param_err"] > DP_PARAM_LR * cfg.learning_rate:
+            raise RuntimeError(f"rank {r}: the data-parallel WaveGlow step "
+                               f"differs from the one-process step")
+        for ga in (1, 2):
+            t = out[f"taco{ga}"]
+            rl, rn = ref_taco[ga]
+            print(f"[dp] rank {r} Tacotron step grad_accum {ga} (global "
+                  f"batch {DP_TACO_B} x {DP_TACO_T_OUT} frames): loss "
+                  f"{t['loss']:.8g} vs {rl:.8g} (bound {DP_TACO_LOSS_RTOL} "
+                  f"relative), grad norm {t['grad_norm']:.8g} vs {rn:.8g} "
+                  f"(bound {DP_GNORM_RTOL} relative), BatchNorm statistics "
+                  f"max-abs {t['stats_err']:.3g}, parameters "
+                  f"{t['param_err']:.3g} (bound {DP_TACO_ATOL}); wall "
+                  f"{t['wall']:.3f} s ({info})")
+            if abs(t["loss"] - rl) > DP_TACO_LOSS_RTOL * abs(rl) or \
+                    abs(t["grad_norm"] - rn) > DP_GNORM_RTOL * rn or \
+                    max(t["stats_err"], t["param_err"]) > DP_TACO_ATOL:
+                raise RuntimeError(f"rank {r}: the data-parallel Tacotron "
+                                   f"step differs from the one-process step")
+        for tag, int8 in (("bf16", False), ("int8", True)):
+            a = out[f"long_{tag}"]
+            steps, rel = ((E2E_INT8_MAX_ABS_STEPS, E2E_INT8_REL_L2) if int8
+                          else (E2E_MAX_ABS_STEPS, E2E_REL_L2))
+            per_vocode = want_counts(wg_cfg, int8)
+            want = {k: per_vocode.get(k, 0) for k in a["launches"]}
+            print(f"[dp] rank {r} infer_long {tag}, {DP_LONG_FRAMES} frames "
+                  f"(3 windows padded to 4, 2 here) vs one process: max_abs "
+                  f"{a['max_abs']:.6g} (bound {steps * a['peak']:.4g}), "
+                  f"rel_l2 {a['rel_l2']:.4g} (bound {rel}); WN launches "
+                  f"{ {k: v for k, v in a['launches'].items() if v} }; wall "
+                  f"{a['wall'] * 1e3:.1f} ms ({info})")
+            if not a["finite"] or a["shape"] != [1, DP_LONG_FRAMES * wg_cfg.
+                                                  upsample_stride] or \
+                    a["max_abs"] > steps * a["peak"] or a["rel_l2"] > rel \
+                    or a["launches"] != want:
+                raise RuntimeError(f"rank {r}: infer_long(mesh=) {tag} out "
+                                   f"of bounds")
+    for key in ("wg", "taco1", "taco2"):
+        if res[0][key]["checksum"] != res[1][key]["checksum"]:
+            raise RuntimeError(f"the two ranks' {key} states differ")
+
+
+def dp_check_grid(res: list, wg_cfg, info: str) -> None:
+    """The 2 x 2 grid's four ranks against the one-process TP server and
+    the single-device fused vocoder."""
+    F, L = wg_cfg.n_flows, wg_cfg.wn_n_layers
+    for r, out in enumerate(res):
+        if out["backend"] != "gloo" or out["coords"] != [r // 2, r % 2]:
+            raise RuntimeError(f"rank {r}: {out['backend']} "
+                               f"{out['coords']}")
+        for tag, int8 in (("bf16", False), ("int8", True)):
+            g = out[tag]
+            steps, rel = ((E2E_INT8_MAX_ABS_STEPS, E2E_INT8_REL_L2) if int8
+                          else (E2E_MAX_ABS_STEPS, E2E_REL_L2))
+            want = ({"wn_layer_partial": F,
+                     "wn_layer_partial_int8": F * (L - 1)} if int8 else
+                    {"wn_layer_partial": F * L, "wn_layer_partial_int8": 0})
+            bad = []
+            for ref in ("vs_tp", "vs_fused"):
+                e = g[ref]
+                print(f"[dp] grid rank {r} (data {r // 2}, model {r % 2}) "
+                      f"{tag} {ref}: max_abs {e['max_abs']:.6g} (bound "
+                      f"{steps * e['peak']:.4g}), rel_l2 {e['rel_l2']:.4g} "
+                      f"(bound {rel})")
+                if not e["finite"] or e["max_abs"] > steps * e["peak"] or \
+                        e["rel_l2"] > rel:
+                    bad.append(ref)
+            print(f"[dp] grid rank {r} {tag}: shard {g['ranks']} of "
+                  f"{g['n_model']}, launches {g['launches']} (want {want}), "
+                  f"wall {g['wall'] * 1e3:.1f} ms ({info})")
+            if bad or g["launches"] != want or \
+                    g["ranks"] != [r % 2] or g["n_model"] != 2:
+                raise RuntimeError(f"grid rank {r} {tag}: {bad or 'counts'}")
+
+
+def timed_lines(cmd: list, timeout: int) -> tuple:
+    """Run ``cmd`` from the repository's root -> (exit code, [(seconds
+    since the start, line)] of its merged output, wall seconds); killed
+    after ``timeout``."""
+    t0 = time.perf_counter()
+    pr = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    killer = threading.Timer(timeout, pr.kill)
+    killer.start()
+    try:
+        lines = [(time.perf_counter() - t0, line.rstrip())
+                 for line in pr.stdout]
+        pr.wait()
+    finally:
+        killer.cancel()
+        if pr.poll() is None:
+            pr.kill()
+            pr.wait(timeout=30)
+    return pr.returncode, lines, time.perf_counter() - t0
+
+
+def dp_torchrun(files: str, d: str, info: str) -> None:
+    """``python -m torch.distributed.run --nproc_per_node 2 -m
+    text2speech_tpu_torch.waveglow_train`` for 2 steps at full width (C
+    = 512, M = 640; 2 flows of 4 layers, global batch 4), then a resume to
+    3: exactly one checkpoint after the first, the second picks it up."""
+    cfg_path = os.path.join(d, "dp_wg.json")
+    with open(cfg_path, "w", encoding="utf-8") as f:
+        json.dump({"train_config": {"batch_size": 4,
+                                    "iters_per_checkpoint": 1000},
+                   "waveglow_config": {"n_flows": 2,
+                                       "WN_config": {"n_layers": 4}}}, f)
+    out = os.path.join(d, "dp_ckpt")
+    runs = []
+    for steps in (2, 3):
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "2", "--master_port", str(free_port()),
+               "-m", "text2speech_tpu_torch.waveglow_train", "-c", cfg_path,
+               "--training_files", files, "--output_directory", out,
+               "--num_steps", str(steps)]
+        rc, lines, wall = timed_lines(cmd, 300)
+        ckpts = sorted(f for f in os.listdir(out) if f.endswith(".pt")) \
+            if os.path.isdir(out) else []
+        text = "\n".join(line for _, line in lines)
+        marks = [f"{t:.1f} s {line[:90]}" for t, line in lines
+                 if "distributed: process" in line or "Resumed" in line]
+        print(f"[dp] torchrun --nproc_per_node 2 waveglow_train --num_steps "
+              f"{steps}: rc {rc}, checkpoints {ckpts}, wall {wall:.2f} s "
+              f"({info}); {marks}; last line at "
+              f"{lines[-1][0] if lines else 0:.1f} s")
+        if rc != 0:
+            raise RuntimeError(f"torchrun waveglow_train failed:\n"
+                               f"{text[-4000:]}")
+        runs.append((ckpts, text))
+    (first, t1), (second, t2) = runs
+    if first != ["ckpt_00000002.pt"] or \
+            second != ["ckpt_00000002.pt", "ckpt_00000003.pt"] or \
+            "distributed: process 1/2 (gloo, cuda:0)" not in t1 or \
+            "Resumed WaveGlow from step 2" not in t2:
+        raise RuntimeError("torchrun waveglow_train: wrong checkpoints or no "
+                           "resume")
+
+
+def dp_path(synth, info: str) -> None:
+    """Phase 27: data parallelism on this card.  An NCCL group of one rank
+    (bit-equal to ``mesh=None``); two processes over gloo (a WaveGlow and
+    a Tacotron step, ``infer_long`` with both fused vocoders) against one
+    process; ``torchrun`` of the WaveGlow trainer; a 2 x 2 TP grid.  Gloo
+    on one card copies through the host: the walls measure correctness
+    only, no rate."""
+    from text2speech_tpu_torch.config import HParams, WaveGlowConfig
+    from text2speech_tpu_torch.models import chunked
+    from text2speech_tpu_torch.models.waveglow_fused import prepare_fused_int8
+    from text2speech_tpu_torch.parallel import tp
+
+    cfg, hp, wg_cfg = WaveGlowConfig(), HParams(), synth.wg_cfg
+    secs = {}
+
+    def part(tag, fn):
+        out, secs[tag] = sync_time(fn)
+        return out
+
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    mel = torch.randn(1, wg_cfg.n_mel_channels, DP_LONG_FRAMES,
+                      generator=gen, device="cuda")
+    gpf = wg_cfg.upsample_stride // wg_cfg.n_group
+    noise = chunked.draw_noise(wg_cfg, gen, 1, DP_LONG_FRAMES * gpf)
+    with tempfile.TemporaryDirectory() as d:
+        files = write_corpus(d, cfg)
+        wg_params, wg_batch = part("setup", lambda: dp_wg_setup(cfg, files))
+        taco_sd, taco_batch = dp_taco_setup(hp)
+        part("one-rank NCCL", lambda: dp_one_rank_nccl(
+            cfg, wg_params, wg_batch, hp, taco_sd, taco_batch, synth, mel,
+            noise))
+
+        def references():
+            m, p = dp_wg_step(cfg, wg_params, wg_batch)
+            taco = {}
+            for ga in (1, 2):
+                tm, sd = dp_taco_step(hp, taco_sd, taco_batch, ga)
+                taco[ga] = (tm, sd)
+            with torch.inference_mode():
+                long_ref = {
+                    tag: chunked.infer_long(fw, mel, SIGMA, chunk_frames=256,
+                                            noise=noise).cpu()
+                    for tag, fw in (("bf16", synth.fused),
+                                    ("int8", prepare_fused_int8(
+                                        synth.waveglow)))}
+            return m, p, taco, long_ref
+
+        m, p, taco, long_ref = part("one-process references", references)
+        inputs = os.path.join(d, "dp_inputs.pt")
+        torch.save({
+            "wg_cfg": cfg, "wg_params": wg_params, "wg_batch": wg_batch,
+            "wg_ref": {"params": p}, "taco_hp": hp, "taco_sd": taco_sd,
+            "taco_batch": taco_batch,
+            "taco_ref": {ga: {"sd": sd} for ga, (_, sd) in taco.items()},
+            "voc_cfg": wg_cfg, "voc_sd": {k: v.cpu() for k, v in
+                                          synth.waveglow.state_dict().items()},
+            "long_mel": mel.cpu(), "long_noise": tuple(z.cpu() for z in noise),
+            "long_ref": long_ref, "sigma": SIGMA}, inputs)
+        res = part("two ranks", lambda: run_ranks("dp2", 2, inputs, d))
+        dp_check_two_ranks(
+            res, (m["loss"].item(), m["grad_norm"].item()), cfg,
+            {ga: (tm["loss"].item(), tm["grad_norm"].item())
+             for ga, (tm, _) in taco.items()}, wg_cfg, info)
+        part("torchrun", lambda: dp_torchrun(files, d, info))
+
+        g = torch.Generator(device="cuda").manual_seed(28)
+        gmel = torch.randn(2, wg_cfg.n_mel_channels, DP_GRID_FRAMES,
+                           generator=g, device="cuda")
+        gnoise = chunked.draw_noise(wg_cfg, g, 2, DP_GRID_FRAMES * gpf)
+        int8_fused = prepare_fused_int8(synth.waveglow)
+        with torch.inference_mode():
+            grid_ref = {tag: tp.TPWaveGlowServer(synth.waveglow, 2,
+                                                 int8=int8)(
+                gmel, SIGMA, noise=gnoise).cpu()
+                for tag, int8 in (("bf16", False), ("int8", True))}
+            grid_fused = {
+                "bf16": synth.fused.infer(gmel, SIGMA, noise=gnoise).cpu(),
+                "int8": int8_fused.infer(gmel, SIGMA, noise=gnoise).cpu()}
+        del int8_fused
+        torch.save({"voc_cfg": wg_cfg,
+                    "voc_sd": {k: v.cpu() for k, v in
+                               synth.waveglow.state_dict().items()},
+                    "grid_mel": gmel.cpu(),
+                    "grid_noise": tuple(z.cpu() for z in gnoise),
+                    "grid_ref": grid_ref, "grid_fused": grid_fused,
+                    "sigma": SIGMA}, inputs)
+        res = part("2 x 2 grid", lambda: run_ranks("grid", 4, inputs, d))
+        dp_check_grid(res, wg_cfg, info)
+    torch.cuda.empty_cache()
+    print(f"[time] phase 27 parts, seconds: "
+          f"{ {k: round(v, 2) for k, v in secs.items()} }; in all "
+          f"{sum(secs.values()):.2f} ({info})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -4316,6 +4943,8 @@ def main() -> int:
     tacotron_train_path(bf16["synth"], info)
     print(f"[time] phase 26: {sync_time(lambda: preprocess_path(info))[1]:.2f}"
           f" s")
+    print(f"[time] phase 27: "
+          f"{sync_time(lambda: dp_path(bf16['synth'], info))[1]:.2f} s")
 
     launches = {**{n: bf16["launches"][n] for n in list(KERNELS)[:3]},
                 **{n: int8_launches[n] for n in list(KERNELS)[3:]},

@@ -2065,3 +2065,131 @@ def test_tacotron_bf16_remat_step_on_the_card(dev, deterministic):
     assert torch.allclose(out[0][0], out[1][0], rtol=1e-6)
     for a, b in zip(out[0][1], out[1][1]):
         assert torch.allclose(a, b, rtol=1e-4, atol=1e-6)
+
+
+# --- data parallelism: the one-rank NCCL form --------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    """A data mesh of this one process over an NCCL group (the
+    distributed form with one rank: every collective runs and adds
+    nothing)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from text2speech_tpu_torch.parallel import mesh as pm
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    assert pm.initialize_distributed(f"tcp://localhost:{port}", 1, 0,
+                                     device="cuda")
+    assert dist.get_backend() == "nccl"
+    yield pm.make_mesh()
+    pm.destroy_distributed()
+
+
+@pytest.mark.parametrize("ga", [1, 2])
+def test_one_rank_nccl_waveglow_step_equals_mesh_none(dev, deterministic,
+                                                      nccl_mesh, ga):
+    """``make_wg_train_step(mesh=)`` on a one-rank NCCL group: loss, norm
+    and every updated parameter bit for bit those of ``mesh=None``, with
+    the gated kernels launched in both."""
+    from text2speech_tpu_torch.data.mel2samp import VocoderBatch
+    from text2speech_tpu_torch.ops import gated
+    from text2speech_tpu_torch.train.state import create_train_state
+    from text2speech_tpu_torch.train.waveglow import make_wg_train_step
+
+    out = []
+    for mesh in (None, nccl_mesh):
+        cfg, model, mel, audio = _tiny_trainable(dev)
+        state = create_train_state(model.params, 1e-3)
+        gated.reset_launch_counts()
+        _, m = make_wg_train_step(model, cfg.sigma, ga, mesh)(
+            state, VocoderBatch(mel, audio))
+        assert all(gated.launch_counts().values())
+        out.append((m, {n: p.detach().clone()
+                        for n, p in model.params.items()}))
+    (m0, p0), (m1, p1) = out
+    assert torch.equal(m0["loss"], m1["loss"])
+    assert torch.equal(m0["grad_norm"], m1["grad_norm"])
+    assert all(torch.equal(p0[n], p1[n]) for n in p0)
+
+
+@pytest.mark.parametrize("ga", [1, 2])
+def test_one_rank_nccl_tacotron_step_equals_mesh_none(dev, deterministic,
+                                                      nccl_mesh, ga):
+    """``make_train_step(mesh=)`` on a one-rank NCCL group, masks drawn
+    from a generator seeded alike: metrics, parameters and the BatchNorm
+    running statistics (taken through the group's all-reduce) bit for bit
+    those of ``mesh=None``."""
+    from text2speech_tpu_torch.data.dataset import Batch
+    from text2speech_tpu_torch.models.tacotron2 import Tacotron2
+    from text2speech_tpu_torch.train.state import create_tacotron_state
+    from text2speech_tpu_torch.train.tacotron import make_train_step
+
+    hp, base, (text, in_len, mel, out_len, gate), _ = _small_tacotron()
+    batch = Batch(text.to(dev), in_len.to(dev), mel.to(dev), gate.to(dev),
+                  torch.zeros(4, dtype=torch.int32, device=dev),
+                  out_len.to(dev))
+    out = []
+    for mesh in (None, nccl_mesh):
+        m = Tacotron2(hp, 80, device=dev)
+        m.load_state_dict(base.state_dict())
+        state = create_tacotron_state(m, hp)
+        _, metrics = make_train_step(m, hp, ga, mesh)(
+            state, batch, torch.Generator(device=dev).manual_seed(4))
+        out.append((metrics, {n: t.clone() for n, t in
+                              m.state_dict().items()}))
+    (m0, s0), (m1, s1) = out
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)
+    assert all(torch.equal(s0[n], s1[n]) for n in s0)
+
+
+def test_one_rank_nccl_infer_long_equals_mesh_none(dev, nccl_mesh):
+    """``infer_long(mesh=)`` on a one-rank NCCL group through the bf16 and
+    the int8 kernel vocoders: the audio of ``mesh=None`` bit for bit."""
+    from text2speech_tpu_torch.models import chunked
+    from text2speech_tpu_torch.models.waveglow_fused import (
+        prepare_fused, prepare_fused_int8)
+
+    model, cfg = small_waveglow(dev)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    mel = torch.randn(1, 16, 300, generator=gen, device="cuda")
+    noise = chunked.draw_noise(cfg, gen, 1, 300 * 2)
+    for fw in (prepare_fused(model), prepare_fused_int8(model)):
+        kw = dict(sigma=0.7, chunk_frames=64, overlap_frames=32,
+                  noise=noise)
+        with torch.inference_mode():
+            a = chunked.infer_long(fw, mel, **kw)
+            b = chunked.infer_long(fw, mel, mesh=nccl_mesh, **kw)
+        assert a.shape == (1, 300 * 16) and torch.isfinite(a).all()
+        assert torch.equal(a, b)
+
+
+def test_inference_cli_plot_dir_writes_both_pngs(dev, tmp_path, capsys):
+    """``inference.main`` with ``--plot_dir`` on random weights: the WAV
+    and ``{stem}_alignment.png`` / ``{stem}_mel.png``; where matplotlib is
+    not installed, the flag is refused (exit 2, naming it) before anything
+    is synthesized."""
+    import importlib.util
+    import os
+
+    from text2speech_tpu_torch import inference
+
+    out = tmp_path / "cli.wav"
+    argv = ["--random_init", "0", "--fused_vocoder", "--max_steps", "40",
+            "--out", str(out), "--plot_dir", str(tmp_path / "plots")]
+    if importlib.util.find_spec("matplotlib") is None:
+        with pytest.raises(SystemExit) as e:
+            inference.main(argv)
+        assert e.value.code == 2
+        assert "--plot_dir draws with matplotlib" in capsys.readouterr().err
+        assert not out.exists()
+        return
+    inference.main(argv)
+    assert out.exists()
+    assert sorted(os.listdir(tmp_path / "plots")) == [
+        "cli_alignment.png", "cli_mel.png"]

@@ -235,7 +235,8 @@ def test_port_imports_with_jax_blocked():
         "          'train.tacotron', 'train.state', 'data.dataset',\n"
         "          'data.npz_dataset', 'utils.run_dirs', 'utils.infolog',\n"
         "          'tacotron_train', 'waveglow_inference', 'mel2samp',\n"
-        "          'data.preprocess', 'native', 'preprocess'):\n"
+        "          'data.preprocess', 'native', 'preprocess',\n"
+        "          'parallel.mesh', 'utils.plotting'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )

@@ -16,7 +16,9 @@ vocoder, by Griffin-Lim on the mel (``--griffin_lim_iters``, default 60);
 checkpoint exists (noise, but the whole path runs).
 ``--stream`` decodes in chunks and writes each piece of audio as soon as it
 clears the vocoder's receptive field (the first after about one chunk, not
-the whole decode).
+the whole decode).  ``--plot_dir DIR`` also draws the attention alignment
+and the mel of an offline synthesis (vocoder or Griffin-Lim) into
+``DIR/<stem of --out>_alignment.png`` and ``_mel.png``.
 
 ``--serve_slots N`` serves through the continuous-batching server
 (:mod:`.server`): the lines of ``--texts_file`` (default: ``--text``) are the
@@ -73,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sample_rate", type=int, default=22050)
     p.add_argument("--hparams", default=None)
     p.add_argument("--waveglow_config", default=None)
+    p.add_argument("--plot_dir", default=None,
+                   help="also render alignment + mel plots here "
+                   "(reference inference.py:88-90 diagnostics)")
     p.add_argument("--max_steps", type=int, default=None,
                    help="decoder steps (default: hparams max_decoder_steps)")
     p.add_argument("--stream", action="store_true",
@@ -125,8 +130,9 @@ def synthesize_griffin_lim(args, hp, wg_cfg, device, keep_masks=None,
     ``inference.py``'s chain: ``dynamic_range_decompression``, max(1e-10,
     pinv(offline mel basis) @ .), ``** hp.power``, ``griffin_lim`` of
     ``--griffin_lim_iters`` rounds from a generator seeded 0 (or from
-    ``phase``); writes ``--out`` and returns (the waveform [hop (T - 1)]
-    f32, the mel's frame count T).
+    ``phase``); writes ``--out`` (and with ``--plot_dir`` the alignment and
+    the mel) and returns (the waveform [hop (T - 1)] f32, the mel's frame
+    count T).
     ``keep_masks`` are the decoder's prenet masks (a test hands the JAX
     package's)."""
     from .dsp.audio import griffin_lim, mel_to_linear, save_wav
@@ -142,10 +148,11 @@ def synthesize_griffin_lim(args, hp, wg_cfg, device, keep_masks=None,
     synth = Synthesizer(hp, taco.eval(), wg_cfg,
                         WaveGlow(wg_cfg, device=device).eval(),
                         use_denoiser=False)
-    mel, lengths = synth.text_to_mel([args.text], max_steps=args.max_steps,
-                                     speaker_id=args.speaker_id,
-                                     keep_masks=keep_masks)
+    mel, lengths, align = synth.text_to_mel(
+        [args.text], max_steps=args.max_steps, speaker_id=args.speaker_id,
+        keep_masks=keep_masks, with_align=True)
     frames = int(lengths[0])
+    draw_plots(args, mel, align, frames)
     if frames < 2:      # the inverse STFT of one frame has no samples
         raise ValueError(f"the decoder stopped after {frames} frame(s): "
                          f"Griffin-Lim needs two or more")
@@ -156,6 +163,39 @@ def synthesize_griffin_lim(args, hp, wg_cfg, device, keep_masks=None,
                       phase=phase)[0].cpu().numpy()
     save_wav(wav, args.out, args.sample_rate)
     return wav, frames
+
+
+def draw_plots(args, mel: torch.Tensor, align: torch.Tensor,
+               frames: int) -> None:
+    """With ``--plot_dir``: the first row's alignment and mel, cut to
+    ``frames``, as root ``inference.py`` draws them."""
+    if not args.plot_dir:
+        return
+    from .utils.plotting import save_plots
+
+    paths = save_plots(args.plot_dir, args.out,
+                       mel[0, :, :frames].float().cpu().numpy(),
+                       align[0, :frames].float().cpu().numpy(), args.text)
+    print(f"wrote {' '.join(paths)}")
+
+
+def synthesize_offline(args, synth):
+    """The vocoder path of one text: ``text_to_mel`` (with the alignment,
+    for ``--plot_dir``), the vocoder and the denoiser, as
+    ``Synthesizer.synthesize``; writes ``--out`` and returns the waveform
+    [frames * hop] f32."""
+    from .dsp.audio import save_wav
+
+    mel, lengths, align = synth.text_to_mel(
+        [args.text], max_steps=args.max_steps, speaker_id=args.speaker_id,
+        with_align=True)
+    frames = int(lengths[0])
+    audio = synth.mel_to_audio(mel[:, :, :frames].contiguous(), args.sigma,
+                               denoiser_strength=args.denoiser_strength)
+    wav = audio[0, :frames * synth.wg_cfg.upsample_stride].cpu().numpy()
+    save_wav(wav, args.out, args.sample_rate)
+    draw_plots(args, mel, align, frames)
+    return wav
 
 
 def serve_batch(args, srv) -> None:
@@ -248,6 +288,12 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if args.waveglow_checkpoint and not args.taco_checkpoint:
         parser.error("--waveglow_checkpoint needs --taco_checkpoint")
+    if args.plot_dir:
+        import importlib.util
+
+        if importlib.util.find_spec("matplotlib") is None:
+            parser.error("--plot_dir draws with matplotlib, which is not "
+                         "installed")
     if not torch.cuda.is_available():
         raise RuntimeError("text2speech_tpu_torch.inference needs a CUDA GPU "
                            "(no CUDA device is visible)")
@@ -320,11 +366,7 @@ def main(argv=None) -> None:
         print(f"wrote {args.out} ({wav.shape[0]} samples at "
               f"{args.sample_rate} Hz, streamed in {len(chunks)} chunks)")
         return
-    (wav,) = synth.synthesize_to_files(
-        [args.text], [args.out], sample_rate=args.sample_rate,
-        sigma=args.sigma,
-        denoiser_strength=args.denoiser_strength, max_steps=args.max_steps,
-        speaker_id=args.speaker_id)
+    wav = synthesize_offline(args, synth)
     print(f"wrote {args.out} ({wav.shape[0]} samples at "
           f"{args.sample_rate} Hz)")
 

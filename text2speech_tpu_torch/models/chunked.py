@@ -22,9 +22,14 @@ interiors are concatenated.  Why the result equals a single pass:
 The windows go through whichever vocoder the caller holds: the plain f32
 ``WaveGlow`` or prepared fused weights of the bf16 or the int8 kernel path
 (each has ``cfg`` and ``infer``); a window batch is an ordinary batch to
-the kernels.  Sharding the window batch over several
-GPUs (the JAX ``mesh=`` branch, ``chunked.py:185-220``) is not ported yet:
-it belongs to the multi-GPU slice.
+the kernels.
+
+``mesh=`` shards the window batch over a data-parallel group
+(``chunked.py:185-220``): the window count is padded to a multiple of the
+data ranks with copies of the last window, each rank assembles and vocodes
+its own contiguous block of windows, and the windows' audio is gathered,
+so every rank returns the one-process result.  Sequence parallelism: one
+long utterance's frame axis spread over the cards.
 """
 
 from __future__ import annotations
@@ -71,7 +76,8 @@ def receptive_overlap_frames(cfg: WaveGlowConfig) -> int:
 def infer_long(vocoder, spect: torch.Tensor, sigma: float = 1.0,
                chunk_frames: int = 256, overlap_frames: int | None = None,
                noise: tuple | None = None,
-               generator: torch.Generator | None = None) -> torch.Tensor:
+               generator: torch.Generator | None = None,
+               mesh=None) -> torch.Tensor:
     """mel [B, n_mel, frames] -> audio [B, frames * hop], chunked on frames.
 
     All windows have the same width (``chunk + 2 * overlap`` frames), so
@@ -83,7 +89,13 @@ def infer_long(vocoder, spect: torch.Tensor, sigma: float = 1.0,
     ``prepare_fused_int8``).  ``overlap_frames`` defaults to
     :func:`receptive_overlap_frames`; a smaller value trades seam exactness
     for compute.  ``noise`` gives the full-utterance draws
-    (:func:`draw_noise`); otherwise they come from ``generator``."""
+    (:func:`draw_noise`); otherwise they come from ``generator``.
+
+    ``mesh`` (:class:`..parallel.mesh.Mesh`): shard the stacked windows
+    over its ``'data'`` ranks.  Every rank passes the same mel and the same
+    noise (or generators seeded alike) and gets the whole audio.  An
+    utterance of one window takes the single pass, unsharded, as in the
+    JAX package."""
     cfg = vocoder.cfg
     if overlap_frames is None:
         overlap_frames = receptive_overlap_frames(cfg)
@@ -104,12 +116,26 @@ def infer_long(vocoder, spect: torch.Tensor, sigma: float = 1.0,
     starts = [i * chunk_frames for i in range(n_windows)]
     win_starts = [min(max(s - overlap_frames, 0), frames - width)
                   for s in starts]
-    mel_w = torch.cat([spect[:, :, ws: ws + width] for ws in win_starts])
+    n_pad = n_windows
+    mine = slice(0, n_windows)
+    if mesh is not None:
+        from ..parallel.mesh import row_block
+
+        nd = mesh.size()
+        n_pad = -(-n_windows // nd) * nd
+        mine = row_block(n_pad, mesh)
+    # window-major rows (w * B + b): rank r's rows are its windows' block
+    pad_starts = (win_starts + [win_starts[-1]] * (n_pad - n_windows))[mine]
+    mel_w = torch.cat([spect[:, :, ws: ws + width] for ws in pad_starts])
     noise_w = tuple(
-        torch.cat([z[:, ws * gpf: (ws + width) * gpf] for ws in win_starts])
+        torch.cat([z[:, ws * gpf: (ws + width) * gpf] for ws in pad_starts])
         for z in noise)
     audio_w = vocoder.infer(mel_w, sigma, noise=noise_w)
-    audio_w = audio_w.reshape(n_windows, B, width * hop)
+    if mesh is not None:
+        from ..parallel.mesh import gather_rows
+
+        audio_w = gather_rows(audio_w, mesh)
+    audio_w = audio_w.reshape(n_pad, B, width * hop)
 
     pieces = []
     for i, (s, ws) in enumerate(zip(starts, win_starts)):

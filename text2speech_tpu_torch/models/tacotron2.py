@@ -16,7 +16,9 @@ Training follows flax, not ``torch.nn``'s habits:
   (padded frames included), with the biased variance ``E[x^2] - E[x]^2``
   in f32, and updates the running statistics as ``0.9 running + 0.1
   batch`` (the biased variance there too; ``F.batch_norm`` would store the
-  unbiased one);
+  unbiased one).  Under a data-parallel group (:func:`sync_batch_norm`)
+  those statistics are the global batch's, as they are under jit over a
+  sharded batch;
 * every dropout takes an explicit keep-mask (:class:`TrainMasks`: encoder
   ``hp.dropout_prob``, postnet 0.5, prenet 0.5, attention and decoder LSTM
   outputs ``hp.p_attention_dropout`` / ``hp.p_decoder_dropout``), so a
@@ -87,7 +89,16 @@ class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over channels-last [B, T, C] with flax's semantics (eps
     1e-5, momentum 0.9), whatever the module's own train flag: the running
     statistics unless ``train=True``; then the batch's, and the running
-    ones are updated in place."""
+    ones are updated in place.
+
+    ``sync_group`` (set by :func:`sync_batch_norm`): a data-parallel
+    process group whose ranks hold equal row blocks of one batch padded to
+    one length.  In training the f32 ``mean`` and ``E[x^2]`` are then
+    averaged over its ranks by an all-reduce that carries gradients, so
+    the statistics, their backward and the running statistics (the same on
+    every rank) are the global batch's."""
+
+    sync_group = None
 
     def __init__(self, channels: int, device=None):
         super().__init__(channels, eps=1e-5, device=device)
@@ -103,12 +114,36 @@ class BatchNorm(nn.BatchNorm1d):
         # scale) + bias
         xf = x.float()
         mean = xf.mean(dim=(0, 1))
-        var = torch.clamp_min((xf * xf).mean(dim=(0, 1)) - mean * mean, 0.0)
+        ex2 = (xf * xf).mean(dim=(0, 1))
+        if self.sync_group is not None:
+            import torch.distributed as dist
+            from torch.distributed.nn.functional import all_reduce
+
+            stats = all_reduce(torch.stack([mean, ex2]),
+                               group=self.sync_group)
+            stats = stats / dist.get_world_size(self.sync_group)
+            mean, ex2 = stats[0], stats[1]
+        var = torch.clamp_min(ex2 - mean * mean, 0.0)
         with torch.no_grad():
             self.running_mean.mul_(0.9).add_(0.1 * mean)
             self.running_var.mul_(0.9).add_(0.1 * var)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight.float())
         return (y + self.bias.float()).to(x.dtype)
+
+
+@contextlib.contextmanager
+def sync_batch_norm(model: nn.Module, group):
+    """Within the block, every :class:`BatchNorm` of ``model`` takes its
+    training statistics over the ranks of ``group`` (None: this process's
+    batch alone)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.sync_group = group
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.sync_group = None
 
 
 def dropout(x: torch.Tensor, keep: torch.Tensor | None,
@@ -461,6 +496,13 @@ class TrainMasks(NamedTuple):
     attention: torch.Tensor
     decoder: torch.Tensor
     postnet: list
+
+    def rows(self, block: slice) -> "TrainMasks":
+        """The masks of the batch rows ``block``."""
+        return TrainMasks([m[block] for m in self.encoder],
+                          self.prenet[:, block], self.attention[:, block],
+                          self.decoder[:, block],
+                          [m[block] for m in self.postnet])
 
 
 class Tacotron2(nn.Module):

@@ -1,5 +1,16 @@
-"""Tensor parallelism over ``torch.distributed`` groups (counterpart of
-``text2speech_tpu/parallel``; only the tensor-parallel vocoder is ported)."""
+"""Data and tensor parallelism over ``torch.distributed`` groups
+(counterpart of ``text2speech_tpu/parallel``)."""
+from .mesh import (  # noqa: F401
+    DATA_AXIS,
+    MODEL_AXIS,
+    Mesh,
+    gather_rows,
+    initialize_distributed,
+    make_data_mesh,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
 from .tp import (  # noqa: F401
     TPWaveGlowServer,
     infer_waveglow_tp,

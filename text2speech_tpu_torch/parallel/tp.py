@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from ..models.waveglow import WaveGlow, noise_shapes, upsample_group
 from ..ops import wn_block as wb
 from ..ops import wn_block_int8 as wq
+from .mesh import DATA_AXIS, MODEL_AXIS, gather_rows, row_block
 
 F32 = torch.float32
 PARTIAL_KERNELS = (wb.wn_layer_partial, wq.wn_layer_partial_int8)
@@ -302,7 +303,10 @@ class TPWaveGlowServer:
     ``n_model`` ranks without a ``group``: all shards on the model's device
     (one GPU, or the CPU).  With ``group`` (a ``torch.distributed`` process
     group): ``n_model`` is its size and this process holds its own rank's
-    shard; every rank must call with the same mel, sigma and noise.
+    shard; every rank must call with the same mel, sigma and noise.  With
+    ``mesh`` (a data x model :class:`.mesh.Mesh`): the model group is the
+    mesh's, and the batch is split over its data ranks, whose audio is
+    gathered (every rank calls with the global mel and noise).
 
     ``fused`` (default) runs the shards through the partial kernels in
     ``compute_dtype`` (on a GPU the kernels take bf16, the default; the CPU
@@ -313,9 +317,15 @@ class TPWaveGlowServer:
 
     def __init__(self, model: WaveGlow, n_model: int | None = None,
                  group=None, fused: bool = True,
-                 compute_dtype=torch.bfloat16, int8: bool = False):
+                 compute_dtype=torch.bfloat16, int8: bool = False,
+                 mesh=None):
         cfg = model.cfg
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            if group is not None:
+                raise ValueError("give a process group or a mesh, not both")
+            group = mesh.group(MODEL_AXIS)
         self.group = group
         if group is not None:
             import torch.distributed as dist
@@ -358,10 +368,14 @@ class TPWaveGlowServer:
         otherwise drawn from ``generator``."""
         cfg, L, p = self.cfg, self.cfg.wn_n_layers, self.n_model
         up = self.params["upsample"]
-        cond = upsample_group(spect.to(self.device, F32), up["kernel"],
+        rows = slice(None)
+        if self.mesh is not None:       # this rank's data rows
+            rows = row_block(spect.shape[0], self.mesh, DATA_AXIS)
+        cond = upsample_group(spect[rows].to(self.device, F32), up["kernel"],
                               up["bias"], cfg)
         B, Tg, _ = cond.shape
-        shapes = noise_shapes(cfg, B, Tg)
+        # the draws are made at the global batch's shape
+        shapes = noise_shapes(cfg, spect.shape[0], Tg)
         draws = iter(noise) if noise is not None else None
 
         def next_noise(i):
@@ -373,7 +387,7 @@ class TPWaveGlowServer:
                 if tuple(z.shape) != shapes[i]:
                     raise ValueError(f"noise draw {tuple(z.shape)}, want "
                                      f"{shapes[i]}")
-            return sigma * z.to(self.device, F32)
+            return sigma * z[rows].to(self.device, F32)
 
         if self.fused:
             cond_cd = cond.to(self.compute_dtype).contiguous()
@@ -398,7 +412,10 @@ class TPWaveGlowServer:
             if k % cfg.n_early_every == 0 and k > 0:
                 x = torch.cat([next_noise(n_draw), x], dim=-1)
                 n_draw += 1
-        return x.reshape(B, Tg * cfg.n_group)
+        audio = x.reshape(B, Tg * cfg.n_group)
+        if self.mesh is not None:
+            audio = gather_rows(audio, self.mesh, DATA_AXIS)
+        return audio
 
 
 def infer_waveglow_tp(model: WaveGlow, spect: torch.Tensor, sigma: float,

@@ -8,7 +8,10 @@ comma-separated data paths train a multi-speaker model (the speaker id is
 the corpus index).  It resumes from the newest checkpoint of the run's
 checkpoint directory; ``--checkpoint_file`` warm-starts from another run's.
 Without a GPU it raises, unless ``--device cpu`` asks for the CPU (small
-configurations only).
+configurations only).  Under torchrun it trains data-parallel on the most
+ranks that divide the batch (``python -m torch.distributed.run
+--nproc_per_node N -m text2speech_tpu_torch.tacotron_train ...``); rank 0
+makes the run directory and writes its files.
 """
 
 from __future__ import annotations
@@ -71,22 +74,40 @@ def main(argv=None):
                            "CUDA GPU (no CUDA device is visible); pass "
                            "--device cpu to train a small configuration on "
                            "the CPU")
+    import torch.distributed as dist
+
+    from .parallel.mesh import distributed_banner, initialize_distributed
     from .train.tacotron import TacotronTrainer
 
+    own = not dist.is_initialized()
+    distributed = initialize_distributed(device=args.device)
+    chief = not distributed or dist.get_rank() == 0
     data_paths = args.data_paths.split(",")
     if args.load_path:
         run_dir = args.load_path
         hp = load_hparams(run_dir)
     else:
-        run_dir = make_run_dir(args.log_dir,
-                               os.path.basename(data_paths[0].rstrip("/")))
+        # one run directory, named by rank 0's clock
+        run_dir = (make_run_dir(args.log_dir,
+                                os.path.basename(data_paths[0].rstrip("/")))
+                   if chief else None)
+        if distributed:
+            box = [run_dir]
+            dist.broadcast_object_list(box, src=0)
+            run_dir = box[0]
         hp = HParams.load(args.hparams) if args.hparams else HParams()
     if args.batch_size:
         hp = hp.replace(batch_size=args.batch_size)
     hp = hp.replace(seed=args.random_seed,
                     checkpoint_interval=args.checkpoint_interval)
-    save_hparams(run_dir, hp)
-    infolog.init(os.path.join(run_dir, "train.log"), os.path.basename(run_dir))
+    if distributed:         # every rank has read params.json before
+        dist.barrier()      # rank 0 writes it again
+    if chief:
+        save_hparams(run_dir, hp)
+        infolog.init(os.path.join(run_dir, "train.log"),
+                     os.path.basename(run_dir))
+    if distributed:
+        infolog.log(distributed_banner())
     try:
         trainer = TacotronTrainer(
             hp, data_paths, run_dir, checkpoint_dir=args.checkpoint_path,
@@ -99,6 +120,10 @@ def main(argv=None):
         trainer.fit(args.num_steps)
     finally:
         infolog.close()
+    if own:
+        from .parallel.mesh import destroy_distributed
+
+        destroy_distributed()
     return trainer
 
 

@@ -8,6 +8,10 @@ tensor}, "opt_state": optimizer.state_dict()}``, plus ``"batch_stats":
 checkpoint either exists whole or not at all.  The newest ``max_to_keep``
 are kept.  Files are read with ``weights_only=True``: they hold tensors and
 plain containers, no code.
+
+Under data parallelism (``group=``, the data ranks) every rank holds the
+same state: the group's first rank writes, the others wait at a barrier,
+so no two processes write one file; every rank restores.
 """
 
 from __future__ import annotations
@@ -34,9 +38,15 @@ def _to_cpu(tree):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, group=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.group = group
+        self.writer = True
+        if group is not None:
+            import torch.distributed as dist
+
+            self.writer = dist.get_rank(group) == 0
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -51,6 +61,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: TrainState) -> None:
+        """Write ``ckpt_<step>.pt`` (on the group's first rank; the others
+        wait until it is written)."""
+        if self.writer:
+            self._write(step, state)
+        if self.group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.group)
+
+    def _write(self, step: int, state: TrainState) -> None:
         tree = {"step": int(step), "params": _to_cpu(state.params),
                 "opt_state": _to_cpu(state.opt.state_dict())}
         if state.batch_stats:

@@ -120,3 +120,24 @@ def microbatch_split(x: torch.Tensor, grad_accum: int) -> torch.Tensor:
     device)."""
     mb = x.shape[0] // grad_accum
     return x.reshape(mb, grad_accum, *x.shape[1:]).transpose(0, 1)
+
+
+def check_grad_accum_mesh(batch_size: int, grad_accum: int, mesh) -> None:
+    """The microbatches are a strided row split (:func:`microbatch_split`)
+    of each rank's contiguous row block (:func:`..parallel.mesh.
+    shard_batch`).  With ``B = grad_accum * n * k`` over ``n`` data ranks,
+    rank r's local microbatch i is rows ``r B / n + i + grad_accum j``, j <
+    k, which are rows ``[r k, (r + 1) k)`` of the global microbatch i (rows
+    ``i::grad_accum``): a contiguous slice, so every rank holds an equal
+    share of every microbatch and the ranks' microbatch i together are the
+    one-process step's.  That needs the microbatch size to be divisible by
+    the data-axis size; fail at build time otherwise (``state.py:101``).
+    Shared by both trainers."""
+    if grad_accum <= 1 or mesh is None:
+        return
+    data = mesh.size("data")
+    mb = batch_size // grad_accum
+    if batch_size % grad_accum or mb % data:
+        raise ValueError(
+            f"batch {batch_size} / grad_accum {grad_accum} = microbatch "
+            f"{mb} must be divisible by the data-axis size {data}")

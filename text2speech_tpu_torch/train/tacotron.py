@@ -1,6 +1,18 @@
-"""Tacotron-2 training loop on one GPU (counterpart of
-``text2speech_tpu/train/tacotron.py``).  The data-parallel ``mesh=``
-argument waits for the multi-GPU slice.
+"""Tacotron-2 training loop (counterpart of
+``text2speech_tpu/train/tacotron.py``), on one GPU or data-parallel over a
+``torch.distributed`` group (``mesh=``, :mod:`..parallel.mesh`).
+
+Data parallelism does explicitly what XLA does for the JAX package under
+jit over a batch sharded on ``'data'``: every rank reads the same global
+batch (padded to the global lengths) and keeps its contiguous row block;
+the dropout masks of each microbatch are drawn at the global microbatch's
+shape and each rank takes its rows; BatchNorm's statistics are the global
+microbatch's (:func:`..models.tacotron2.sync_batch_norm`); after the last
+microbatch one all-reduce averages the gradients (and the metrics) over
+the ranks; then the clip and the update run alike on every rank.  The
+step's numbers are the one-process step's on the global batch, up to the
+order of the sums.  Checkpoints, the scalars writer and validation run on
+rank 0.
 
 Determinism: the dropout masks of step ``s`` come from a generator seeded
 from ``(hp.seed, s)`` (:func:`step_generator`; the JAX package folds ``s``
@@ -23,14 +35,18 @@ from ..config import HParams
 from ..data.dataset import Batch, TextMelDataset
 from ..data.prefetch import prefetch
 from ..models.losses import tacotron2_loss
-from ..models.tacotron2 import Tacotron2, TrainMasks, init_weights_
+from ..models.tacotron2 import (Tacotron2, TrainMasks, init_weights_,
+                                sync_batch_norm)
+from ..parallel.mesh import (Mesh, all_reduce_mean_, default_data_mesh,
+                             replicate, require_member, row_block,
+                             shard_batch, trainer_device)
 from ..text import N_SYMBOLS
 from ..utils import infolog
 from ..utils.logger import MetricsLogger
 from ..utils.run_dirs import ValueWindow
 from .checkpoint import CheckpointManager
-from .state import (TrainState, create_tacotron_state, global_norm,
-                    microbatch_split)
+from .state import (TrainState, check_grad_accum_mesh,
+                    create_tacotron_state, global_norm, microbatch_split)
 
 log = infolog.log
 
@@ -47,7 +63,8 @@ def _forward(model: Tacotron2, b: Batch, train: bool, masks, generator):
                  generator=generator)
 
 
-def make_train_step(model: Tacotron2, hp: HParams, grad_accum: int = 1):
+def make_train_step(model: Tacotron2, hp: HParams, grad_accum: int = 1,
+                    mesh: Mesh | None = None):
     """One optimizer step: ``train_step(state, batch, generator=None,
     masks=None) -> (state, {"loss", "mel_loss", "gate_loss",
     "grad_norm"})``, ``state`` updated in place.  ``masks``: one
@@ -57,7 +74,14 @@ def make_train_step(model: Tacotron2, hp: HParams, grad_accum: int = 1):
     (rows ``i::grad_accum``); their gradients, all taken at the same
     parameters, are averaged; each normalizes by its own batch statistics
     and the running statistics thread through them in order; one update
-    (``tacotron.py:215``)."""
+    (``tacotron.py:215``).
+
+    ``mesh``: data parallel over its ``'data'`` ranks.  ``batch`` and
+    ``masks`` are then the GLOBAL ones, the same on every rank (masks at
+    the global microbatch's shape); each rank keeps its rows
+    (:func:`..train.state.check_grad_accum_mesh` says why a rank's
+    microbatch i is a row block of the global microbatch i)."""
+    group = None if mesh is None else mesh.group()
 
     def train_step(state: TrainState, batch: Batch, generator=None,
                    masks=None):
@@ -67,24 +91,39 @@ def make_train_step(model: Tacotron2, hp: HParams, grad_accum: int = 1):
                              f"{grad_accum}")
         if isinstance(masks, TrainMasks):
             masks = [masks]
+        if mesh is not None:
+            check_grad_accum_mesh(B, grad_accum, mesh)
+            batch = shard_batch(batch, mesh)
+            block = row_block(B // grad_accum, mesh)
         micro = ([batch] if grad_accum == 1 else
                  [Batch(*(microbatch_split(x, grad_accum)[i] for x in batch))
                   for i in range(grad_accum)])
         state.opt.zero_grad(set_to_none=True)
         metrics = []
         for i, mb in enumerate(micro):
-            mel_out, mel_post, gate_out, _ = _forward(
-                model, mb, True, None if masks is None else masks[i],
-                generator)
-            loss, m = tacotron2_loss(mel_out, mel_post, gate_out, mb.mel,
-                                     mb.gate)
-            loss.backward()               # sums into .grad
+            m_i = None if masks is None else masks[i]
+            if mesh is not None:
+                if m_i is None:
+                    m_i = model.draw_train_masks(
+                        B // grad_accum, mb.text.shape[1], mb.mel.shape[-1],
+                        generator, mb.mel.device)
+                m_i = m_i.rows(block)
+            with sync_batch_norm(model, group):
+                mel_out, mel_post, gate_out, _ = _forward(
+                    model, mb, True, m_i, generator)
+                loss, m = tacotron2_loss(mel_out, mel_post, gate_out, mb.mel,
+                                         mb.gate)
+                loss.backward()               # sums into .grad
             metrics.append({k: v.detach() for k, v in m.items()})
         if grad_accum > 1:
             for p in state.params.values():
                 p.grad.div_(grad_accum)
         out = {k: torch.stack([m[k] for m in metrics]).mean()
                for k in metrics[0]}
+        if mesh is not None:
+            # the psum XLA inserts: gradients and metrics in one all-reduce
+            all_reduce_mean_([p.grad for p in state.params.values()]
+                             + list(out.values()), mesh)
         out["grad_norm"] = global_norm(p.grad for p in state.params.values())
         state.apply_gradients()
         return state, out
@@ -118,18 +157,28 @@ class TacotronTrainer:
                  num_test_per_speaker: int = 0,
                  skip_path_filter: bool = False, data_format: str = "auto",
                  remat: bool = False, grad_accum: int = 1, bf16: bool = False,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: Mesh | None = None):
         self.hp = hp
         self.run_dir = run_dir
-        self.device = torch.device(device)
+        if mesh is None:
+            mesh = default_data_mesh(hp.batch_size)
+        if mesh is not None:
+            require_member(mesh, hp.batch_size)
+        self.mesh = mesh
+        self.chief = mesh is None or mesh.rank() == 0
+        self.device = trainer_device(mesh, device)
         if hp.batch_size % grad_accum:
             raise ValueError(f"batch {hp.batch_size} not divisible by "
                              f"grad_accum {grad_accum}")
+        check_grad_accum_mesh(hp.batch_size, grad_accum, mesh)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         log(f"Tacotron trainer on {self.device}: compute dtype "
             f"{'bf16' if bf16 else 'f32'}, remat={remat}, "
-            f"grad_accum={grad_accum}")
+            f"grad_accum={grad_accum}"
+            + ("" if mesh is None else
+               f", data rank {mesh.rank()} of {mesh.size()}"))
         if data_format == "auto":
             # directories of preprocess output (*.npz) train from the npz
             # feeder; transcript corpora compute mels on the fly
@@ -168,11 +217,15 @@ class TacotronTrainer:
             decoder_remat=remat)
         init_weights_(self.model, torch.Generator().manual_seed(hp.seed))
         self.state = create_tacotron_state(self.model, hp)
-        self._train_step = make_train_step(self.model, hp, grad_accum)
+        if mesh is not None:
+            replicate(self.state, mesh)
+        self._train_step = make_train_step(self.model, hp, grad_accum, mesh)
         self._eval_step = make_eval_step(self.model)
-        self.ckpt = CheckpointManager(checkpoint_dir
-                                      or f"{run_dir}/checkpoints")
-        self.logger = MetricsLogger(logger_dir or f"{run_dir}/tb")
+        self.ckpt = CheckpointManager(
+            checkpoint_dir or f"{run_dir}/checkpoints",
+            group=None if mesh is None else mesh.group())
+        self.logger = (MetricsLogger(logger_dir or f"{run_dir}/tb")
+                       if self.chief else None)
         self.loss_window = ValueWindow(100)
         self.time_window = ValueWindow(100)
         self.last_metrics: dict = {}
@@ -224,7 +277,7 @@ class TacotronTrainer:
                                                        gen)
                 step = self.state.step
                 self.last_metrics = metrics
-                if step % log_every == 0:
+                if step % log_every == 0 and self.chief:
                     # float() waits for the device: the clock is read after
                     # the step ran, not after it was enqueued
                     loss = float(metrics["loss"])
@@ -248,8 +301,9 @@ class TacotronTrainer:
 
     def validate(self, step: int):
         """Mean loss over the validation set (running statistics, the
-        prenet's dropout from a generator seeded 0); None without one."""
-        if self.valset is None or len(self.valset) == 0:
+        prenet's dropout from a generator seeded 0); None without one, and
+        on every rank but the first."""
+        if not self.chief or self.valset is None or len(self.valset) == 0:
             return None
         losses, last = [], None
         for batch in self.valset.epoch(0):

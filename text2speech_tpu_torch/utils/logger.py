@@ -3,7 +3,8 @@ logger.py``): TensorBoard through ``tensorboardX`` where that is
 installed, else the same scalars as JSON lines in
 ``<logdir>/scalars.jsonl``.  Validation writes its loss; the parameter
 histograms and the alignment, mel and gate images of the JAX package's
-``log_validation`` wait for ``utils/plotting.py``."""
+``log_validation`` are not written yet (``utils/plotting.py`` renders
+them)."""
 
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ class MetricsLogger:
                        iteration) -> None:
         """The JAX package's signature; ``params``, ``targets`` (mel, gate)
         and ``predictions`` (mel_out, mel_post, gate_out, align) are for
-        the histograms and images, which wait for the plotting module."""
+        the histograms and images, which are not written yet."""
         self._write({"validation.loss": float(val_loss)}, iteration)
 
     def _write(self, scalars: dict, iteration) -> None:

@@ -6,6 +6,12 @@
 Takes the flags of the JAX package's ``waveglow_train.py``.  It resumes from
 the newest checkpoint in ``--output_directory``.  Without a GPU it raises,
 unless ``--device cpu`` asks for the CPU (small configurations only).
+Under torchrun it trains data-parallel, one rank per process (NCCL with a
+card per rank, gloo when ranks share one), on the most ranks that divide
+the batch; rank 0 writes the checkpoints:
+
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m text2speech_tpu_torch.waveglow_train -c waveglow_config.json ...
 """
 
 from __future__ import annotations
@@ -47,16 +53,26 @@ def main(argv=None):
                            "CUDA GPU (no CUDA device is visible); pass "
                            "--device cpu to train a small configuration on "
                            "the CPU")
+    from .parallel.mesh import distributed_banner, initialize_distributed
     from .train.waveglow import WaveGlowTrainer
 
     cfg = (WaveGlowConfig.from_json(args.config) if args.config
            else WaveGlowConfig())
+    import torch.distributed as dist
+
+    own = not dist.is_initialized()
+    if initialize_distributed(device=args.device):
+        print(distributed_banner(), flush=True)
     trainer = WaveGlowTrainer(
         cfg, args.training_files or "train_files.txt", args.output_directory,
         remat=args.remat, grad_accum=args.grad_accum, bf16=args.bf16,
         device=args.device)
     trainer.restore()
     trainer.fit(args.num_steps)
+    if own:
+        from .parallel.mesh import destroy_distributed
+
+        destroy_distributed()
     return trainer
 
 
