@@ -195,12 +195,31 @@ Phases, each of which passes or raises (the script then exits non-zero):
     a 64-frame mel, bf16 and int8, against the one-process two-shard
     server and the single-device fused vocoders, 96 (12 + 84) partial
     launches a rank.  Gloo on one card copies through the host: the walls
-    measure correctness, not a rate.
+    measure correctness, not a rate;
+28. tensor-parallel decode and full-chain tensor-parallel serving at full
+    width (``parallel/tp_tacotron.py``, ``parallel/serve.py``,
+    ``server.make_server_tp``) on seeded random weights: the f32
+    ``TPTacotronDecoder`` at p = 2 and 4 (all shards on this card) against
+    ``decode_chunk_serve`` over 64 steps at batch 3 on the same masks (1e-4
+    on the mel), bf16 beside it, the int8 slices' payloads and scales equal
+    to the whole kernels' rows, steps per second and kernels per step (the
+    profiler's trace) of each; ``TPSynthesizer(n_model=2)`` in bf16 and
+    int8 against the fused ``Synthesizer`` on the same masks and noise
+    (3 texts x 200 frames) and its vocoder alone on the same mel, both
+    within phase 18's bounds, 12 p + 84 p partial launches per vocode (12
+    p of the bf16 and 84 p of the int8 one with ``int8``) and none of the
+    whole-layer wrappers; ``synthesize_incremental`` with the denoiser
+    against the offline denoiser over its raw stream; ``make_server_tp``
+    (4 slots, 6 texts x 400 steps) against ``make_server`` on the same
+    masks and noise within the same bounds, audio seconds per wall second
+    of both; two processes on this card over gloo (a model group of two):
+    the decode (f32 and bf16) and one ``make_server_tp`` run of 3 texts x
+    128 steps, each bit for bit the one-process two-shard run.
 
 Phase 25 runs right after phase 7, phases 12-21 between it and phase 8,
-phases 22-24 after phase 11, phases 26 and 27 last.  The line before the last is a
-JSON object with one record per kernel; the last line is ``{"ok": true,
-"device": {...}}``.  Imports nothing of JAX.
+phases 22-24 after phase 11, phases 26, 27 and 28 last.  The line before
+the last is a JSON object with one record per kernel; the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -4406,10 +4425,64 @@ def grid(d):
     return res
 
 
+def tp2(d):
+    """Phase 28: this rank's shard of the tensor-parallel decode and of
+    ``make_server_tp`` over a gloo group of two, each against the
+    one-process two-shard run (bit for bit)."""
+    import numpy as np
+
+    from text2speech_tpu_torch.models.tacotron2 import Tacotron2
+    from text2speech_tpu_torch.models.waveglow import WaveGlow
+    from text2speech_tpu_torch.parallel import tp
+    from text2speech_tpu_torch.parallel.serve import TPSynthesizer
+    from text2speech_tpu_torch.parallel.tp_tacotron import TPTacotronDecoder
+    from text2speech_tpu_torch.server import make_server_tp
+    from text2speech_tpu_torch.text import N_SYMBOLS
+
+    hp, cfg, me = d["hp"], d["wg_cfg"], dist.get_rank()
+    taco = Tacotron2(hp, N_SYMBOLS, device="cuda")
+    taco.load_state_dict(d["taco_sd"])
+    taco.eval()
+    wg = WaveGlow(cfg, device="cuda")
+    wg.load_state_dict(d["wg_sd"])
+    wg.eval()
+    mem, pmem, masks, lengths = (t.cuda() for t in d["decode_in"])
+    res = {"rank": me}
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        dec = TPTacotronDecoder(taco, hp, group=dist.group.WORLD, dtype=dt)
+        with torch.inference_mode():
+            out, wall = timed(lambda: dec(mem, pmem, *dec.initial_carry(mem),
+                                          masks, lengths))
+        (st, fr, fin), *outs = out
+        (st_w, fr_w, fin_w), *outs_w = d["decode_ref"][tag]
+        same = [torch.equal(a.cpu(), b) for a, b in zip(outs, outs_w)]
+        same += [torch.equal(fr.cpu(), fr_w), torch.equal(fin.cpu(), fin_w)]
+        for field, a, b in zip(st._fields, st, st_w):
+            if field.endswith("_c"):          # this rank's columns
+                k = b.shape[-1] // 2
+                b = b[:, me * k:(me + 1) * k]
+            same.append(torch.equal(a.cpu(), b))
+        res[f"decode_{tag}"] = {"equal": all(same), "wall": wall,
+                                "ranks": dec.ranks}
+    tps = TPSynthesizer(hp, taco, cfg, wg, group=dist.group.WORLD,
+                        chunk_steps=d["chunk"])
+    srv = make_server_tp(tps, slots=2, chunk_steps=d["chunk"],
+                         max_steps=d["steps"])
+    srv.warm_window_widths()
+    tp.reset_launch_counts()
+    wavs, wall = timed(lambda: srv.run(d["texts"], seeds=d["seeds"]))
+    res["server"] = {
+        "equal": sorted(wavs) == sorted(d["server_ref"]) and all(
+            np.array_equal(wavs[k], d["server_ref"][k]) for k in wavs),
+        "wall": wall, "rounds": srv.stats["rounds"],
+        "launches": tp.launch_counts()}
+    return res
+
+
 res = {"backend": dist.get_backend(), "device": str(pm.rank_device())}
 try:
     d = torch.load(inp, weights_only=False, mmap=True)
-    res.update(dp2(d) if role == "dp2" else grid(d))
+    res.update({"dp2": dp2, "grid": grid, "tp2": tp2}[role](d))
     with open(out, "w") as f:
         json.dump(res, f)
 finally:
@@ -4845,6 +4918,352 @@ def dp_path(synth, info: str) -> None:
           f"{sum(secs.values()):.2f} ({info})")
 
 
+# ---------------------------------------------------------------------------
+# phase 28: tensor-parallel decode and full-chain tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+TP_DECODE_STEPS = 64
+# The f32 tensor-parallel decode against decode_chunk_serve on the same
+# masks: each hidden unit's gates are the same contraction, cut into the
+# rank's rows of the kernel, so only the library's blocking of the smaller
+# products differs; 64 steps of the recurrence carry that on.  The JAX
+# package holds its pair to 1e-5 on the CPU (tests/test_tp_tacotron.py);
+# on the card: 1e-4 on the mel.
+TP_DECODE_F32_ATOL = 1e-4
+TP_SERVE_TEXTS = [TEXTS[i % len(TEXTS)] for i in range(6)]
+# the two gloo ranks' server run: two chunks a session (each layer's sum
+# over the ranks copies through the host, so the run is kept short)
+TP_RANKS_STEPS = 2 * STREAM_CHUNK
+
+
+def kernel_trace(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its GPU kernels (from
+    the chrome trace, read as ``profile_torch.py`` reads it), the
+    device-busy time (their union) and the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_torch import busy_us, kernel_events
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(f"{d}/trace.json")
+        ks = kernel_events(f"{d}/trace.json")
+    return {"kernels": len(ks), "busy_ms": busy_us(ks) / 1e3,
+            "wall_ms": wall}
+
+
+def tp_decode_checks(synth, info: str) -> dict:
+    """Phase 28, the decoder: the tensor-parallel decode (p = 2, 4, all
+    shards on this card) against ``decode_chunk_serve`` on the same masks,
+    the int8 slices' scales against the whole kernels', steps per second
+    and kernels per step.  Returns the decode's inputs and the one-process
+    p = 2 outputs for the two-process check."""
+    from text2speech_tpu_torch.models import tacotron_serve as ts
+    from text2speech_tpu_torch.parallel import tp_tacotron as ttp
+    from text2speech_tpu_torch.text import encode_batch
+
+    taco, hp = synth.taco, synth.hp
+    dp = ts.extract_decoder_params(taco)
+    B, steps = len(TEXTS), TP_DECODE_STEPS
+    ids, lengths = encode_batch(TEXTS)
+    lengths = torch.from_numpy(lengths).cuda()
+    with torch.inference_mode():
+        memory = taco.encode(torch.from_numpy(ids).long().cuda(),
+                             text_lengths=lengths)
+        pmem = taco.process_memory(memory)
+    masks = taco.decoder.draw_keep_masks(
+        steps, B, torch.Generator(device="cuda").manual_seed(28), "cuda")
+
+    whole = {wk: ts.quantize_kernel_int8(dp[wk]) for wk, _, _ in
+             ttp._LSTM_KEYS}
+    for p in (2, 4):
+        q = ttp.shard_decoder_params(dp, hp, p, int8=True)
+        same = all(
+            torch.equal(q[wk]["s"][i], whole[wk]["s"][rows])
+            and torch.equal(q[wk]["q"][i], whole[wk]["q"][rows])
+            for wk, _, dim in ttp._LSTM_KEYS for i in range(p)
+            for rows in [torch.from_numpy(ttp._gate_cols(
+                getattr(hp, dim), p, i)).cuda()])
+        print(f"[tpdec] p={p}: int8 slices' payloads and scales equal to the "
+              f"rows of the whole kernels' (torch.equal): {same}")
+        if not same:
+            raise RuntimeError("int8 slices differ from the whole kernels'")
+    del whole
+
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+    def run(dec, dt):
+        def call():
+            with torch.inference_mode():
+                if dec is None:
+                    return ts.decode_chunk_serve(
+                        dp, hp, memory, pmem,
+                        *taco.decoder.initial_carry(memory), masks, lengths,
+                        dtype=dt)
+                return dec(memory, pmem, *dec.initial_carry(memory), masks,
+                           lengths)
+        return call
+
+    runs = {}
+    for name, dt in types.items():
+        runs[f"serve {name}"] = run(None, dt)
+        for p in (2, 4):
+            runs[f"p={p} {name}"] = run(
+                ttp.TPTacotronDecoder(taco, hp, n_model=p, dtype=dt), dt)
+    out = {k: fn() for k, fn in runs.items()}         # also the warm-up
+    (st_r, _, fin_r), mel_r, gate_r, align_r, act_r = out["serve f32"]
+    for p in (2, 4):
+        for name in types:
+            (st, _, fin), mel, gate, align, act = out[f"p={p} {name}"]
+            errs = {"mel": (mel - mel_r).abs().max().item(),
+                    "gate": (gate - gate_r).abs().max().item(),
+                    "align": (align - align_r).abs().max().item(),
+                    "carry": max((a.float() - b).abs().max().item()
+                                 for a, b in zip(st, st_r))}
+            same_flags = torch.equal(act, act_r) and torch.equal(fin, fin_r)
+            line = (f"[tpdec] p={p} {name}, batch {B} x {steps} steps, "
+                    f"against decode_chunk_serve f32: max |diff| "
+                    f"{ {k: float(f'{v:.4g}') for k, v in errs.items()} }, "
+                    f"mel rel_l2 {rel_l2(mel, mel_r):.4g}; active and "
+                    f"finished equal: {same_flags}")
+            if name == "bf16":
+                mel_b = out["serve bf16"][1]
+                line += (f"; against decode_chunk_serve bf16: mel max |diff| "
+                         f"{(mel - mel_b).abs().max().item():.4g}, rel_l2 "
+                         f"{rel_l2(mel, mel_b):.4g}")
+            print(line)
+            if name == "f32" and (errs["mel"] > TP_DECODE_F32_ATOL
+                                  or not same_flags):
+                raise RuntimeError(f"f32 TP decode p={p} differs from "
+                                   f"decode_chunk_serve (bound "
+                                   f"{TP_DECODE_F32_ATOL} on the mel)")
+            if not torch.isfinite(mel).all():
+                raise RuntimeError(f"TP decode p={p} {name}: non-finite mel")
+
+    times = {k: [] for k in runs}
+    for _ in range(2):
+        for k, fn in runs.items():
+            times[k].append(steps / sync_time(fn)[1])
+    traces = {k: kernel_trace(fn) for k, fn in runs.items()}
+    rates = {k: round(max(v), 1) for k, v in times.items()}
+    per_step = {k: round(t["kernels"] / steps, 2) for k, t in traces.items()}
+    idle = {k: round(1 - t["busy_ms"] / t["wall_ms"], 3)
+            for k, t in traces.items()}
+    print(f"[tpdec] batch {B}, {steps} steps, all shards on one card: "
+          f"steps/s (best of two) {rates}; kernels per step {per_step}; "
+          f"device idle share under the profiler {idle} ({info})")
+    ref2 = {name: out[f"p=2 {name}"] for name in types}
+    return {"decode_in": (memory, pmem, masks, lengths), "decode_ref": ref2}
+
+
+def tp_serve_path(info: str) -> dict:
+    """Phase 28: tensor-parallel decode and full-chain tensor-parallel
+    serving at full width on seeded random weights (the gate biased shut):
+    the decoder's checks, ``TPSynthesizer(n_model=2)`` in bf16 and int8
+    against the fused ``Synthesizer`` on the same masks and noise, the
+    streaming path with the denoiser, the partial kernels' launches per
+    vocode, ``make_server_tp`` against ``make_server``, and two processes
+    on this card over gloo against the one-process objects."""
+    from text2speech_tpu_torch.config import HParams, WaveGlowConfig
+    from text2speech_tpu_torch.infer import Synthesizer, random_synthesizer
+    from text2speech_tpu_torch.models.denoiser import make_denoiser
+    from text2speech_tpu_torch.parallel import tp
+    from text2speech_tpu_torch.parallel.serve import TPSynthesizer
+    from text2speech_tpu_torch.server import make_server, make_server_tp
+
+    secs = {}
+
+    def part(tag, fn):
+        out, secs[tag] = sync_time(fn)
+        return out
+
+    synth = random_synthesizer(HParams(), WaveGlowConfig(), seed=28,
+                               device="cuda", use_fused_vocoder=True)
+    hp, cfg = synth.hp, synth.wg_cfg
+    F, L = cfg.n_flows, cfg.wn_n_layers
+    gpf = cfg.upsample_stride // cfg.n_group
+    dec = part("decoder", lambda: tp_decode_checks(synth, info))
+    int8_synth = Synthesizer(hp, synth.taco, cfg, synth.waveglow,
+                             int8_vocoder=True)
+    tps = {"bf16": TPSynthesizer(hp, synth.taco, cfg, synth.waveglow,
+                                 n_model=2, chunk_steps=STREAM_CHUNK),
+           "int8": TPSynthesizer(hp, synth.taco, cfg, synth.waveglow,
+                                 n_model=2, chunk_steps=STREAM_CHUNK,
+                                 int8=True)}
+    if tps["bf16"].compute_dtype != torch.bfloat16:
+        raise RuntimeError("TPSynthesizer's default type on the card is not "
+                           "bf16")
+    singles = {"bf16": synth, "int8": int8_synth}
+    B = len(TEXTS)
+    limit = -(-MAX_STEPS // STREAM_CHUNK) * STREAM_CHUNK
+    g = torch.Generator(device="cuda").manual_seed(5)
+    masks = synth.taco.decoder.draw_keep_masks(limit, B, g, "cuda")
+    noise = tuple(torch.randn(sh, generator=g, device="cuda")
+                  for sh in synth.fused.noise_shapes(B, MAX_STEPS * gpf))
+
+    def offline(tag):
+        t, s1 = tps[tag], singles[tag]
+        mel_t, len_t = t.text_to_mel(TEXTS, seed=5, max_steps=MAX_STEPS,
+                                     keep_masks=masks)
+        mel_s, len_s = s1.text_to_mel(TEXTS, seed=5, max_steps=MAX_STEPS,
+                                      keep_masks=masks[:MAX_STEPS])
+        wav_t, t_tp = sync_time(lambda: t.synthesize(
+            TEXTS, SIGMA, seed=5, max_steps=MAX_STEPS, keep_masks=masks,
+            noise=noise))
+        wav_s, t_single = sync_time(lambda: s1.synthesize(
+            TEXTS, SIGMA, seed=5, max_steps=MAX_STEPS,
+            keep_masks=masks[:MAX_STEPS], noise=noise))
+        a, b = (torch.from_numpy(np.concatenate(w)) for w in (wav_t, wav_s))
+        # the TP vocoder alone on the single path's mel: phase 18's pair
+        mel_cut = mel_s[:, :, :MAX_STEPS].contiguous()
+        voc = t.mel_to_audio(mel_cut, SIGMA, noise=noise)
+        with torch.inference_mode():
+            voc_s = s1.mel_to_audio(mel_cut, SIGMA, noise=noise)
+        tp.reset_launch_counts()
+        reset_counts()
+        t.mel_to_audio(mel_cut, SIGMA, noise=noise)
+        counts, other = tp.launch_counts(), all_counts()
+        want = ({"wn_layer_partial": F * 2,
+                 "wn_layer_partial_int8": F * (L - 1) * 2}
+                if tag == "int8" else
+                {"wn_layer_partial": F * L * 2, "wn_layer_partial_int8": 0})
+        r_voc, r_all = rel_l2(voc, voc_s), rel_l2(a, b)
+        print(f"[tpserve] {tag}: TPSynthesizer(n_model=2).synthesize of "
+              f"{B} texts x {MAX_STEPS} frames in {t_tp:.3f} s (fused "
+              f"Synthesizer {t_single:.3f} s); lengths {len_t.tolist()} vs "
+              f"{len_s.tolist()}; mel (bf16 TP decode vs f32 decode) max "
+              f"|diff| {(mel_t - mel_s).abs().max().item():.4g} rel_l2 "
+              f"{rel_l2(mel_t, mel_s):.4g}; audio rel_l2 vs the fused "
+              f"Synthesizer {r_all:.4g}; the TP vocoder alone on the same "
+              f"mel rel_l2 {r_voc:.4g} (phase 18's TP-vs-fused pair, bound "
+              f"{E2E_INT8_REL_L2 if tag == 'int8' else E2E_REL_L2}); "
+              f"launches per vocode {counts}, other wrappers "
+              f"{sum(other.values())} ({info})")
+        if counts != want or any(other.values()):
+            raise RuntimeError(f"TP serving {tag}: launches {counts} (+ "
+                               f"{other}), want {want}")
+        if not torch.equal(len_t.cpu(), len_s.cpu()) or not all(
+                np.isfinite(w).all() for w in wav_t):
+            raise RuntimeError(f"TP serving {tag}: lengths or audio wrong")
+        if r_voc > (E2E_INT8_REL_L2 if tag == "int8" else E2E_REL_L2):
+            raise RuntimeError(f"TP serving {tag}: vocoder off the fused "
+                               f"path")
+        # the whole chain: the bf16 decode moves the mel by a few 1e-3
+        # relative L2 (the f32 TP decode is checked above), which the
+        # vocoder path's own bounds take in
+        for i, (wt, ws) in enumerate(zip(wav_t, wav_s)):
+            check_stream_audio(f"tp {tag} synthesize row {i} vs the fused "
+                               f"Synthesizer", wt, torch.from_numpy(ws),
+                               tag == "int8")
+        return counts
+
+    launches = {}
+    for tag in ("bf16", "int8"):
+        launches[tag] = part(f"synthesize {tag}", lambda: offline(tag))
+
+    def incremental(tag):
+        t = tps[tag]
+        kw = dict(sigma=SIGMA, seed=7, max_steps=MAX_STEPS)
+        raw, t_raw = sync_time(lambda: np.concatenate(list(
+            t.synthesize_incremental(TEXTS[0], **kw))))
+        den = np.concatenate(list(t.synthesize_incremental(
+            TEXTS[0], denoiser_strength=DENOISER_STRENGTH, **kw)))
+        _, denoise = make_denoiser(synth.waveglow)
+        with torch.inference_mode():
+            ref = denoise(torch.from_numpy(raw[None]).cuda(),
+                          DENOISER_STRENGTH)[0]
+        print(f"[tpserve] {tag}: synthesize_incremental of {MAX_STEPS} "
+              f"frames in {t_raw:.3f} s; the denoised stream against the "
+              f"offline denoiser over the raw stream:")
+        check_stream_audio(f"tp {tag} denoised stream", den, ref,
+                           tag == "int8")
+
+    for tag in ("bf16", "int8"):
+        part(f"stream {tag}", lambda: incremental(tag))
+
+    def serve():
+        requests = [dict(request=t, seed=10 + i, sigma=SERVE_SIGMAS[i])
+                    for i, t in enumerate(TP_SERVE_TEXTS)]
+        kw = dict(slots=SERVE_SLOTS, chunk_steps=STREAM_CHUNK,
+                  max_steps=SERVE_STEPS, retain_sessions=True)
+        res = {}
+        for name, srv in (("make_server", make_server(synth, **kw)),
+                          ("make_server_tp", make_server_tp(tps["bf16"],
+                                                            **kw))):
+            srv.warm_window_widths()
+            tp.reset_launch_counts()
+            wavs, first, wall = drive(srv, [(0, requests)])
+            seconds = sum(len(w) for w in wavs.values()) / cfg.sampling_rate
+            res[name] = wavs
+            print(f"[tpserve] {name}: {len(requests)} sessions x "
+                  f"{SERVE_STEPS} steps through {SERVE_SLOTS} slots in "
+                  f"{srv.stats['rounds']} rounds, {wall:.3f} s: "
+                  f"{seconds / wall:.3f} audio seconds per wall second; "
+                  f"first audio after "
+                  f"{ {k: round(v, 3) for k, v in sorted(first.items())} } "
+                  f"s; partial launches {tp.launch_counts()} ({info})")
+        if sorted(res["make_server_tp"]) != sorted(res["make_server"]):
+            raise RuntimeError("make_server_tp completed other sessions")
+        for sid, w in res["make_server"].items():
+            check_stream_audio(f"tp make_server_tp session {sid} vs "
+                               f"make_server", res["make_server_tp"][sid],
+                               torch.from_numpy(w), False)
+
+    part("server", serve)
+
+    def two_ranks():
+        texts, seeds = TEXTS, [21, 22, 23]
+        one = TPSynthesizer(hp, synth.taco, cfg, synth.waveglow, n_model=2,
+                            chunk_steps=STREAM_CHUNK)
+        srv = make_server_tp(one, slots=2, chunk_steps=STREAM_CHUNK,
+                             max_steps=TP_RANKS_STEPS)
+        ref = srv.run(texts, seeds=seeds)
+        with tempfile.TemporaryDirectory() as d:
+            inputs = os.path.join(d, "tp_inputs.pt")
+            torch.save({
+                "hp": hp, "wg_cfg": cfg,
+                "taco_sd": {k: v.cpu() for k, v in
+                            synth.taco.state_dict().items()},
+                "wg_sd": {k: v.cpu() for k, v in
+                          synth.waveglow.state_dict().items()},
+                "decode_in": tuple(t.cpu() for t in dec["decode_in"]),
+                "decode_ref": {k: ((tuple(t.cpu() for t in st), fr.cpu(),
+                                    fin.cpu()), *(t.cpu() for t in rest))
+                               for k, ((st, fr, fin), *rest)
+                               in dec["decode_ref"].items()},
+                "chunk": STREAM_CHUNK, "steps": TP_RANKS_STEPS,
+                "texts": texts,
+                "seeds": seeds, "server_ref": ref}, inputs)
+            res = run_ranks("tp2", 2, inputs, d)
+        for r in res:
+            print(f"[tpserve] gloo rank {r['rank']} of 2 ({r['backend']}, "
+                  f"{r['device']}): decode f32 bit-equal "
+                  f"{r['decode_f32']['equal']} ({r['decode_f32']['wall']:.3f}"
+                  f" s), bf16 bit-equal {r['decode_bf16']['equal']}; "
+                  f"make_server_tp of {len(texts)} texts bit-equal "
+                  f"{r['server']['equal']} in {r['server']['rounds']} rounds,"
+                  f" {r['server']['wall']:.3f} s, launches "
+                  f"{r['server']['launches']}")
+            if not (r["decode_f32"]["equal"] and r["decode_bf16"]["equal"]
+                    and r["server"]["equal"]):
+                raise RuntimeError("two gloo ranks differ from the "
+                                   "one-process two-shard run")
+
+    part("two ranks", two_ranks)
+    del tps, int8_synth, synth
+    torch.cuda.empty_cache()
+    print(f"[time] phase 28 parts, seconds: "
+          f"{ {k: round(v, 2) for k, v in secs.items()} }; in all "
+          f"{sum(secs.values()):.2f} ({info})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -4898,6 +5317,7 @@ def main() -> int:
     rec = check_kernels()
     bf16 = main_path("bf16", int8=False)
     int8 = main_path("int8", int8=True, rel32_bf16=bf16["rel32"])
+    bf16_launches = bf16["launches"]
     print(f"[e2e] vocode+denoise, batch {len(TEXTS)} x {MAX_STEPS} frames: "
           f"bf16 {bf16['vocode_ms']:.3f} ms, int8 {int8['vocode_ms']:.3f} ms")
     int8_launches = int8["launches"]
@@ -4945,8 +5365,12 @@ def main() -> int:
           f" s")
     print(f"[time] phase 27: "
           f"{sync_time(lambda: dp_path(bf16['synth'], info))[1]:.2f} s")
+    del bf16
+    torch.cuda.empty_cache()
+    print(f"[time] phase 28: {sync_time(lambda: tp_serve_path(info))[1]:.2f}"
+          f" s")
 
-    launches = {**{n: bf16["launches"][n] for n in list(KERNELS)[:3]},
+    launches = {**{n: bf16_launches[n] for n in list(KERNELS)[:3]},
                 **{n: int8_launches[n] for n in list(KERNELS)[3:]},
                 **{n: dcond_launches[n] for n in DCOND_KERNELS},
                 **tp_launches, **trained, "conv_k3_bwd": chain_launches,

@@ -2193,3 +2193,202 @@ def test_inference_cli_plot_dir_writes_both_pngs(dev, tmp_path, capsys):
     assert out.exists()
     assert sorted(os.listdir(tmp_path / "plots")) == [
         "cli_alignment.png", "cli_mel.png"]
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel decode and full-chain tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+
+def _tp_synth(dev, **kw):
+    """A small synthesizer on the card (WN width 128, the kernels' least;
+    LSTMs of 64) and its fused bf16 single-device twin."""
+    from text2speech_tpu_torch.config import HParams
+    from text2speech_tpu_torch.infer import random_synthesizer
+
+    hp = HParams(embedding_size=32, enc_conv_channels=32,
+                 attention_rnn_dim=64, decoder_rnn_dim=64, prenet_dim=16,
+                 attention_dim=16, n_mel_channels=16,
+                 postnet_embedding_dim=32, max_decoder_steps=300)
+    cfg = WaveGlowConfig(n_mel_channels=16, n_flows=4, n_group=8,
+                         n_early_every=2, n_early_size=2, wn_n_layers=4,
+                         wn_n_channels=128, upsample_kernel=64,
+                         upsample_stride=16)
+    return random_synthesizer(hp, cfg, 0, device="cuda", **kw)
+
+
+def _decode_inputs(synth, dev, B=3, steps=32):
+    from text2speech_tpu_torch.text import encode_batch
+
+    texts = ["안녕하세요.", "네.", "오늘 날씨가 참 좋네요."][:B]
+    ids, lengths = encode_batch(texts)
+    lengths = torch.from_numpy(lengths).to(dev)
+    with torch.inference_mode():
+        memory = synth.taco.encode(torch.from_numpy(ids).long().to(dev),
+                                   text_lengths=lengths)
+        pmem = synth.taco.process_memory(memory)
+    masks = synth.taco.decoder.draw_keep_masks(
+        steps, B, torch.Generator(device="cuda").manual_seed(2), dev)
+    return memory, pmem, masks, lengths
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_tp_decode_on_the_card_matches_the_serving_decode(dev, p):
+    """The f32 tensor-parallel decode (all p shards on the card) against
+    ``decode_chunk_serve`` over 32 steps: 1e-4 on the mel (chip_smoke's
+    bound), active and finished equal; the bf16 decode finite; the int8
+    slices' payloads and scales the rows of the whole kernels'."""
+    from text2speech_tpu_torch.models import tacotron_serve as ts
+    from text2speech_tpu_torch.parallel import tp_tacotron as ttp
+
+    synth = _tp_synth(dev, use_denoiser=False)
+    memory, pmem, masks, lengths = _decode_inputs(synth, dev)
+    dp = ts.extract_decoder_params(synth.taco)
+    with torch.inference_mode():
+        (st_r, _, fin_r), mel_r, _, _, act_r = ts.decode_chunk_serve(
+            dp, synth.hp, memory, pmem,
+            *synth.taco.decoder.initial_carry(memory), masks, lengths)
+        for dt in (torch.float32, torch.bfloat16):
+            dec = ttp.TPTacotronDecoder(synth.taco, synth.hp, n_model=p,
+                                        dtype=dt)
+            (st, _, fin), mel, _, _, act = dec(
+                memory, pmem, *dec.initial_carry(memory), masks, lengths)
+            assert mel.is_cuda and torch.isfinite(mel).all()
+            if dt == torch.float32:
+                assert (mel - mel_r).abs().max().item() <= 1e-4
+                assert torch.equal(act, act_r) and torch.equal(fin, fin_r)
+                assert st.decoder_c.shape == st_r.decoder_c.shape
+    q = ttp.shard_decoder_params(dp, synth.hp, p, int8=True)
+    for wk, _, dim in ttp._LSTM_KEYS:
+        whole = ts.quantize_kernel_int8(dp[wk])
+        for i in range(p):
+            rows = torch.from_numpy(ttp._gate_cols(
+                getattr(synth.hp, dim), p, i)).to(dev)
+            assert torch.equal(q[wk]["s"][i], whole["s"][rows])
+            assert torch.equal(q[wk]["q"][i], whole["q"][rows])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_tp_synthesizer_on_the_card(dev, int8):
+    """``TPSynthesizer(n_model=2)``: bf16 by default on the card, the
+    partial kernels' launches per vocode (F L p, or F p + F (L - 1) p with
+    int8) and no whole-layer wrapper's; its vocoder on the fused path's mel
+    and noise within the end-to-end bounds of the kernel path (16 bf16
+    steps at the peak, 2e-2 relative L2; int8 32 steps, 5e-2);
+    ``synthesize`` finite at the single path's lengths."""
+    from text2speech_tpu_torch.infer import Synthesizer
+    from text2speech_tpu_torch.parallel import tp
+    from text2speech_tpu_torch.parallel.serve import TPSynthesizer
+
+    synth = _tp_synth(dev, use_denoiser=False)
+    single = (Synthesizer(synth.hp, synth.taco, synth.wg_cfg,
+                          synth.waveglow, use_denoiser=False,
+                          int8_vocoder=True) if int8 else synth)
+    cfg = synth.wg_cfg
+    tps = TPSynthesizer(synth.hp, synth.taco, cfg, synth.waveglow,
+                        n_model=2, chunk_steps=32, int8=int8)
+    assert tps.compute_dtype == torch.bfloat16
+    texts = ["안녕하세요.", "네."]
+    mel, lens = single.text_to_mel(texts, seed=1, max_steps=60)
+    gpf = cfg.upsample_stride // cfg.n_group
+    g = torch.Generator(device="cuda").manual_seed(3)
+    noise = tuple(torch.randn(s, generator=g, device="cuda")
+                  for s in synth.fused.noise_shapes(2, 60 * gpf))
+    with torch.inference_mode():
+        want = single.mel_to_audio(mel, 0.7, noise=noise)
+    wb.reset_launch_counts()
+    wq.reset_launch_counts()
+    tp.reset_launch_counts()
+    got = tps.mel_to_audio(mel, 0.7, noise=noise)
+    F, L = cfg.n_flows, cfg.wn_n_layers
+    assert tp.launch_counts() == (
+        {"wn_layer_partial": 2 * F, "wn_layer_partial_int8": 2 * F * (L - 1)}
+        if int8 else {"wn_layer_partial": 2 * F * L,
+                      "wn_layer_partial_int8": 0})
+    others = {**wb.launch_counts(), **wq.launch_counts()}
+    assert not any(v for k, v in others.items() if "partial" not in k)
+    steps, rel = (32, 5e-2) if int8 else (16, 2e-2)
+    assert (got - want).abs().max() <= steps * 2.0 ** -8 * want.abs().max()
+    assert ((got - want).norm() / want.norm()).item() < rel
+    wavs = tps.synthesize(texts, 0.7, seed=1, max_steps=60)
+    assert [len(w) for w in wavs] == [int(n) * cfg.upsample_stride
+                                      for n in lens.tolist()]
+    assert all(np.isfinite(w).all() for w in wavs)
+
+
+def test_tp_stream_with_the_denoiser_on_the_card(dev):
+    """``synthesize_incremental`` with the denoiser against the offline
+    denoiser over its own raw stream (the same audio, windowed: 1e-5 on
+    the card's FFTs)."""
+    from text2speech_tpu_torch.models.denoiser import make_denoiser
+    from text2speech_tpu_torch.parallel.serve import TPSynthesizer
+
+    synth = _tp_synth(dev, use_denoiser=False)
+    tps = TPSynthesizer(synth.hp, synth.taco, synth.wg_cfg, synth.waveglow,
+                        n_model=2, chunk_steps=32)
+    kw = dict(sigma=0.7, seed=4, max_steps=100)
+    raw = np.concatenate(list(tps.synthesize_incremental("안녕하세요.", **kw)))
+    dkw = dict(filter_length=256, n_overlap=4, win_length=256)
+    den = np.concatenate(list(tps.synthesize_incremental(
+        "안녕하세요.", denoiser_strength=0.1, denoiser_kwargs=dkw, **kw)))
+    _, denoise = make_denoiser(synth.waveglow, **dkw)
+    with torch.inference_mode():
+        ref = denoise(torch.from_numpy(raw[None]).to(dev), 0.1)[0].cpu()
+    assert den.shape == tuple(ref.shape)
+    np.testing.assert_allclose(den, ref.numpy(), atol=1e-5)
+
+
+def test_make_server_tp_on_the_card(dev):
+    """``make_server_tp`` over two shards: every session of the batch as
+    long as ``make_server``'s for the same (text, seed), finite, and the
+    partial kernels launched each round."""
+    from text2speech_tpu_torch.parallel import tp
+    from text2speech_tpu_torch.parallel.serve import TPSynthesizer
+    from text2speech_tpu_torch.server import make_server, make_server_tp
+
+    synth = _tp_synth(dev, use_denoiser=False)
+    tps = TPSynthesizer(synth.hp, synth.taco, synth.wg_cfg, synth.waveglow,
+                        n_model=2, chunk_steps=32)
+    texts, seeds = ["안녕하세요.", "네.", "오늘 날씨가 참 좋네요."], [1, 2, 3]
+    kw = dict(slots=2, chunk_steps=32, max_steps=120)
+    tp.reset_launch_counts()
+    got = make_server_tp(tps, **kw).run(texts, seeds=seeds)
+    assert tp.launch_counts()["wn_layer_partial"] > 0
+    want = make_server(synth, **kw).run(texts, seeds=seeds)
+    assert sorted(got) == sorted(want) == [0, 1, 2]
+    for sid in want:
+        assert got[sid].shape == want[sid].shape
+        assert np.isfinite(got[sid]).all()
+
+
+def test_one_rank_nccl_tp_decode_and_server_equal_the_local_form(dev,
+                                                                 nccl_mesh):
+    """A model group of one NCCL rank: the decoder's gather and the
+    server's lockstep check run and add nothing, so the decode and a
+    ``make_server_tp`` run equal the one-shard local form bit for bit."""
+    import torch.distributed as dist
+
+    from text2speech_tpu_torch.parallel.serve import TPSynthesizer
+    from text2speech_tpu_torch.parallel.tp_tacotron import TPTacotronDecoder
+    from text2speech_tpu_torch.server import make_server_tp
+
+    synth = _tp_synth(dev, use_denoiser=False)
+    memory, pmem, masks, lengths = _decode_inputs(synth, dev)
+    with torch.inference_mode():
+        outs = []
+        for kw in (dict(group=dist.group.WORLD), dict(n_model=1)):
+            dec = TPTacotronDecoder(synth.taco, synth.hp, **kw)
+            outs.append(dec(memory, pmem, *dec.initial_carry(memory), masks,
+                            lengths))
+    (c0, *o0), (c1, *o1) = outs
+    assert all(torch.equal(a, b) for a, b in zip(o0, o1))
+    assert all(torch.equal(a, b) for a, b in zip(c0[0], c1[0]))
+    wavs = []
+    for kw in (dict(group=dist.group.WORLD), dict(n_model=1)):
+        tps = TPSynthesizer(synth.hp, synth.taco, synth.wg_cfg,
+                            synth.waveglow, chunk_steps=32, **kw)
+        assert len(tps.lockstep_groups) == ("group" in kw)
+        wavs.append(make_server_tp(tps, slots=2, chunk_steps=32,
+                                   max_steps=96).run(["안녕하세요.", "네."],
+                                                     seeds=[5, 6]))
+    assert all(np.array_equal(wavs[0][k], wavs[1][k]) for k in wavs[1])

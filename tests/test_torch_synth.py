@@ -236,7 +236,8 @@ def test_port_imports_with_jax_blocked():
         "          'data.npz_dataset', 'utils.run_dirs', 'utils.infolog',\n"
         "          'tacotron_train', 'waveglow_inference', 'mel2samp',\n"
         "          'data.preprocess', 'native', 'preprocess',\n"
-        "          'parallel.mesh', 'utils.plotting'):\n"
+        "          'parallel.mesh', 'utils.plotting',\n"
+        "          'parallel.tp_tacotron', 'parallel.serve'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )

@@ -11,9 +11,9 @@ all-reduce a step, BatchNorm's statistics, the row gathers of
 on the CPU and on a card that several local ranks share.
 
 Every collective here is an ``all_reduce`` or a ``broadcast``: gloo carries
-both for CUDA tensors, not every other one.  A row gather is an
-``all_reduce`` of a zeroed buffer into which each rank wrote its rows,
-which is exact (every sum adds zeros to one value).
+both for CUDA tensors, not every other one.  A row (or column) gather is an
+``all_reduce`` of a zeroed buffer into which each rank wrote its rows (or
+columns), which is exact (every sum adds zeros to one value).
 
 A :class:`Mesh` names its axes, their sizes, this process's index on each
 and the process group of each axis.  :func:`make_mesh` builds the groups;
@@ -354,14 +354,41 @@ def all_reduce_mean_(tensors: list, mesh: Mesh,
     _coalesced(tensors, mean)
 
 
+def _exact_buffer(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in a type every backend sums (f32 for the low-precision
+    floats, int32 for bool): the cast and its inverse are exact."""
+    if x.dtype == torch.bool:
+        return x.to(torch.int32)
+    if x.is_floating_point() and x.dtype not in (torch.float32,
+                                                 torch.float64):
+        return x.to(torch.float32)
+    return x
+
+
 def gather_rows(x: torch.Tensor, mesh: Mesh,
                 axis: str = DATA_AXIS) -> torch.Tensor:
     """The global tensor from every rank's contiguous row block ``x``:
     each rank writes its rows into a zeroed buffer, and an ``all_reduce``
-    sums the buffers, which adds only zeros to each value."""
+    sums the buffers, which adds only zeros to each value.  The result
+    keeps ``x``'s type (bool and bf16 travel as int32 and f32)."""
     n, r = mesh.size(axis), mesh.rank(axis)
     k = x.shape[0]
-    out = x.new_zeros((n * k,) + tuple(x.shape[1:]))
-    out[r * k:(r + 1) * k] = x
+    buf = _exact_buffer(x)
+    out = buf.new_zeros((n * k,) + tuple(x.shape[1:]))
+    out[r * k:(r + 1) * k] = buf
     dist.all_reduce(out, group=mesh.group(axis))
-    return out
+    return out.to(x.dtype)
+
+
+def gather_cols(x: torch.Tensor, group) -> torch.Tensor:
+    """The [..., p k] tensor from every rank's block of k columns ``x``
+    [..., k], in the order of the ranks of ``group``: as
+    :func:`gather_rows`, a zeroed buffer and one ``all_reduce`` (the
+    tensor-parallel decoder's hidden-state gather)."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    k = x.shape[-1]
+    buf = _exact_buffer(x)
+    out = buf.new_zeros(tuple(x.shape[:-1]) + (n * k,))
+    out[..., r * k:(r + 1) * k] = buf
+    dist.all_reduce(out, group=group)
+    return out.to(x.dtype)

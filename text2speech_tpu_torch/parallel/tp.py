@@ -25,8 +25,9 @@ counterpart of the JAX package's virtual-device mesh.  With a group, a
 process holds the shard of its own rank and the per-layer sum is an
 ``all_reduce`` (NCCL between GPUs, gloo on the CPU).  Every rank must then be
 given the same mel and the same noise (the same ``noise=`` tuple, or
-generators seeded alike).  Sharding the batch over a second ``data`` axis is
-not ported here.
+generators seeded alike).  With a data x model :class:`.mesh.Mesh`
+(``mesh=``) a rank vocodes its row block of the batch with its model group,
+and the audio rows are gathered, so every rank returns the whole batch.
 
 ``fused=True`` runs each shard's layer through the partial WN-layer kernels
 (:func:`..ops.wn_block.wn_layer_partial`, and with ``int8=True``

@@ -646,6 +646,76 @@ class ContinuousBatcher:
         return audio[0, : tl * self.hop]
 
 
+def _tts_batcher(taco, cfg, dev, *, slots: int, chunk_steps: int,
+                 max_text_len: int, max_steps: int | None, sigma: float,
+                 retain_sessions: bool, key_fn, noise_fn,
+                 **device_fns) -> ContinuousBatcher:
+    """A :class:`ContinuousBatcher` over a Tacotron-2 ``taco`` and a
+    vocoder of configuration ``cfg`` on ``dev``: the sizes, the request
+    validation (a text, or ``(text, speaker_id)`` on a multi-speaker
+    model; longer than ``max_text_len`` symbols is rejected at ``submit``),
+    the postnet and the default draws that :func:`make_server` and
+    :func:`make_server_tp` share.  ``device_fns``: the batcher's
+    ``admit_fn``, ``init_batch_fn``, ``decode_fn``, ``vocode_fn``, its
+    optional exact or masked pass and ``denoiser``."""
+    from .infer import speaker_ids_array
+    from .models.chunked import (draw_noise, noise_schedule,
+                                 receptive_overlap_frames)
+    from .text import encode_batch
+
+    hp = taco.hp
+    requested = max_steps or hp.max_decoder_steps
+    gpf = cfg.upsample_stride // cfg.n_group
+    limit = -(-requested // chunk_steps) * chunk_steps
+
+    def validate_fn(request):
+        text, speaker = (request if isinstance(request, tuple)
+                         else (request, None))
+        ids_np, lens_np = encode_batch([text])
+        if ids_np.shape[1] > max_text_len:
+            raise ValueError(
+                f"text encodes to {ids_np.shape[1]} symbols > server "
+                f"max_text_len={max_text_len}")
+        sid = speaker_ids_array(speaker, 1, taco.num_speakers)
+        return ids_np, lens_np, sid     # canonical: encoded once, at submit
+
+    def default_key_fn(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return taco.decoder.draw_keep_masks(limit, 1, gen, dev)[:, :, 0]
+
+    def default_noise_fn(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        return lambda j: tuple(
+            c[0] for c in draw_noise(cfg, gen, 1, chunk_steps * gpf))
+
+    return ContinuousBatcher(
+        slots=slots, chunk_steps=chunk_steps, requested=requested,
+        prf=(hp.postnet_kernel_size // 2) * hp.postnet_n_convolutions,
+        ov=receptive_overlap_frames(cfg), n_mel=hp.n_mel_channels, gpf=gpf,
+        hop=cfg.upsample_stride, noise_widths=tuple(noise_schedule(cfg)),
+        sigma=sigma, device=dev,
+        postnet_fn=lambda wins: taco.postnet_residual(wins),
+        key_fn=key_fn or default_key_fn,
+        noise_fn=noise_fn or default_noise_fn,
+        validate_fn=validate_fn, retain_sessions=retain_sessions,
+        **device_fns)
+
+
+def _encode_request(taco, request, max_text_len: int, dev):
+    """A validated request -> (memory [1, max_text_len, E], lengths [1]),
+    the text zero-padded to the server's encoder width."""
+    ids_np, lens_np, sid = request
+    ids = np.zeros((1, max_text_len), np.int64)
+    ids[:, : ids_np.shape[1]] = ids_np
+    lengths = torch.from_numpy(np.asarray(lens_np)).long().to(dev)
+    mem = taco.encode(
+        torch.from_numpy(ids).to(dev),
+        speaker_ids=(None if sid is None
+                     else torch.from_numpy(sid).long().to(dev)),
+        text_lengths=lengths)
+    return mem, lengths
+
+
 def make_server(synth, *, slots: int = 8, chunk_steps: int = 64,
                 max_text_len: int = 256, max_steps: int | None = None,
                 sigma: float = 0.666, retain_sessions: bool = False,
@@ -661,20 +731,11 @@ def make_server(synth, *, slots: int = 8, chunk_steps: int = 64,
     round; sessions in flight see the new weights mid-utterance, so drain
     first if that matters.  ``key_fn`` / ``noise_fn`` replace the default
     draws (module docstring)."""
-    from .infer import speaker_ids_array
-    from .models.chunked import (draw_noise, noise_schedule,
-                                 receptive_overlap_frames)
     from .models.tacotron2 import DecoderState
     from .models.tacotron_serve import (decode_chunk_serve,
                                         int8_decode_worthwhile)
-    from .text import encode_batch
 
     hp, cfg, dev = synth.hp, synth.wg_cfg, synth.device
-    requested = max_steps or hp.max_decoder_steps
-    prf = (hp.postnet_kernel_size // 2) * hp.postnet_n_convolutions
-    ov = receptive_overlap_frames(cfg)
-    gpf = cfg.upsample_stride // cfg.n_group
-    limit = -(-requested // chunk_steps) * chunk_steps
     # the server's decode batch IS the slot count: int8 decoder weights
     # serve only where the measured threshold says they pay
     quantized = synth.quantized_decode and int8_decode_worthwhile(slots)
@@ -694,29 +755,9 @@ def make_server(synth, *, slots: int = 8, chunk_steps: int = 64,
                 batch["pmem"] = synth.taco.process_memory(memory)
         return batch
 
-    def validate_fn(request):
-        # a request is a text, or (text, speaker_id) on a multi-speaker
-        # model
-        text, speaker = (request if isinstance(request, tuple)
-                         else (request, None))
-        ids_np, lens_np = encode_batch([text])
-        if ids_np.shape[1] > max_text_len:
-            raise ValueError(
-                f"text encodes to {ids_np.shape[1]} symbols > server "
-                f"max_text_len={max_text_len}")
-        sid = speaker_ids_array(speaker, 1, synth.taco.num_speakers)
-        return ids_np, lens_np, sid     # canonical: encoded once, at submit
-
     def admit_fn(request, seed):
-        ids_np, lens_np, sid = request
-        ids = np.zeros((1, max_text_len), np.int64)
-        ids[:, : ids_np.shape[1]] = ids_np
-        lengths = torch.from_numpy(np.asarray(lens_np)).long().to(dev)
-        mem = synth.taco.encode(
-            torch.from_numpy(ids).to(dev),
-            speaker_ids=(None if sid is None
-                         else torch.from_numpy(sid).long().to(dev)),
-            text_lengths=lengths)
+        mem, lengths = _encode_request(synth.taco, request, max_text_len,
+                                       dev)
         state, frame, finished = synth.taco.decoder.initial_carry(mem)
         row = {"memory": mem[0], "lengths": lengths[0],
                "state": tuple(t[0] for t in state), "frame": frame[0],
@@ -741,15 +782,6 @@ def make_server(synth, *, slots: int = 8, chunk_steps: int = 64,
             tuple(carry[0]), carry[1], carry[2])
         return new, mel_c, active, carry[2]
 
-    def default_key_fn(seed):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        return synth.taco.decoder.draw_keep_masks(limit, 1, gen, dev)[:, :, 0]
-
-    def default_noise_fn(seed):
-        gen = torch.Generator(device=dev).manual_seed(seed + 1)
-        return lambda j: tuple(
-            c[0] for c in draw_noise(cfg, gen, 1, chunk_steps * gpf))
-
     denoiser = None
     if getattr(synth, "_denoise_bias", None) is not None:
         from .models.denoiser import serving_denoiser
@@ -760,16 +792,121 @@ def make_server(synth, *, slots: int = 8, chunk_steps: int = 64,
             lambda: synth._denoise_bias, synth._denoise_params,
             chunk_steps, cfg.upsample_stride)
 
-    return ContinuousBatcher(
-        slots=slots, chunk_steps=chunk_steps, requested=requested,
-        prf=prf, ov=ov, n_mel=hp.n_mel_channels, gpf=gpf,
-        hop=cfg.upsample_stride, noise_widths=tuple(noise_schedule(cfg)),
-        sigma=sigma, device=dev,
+    return _tts_batcher(
+        synth.taco, cfg, dev, slots=slots, chunk_steps=chunk_steps,
+        max_text_len=max_text_len, max_steps=max_steps, sigma=sigma,
+        retain_sessions=retain_sessions, key_fn=key_fn, noise_fn=noise_fn,
         admit_fn=admit_fn, init_batch_fn=init_batch_fn, decode_fn=decode_fn,
-        postnet_fn=lambda wins: synth.taco.postnet_residual(wins),
         vocode_fn=lambda mel, nz, sg: synth._vocode_window(mel, nz, sg),
-        vocode_masked_fn=synth._masked_vocode_handle(),
-        key_fn=key_fn or default_key_fn,
-        noise_fn=noise_fn or default_noise_fn,
-        validate_fn=validate_fn, retain_sessions=retain_sessions,
+        vocode_masked_fn=synth._masked_vocode_handle(), denoiser=denoiser)
+
+
+def _lockstep_check(groups: list, finished: torch.Tensor,
+                    masks: torch.Tensor) -> None:
+    """Raise unless every rank of ``groups`` holds the same stop flags and
+    keep-masks this round.  One ``all_reduce`` (MAX) a group of each slot's
+    flag and a checksum of its masks, beside their negations: the ranks
+    agree exactly when the maximum equals the minimum, and every rank
+    reads the same maximum and minimum, so either all ranks raise or none
+    does (none is left waiting in the next collective)."""
+    import torch.distributed as dist
+
+    w = torch.arange(1, masks[:, :, 0].numel() + 1, device=masks.device,
+                     dtype=torch.long).reshape(masks.shape[0], 2, 1, -1)
+    sums = (masks.long() * w).sum(dim=(0, 1, 3))
+    v = torch.cat([finished.long(), sums])
+    both = torch.cat([v, -v])
+    for g in groups:
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=g)
+    hi, neg_lo = both.chunk(2)
+    if not torch.equal(hi, -neg_lo):
+        n = finished.shape[0]
+        odd = sorted({i % n for i in torch.nonzero(hi != -neg_lo)
+                      .flatten().tolist()})
+        raise RuntimeError(
+            f"tensor-parallel server ranks out of lockstep: slots {odd} "
+            f"differ in their stop flags or keep-masks (every rank must "
+            f"submit the same requests with the same seeds and step "
+            f"together)")
+
+
+def make_server_tp(tps, *, slots: int = 8, chunk_steps: int = 64,
+                   max_text_len: int = 256, max_steps: int | None = None,
+                   sigma: float = 0.666, retain_sessions: bool = False,
+                   use_denoiser: bool = False,
+                   denoiser_kwargs: dict | None = None, key_fn=None,
+                   noise_fn=None) -> ContinuousBatcher:
+    """Continuous batching over a :class:`..parallel.serve.TPSynthesizer`
+    (``server.py:892 make_server_tp``): :func:`make_server`'s scheduler,
+    with each round's decode through the tensor-parallel decoder of
+    ``tps._endpoints(slots)`` (each slot's own keep-masks) and the window
+    vocodes through its vocoder; a session shorter than one window
+    vocodes its exact length through ``tps._endpoints(1)``'s.  A session's
+    audio matches :func:`make_server`'s for the same ``(text, seed)`` to
+    float tolerance.  ``key_fn`` / ``noise_fn``: as :func:`make_server`.
+
+    Under a process group every rank runs this batcher in lockstep: the
+    same ``submit`` calls with the same seeds, and ``step`` (or ``run``) on
+    every rank.  The scheduler branches on each slot's stop flag, a device
+    value that identical kernels on gathered inputs make equal on every
+    rank; each round checks that it is (:func:`_lockstep_check`) and raises
+    on every rank when the ranks disagree.  A rank that stops stepping
+    while another steps is not detected: the others wait in the decode's
+    collective until the process group's timeout."""
+    from .models.tacotron2 import DecoderState
+
+    hp, cfg, dev, taco = tps.hp, tps.wg_cfg, tps.device, tps.taco
+    decoder, vocoder = tps._endpoints(slots)
+    _, vocoder1 = tps._endpoints(1)
+    groups = tps.lockstep_groups
+
+    def init_batch_fn():
+        dt = taco.embedding.weight.dtype
+        memory = torch.zeros((slots, max_text_len, hp.enc_conv_channels),
+                             dtype=dt, device=dev)
+        state, frame, finished = decoder.initial_carry(memory)
+        with torch.no_grad():
+            pmem = taco.process_memory(memory)
+        return {"memory": memory, "pmem": pmem,
+                "lengths": torch.ones((slots,), dtype=torch.long,
+                                      device=dev),
+                "state": tuple(state), "frame": frame, "finished": finished}
+
+    def admit_fn(request, seed):
+        mem, lengths = _encode_request(taco, request, max_text_len, dev)
+        state, frame, finished = decoder.initial_carry(mem)
+        return {"memory": mem[0], "pmem": taco.process_memory(mem)[0],
+                "lengths": lengths[0], "state": tuple(t[0] for t in state),
+                "frame": frame[0], "finished": finished[0]}
+
+    def decode_fn(batch, masks):
+        carry, mel_c, _, _, active = decoder(
+            batch["memory"], batch["pmem"], DecoderState(*batch["state"]),
+            batch["frame"], batch["finished"], masks, batch["lengths"])
+        if groups:
+            _lockstep_check(groups, carry[2], masks)
+        new = dict(batch)
+        new["state"], new["frame"], new["finished"] = (
+            tuple(carry[0]), carry[1], carry[2])
+        return new, mel_c, active, carry[2]
+
+    denoiser = None
+    if use_denoiser:
+        from .models.denoiser import denoiser_stft_params, serving_denoiser
+
+        kw = denoiser_kwargs or {}
+        # cached per configuration on the synthesizer: its streaming path
+        # may denoise with another STFT size at the same time
+        bkey = tps.denoise_bias(kw)
+        denoiser = serving_denoiser(
+            lambda: tps._denoise_biases[bkey], denoiser_stft_params(**kw),
+            chunk_steps, cfg.upsample_stride)
+
+    return _tts_batcher(
+        taco, cfg, dev, slots=slots, chunk_steps=chunk_steps,
+        max_text_len=max_text_len, max_steps=max_steps, sigma=sigma,
+        retain_sessions=retain_sessions, key_fn=key_fn, noise_fn=noise_fn,
+        admit_fn=admit_fn, init_batch_fn=init_batch_fn, decode_fn=decode_fn,
+        vocode_fn=lambda mel, nz, sg: vocoder(mel, sg, noise=nz),
+        vocode_exact_fn=lambda mel, nz, sg: vocoder1(mel, sg, noise=nz),
         denoiser=denoiser)
