@@ -215,11 +215,39 @@ Phases, each of which passes or raises (the script then exits non-zero):
     of both; two processes on this card over gloo (a model group of two):
     the decode (f32 and bf16) and one ``make_server_tp`` run of 3 texts x
     128 steps, each bit for bit the one-process two-shard run.
+29. reference checkpoints into the port, the profiling tools and the
+    worked example (``convert.py``'s torch loaders,
+    ``convert_checkpoint``, ``utils/profiling.py``,
+    ``examples/demo.py``): reference-format state dicts of seeded weights
+    at full width (a Tacotron at ``HParams()`` in the ``train.py:72``
+    format, a WaveGlow at ``WaveGlowConfig()``, its early outputs shrinking
+    the flows to 8, 6 and 4 channels, live ``end`` convs, as a bare state
+    dict and again in the pre-fusion ``res_layers`` / ``skip_layers``
+    layout) through ``python -m text2speech_tpu_torch.convert_checkpoint``
+    in processes of their own (the two WaveGlow conversions equal bit for
+    bit, each printed count the state dict's), ``python -m
+    text2speech_tpu_torch.inference --taco_checkpoint T
+    --waveglow_checkpoint W --fused_vocoder`` writing a WAV of frames x hop
+    samples; in this process ``load_torch_checkpoint`` and the module
+    conveniences: one fused vocode launching rows 1-3 12 / 72 / 12 times
+    and no other WN-layer kernel, held to the f32 ``WaveGlow.infer`` on
+    the same mel and noise by phase 4's bound, its f32 mel bit for bit a
+    ``Synthesizer`` of the converted checkpoint directories'; the same
+    vocode under ``trace_capture`` / ``annotate("vocode")`` /
+    ``StepTimer`` (the Chrome trace names the ``wn_sm90_kernel`` launches
+    and the region); row 4 at the demo's widths (C = 128 in two shares of
+    64 columns, layer 0's ``PART_FIRST`` and layer 1's ``PART``, each rank
+    against its plain version by phase 17's bound, the ranks' sum against
+    the whole layer), which no other phase reaches; then ``python -m
+    text2speech_tpu_torch.examples.demo --steps 2`` in a process of its
+    own (rc 0, both WAVs, its wall and launches).  The corpus drill is not run here: its inference stage
+    always draws plots, and the card's machine has no matplotlib.
 
 Phase 25 runs right after phase 7, phases 12-21 between it and phase 8,
-phases 22-24 after phase 11, phases 26, 27 and 28 last.  The line before
-the last is a JSON object with one record per kernel; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+phases 22-24 after phase 11, phases 26, 27, 28 and 29 last.  The line
+before the last is a JSON object with one record per kernel (its
+``paths``: the launches on phase 29's convert path and in its demo); the
+last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -5264,6 +5292,324 @@ def tp_serve_path(info: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 29: reference checkpoints into the port, the profiling tools, the
+# worked example
+# ---------------------------------------------------------------------------
+
+CONVERT_SEED = 29
+# the demo's own run of two training steps a model, in a process of its own
+DEMO_STEPS = 2
+
+
+def run_cli_module(module: str, args: list, timeout: int = 600) -> tuple:
+    """``python -m <module> args`` in a process of its own -> (stdout,
+    seconds); raises on a nonzero exit."""
+    cmd = [sys.executable, "-m", module, *map(str, args)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    print(f"[convert] python -m {module} {' '.join(map(str, args))} -> rc "
+          f"{r.returncode} in {secs:.2f} s:")
+    print("    " + r.stdout.strip().replace("\n", "\n    "))
+    if r.returncode != 0:
+        raise RuntimeError(f"{module} failed:\n{r.stderr[-4000:]}")
+    return r.stdout, secs
+
+
+# the demo's tensor-parallel vocoder (examples/demo.py): C = 128 channels
+# cut into p = 2 shares of 64 columns, n_half 4 in both flows, M = 80 mels
+# x 8 groups, L = 2 (layer 0 the first form at d 1; layer 1 the last, its
+# res/skip product C wide, at d 2), every row valid; 32 groups a mel frame,
+# from one frame to the demo decoder's 40, and a batch of two
+DEMO_C, DEMO_M, DEMO_P, DEMO_N_HALF = 128, 640, 2, 4
+DEMO_SHAPES = ((1, 32), (1, 1280), (2, 416))
+
+
+def check_demo_partials() -> float:
+    """Row 4 at the demo's widths, which no other phase reaches (phase 17
+    runs C = 512): every rank's ``PART_FIRST`` (layer 0) and ``PART``
+    (layer 1) launch against its plain version on the same inputs, within
+    phase 17's bound, and the ranks' sum + bias against the whole layer's
+    plain res/skip term.  Returns the largest error against a plain
+    version."""
+    from text2speech_tpu_torch.ops import wn_block as wb
+
+    dev = torch.device("cuda")
+    C, M, p = DEMO_C, DEMO_M, DEMO_P
+    worst, seed = 0.0, 2900
+    for B, T in DEMO_SHAPES:
+        for li in (0, 1):
+            seed += 1
+            if li == 0:
+                k = layer_inputs(B, T, T, C, M, seed, dev, n_half=DEMO_N_HALF)
+            else:                         # the last layer: rs_out = C
+                k = layer_inputs(B, T, T, C, M, seed, dev)
+                k["w_rs"] = k["w_rs"][:, :C].contiguous()
+                k["b_rs"] = k["b_rs"][:C].contiguous()
+            tag = f"demo widths C={C} p={p} layer {li} B={B} T={T}"
+            total = None
+            for i in range(p):
+                w_in, b_in, w_c, b_c, w_rs = rank_share(k, p, i, False)
+                if li == 0:
+                    wp, b_all, b_edge = wb.fold_first_taps(
+                        k["start_k"], k["start_b"], w_in, b_in)
+                    args = (k["x0"], k["spect"], wp, b_all, w_c, b_c, w_rs, 1)
+                    kw = {"b_edge": b_edge}
+                else:
+                    args = (k["x"], k["spect"], w_in, b_in, w_c, b_c, w_rs, 2)
+                    kw = {}
+                n0 = wb.wn_layer_partial.launches
+                got = wb.wn_layer_partial(*args, n_valid=T, **kw)
+                if wb.wn_layer_partial.launches != n0 + 1:
+                    raise RuntimeError(f"{tag} rank {i}: "
+                                       f"{wb.wn_layer_partial.launches - n0}"
+                                       f" launches counted, want 1")
+                want = wb.wn_layer_partial_plain(*args, n_valid=T, **kw)
+                worst = max(worst, compare(f"wn_layer_partial {tag} rank {i}",
+                                           got, want))
+                total = got if total is None else total + got
+            if li == 0:
+                wp, b_all, b_edge = wb.fold_first_taps(
+                    k["start_k"], k["start_b"], k["w_in"], k["b_in"])
+                in_act = wb._edge_bias_suppress(
+                    wb._taps(k["x0"], wp, 1, T) + b_all
+                    + wb._cond(k["spect"], k["w_cond"], k["b_cond"]),
+                    b_edge, 1, T)
+            else:
+                in_act = (wb._taps(k["x"], k["w_in"], 2, T) + k["b_in"]
+                          + wb._cond(k["spect"], k["w_cond"], k["b_cond"]))
+            rs = (wb._gate(in_act, torch.bfloat16).float() @ k["w_rs"].float()
+                  + k["b_rs"])
+            compare(f"sum of {p} partials + bias vs the whole layer {tag}",
+                    total + k["b_rs"], rs)
+    return worst
+
+
+def convert_path(info: str) -> dict:
+    """Phase 29: a user's route from reference checkpoints to a WAV, at full
+    width on seeded weights.  Reference-format state dicts (a Tacotron at
+    ``HParams()`` in the ``train.py:72`` format, a WaveGlow at
+    ``WaveGlowConfig()`` with its early outputs as a bare state dict, and
+    the same WaveGlow in the pre-fusion layout) go through ``python -m
+    text2speech_tpu_torch.convert_checkpoint`` (processes of their own;
+    the two WaveGlow conversions equal bit for bit; the printed counts
+    equal the state dicts'), then ``python -m
+    text2speech_tpu_torch.inference --fused_vocoder`` writes a WAV of
+    frames x hop samples.  In this process ``load_torch_checkpoint`` and
+    the module conveniences build a fused ``Synthesizer``, whose one
+    vocode launches rows 1-3 12 / 72 / 12 times and no other WN-layer
+    kernel, held to the f32 ``WaveGlow.infer`` on the same mel and noise
+    (phase 4's bound) and its mel bit for bit to a ``Synthesizer`` of the
+    converted checkpoint directories; that vocode again under
+    ``trace_capture`` / ``annotate`` / ``StepTimer``; then the demo
+    (``python -m text2speech_tpu_torch.examples.demo``) in a process of
+    its own, after row 4 is held to its plain version at the demo's widths
+    (:func:`check_demo_partials`).  Returns the launches of each kernel on
+    the convert path and in the demo, and the largest error of row 4
+    against its plain version at the demo's widths."""
+    from scipy.io import wavfile
+
+    from text2speech_tpu_torch.config import HParams, WaveGlowConfig
+    from text2speech_tpu_torch.convert import (load_torch_checkpoint,
+                                               tacotron_module_from_torch,
+                                               waveglow_module_from_torch)
+    from text2speech_tpu_torch.examples.reference_checkpoints import (
+        pre_fusion_layout, reference_tacotron_state_dict,
+        reference_waveglow_state_dict)
+    from text2speech_tpu_torch.infer import Synthesizer, load_synthesizer
+    from text2speech_tpu_torch.ops import wn_block_padded as wp
+    from text2speech_tpu_torch.parallel import tp
+    from text2speech_tpu_torch.utils.profiling import (StepTimer, annotate,
+                                                       trace_capture)
+
+    hp, cfg = HParams(), WaveGlowConfig()
+    hop = cfg.upsample_stride
+    secs = {}
+
+    def part(tag, fn):
+        out, secs[tag] = sync_time(fn)
+        return out
+
+    def counts():
+        return {**all_counts(), **tp.launch_counts(), **wp.launch_counts()}
+
+    def reset():          # every count counts() reads (the ladder's too)
+        reset_counts()
+        wp.reset_launch_counts()
+
+    with tempfile.TemporaryDirectory() as d:
+        def write_state_dicts():
+            taco_sd = reference_tacotron_state_dict(hp, CONVERT_SEED)
+            torch.save({"iteration": 0, "state_dict": taco_sd,
+                        "learning_rate": hp.learning_rate}, f"{d}/taco.pt")
+            wg_sd = reference_waveglow_state_dict(cfg, CONVERT_SEED)
+            torch.save(wg_sd, f"{d}/wg.pt")
+            torch.save(pre_fusion_layout(wg_sd, cfg), f"{d}/wg_old.pt")
+            stats = ("running_mean", "running_var", "num_batches_tracked")
+            return ({"taco": sum(t.numel() for k, t in taco_sd.items()
+                                 if not k.endswith(stats)),
+                     "wg": sum(t.numel() for t in wg_sd.values())})
+
+        want_n = part("state dicts", write_state_dicts)
+        print(f"[convert] reference state dicts at full width "
+              f"(Tacotron at HParams(), WaveGlow at C={cfg.wn_n_channels}, "
+              f"L={cfg.wn_n_layers}, {cfg.n_flows} flows with early "
+              f"outputs, fused and pre-fusion): parameters {want_n}")
+
+        def convert_all():
+            """The three conversions, one process each, side by side."""
+            jobs = (("tacotron", "taco.pt", "taco_ckpt"),
+                    ("waveglow", "wg.pt", "wg_ckpt"),
+                    ("waveglow", "wg_old.pt", "wg_old_ckpt"))
+            with ThreadPoolExecutor(len(jobs)) as pool:
+                runs = [pool.submit(
+                    run_cli_module, "text2speech_tpu_torch.convert_checkpoint",
+                    ["--kind", kind, "--torch_ckpt", f"{d}/{src}",
+                     "--out_dir", f"{d}/{out}"]) for kind, src, out in jobs]
+                results = [r.result() for r in runs]
+            walls = {}
+            for (kind, src, _), (stdout, walls[src]) in zip(jobs, results):
+                n = int(re.search(r"\(([\d,]+) params\)", stdout)[1]
+                        .replace(",", ""))
+                want = want_n["taco" if kind == "tacotron" else "wg"]
+                if n != want:
+                    raise RuntimeError(f"convert_checkpoint counted {n} "
+                                       f"parameters of {src}, the state "
+                                       f"dict holds {want}")
+            return walls
+
+        walls = part("convert CLI", convert_all)
+        fused = torch.load(f"{d}/wg_ckpt/ckpt_00000000.pt",
+                           map_location="cpu", weights_only=True)["params"]
+        old = torch.load(f"{d}/wg_old_ckpt/ckpt_00000000.pt",
+                         map_location="cpu", weights_only=True)["params"]
+        if set(fused) != set(old) or not all(
+                torch.equal(fused[k], old[k]) for k in fused):
+            raise RuntimeError("the pre-fusion WaveGlow converts to other "
+                               "tensors than the fused one")
+        print(f"[convert] convert_checkpoint walls, side by side (s, {info}): "
+              f"{ {k: round(v, 2) for k, v in walls.items()} }; the fused "
+              f"and pre-fusion WaveGlow give the same {len(fused)} tensors, "
+              f"bit for bit")
+        del fused, old
+
+        def cli_inference():
+            out = f"{d}/converted.wav"
+            run_cli_module("text2speech_tpu_torch.inference", [
+                "--taco_checkpoint", f"{d}/taco_ckpt",
+                "--waveglow_checkpoint", f"{d}/wg_ckpt", "--fused_vocoder",
+                "--max_steps", MAX_STEPS, "--text", TEXTS[0], "--out", out])
+            sr, data = wavfile.read(out)
+            if data.dtype != np.int16 or sr != cfg.sampling_rate or \
+                    data.shape != (MAX_STEPS * hop,):
+                raise RuntimeError(f"inference wrote {data.shape} {data.dtype}"
+                                   f" at {sr} Hz, want {MAX_STEPS * hop} "
+                                   f"PCM16 samples at {cfg.sampling_rate}")
+
+        part("inference CLI", cli_inference)
+
+        def in_process():
+            taco_sd = load_torch_checkpoint(f"{d}/taco.pt")
+            wg_sd = load_torch_checkpoint(f"{d}/wg.pt")
+            synth = Synthesizer(
+                hp, tacotron_module_from_torch(taco_sd, hp, device="cuda"),
+                cfg, waveglow_module_from_torch(wg_sd, cfg, device="cuda"),
+                use_denoiser=False, use_fused_vocoder=True)
+            mel, lens = synth.text_to_mel(TEXTS, seed=0, max_steps=MAX_STEPS)
+            from_dirs = load_synthesizer(
+                hp, None, cfg, use_denoiser=False,
+                device="cuda", taco_ckpt_dir=f"{d}/taco_ckpt",
+                wg_ckpt_dir=f"{d}/wg_ckpt")
+            mel2, lens2 = from_dirs.text_to_mel(TEXTS, seed=0,
+                                                max_steps=MAX_STEPS)
+            if not (torch.equal(mel, mel2) and torch.equal(lens, lens2)):
+                raise RuntimeError("the converted modules' mel differs from "
+                                   "the converted checkpoints'")
+            del from_dirs
+            gen = torch.Generator(device="cuda").manual_seed(CONVERT_SEED)
+            Tg = mel.shape[-1] * hop // cfg.n_group
+            noise = tuple(torch.randn(s, generator=gen, device="cuda")
+                          for s in synth.fused.noise_shapes(len(TEXTS), Tg))
+            reset()
+            with torch.inference_mode():
+                got = synth.fused.infer(mel, SIGMA, noise=noise)
+            launches = counts()
+            with torch.inference_mode():
+                exact = synth.waveglow.infer(mel, SIGMA, noise=noise)
+            want = {n: 0 for n in launches}
+            want.update(wn_layer_first=cfg.n_flows,
+                        wn_layer=cfg.n_flows * (cfg.wn_n_layers - 2),
+                        wn_layer_final=cfg.n_flows)
+            print(f"[convert] one fused vocode of the converted WaveGlow "
+                  f"(batch {len(TEXTS)} x {mel.shape[-1]} frames): launches "
+                  f"{ {n: c for n, c in launches.items() if c} }")
+            if launches != want:
+                raise RuntimeError(f"launches {launches}, want {want}")
+            err = (got - exact).abs().max().item()
+            peak = exact.abs().max().item()
+            rel = ((got - exact).norm() / exact.norm()).item()
+            print(f"[convert] fused vs f32 WaveGlow.infer on the same mel "
+                  f"and noise: max_abs_err={err:.6g} (bound "
+                  f"{E2E_MAX_ABS_STEPS * peak:.4g}) rel_l2={rel:.4g} (bound "
+                  f"{E2E_REL_L2}); mel bit-equal to the checkpoint "
+                  f"directories' Synthesizer, lengths {lens.tolist()}")
+            if not torch.isfinite(got).all() or \
+                    err > E2E_MAX_ABS_STEPS * peak or rel > E2E_REL_L2:
+                raise RuntimeError("the converted weights' fused vocode "
+                                   "disagrees with the f32 module's")
+            return synth, mel, noise, launches
+
+        synth, mel, noise, launches = part("in process", in_process)
+
+        def traced():
+            timer = StepTimer()
+            with trace_capture(f"{d}/trace") as path:
+                with timer.step() as t, annotate("vocode"), \
+                        torch.inference_mode():
+                    t.block_on(synth.fused.infer(mel, SIGMA, noise=noise))
+            with open(path) as f:
+                text = f.read()
+            n_kernel = text.count("wn_sm90_kernel")
+            n_region = text.count('"vocode"')
+            print(f"[convert] trace_capture: {os.path.basename(path)} "
+                  f"({len(text)} bytes) names wn_sm90_kernel {n_kernel} "
+                  f"times and the vocode region {n_region} times; "
+                  f"StepTimer host {timer.last_host * 1e3:.3f} ms, device "
+                  f"{timer.last_device * 1e3:.3f} ms")
+            if not n_kernel or not n_region:
+                raise RuntimeError("the trace names no wn_sm90_kernel launch "
+                                   "or no vocode region")
+            if not timer.last_device >= timer.last_host > 0:
+                raise RuntimeError("StepTimer: device time below host time")
+
+        part("trace", traced)
+        del synth, mel, noise
+        torch.cuda.empty_cache()
+        partial_err = part("demo-width partials", check_demo_partials)
+
+        def demo():
+            stdout, wall = run_cli_module(
+                "text2speech_tpu_torch.examples.demo",
+                ["--workdir", f"{d}/demo", "--steps", DEMO_STEPS])
+            for name in ("out.wav", "out_tp.wav"):
+                sr, data = wavfile.read(f"{d}/demo/{name}")
+                if data.dtype != np.int16 or data.size == 0:
+                    raise RuntimeError(f"the demo's {name} is not PCM16 audio")
+            demo_launches = json.loads(stdout.strip().splitlines()[-1]
+                                       .removeprefix("launches "))
+            print(f"[demo] {DEMO_STEPS} training steps a model, wall "
+                  f"{wall:.2f} s ({info}); launches "
+                  f"{ {n: c for n, c in demo_launches.items() if c} }")
+            return demo_launches
+
+        demo_launches = part("demo", demo)
+    print(f"[time] phase 29 parts, seconds: "
+          f"{ {k: round(v, 2) for k, v in secs.items()} }; in all "
+          f"{sum(secs.values()):.2f} ({info})")
+    return {"convert": launches, "demo": demo_launches}, partial_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -5369,6 +5715,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[time] phase 28: {sync_time(lambda: tp_serve_path(info))[1]:.2f}"
           f" s")
+    (paths, demo_partial_err), t = sync_time(lambda: convert_path(info))
+    print(f"[time] phase 29: {t:.2f} s")
+    rec["wn_layer_partial"]["max_abs_err"] = max(
+        rec["wn_layer_partial"]["max_abs_err"], demo_partial_err)
 
     launches = {**{n: bf16_launches[n] for n in list(KERNELS)[:3]},
                 **{n: int8_launches[n] for n in list(KERNELS)[3:]},
@@ -5394,6 +5744,9 @@ def main() -> int:
         **({"role": PADDED_SM90_ROLES[n]} if n in PADDED_SM90_ROLES else {}),
         **({"role": PADDED_TILES_ROLES[n][1]} if n in PADDED_TILES_ROLES
            else {}),
+        # launches on phase 29's paths: one vocode of converted reference
+        # weights, and the demo's whole run (its own process)
+        "paths": {path: paths[path].get(n, 0) for path in paths},
     } for n, (src, repl) in {**KERNELS, **DCOND_KERNELS, **PARTIAL_KERNELS,
                              **TRAIN_KERNELS, **PADDED_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))

@@ -1439,6 +1439,49 @@ def test_sm90_partial_first_ranks_sum_to_the_first_layer(dev):
     close(base[:, :nv] + rs[:, :nv, :C], x_out[:, :nv])
 
 
+@pytest.mark.parametrize("layer", [0, 1])
+@pytest.mark.parametrize("B,T", [(1, 32), (2, 416)])
+def test_partial_at_the_demo_widths(dev, layer, B, T):
+    """The widths of ``examples/demo.py``'s tensor-parallel vocoder: C =
+    128 in two shares of 64 columns, M = 640, n_half 4; layer 0's
+    ``PART_FIRST`` at d 1 and layer 1's ``PART`` (the last layer, res/skip
+    C wide) at d 2, every row valid.  Each rank against its plain version,
+    one launch a call, and the ranks' sum + bias against the whole layer's
+    plain res/skip term."""
+    C, M, p = 128, 640, 2
+    k = inputs(dev, B, T, T, C, M, 41 + layer + T,
+               rs_out=2 * C if layer == 0 else C, n_half=4)
+    total = None
+    for i in range(p):
+        if layer == 0:
+            args, b_edge = partial_first_args(k, C, p, i, 1)
+        else:
+            cols = torch.from_numpy(rank_cols(C, C // p, i)).to(dev)
+            args = (k["x"], k["spect"], k["w_in"][..., cols].contiguous(),
+                    k["b_in"][cols].contiguous(),
+                    k["w_cond"][:, cols].contiguous(),
+                    k["b_cond"][cols].contiguous(),
+                    k["w_rs"][i * (C // p):(i + 1) * (C // p)].contiguous(),
+                    2)
+            b_edge = None
+        wb.wn_layer_partial.launches = 0
+        got = wb.wn_layer_partial(*args, b_edge=b_edge, n_valid=T)
+        assert wb.wn_layer_partial.launches == 1
+        close(got, wb.wn_layer_partial_plain(*args, b_edge=b_edge, n_valid=T))
+        total = got if total is None else total + got
+    cond = wb._cond(k["spect"], k["w_cond"], k["b_cond"])
+    if layer == 0:
+        wp, b_all, b_edge = wb.fold_first_taps(k["start_k"], k["start_b"],
+                                               k["w_in"], k["b_in"])
+        in_act = wb._edge_bias_suppress(
+            wb._taps(k["x0"], wp, 1, T) + b_all + cond, b_edge, 1, T)
+    else:
+        in_act = wb._taps(k["x"], k["w_in"], 2, T) + k["b_in"] + cond
+    whole = (wb._gate(in_act, torch.bfloat16).float() @ k["w_rs"].float()
+             + k["b_rs"])
+    close(total + k["b_rs"], whole)
+
+
 def test_partial_first_design_counts_no_launch(dev):
     """``first_design("wn_layer_partial", ..., b_edge=)`` runs the first
     design's layer-0 form and counts nothing; the wrapper counts one."""
@@ -2392,3 +2435,83 @@ def test_one_rank_nccl_tp_decode_and_server_equal_the_local_form(dev,
                                    max_steps=96).run(["안녕하세요.", "네."],
                                                      seeds=[5, 6]))
     assert all(np.array_equal(wavs[0][k], wavs[1][k]) for k in wavs[1])
+
+
+# ---------------------------------------------------------------------------
+# reference checkpoints into the port (chip_smoke.py phase 29, step 4)
+# ---------------------------------------------------------------------------
+
+
+def _converted(dev):
+    """A reference-format WaveGlow state dict (``examples/
+    reference_checkpoints.py``: 4 flows with early outputs, C=128, live end
+    convs) and the port modules made from it by the convert conveniences."""
+    from text2speech_tpu_torch.convert import waveglow_module_from_torch
+    from text2speech_tpu_torch.examples.reference_checkpoints import \
+        reference_waveglow_state_dict
+
+    cfg = WaveGlowConfig(n_mel_channels=16, n_flows=4, n_group=8,
+                         n_early_every=2, n_early_size=2, wn_n_layers=4,
+                         wn_n_channels=128, upsample_kernel=64,
+                         upsample_stride=16)
+    sd = reference_waveglow_state_dict(cfg, 7)
+    return cfg, sd, waveglow_module_from_torch(sd, cfg, device=dev)
+
+
+@pytest.mark.parametrize("layout", ["fused", "pre_fusion"])
+def test_converted_waveglow_launches_rows_1_to_3(dev, layout):
+    """One fused vocode of converted reference weights launches the first,
+    standard and final layers 1 / L-2 / 1 times a flow and no other
+    WN-layer kernel; the pre-fusion layout converts to the same module."""
+    from text2speech_tpu_torch.convert import waveglow_module_from_torch
+    from text2speech_tpu_torch.examples.reference_checkpoints import \
+        pre_fusion_layout
+    from text2speech_tpu_torch.models.waveglow_fused import (infer_fused,
+                                                             prepare_fused)
+    from text2speech_tpu_torch.parallel import tp
+
+    cfg, sd, model = _converted(dev)
+    if layout == "pre_fusion":
+        old = waveglow_module_from_torch(pre_fusion_layout(sd, cfg), cfg,
+                                         device=dev)
+        for (n, a), (_, b) in zip(model.state_dict().items(),
+                                  old.state_dict().items()):
+            assert torch.equal(a, b), n
+        model = old
+    fw = prepare_fused(model)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    mel = torch.randn(2, 16, 64, generator=gen, device="cuda")
+    noise = tuple(torch.randn(s, generator=gen, device="cuda")
+                  for s in fw.noise_shapes(2, 64 * 2))
+    wb.reset_launch_counts()
+    wq.reset_launch_counts()
+    tp.reset_launch_counts()
+    out = infer_fused(fw, mel, 0.7, noise=noise)
+    torch.cuda.synchronize()
+    assert wb.launch_counts() == {"wn_layer_first": 4, "wn_layer": 8,
+                                  "wn_layer_final": 4}
+    assert not any(wq.launch_counts().values())
+    assert not any(tp.launch_counts().values())
+    assert torch.isfinite(out).all()
+
+
+def test_converted_waveglow_fused_matches_the_plain_module(dev):
+    """The fused bf16 vocode of converted weights against the plain f32
+    ``WaveGlow.infer`` on the same mel and noise, within chip_smoke's
+    phase 4 bound (16 bf16 steps at the peak, 2e-2 relative L2)."""
+    from text2speech_tpu_torch.models.waveglow_fused import (infer_fused,
+                                                             prepare_fused)
+
+    _, _, model = _converted(dev)
+    fw = prepare_fused(model)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mel = torch.randn(2, 16, 77, generator=gen, device="cuda")
+    noise = tuple(torch.randn(s, generator=gen, device="cuda")
+                  for s in fw.noise_shapes(2, 77 * 2))
+    with torch.inference_mode():
+        got = infer_fused(fw, mel, 0.7, noise=noise)
+        want = model.infer(mel, 0.7, noise=noise)
+    assert got.shape == want.shape == (2, 77 * 16)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 16 * 2.0 ** -8 * want.abs().max()
+    assert ((got - want).norm() / want.norm()).item() < 2e-2

@@ -237,7 +237,11 @@ def test_port_imports_with_jax_blocked():
         "          'tacotron_train', 'waveglow_inference', 'mel2samp',\n"
         "          'data.preprocess', 'native', 'preprocess',\n"
         "          'parallel.mesh', 'utils.plotting',\n"
-        "          'parallel.tp_tacotron', 'parallel.serve'):\n"
+        "          'parallel.tp_tacotron', 'parallel.serve',\n"
+        "          'convert', 'convert_checkpoint', 'utils.quality',\n"
+        "          'utils.profiling', 'examples', 'examples.demo',\n"
+        "          'examples.corpus_drill',\n"
+        "          'examples.reference_checkpoints'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )

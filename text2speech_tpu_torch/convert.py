@@ -1,4 +1,5 @@
-"""Bridge from the JAX package's variables to the port's modules.
+"""Bridges into the port's modules: from the JAX package's variables, and
+from reference PyTorch checkpoints (below).
 
 The JAX package keeps flax variable trees; the port reads them either as
 that nested dict of numpy arrays or as a flat ``.npz`` whose keys are the
@@ -41,11 +42,31 @@ Layout rules (``text2speech_tpu/convert.py:9-18`` run in reverse):
   :func:`waveglow_state_dict` and :func:`load_waveglow` read.  Prefixed
   with ``waveglow/`` they are the vocoder half of the ``.npz`` that
   ``infer.load_synthesizer`` reads.
+
+Reference checkpoints (``text2speech_tpu/convert.py``'s loaders, kept here
+as the port's own copy): a torch ``state_dict`` of the reference Tacotron
+(``train.py:69-75`` format) or WaveGlow (``waveglow/train.py:52-60``) maps
+weight for weight onto the same flax-layout trees of numpy arrays, which
+the bridges above take into the port's modules.
+
+* torch Linear  [out, in]        -> flax Dense kernel [in, out]
+* torch Conv1d  [out, in, k]     -> flax Conv kernel  [k, in, out]
+* torch ConvT1d [in, out, k]     -> SubpixelUpsample  [k, in, out]
+* torch LSTM(Cell) gates (i, f, g, o) as they are; ``weight_ih`` [4H, in]
+  -> ``ih/kernel`` transposed
+* torch weight_norm (``weight_g`` [out, 1, 1], ``weight_v`` [out, in, k])
+  -> (g [out], v [k, in, out]); a plain ``weight`` (after
+  ``remove_weightnorm``) folds to v = weight, g = ||v||, so the kernel is
+  the weight again
+* pre-fusion WaveGlow checkpoints (separate res / skip convs) are fused by
+  a channel concat, as the reference's ``convert_model.update_model``
+  (``convert_model.py:11-38``).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+import re
+from typing import Any, Mapping
 
 import numpy as np
 import torch
@@ -347,3 +368,220 @@ def decoder_params_from_jax(dp: Mapping, device=None) -> dict:
         else:
             out[k] = dense(v)
     return out
+
+
+# --- reference (PyTorch) checkpoints -> flax-layout trees ------------------
+
+def _np(t) -> np.ndarray:
+    """A tensor (any float dtype, bf16 and f16 too) or an array -> f32
+    numpy."""
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().float().numpy()
+    return np.asarray(t, dtype=np.float32)
+
+
+def _dense(sd, name):
+    out = {"kernel": _np(sd[f"{name}.weight"]).T}
+    if f"{name}.bias" in sd:
+        out["bias"] = _np(sd[f"{name}.bias"])
+    return out
+
+
+def _conv1d(sd, name):
+    out = {"Conv_0": {"kernel": _np(sd[f"{name}.weight"]).transpose(2, 1, 0)}}
+    if f"{name}.bias" in sd:
+        out["Conv_0"]["bias"] = _np(sd[f"{name}.bias"])
+    return out
+
+
+def _lstm_gates(w_ih, w_hh, b_ih, b_hh):
+    return {
+        "ih": {"kernel": _np(w_ih).T, "bias": _np(b_ih)},
+        "hh": {"kernel": _np(w_hh).T, "bias": _np(b_hh)},
+    }
+
+
+def _bn(sd, name):
+    scale_bias = {"scale": _np(sd[f"{name}.weight"]),
+                  "bias": _np(sd[f"{name}.bias"])}
+    stats = {"mean": _np(sd[f"{name}.running_mean"]),
+             "var": _np(sd[f"{name}.running_var"])}
+    return scale_bias, stats
+
+
+def _wnconv(sd, name):
+    """Weight-normalized conv -> (v [k, in, out], g [out])."""
+    if f"{name}.weight_v" in sd:
+        v = _np(sd[f"{name}.weight_v"]).transpose(2, 1, 0)
+        g = _np(sd[f"{name}.weight_g"]).reshape(-1)
+    else:  # weight norm removed: fold so that the kernel is the weight
+        v = _np(sd[f"{name}.weight"]).transpose(2, 1, 0)
+        g = np.sqrt((v * v).sum(axis=(0, 1)) + 1e-12)
+    out = {"v": v, "g": g}
+    if f"{name}.bias" in sd:
+        out["bias"] = _np(sd[f"{name}.bias"])
+    return out
+
+
+def tacotron_from_torch(state_dict: Mapping[str, Any],
+                        hp: HParams) -> tuple[dict, dict]:
+    """Reference Tacotron ``state_dict`` -> (params, batch_stats), nested
+    dicts of f32 numpy arrays in the JAX package's layout."""
+    sd = state_dict
+    params: dict = {"embedding": {"embedding": _np(sd["embedding.weight"])}}
+    stats: dict = {}
+
+    enc: dict = {}
+    enc_stats: dict = {}
+    for i in range(hp.enc_conv_num_layers):
+        enc[f"conv{i}"] = _conv1d(sd, f"encoder.convolutions.{i}.0.conv")
+        enc[f"bn{i}"], enc_stats[f"bn{i}"] = _bn(
+            sd, f"encoder.convolutions.{i}.1")
+    enc["bilstm"] = {
+        d: {"LSTMCell_0": _lstm_gates(
+            *(sd[f"encoder.lstm.{w}_l0{sfx}"]
+              for w in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")))}
+        for d, sfx in (("fwd", ""), ("bwd", "_reverse"))}
+    params["encoder"] = enc
+    stats["encoder"] = enc_stats
+
+    def rnn(name):
+        return _lstm_gates(*(sd[f"decoder.{name}.{w}"] for w in (
+            "weight_ih", "weight_hh", "bias_ih", "bias_hh")))
+
+    att = "decoder.attention_layer"
+    params["decoder"] = {
+        "prenet": {
+            "fc0": _dense(sd, "decoder.prenet.layers.0.linear_layer"),
+            "fc1": _dense(sd, "decoder.prenet.layers.1.linear_layer"),
+        },
+        "attention_rnn": rnn("attention_rnn"),
+        "decoder_rnn": rnn("decoder_rnn"),
+        "attention": {
+            "query": _dense(sd, f"{att}.query_layer.linear_layer"),
+            "memory": _dense(sd, f"{att}.memory_layer.linear_layer"),
+            "v": _dense(sd, f"{att}.v.linear_layer"),
+            "loc_conv": _conv1d(
+                sd, f"{att}.location_layer.location_conv.conv"),
+            "loc_dense": _dense(
+                sd, f"{att}.location_layer.location_dense.linear_layer"),
+        },
+        "mel_proj": _dense(sd, "decoder.linear_projection.linear_layer"),
+        "gate_proj": _dense(sd, "decoder.gate_layer.linear_layer"),
+    }
+
+    post: dict = {}
+    post_stats: dict = {}
+    for i in range(hp.postnet_n_convolutions):
+        post[f"conv{i}"] = _conv1d(sd, f"postnet.convolutions.{i}.0.conv")
+        post[f"bn{i}"], post_stats[f"bn{i}"] = _bn(
+            sd, f"postnet.convolutions.{i}.1")
+    params["postnet"] = post
+    stats["postnet"] = post_stats
+    return params, stats
+
+
+def _fuse_res_skip(sd: Mapping[str, Any]) -> dict:
+    """Fuse a pre-fusion checkpoint's separate res / skip convs
+    (``convert_model.py:11-38``) into ``res_skip_layers`` keys (f32 numpy,
+    res rows first); a fused checkpoint comes back as a plain copy.
+
+    The pre-fusion WN has no res conv after its last layer: that layer's
+    skip conv alone becomes its ``res_skip_layers`` entry, as the
+    reference's ``update_model`` makes it.  (The JAX package's copy fuses
+    only the layers that have both, so it refuses such a checkpoint with a
+    ``KeyError`` for the last layer.)"""
+    if not any("res_layers" in k for k in sd):
+        return dict(sd)
+    out = {k: v for k, v in sd.items()
+           if "res_layers" not in k and "skip_layers" not in k}
+    idx = sorted({(m.group(1), int(m.group(2))) for k in sd for m in [
+        re.match(r"WN\.(\d+)\.(?:res|skip)_layers\.(\d+)\.", k)] if m})
+    for flow, layer in idx:
+        for suffix in ("weight_g", "weight_v", "bias", "weight"):
+            rk = f"WN.{flow}.res_layers.{layer}.{suffix}"
+            skk = f"WN.{flow}.skip_layers.{layer}.{suffix}"
+            if skk not in sd:
+                continue
+            parts = [sd[rk], sd[skk]] if rk in sd else [sd[skk]]
+            out[f"WN.{flow}.res_skip_layers.{layer}.{suffix}"] = \
+                np.concatenate([_np(t) for t in parts], axis=0)
+    return out
+
+
+def waveglow_from_torch(state_dict: Mapping[str, Any],
+                        cfg: WaveGlowConfig) -> dict:
+    """Reference WaveGlow ``state_dict`` (fused or pre-fusion layout) ->
+    params, a nested dict of f32 numpy arrays in the JAX package's
+    layout."""
+    sd = _fuse_res_skip(state_dict)
+    params: dict = {"upsample": {
+        "kernel": _np(sd["upsample.weight"]).transpose(2, 0, 1),
+        "bias": _np(sd["upsample.bias"]),
+    }}
+    L = cfg.wn_n_layers
+    for k in range(cfg.n_flows):
+        params[f"convinv{k}"] = {
+            "W": _np(sd[f"convinv.{k}.conv.weight"])[:, :, 0]}
+        wn: dict = {"start": _wnconv(sd, f"WN.{k}.start")}
+        # the reference's cond_layers are per layer; the flax tree holds one
+        # conv over the layer axis: output channels concatenated in layer
+        # order, a missing bias as zeros
+        conds = [_wnconv(sd, f"WN.{k}.cond_layers.{i}") for i in range(L)]
+        wn["cond"] = {
+            "v": np.concatenate([c["v"] for c in conds], axis=-1),
+            "g": np.concatenate([c["g"] for c in conds], axis=-1),
+            "bias": np.concatenate(
+                [c.get("bias", np.zeros(c["g"].shape, np.float32))
+                 for c in conds], axis=-1),
+        }
+        for i in range(L):
+            wn[f"in{i}"] = _wnconv(sd, f"WN.{k}.in_layers.{i}")
+            wn[f"res_skip{i}"] = _wnconv(sd, f"WN.{k}.res_skip_layers.{i}")
+        wn["end"] = {
+            "kernel": _np(sd[f"WN.{k}.end.weight"]).transpose(2, 1, 0),
+            "bias": _np(sd[f"WN.{k}.end.bias"]),
+        }
+        params[f"wn{k}"] = wn
+    return params
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A reference checkpoint file -> its flat ``state_dict``.
+
+    Takes the Tacotron format (a dict with ``"state_dict"``,
+    ``train.py:72``), the WaveGlow whole-model pickle (a dict with
+    ``"model"``, ``waveglow/train.py:55``) or a bare ``state_dict``, and
+    raises ``ValueError`` on anything else.  The file is read with
+    ``weights_only=False``, as the whole-model pickle needs: unpickling it
+    RUNS CODE, and needs the model's class importable, so load only files
+    you trust."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict):
+        if "state_dict" in ckpt:
+            return ckpt["state_dict"]
+        if "model" in ckpt and hasattr(ckpt["model"], "state_dict"):
+            return ckpt["model"].state_dict()
+        if all(hasattr(v, "shape") for v in ckpt.values()):
+            return ckpt
+    if hasattr(ckpt, "state_dict"):
+        return ckpt.state_dict()
+    raise ValueError(f"unrecognized checkpoint format: {path}")
+
+
+def tacotron_module_from_torch(state_dict: Mapping[str, Any], hp: HParams,
+                               device=None) -> Tacotron2:
+    """A reference Tacotron ``state_dict`` -> the port's module in eval mode
+    (as many symbols as its embedding has rows)."""
+    params, stats = tacotron_from_torch(state_dict, hp)
+    return load_tacotron({"params": params, "batch_stats": stats}, hp,
+                         params["embedding"]["embedding"].shape[0],
+                         device=device)
+
+
+def waveglow_module_from_torch(state_dict: Mapping[str, Any],
+                               cfg: WaveGlowConfig, device=None) -> WaveGlow:
+    """A reference WaveGlow ``state_dict`` -> the port's inference module
+    (weight norm folded)."""
+    return load_waveglow({"params": waveglow_from_torch(state_dict, cfg)},
+                         cfg, device=device)

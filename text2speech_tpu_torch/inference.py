@@ -32,7 +32,9 @@ server is exposed over HTTP instead (:mod:`.http_serve`):
         -d '{"text": "안녕하세요.", "seed": 1, "denoiser_strength": 0.1}' \
         -o out.wav
 
-Without a GPU it raises: it never runs on the CPU.
+Without a GPU it raises, unless ``--device cpu`` asks for the CPU (small
+configurations only; the vocoders run their kernels' plain versions
+there).
 """
 
 from __future__ import annotations
@@ -105,6 +107,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "localhost)")
     p.add_argument("--serve_max_text_len", type=int, default=256,
                    help="encoder width every session pads to")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--no_serve_warmup", action="store_true",
                    help="with --http_port: skip the warm-up session before "
                    "the port is bound (the first real request then pays "
@@ -294,9 +297,10 @@ def main(argv=None) -> None:
         if importlib.util.find_spec("matplotlib") is None:
             parser.error("--plot_dir draws with matplotlib, which is not "
                          "installed")
-    if not torch.cuda.is_available():
+    if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("text2speech_tpu_torch.inference needs a CUDA GPU "
-                           "(no CUDA device is visible)")
+                           "(no CUDA device is visible); pass --device cpu "
+                           "to synthesize a small configuration on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hp = (HParams.load(args.hparams) if args.hparams
@@ -308,7 +312,8 @@ def main(argv=None) -> None:
     # carry their own strengths
     use_denoiser = args.denoiser_strength > 0 or args.serve_slots > 0
     if args.taco_checkpoint and not args.waveglow_checkpoint:
-        wav, frames = synthesize_griffin_lim(args, hp, wg_cfg, "cuda")
+        wav, frames = synthesize_griffin_lim(args, hp, wg_cfg,
+                                             args.device)
         print(f"wrote {args.out} ({wav.shape[0]} samples at "
               f"{args.sample_rate} Hz, Griffin-Lim on {frames} mel frames, "
               f"{args.griffin_lim_iters} iterations)")
@@ -320,14 +325,14 @@ def main(argv=None) -> None:
             hp, args.weights, wg_cfg, use_denoiser=use_denoiser,
             num_speakers=args.num_speakers,
             use_fused_vocoder=args.fused_vocoder,
-            int8_vocoder=args.int8_vocoder, device="cuda",
+            int8_vocoder=args.int8_vocoder, device=args.device,
             taco_ckpt_dir=args.taco_checkpoint,
             wg_ckpt_dir=args.waveglow_checkpoint)
     else:
         from .infer import random_synthesizer
 
         synth = random_synthesizer(
-            hp, wg_cfg, args.random_init, device="cuda",
+            hp, wg_cfg, args.random_init, device=args.device,
             num_speakers=args.num_speakers, use_denoiser=use_denoiser,
             use_fused_vocoder=args.fused_vocoder,
             int8_vocoder=args.int8_vocoder)

@@ -88,6 +88,17 @@ class CheckpointManager:
         for old in self.all_steps()[: -self.max_to_keep]:
             os.unlink(self._path(old))
 
+    def close(self) -> None:
+        """The JAX manager's ``close`` waits for its asynchronous saves; this
+        one's saves are synchronous (each has reached its file when
+        :meth:`save` returns), so there is nothing to wait for.  Under
+        ``group=`` it ends with the barrier :meth:`save` uses, so every
+        rank leaves it together.  Safe to call more than once."""
+        if self.group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.group)
+
     def load_params(self, step: int | None = None) -> dict:
         """The parameters saved at ``step`` (default: the newest) by name,
         f32 tensors on the CPU, without a restore template: for serving a
