@@ -235,16 +235,28 @@ Phases, each of which passes or raises (the script then exits non-zero):
     ``Synthesizer`` of the converted checkpoint directories'; the same
     vocode under ``trace_capture`` / ``annotate("vocode")`` /
     ``StepTimer`` (the Chrome trace names the ``wn_sm90_kernel`` launches
-    and the region); row 4 at the demo's widths (C = 128 in two shares of
+    and the region), and one ``synthesize`` under ``trace_capture`` (the
+    trace names the program's ``taco.decoder`` and ``wg.flows`` spans);
+    row 4 at the demo's widths (C = 128 in two shares of
     64 columns, layer 0's ``PART_FIRST`` and layer 1's ``PART``, each rank
     against its plain version by phase 17's bound, the ranks' sum against
     the whole layer), which no other phase reaches; then ``python -m
     text2speech_tpu_torch.examples.demo --steps 2`` in a process of its
     own (rc 0, both WAVs, its wall and launches).  The corpus drill is not run here: its inference stage
     always draws plots, and the card's machine has no matplotlib.
+30. what the program's spans cost when a recorder listens
+    (``utils/profiling.py::recording``): ``Synthesizer.synthesize`` at the
+    offline benchmark's shapes (32 texts x 320 frames, fused bf16 vocoder,
+    denoiser) on seeded weights, in two sets of batches with the same
+    seeds, each batch once with and once without a recorder (in turns,
+    the order swapped every batch); both walls of every batch, each set's
+    medians and their ratio, the spans and counter values a batch
+    records, and the audio bit for bit the same either way; then one
+    span's own cost, with and without a recorder, over 100,000 empty
+    spans, and that cost times a batch's spans as a share of its wall.
 
 Phase 25 runs right after phase 7, phases 12-21 between it and phase 8,
-phases 22-24 after phase 11, phases 26, 27, 28 and 29 last.  The line
+phases 22-24 after phase 11, phases 26, 27, 28, 29 and 30 last.  The line
 before the last is a JSON object with one record per kernel (its
 ``paths``: the launches on phase 29's convert path and in its demo); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -5584,6 +5596,22 @@ def convert_path(info: str) -> dict:
                 raise RuntimeError("StepTimer: device time below host time")
 
         part("trace", traced)
+
+        def traced_synthesis():
+            with trace_capture(f"{d}/trace") as path:
+                synth.synthesize(TEXTS, seed=0, max_steps=MAX_STEPS)
+            with open(path) as f:
+                text = f.read()
+            found = {n: text.count(f'"{n}"')
+                     for n in ("taco.decoder", "wg.flows")}
+            print(f"[convert] trace_capture of one synthesize: "
+                  f"{os.path.basename(path)} names the program's spans "
+                  f"{found}")
+            if not all(found.values()):
+                raise RuntimeError(f"the synthesize trace lacks a program "
+                                   f"span: {found}")
+
+        part("trace of synthesize", traced_synthesis)
         del synth, mel, noise
         torch.cuda.empty_cache()
         partial_err = part("demo-width partials", check_demo_partials)
@@ -5608,6 +5636,98 @@ def convert_path(info: str) -> dict:
           f"{ {k: round(v, 2) for k, v in secs.items()} }; in all "
           f"{sum(secs.values()):.2f} ({info})")
     return {"convert": launches, "demo": demo_launches}, partial_err
+
+
+# ---------------------------------------------------------------------------
+# phase 30: what the program's spans cost when a recorder listens
+# ---------------------------------------------------------------------------
+
+COST_BATCH, COST_STEPS, COST_SETS, COST_BATCHES = 32, 320, 2, 6
+COST_SPANS = 100_000
+COST_SEED = 30
+
+
+def recorder_cost(info: str) -> dict:
+    """Phase 30: ``Synthesizer.synthesize`` at the offline benchmark's
+    shapes with and without ``recording()``: ``COST_SETS`` sets of
+    ``COST_BATCHES`` batches with the same seeds, each batch run both
+    ways in turns (the order swapped every batch); the audio of the two
+    runs of a batch is bit for bit the same.  The batches' walls spread
+    more than a few spans cost, so one span's cost is also timed alone
+    (``COST_SPANS`` empty spans).  Returns each set's median walls and
+    their ratio."""
+    from text2speech_tpu_torch.config import HParams, WaveGlowConfig
+    from text2speech_tpu_torch.infer import random_synthesizer
+    from text2speech_tpu_torch.utils.profiling import annotate, recording
+
+    synth = random_synthesizer(HParams(), WaveGlowConfig(), seed=COST_SEED,
+                               device="cuda")
+    texts = [TEXTS[i % len(TEXTS)] for i in range(COST_BATCH)]
+
+    def run(seed, on):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if on:
+            with recording() as rec:
+                out = synth.synthesize(texts, seed=seed,
+                                       denoiser_strength=DENOISER_STRENGTH,
+                                       max_steps=COST_STEPS)
+        else:
+            rec = None
+            out = synth.synthesize(texts, seed=seed,
+                                   denoiser_strength=DENOISER_STRENGTH,
+                                   max_steps=COST_STEPS)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, rec
+
+    run(COST_SEED, False)                       # builds and warms
+    sets = []
+    for k in range(COST_SETS):
+        walls = {"off": [], "on": []}
+        for i in range(COST_BATCHES):
+            seed = COST_SEED + 1 + i
+            outs = {}
+            for on in ((False, True) if i % 2 == 0 else (True, False)):
+                outs[on], wall, rec = run(seed, on)
+                walls["on" if on else "off"].append(wall)
+                if rec is not None:
+                    n_spans = len(rec.spans)
+                    n_counts = sum(len(v) for v in rec.counters.values())
+            if not all(np.array_equal(a, b)
+                       for a, b in zip(outs[False], outs[True])):
+                raise RuntimeError(f"batch {i}: the audio differs with a "
+                                   f"recorder installed")
+        med = {w: float(np.median(v)) for w, v in walls.items()}
+        sets.append({**med, "ratio": med["on"] / med["off"],
+                     "walls": walls})
+        print(f"[trace] recorder cost, set {k} ({COST_BATCHES} batches of "
+              f"{COST_BATCH} x {COST_STEPS} frames, seeds "
+              f"{COST_SEED + 1}-{COST_SEED + COST_BATCHES}; {info}): walls "
+              f"off {[round(w * 1e3, 2) for w in walls['off']]} ms, on "
+              f"{[round(w * 1e3, 2) for w in walls['on']]} ms; medians off "
+              f"{med['off'] * 1e3:.2f} ms, on {med['on'] * 1e3:.2f} ms, "
+              f"on / off {med['on'] / med['off']:.4f}; a batch records "
+              f"{n_spans} spans and {n_counts} counter values")
+    del synth
+    torch.cuda.empty_cache()
+
+    def per_span() -> float:
+        t0 = time.perf_counter()
+        for _ in range(COST_SPANS):
+            with annotate("synth.text"):
+                pass
+        return (time.perf_counter() - t0) / COST_SPANS
+
+    off_s = per_span()
+    with recording():
+        on_s = per_span()
+    wall = min(st["on"] for st in sets)
+    print(f"[trace] one span: {off_s * 1e6:.3f} us without a recorder, "
+          f"{on_s * 1e6:.3f} us with one; {n_spans} spans and {n_counts} "
+          f"counter values a batch cost {n_spans * on_s * 1e6:.1f} us, "
+          f"{100 * n_spans * on_s / wall:.5f}% of the batch's "
+          f"{wall * 1e3:.1f} ms")
+    return sets
 
 
 def main() -> int:
@@ -5717,6 +5837,8 @@ def main() -> int:
           f" s")
     (paths, demo_partial_err), t = sync_time(lambda: convert_path(info))
     print(f"[time] phase 29: {t:.2f} s")
+    print(f"[time] phase 30: "
+          f"{sync_time(lambda: recorder_cost(info))[1]:.2f} s")
     rec["wn_layer_partial"]["max_abs_err"] = max(
         rec["wn_layer_partial"]["max_abs_err"], demo_partial_err)
 

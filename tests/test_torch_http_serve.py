@@ -206,6 +206,8 @@ def test_stats_and_health(http_srv):
     assert stats["slots"] == 2 and stats["completed"] >= 1
     assert stats["open_streams"] == 0 and stats["queued"] == 0
     assert stats["active_slots"] == 0 and "error" not in stats
+    # the windowed vocoder's frames run against the frames it kept
+    assert stats["frames_vocoded"] >= stats["frames_emitted"] > 0
 
 
 def test_disconnect_cancels(synth, http_srv):

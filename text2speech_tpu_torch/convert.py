@@ -78,6 +78,7 @@ from .models.waveglow import TrainableWaveGlow, WaveGlow, fold_weightnorm
 from .models.waveglow_fused import FusedWaveGlowInt8
 from .ops.wn_block import fold_end, fold_first_taps
 from .ops.wn_block_int8 import to_output_major
+from .utils.profiling import annotate
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
@@ -258,17 +259,20 @@ def waveglow_state_dict(variables: Mapping, cfg: WaveGlowConfig) -> dict:
 
 def load_tacotron(variables: Mapping, hp: HParams, n_vocab: int,
                   num_speakers: int = 1, device=None) -> Tacotron2:
-    model = Tacotron2(hp, n_vocab=n_vocab, num_speakers=num_speakers,
-                      device=device)
-    model.load_state_dict(tacotron_state_dict(variables, hp, num_speakers))
-    return model.eval()
+    with annotate("convert.tacotron"):
+        model = Tacotron2(hp, n_vocab=n_vocab, num_speakers=num_speakers,
+                          device=device)
+        model.load_state_dict(tacotron_state_dict(variables, hp,
+                                                  num_speakers))
+        return model.eval()
 
 
 def load_waveglow(variables: Mapping, cfg: WaveGlowConfig,
                   device=None) -> WaveGlow:
-    model = WaveGlow(cfg, device=device)
-    model.load_state_dict(waveglow_state_dict(variables, cfg))
-    return model.eval()
+    with annotate("convert.waveglow"):
+        model = WaveGlow(cfg, device=device)
+        model.load_state_dict(waveglow_state_dict(variables, cfg))
+        return model.eval()
 
 
 def trainable_waveglow_from_variables(variables: Mapping,
@@ -573,15 +577,18 @@ def tacotron_module_from_torch(state_dict: Mapping[str, Any], hp: HParams,
                                device=None) -> Tacotron2:
     """A reference Tacotron ``state_dict`` -> the port's module in eval mode
     (as many symbols as its embedding has rows)."""
-    params, stats = tacotron_from_torch(state_dict, hp)
-    return load_tacotron({"params": params, "batch_stats": stats}, hp,
-                         params["embedding"]["embedding"].shape[0],
-                         device=device)
+    with annotate("convert.tacotron"):
+        params, stats = tacotron_from_torch(state_dict, hp)
+        return load_tacotron({"params": params, "batch_stats": stats}, hp,
+                             params["embedding"]["embedding"].shape[0],
+                             device=device)
 
 
 def waveglow_module_from_torch(state_dict: Mapping[str, Any],
                                cfg: WaveGlowConfig, device=None) -> WaveGlow:
     """A reference WaveGlow ``state_dict`` -> the port's inference module
     (weight norm folded)."""
-    return load_waveglow({"params": waveglow_from_torch(state_dict, cfg)},
-                         cfg, device=device)
+    with annotate("convert.waveglow"):
+        return load_waveglow({"params": waveglow_from_torch(state_dict,
+                                                            cfg)},
+                             cfg, device=device)

@@ -40,6 +40,8 @@ Endpoints::
                        (``Synthesizer.load_checkpoints``), run between two
                        rounds; guarded by X-Reload-Token when a token is set
     GET  /stats        scheduler counters and live queue and slot occupancy
+                       (frames_vocoded / frames_emitted: the windowed
+                       vocoder's frames run per frame kept)
     GET  /healthz      200 while the scheduler thread is alive
 
 The int16 conversion is the CLI's wav write: clip to [-1, 1], scale by

@@ -39,6 +39,7 @@ from .models.tacotron_serve import (decode_chunk_serve,
                                     quantize_decoder_params)
 from .models.waveglow import WaveGlow
 from .models.waveglow_fused import prepare_fused, prepare_fused_int8
+from .utils.profiling import annotate
 
 
 def speaker_ids_array(speaker_id, batch: int, num_speakers: int):
@@ -341,23 +342,25 @@ class Synthesizer:
     def _derive_from_waveglow(self) -> None:
         """What depends on the WaveGlow weights: the prepared serving
         weights of the fused or int8 vocoder and the denoiser's bias."""
-        if self.int8_vocoder:
-            self.fused = prepare_fused_int8(self.waveglow, torch.bfloat16)
-        elif self.use_fused_vocoder:
-            self.fused = prepare_fused(self.waveglow, torch.bfloat16)
-        else:
-            self.fused = None
-        # what vocodes: the three share ``cfg`` and ``infer``'s signature
-        self.vocoder = self.waveglow if self.fused is None else self.fused
-        if self._denoise_bias_fn is not None:
-            self._denoise_bias = self._denoise_bias_fn()
+        with annotate("synth.derive"):
+            if self.int8_vocoder:
+                self.fused = prepare_fused_int8(self.waveglow, torch.bfloat16)
+            elif self.use_fused_vocoder:
+                self.fused = prepare_fused(self.waveglow, torch.bfloat16)
+            else:
+                self.fused = None
+            # what vocodes: the three share ``cfg`` and ``infer``'s signature
+            self.vocoder = self.waveglow if self.fused is None else self.fused
+            if self._denoise_bias_fn is not None:
+                self._denoise_bias = self._denoise_bias_fn()
 
     def _derive_from_tacotron(self) -> None:
         """What depends on the Tacotron weights: the int8 decoder weights."""
-        self._dp_q = None
-        if self.quantized_decode:
-            self._dp_q = quantize_decoder_params(
-                extract_decoder_params(self.taco))
+        with annotate("synth.derive"):
+            self._dp_q = None
+            if self.quantized_decode:
+                self._dp_q = quantize_decoder_params(
+                    extract_decoder_params(self.taco))
 
     @torch.no_grad()
     def load_weights(self, taco_variables=None, wg_variables=None) -> None:
@@ -419,14 +422,16 @@ class Synthesizer:
 
         ``with_align=True`` also returns the attention alignment [B, T_dec,
         T_enc] f32, as the JAX ``Synthesizer.text_to_mel`` does."""
-        ids, lengths = encode_batch(texts)
-        sid = speaker_ids_array(speaker_id, ids.shape[0],
-                                self.taco.num_speakers)
+        with annotate("synth.text"):
+            ids, lengths = encode_batch(texts)
+            sid = speaker_ids_array(speaker_id, ids.shape[0],
+                                    self.taco.num_speakers)
+            ids_t = torch.from_numpy(ids).long().to(self.device)
+            sid_t = (None if sid is None
+                     else torch.from_numpy(sid).long().to(self.device))
+            lengths_t = torch.from_numpy(lengths).to(self.device)
         _, mel_post, _, align, out_lengths = self.taco.inference(
-            torch.from_numpy(ids).long().to(self.device),
-            speaker_ids=(None if sid is None
-                         else torch.from_numpy(sid).long().to(self.device)),
-            text_lengths=torch.from_numpy(lengths).to(self.device),
+            ids_t, speaker_ids=sid_t, text_lengths=lengths_t,
             max_steps=max_steps, keep_masks=keep_masks,
             generator=self._generator(seed))
         if with_align:
@@ -463,7 +468,8 @@ class Synthesizer:
 
     def _denoised(self, audio, strength: float):
         if strength > 0 and self._denoise is not None:
-            return self._denoise(audio, strength)
+            with annotate("synth.denoiser"):
+                return self._denoise(audio, strength)
         return audio
 
     def _synthesize(self, vocode, texts, seed, max_steps, speaker_id,
@@ -474,9 +480,12 @@ class Synthesizer:
         mel_post, out_lengths = self.text_to_mel(
             texts, seed, max_steps, speaker_id=speaker_id,
             keep_masks=keep_masks)
-        lens = out_lengths.cpu().numpy()
+        with annotate("synth.read_lengths"):
+            lens = out_lengths.cpu().numpy()
         T = int(lens.max())
-        audio = vocode(mel_post[:, :, :T].contiguous()).cpu().numpy()
+        audio = vocode(mel_post[:, :, :T].contiguous())
+        with annotate("synth.read_audio"):
+            audio = audio.cpu().numpy()
         hop = self.wg_cfg.upsample_stride
         return [audio[i, : int(lens[i]) * hop] for i in range(len(lens))]
 

@@ -57,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import HParams
 
 from ..ops.lstm import BiLSTM, LSTMCell
+from ..utils.profiling import annotate, count
 
 
 # Keep-masks are drawn MASK_BLOCK steps at a time: on a CUDA generator a
@@ -635,9 +636,11 @@ class Tacotron2(nn.Module):
         T_in = memory.shape[1]
         mask = (sequence_mask(text_lengths.to(memory.device), T_in)
                 if text_lengths is not None else None)
-        carry, mel, gate, align, active = self.decoder.run_steps(
-            (state, frame, finished), keep_masks, memory,
-            self.process_memory(memory), mask)
+        with annotate("taco.decoder"):
+            carry, mel, gate, align, active = self.decoder.run_steps(
+                (state, frame, finished), keep_masks, memory,
+                self.process_memory(memory), mask)
+            count("taco.decoder_steps", keep_masks.shape[0])
         return carry, mel.float(), gate.float(), align.float(), active
 
     def postnet_residual(self, mel: torch.Tensor) -> torch.Tensor:
@@ -655,11 +658,16 @@ class Tacotron2(nn.Module):
         """text_ids [B, T_in] -> (mel_out, mel_post, gate_out, align,
         out_lengths), masked past each length (mels zero, gate 1e3)."""
         with self._autocast(text_ids.device):
-            memory = self.encode(text_ids, speaker_ids, text_lengths)
-            mel_out, gate_out, align, out_lengths = \
-                self.decoder.autoregressive(memory, text_lengths, max_steps,
-                                            keep_masks, generator)
-            mel_post = mel_out + self.postnet(mel_out)
+            with annotate("taco.encoder"):
+                memory = self.encode(text_ids, speaker_ids, text_lengths)
+            with annotate("taco.decoder"):
+                mel_out, gate_out, align, out_lengths = \
+                    self.decoder.autoregressive(memory, text_lengths,
+                                                max_steps, keep_masks,
+                                                generator)
+                count("taco.decoder_steps", mel_out.shape[2])
+            with annotate("taco.postnet"):
+                mel_post = mel_out + self.postnet(mel_out)
         mel_out, mel_post, gate_out = mask_outputs(
             mel_out.float(), mel_post.float(), gate_out.float(), out_lengths)
         return mel_out, mel_post, gate_out, align.float(), out_lengths

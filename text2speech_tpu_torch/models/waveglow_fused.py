@@ -41,6 +41,7 @@ from ..config import WaveGlowConfig
 from ..ops import wn_block as wb
 from ..ops import wn_block_dcond as wd
 from ..ops import wn_block_int8 as wq
+from ..utils.profiling import annotate
 from .waveglow import WaveGlow, noise_shapes, upsample_group
 
 F32 = torch.float32
@@ -276,8 +277,9 @@ def infer_fused(fw: FusedWaveGlow, spect: torch.Tensor, sigma: float = 1.0,
 
     if composed_cond is None:
         first, std, final = PLAIN if plain else KERNELS
-        cond = upsample_group(spect, fw.up_k, fw.up_b, cfg,
-                              dtype=dt).contiguous()
+        with annotate("wg.upsample"):
+            cond = upsample_group(spect, fw.up_k, fw.up_b, cfg,
+                                  dtype=dt).contiguous()
         Tg = cond.shape[1]
 
         def wn_net(k, x0):
@@ -302,10 +304,11 @@ def infer_fused(fw: FusedWaveGlow, spect: torch.Tensor, sigma: float = 1.0,
         first, std, final = PLAIN_DCOND if plain else KERNELS_DCOND
         r = cfg.upsample_kernel // cfg.upsample_stride
         Tg = frames * cfg.upsample_stride // cfg.n_group
-        melT = spect.transpose(1, 2).to(dt)                    # [B, F, M]
-        mel_sh = torch.stack(
-            [torch.nn.functional.pad(melT, (0, 0, q, 0))[:, :frames]
-             for q in range(r)], dim=2).reshape(B * frames, -1)
+        with annotate("wg.upsample"):
+            melT = spect.transpose(1, 2).to(dt)                # [B, F, M]
+            mel_sh = torch.stack(
+                [torch.nn.functional.pad(melT, (0, 0, q, 0))[:, :frames]
+                 for q in range(r)], dim=2).reshape(B * frames, -1)
 
         def wn_net(k, x0):
             w = fw.flows[k]
@@ -329,8 +332,9 @@ def infer_fused(fw: FusedWaveGlow, spect: torch.Tensor, sigma: float = 1.0,
             return final(xh, cond_all, li, w["in_w"][li], w["in_b"][li],
                          w_eff, skip, w["end_w"], b_eff, 2 ** li, n_valid=Tg)
 
-    return _reverse_flows(fw, B, Tg, spect.device, wn_net, sigma, noise,
-                          generator)
+    with annotate("wg.flows"):
+        return _reverse_flows(fw, B, Tg, spect.device, wn_net, sigma, noise,
+                              generator)
 
 
 def infer_fused_int8(fw: FusedWaveGlowInt8, spect: torch.Tensor,
@@ -348,10 +352,11 @@ def infer_fused_int8(fw: FusedWaveGlowInt8, spect: torch.Tensor,
     cfg = fw.cfg
     first, std, final = PLAIN_INT8 if plain else KERNELS_INT8
     L = cfg.wn_n_layers
-    cond = upsample_group(spect, fw.up_k, fw.up_b, cfg, dtype=fw.dtype)
-    Tg = cond.shape[1]
-    qspect, sspect = wq.quantize_rows(cond)
-    qspect, sspect = qspect.contiguous(), sspect.contiguous()
+    with annotate("wg.upsample"):
+        cond = upsample_group(spect, fw.up_k, fw.up_b, cfg, dtype=fw.dtype)
+        Tg = cond.shape[1]
+        qspect, sspect = wq.quantize_rows(cond)
+        qspect, sspect = qspect.contiguous(), sspect.contiguous()
 
     def wn_net(k, x0):
         w = fw.flows[k]
@@ -367,5 +372,6 @@ def infer_fused_int8(fw: FusedWaveGlowInt8, spect: torch.Tensor,
         return final(qx, sx, qspect, sspect, *w["in"][li], *w["cond"][li],
                      w_eff, skip, w["end_w"], b_eff, 2 ** li, n_valid=Tg)
 
-    return _reverse_flows(fw, cond.shape[0], Tg, spect.device, wn_net, sigma,
-                          noise, generator)
+    with annotate("wg.flows"):
+        return _reverse_flows(fw, cond.shape[0], Tg, spect.device, wn_net,
+                              sigma, noise, generator)

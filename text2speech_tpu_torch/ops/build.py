@@ -17,6 +17,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from ..utils.profiling import annotate
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "t2s_torch"
@@ -65,9 +67,10 @@ class CudaLibrary:
         os.close(fd)
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(self.source)],
-                capture_output=True, text=True, check=False)
+            with annotate("ops.build"):
+                proc = subprocess.run(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, str(self.source)],
+                    capture_output=True, text=True, check=False)
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(
@@ -90,10 +93,11 @@ class CudaLibrary:
                      or self.path.stat().st_mtime < newest)
             if stale:
                 self.build()
-            lib = ctypes.CDLL(str(self.path))
-            for fn, argtypes in self.signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
+            with annotate("ops.load"):
+                lib = ctypes.CDLL(str(self.path))
+                for fn, argtypes in self.signatures.items():
+                    f = getattr(lib, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
             self._lib = lib
         return self._lib

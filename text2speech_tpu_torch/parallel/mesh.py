@@ -32,6 +32,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import count
+
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
@@ -344,10 +346,11 @@ def all_reduce_mean_(tensors: list, mesh: Mesh,
                      axis: str = DATA_AXIS) -> None:
     """Average ``tensors`` in place over the axis' ranks: one
     ``all_reduce`` per (device, dtype), then a division by the axis'
-    size."""
+    size.  Counter ``train.allreduce_bytes``: each buffer's bytes."""
     group, n = mesh.group(axis), mesh.size(axis)
 
     def mean(flat):
+        count("train.allreduce_bytes", flat.numel() * flat.element_size())
         dist.all_reduce(flat, group=group)
         flat.div_(n)
 

@@ -41,6 +41,12 @@ One ``step()`` round:
 6. one ``StreamEvent(sid, audio)`` per ready chunk, and a final event when a
    session completes.
 
+Stages 1-5 and the host read are spans of ``utils/profiling.py``
+(``serve.admit``, ``serve.decode``, ``serve.read``, ``serve.postnet``,
+``serve.vocode``, ``serve.denoise``); ``stats["frames_vocoded"]`` and
+``stats["frames_emitted"]`` count the frames the vocoder ran and the
+frames it kept.
+
 The window rules (start pinning, bounding by the true length, zero fill
 only where it is the conv's padding) are the streaming engine's: see
 ``infer.incremental_vocode_stream_batch``.
@@ -66,6 +72,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from .utils.profiling import annotate
 
 
 @dataclass
@@ -219,7 +227,11 @@ class ContinuousBatcher:
                       "postnet_calls": 0, "vocoder_calls": 0,
                       "denoiser_calls": 0,
                       "admitted": 0, "completed": 0, "cancelled": 0,
-                      "first_audio_rounds_sum": 0, "emitted_samples": 0}
+                      "first_audio_rounds_sum": 0, "emitted_samples": 0,
+                      # frames the vocoder ran (window widths) and the
+                      # frames of those windows it kept: their ratio is
+                      # the windowed vocoder's work per kept frame
+                      "frames_vocoded": 0, "frames_emitted": 0}
 
     # --- public API --------------------------------------------------------
 
@@ -310,7 +322,8 @@ class ContinuousBatcher:
         """One scheduling round: admit, decode one chunk for every slot,
         emit every audio chunk that became ready.  Returns the round's
         events (possibly none while a session's pipeline fills)."""
-        self._admit()
+        with annotate("serve.admit"):
+            self._admit()
         live = [s for s in self._slots if s is not None]
         if not live:
             return []
@@ -319,21 +332,23 @@ class ContinuousBatcher:
         self.stats["active_row_steps"] += len(live) * self.cs
 
         # --- decode one chunk for all slots (per-row masks) ----------------
-        d_pre = live[0].masks.shape[-1]
-        masks = torch.zeros((self.cs, 2, self.slots, d_pre),
-                            dtype=torch.bool, device=self.device)
-        for s in live:
-            masks[:, :, s.slot] = s.masks[s.t: s.t + self.cs]
-        self._batch, mel_c, active, finished = self._decode_fn(
-            self._batch, masks)
+        with annotate("serve.decode"):
+            d_pre = live[0].masks.shape[-1]
+            masks = torch.zeros((self.cs, 2, self.slots, d_pre),
+                                dtype=torch.bool, device=self.device)
+            for s in live:
+                masks[:, :, s.slot] = s.masks[s.t: s.t + self.cs]
+            self._batch, mel_c, active, finished = self._decode_fn(
+                self._batch, masks)
         # the round's one host read: per-row active counts within the
         # contract of each row, and the stop flags
-        counts = torch.zeros((self.slots,), dtype=torch.long,
-                             device=active.device)
-        for s in live:
-            n = max(0, min(self.cs, self.requested - s.t))
-            counts[s.slot] = active[s.slot, :n].sum()
-        read = torch.cat([counts, finished.long()]).cpu().numpy()
+        with annotate("serve.read"):
+            counts = torch.zeros((self.slots,), dtype=torch.long,
+                                 device=active.device)
+            for s in live:
+                n = max(0, min(self.cs, self.requested - s.t))
+                counts[s.slot] = active[s.slot, :n].sum()
+            read = torch.cat([counts, finished.long()]).cpu().numpy()
 
         post_tasks: list = []
         for s in live:
@@ -359,7 +374,8 @@ class ContinuousBatcher:
                                    s.emitted, upto))
 
         if post_tasks:
-            self._run_postnet(post_tasks)
+            with annotate("serve.postnet"):
+                self._run_postnet(post_tasks)
 
         # --- vocoder windows over the advanced postnet frontiers ----------
         events: list = []
@@ -392,12 +408,15 @@ class ContinuousBatcher:
                         s.E = kt
                 s.flushed = True
 
-        for s, chunk in self._run_vocoder(voc_tasks):
-            self._emit(events, s, chunk)
-        for s, e0, tl in shorts:
-            self._emit(events, s, self._vocode_short(s, tl)[e0 * self.hop:])
+        with annotate("serve.vocode"):
+            for s, chunk in self._run_vocoder(voc_tasks):
+                self._emit(events, s, chunk)
+            for s, e0, tl in shorts:
+                self._emit(events, s,
+                           self._vocode_short(s, tl)[e0 * self.hop:])
 
-        self._run_denoise(live, events)
+        with annotate("serve.denoise"):
+            self._run_denoise(live, events)
 
         # --- free completed slots ------------------------------------------
         for s in live:
@@ -436,6 +455,7 @@ class ContinuousBatcher:
     def _emit(self, events, s: _Session, chunk: torch.Tensor):
         """Emit a raw vocoder chunk or, for a denoising session, buffer it
         for the windowed denoise stage."""
+        self.stats["frames_emitted"] += chunk.shape[-1] // self.hop
         if s.den_strength > 0.0:
             if s.den_buf is None:
                 from .models.denoiser import DenoiseBuffer
@@ -585,6 +605,7 @@ class ContinuousBatcher:
                         s.sigma * comp[lo * self.gpf: e * self.gpf])
             audio = self._vocode_fn(wmel, tuple(wnoise), 1.0)
             self.stats["vocoder_calls"] += 1
+            self.stats["frames_vocoded"] += width * len(group)
             for j, (s, ws, kf, kt, _fl) in enumerate(group):
                 yield s, audio[j, (kf - ws) * self.hop: (kt - ws) * self.hop]
 
@@ -627,6 +648,8 @@ class ContinuousBatcher:
         post = s.post_cat()[:, :tl]
         comps = self._sess_noise(s, tl)
         self.stats["vocoder_calls"] += 1
+        self.stats["frames_vocoded"] += (tl if self._vocode_masked_fn is None
+                                         else self.Wv)
         if self._vocode_masked_fn is not None:
             # pad to the fixed width Wv and pass the true length: one call
             # shape covers every short length

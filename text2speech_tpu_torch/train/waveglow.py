@@ -24,6 +24,7 @@ from ..parallel.mesh import (Mesh, all_reduce_mean_, default_data_mesh,
                              trainer_device)
 from ..utils import infolog
 from ..utils.logger import MetricsLogger
+from ..utils.profiling import annotate
 from .checkpoint import CheckpointManager
 from .state import (TrainState, check_grad_accum_mesh, create_train_state,
                     global_norm, microbatch_split)
@@ -50,13 +51,17 @@ def make_wg_train_step(model: TrainableWaveGlow, sigma: float,
 
     def train_step(state: TrainState, batch: VocoderBatch):
         if mesh is not None:
-            check_grad_accum_mesh(batch.mel.shape[0], grad_accum, mesh)
-            batch = shard_batch(batch, mesh)
-        state.opt.zero_grad(set_to_none=True)
+            with annotate("train.shard"):
+                check_grad_accum_mesh(batch.mel.shape[0], grad_accum, mesh)
+                batch = shard_batch(batch, mesh)
+        with annotate("train.optimizer"):
+            state.opt.zero_grad(set_to_none=True)
         if grad_accum == 1:
-            loss = loss_fn(batch.mel, batch.audio)
-            loss.backward()
-            loss = loss.detach()
+            with annotate("train.forward"):
+                loss = loss_fn(batch.mel, batch.audio)
+            with annotate("train.backward"):
+                loss.backward()
+                loss = loss.detach()         # releases the graph
         else:
             B = batch.mel.shape[0]
             if B % grad_accum:
@@ -65,18 +70,22 @@ def make_wg_train_step(model: TrainableWaveGlow, sigma: float,
             losses = []
             for mel, audio in zip(microbatch_split(batch.mel, grad_accum),
                                   microbatch_split(batch.audio, grad_accum)):
-                mb_loss = loss_fn(mel, audio)
-                mb_loss.backward()           # sums into .grad
+                with annotate("train.forward"):
+                    mb_loss = loss_fn(mel, audio)
+                with annotate("train.backward"):
+                    mb_loss.backward()           # sums into .grad
                 losses.append(mb_loss.detach())
             for p in state.params.values():
                 p.grad.div_(grad_accum)
             loss = torch.stack(losses).mean()
         if mesh is not None:
             # the psum XLA inserts: gradients and loss in one all-reduce
-            all_reduce_mean_([p.grad for p in state.params.values()]
-                             + [loss], mesh)
-        grad_norm = global_norm(p.grad for p in state.params.values())
-        state.apply_gradients()
+            with annotate("train.allreduce"):
+                all_reduce_mean_([p.grad for p in state.params.values()]
+                                 + [loss], mesh)
+        with annotate("train.optimizer"):
+            grad_norm = global_norm(p.grad for p in state.params.values())
+            state.apply_gradients()
         return state, {"loss": loss, "grad_norm": grad_norm}
 
     return train_step

@@ -1,16 +1,130 @@
 """Tracing and profiling helpers (counterpart of
-``text2speech_tpu/utils/profiling.py``), over ``torch.profiler``: a trace
-of the enclosed block written as a Chrome trace (it opens in Perfetto, as
-the JAX package's trace does), named regions in that timeline, and a step
-timer that tells host time from device time."""
+``text2speech_tpu/utils/profiling.py``): the program's spans and counters,
+a trace of a block written as a Chrome trace (it opens in Perfetto, as the
+JAX package's trace does), and a step timer that tells host time from
+device time.
+
+The port marks its layer boundaries with :func:`annotate` (a span) and
+:func:`count` (a counter).  Both cost one global check when nothing
+listens.  Under :func:`recording` they are kept in memory on
+``time.perf_counter``, the clock a benchmark's own spans and its device
+trace are placed on; under a ``torch.profiler`` (:func:`trace_capture`) a
+span is also a ``record_function`` region, so the Chrome trace names the
+same layers::
+
+    with recording() as rec:
+        synth.synthesize(texts)
+    rec.spans      # [(name, start, end, parent id, id)], in closing order
+    rec.counters   # {name: [(time, value)]}
+
+Span names are dotted by layer (``taco.decoder``, ``wg.flows``,
+``train.allreduce``, ``serve.vocode``, ...) and fixed strings."""
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# what annotate returns when nothing listens: one shared object, reentrant
+_NULL = contextlib.nullcontext()
+# the installed Recorder, or None
+_RECORDER = None
+
+
+def _profiler_active() -> bool:
+    """Whether a ``torch.profiler`` is recording (a module flag the
+    profiler sets; where a torch version lacks it, assume so)."""
+    return getattr(_autograd_profiler, "_is_profiler_enabled", True)
+
+
+class Recorder:
+    """Spans and counters of one :func:`recording` block.  ``spans``:
+    ``(name, start, end, parent, id)`` tuples, appended as each span
+    closes; ``parent`` is the ``id`` of the innermost span open on the
+    same thread when this one began (None at the top).  ``counters``:
+    ``name -> [(time, value)]``.  Times are ``time.perf_counter`` seconds."""
+
+    def __init__(self):
+        self.spans: list = []
+        self.counters: dict = {}
+        self._ids = itertools.count()
+        self._local = threading.local()
+
+    def _stack(self) -> list:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+
+class _Span:
+    __slots__ = ("rec", "name", "id", "parent", "start", "region")
+
+    def __init__(self, rec: Recorder, name: str):
+        self.rec = rec
+        self.name = name
+
+    def __enter__(self):
+        stack = self.rec._stack()
+        self.parent = stack[-1] if stack else None
+        self.id = next(self.rec._ids)
+        stack.append(self.id)
+        self.region = None
+        if _profiler_active():
+            self.region = torch.profiler.record_function(self.name)
+            self.region.__enter__()
+        self.start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter()
+        if self.region is not None:
+            self.region.__exit__(*exc)
+        self.rec._stack().pop()
+        self.rec.spans.append((self.name, self.start, end, self.parent,
+                               self.id))
+        return False
+
+
+def annotate(name: str):
+    """The span ``name`` around a ``with`` block: recorded when a
+    :func:`recording` is open, a ``record_function`` region when a
+    ``torch.profiler`` is active, and otherwise the shared null context
+    (no allocation, no clock read, no profiler call)."""
+    rec = _RECORDER
+    if rec is not None:
+        return _Span(rec, name)
+    if _profiler_active():
+        return torch.profiler.record_function(name)
+    return _NULL
+
+
+def count(name: str, value) -> None:
+    """Add ``(now, value)`` to counter ``name`` of the open recording;
+    nothing without one."""
+    rec = _RECORDER
+    if rec is not None:
+        rec.counters.setdefault(name, []).append((time.perf_counter(), value))
+
+
+@contextlib.contextmanager
+def recording():
+    """Install a fresh :class:`Recorder` for the process and yield it; the
+    one installed before (if any) is back in place when the block ends.
+    Nothing is written out: read the recorder once the block has ended."""
+    global _RECORDER
+    prev, rec = _RECORDER, Recorder()
+    _RECORDER = rec
+    try:
+        yield rec
+    finally:
+        _RECORDER = prev
 
 
 @contextlib.contextmanager
@@ -34,11 +148,6 @@ def trace_capture(logdir: str):
     with profile(activities=activities) as prof:
         yield path
     prof.export_chrome_trace(path)
-
-
-def annotate(name: str):
-    """A named region in the profiler's timeline."""
-    return torch.profiler.record_function(name)
 
 
 def _sync_devices(out) -> None:
