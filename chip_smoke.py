@@ -254,9 +254,21 @@ Phases, each of which passes or raises (the script then exits non-zero):
     records, and the audio bit for bit the same either way; then one
     span's own cost, with and without a recorder, over 100,000 empty
     spans, and that cost times a batch's spans as a share of its wall.
+31. the text-to-mel layer's two loops replayed from CUDA graphs
+    (``utils/cuda_graphs.py``; ``Decoder.run_steps``, ``BiLSTM.forward``):
+    ``Synthesizer.text_to_mel`` at the offline benchmark's shape (32 of
+    its texts, padded to 256 symbols, 320 frames) on seeded weights, the
+    eager loops and the graphs in turns over the same seeds: both walls
+    of every batch and their medians, the first graphed call's wall (the
+    two captures), the mels and lengths bit for bit the same, and the
+    counters ``taco.graph_captures`` / ``taco.graph_replays``; then the
+    benchmark's open-loop serve schedule (16 slots, 3.5 req/s, 50 s, one
+    seed) through ``make_server`` under a recorder, eager then graphed:
+    rounds, requests done, and the medians of the ``serve.admit`` /
+    ``serve.decode`` spans.
 
 Phase 25 runs right after phase 7, phases 12-21 between it and phase 8,
-phases 22-24 after phase 11, phases 26, 27, 28, 29 and 30 last.  The line
+phases 22-24 after phase 11, phases 26, 27, 28, 29, 30 and 31 last.  The line
 before the last is a JSON object with one record per kernel (its
 ``paths``: the launches on phase 29's convert path and in its demo); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -264,6 +276,7 @@ last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import http.client
 import json
 import os
@@ -5730,6 +5743,157 @@ def recorder_cost(info: str) -> dict:
     return sets
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the text-to-mel layer's loops replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_BATCHES, GRAPH_SEED = 6, 31
+GRAPH_SERVE_SEED, GRAPH_SERVE_S = 7400000004, 50.0
+
+
+@contextlib.contextmanager
+def graphs_off():
+    """The eager loops, for comparison: ``cuda_graphs.usable`` says no."""
+    from text2speech_tpu_torch.utils import cuda_graphs
+
+    usable = cuda_graphs.usable
+    cuda_graphs.usable = lambda *tensors: False
+    try:
+        yield
+    finally:
+        cuda_graphs.usable = usable
+
+
+def graph_counts(rec) -> dict:
+    return {name: sum(v for _, v in rec.counters.get(name, []))
+            for name in ("taco.graph_captures", "taco.graph_replays")}
+
+
+def graph_replay(info: str) -> dict:
+    """Phase 31 (module docstring).  Returns the medians and the serve
+    runs' records."""
+    from perfbench import inputs
+    from perfbench.traffic import serve_open
+    from perfbench.trace import Observation
+    from text2speech_tpu_torch.config import HParams, WaveGlowConfig
+    from text2speech_tpu_torch.infer import random_synthesizer
+    from text2speech_tpu_torch.models.tacotron2 import MASK_BLOCK
+    from text2speech_tpu_torch.server import make_server
+    from text2speech_tpu_torch.text import encode_batch
+    from text2speech_tpu_torch.utils.profiling import recording
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "perfbench", "workloads",
+                           "wg512-offline-b32.json")) as f:
+        offline = json.load(f)["params"]
+    with open(os.path.join(root, "perfbench", "workloads",
+                           "wg512-serve-poisson.json")) as f:
+        serve = json.load(f)["params"]
+    synth = random_synthesizer(HParams(), WaveGlowConfig(), seed=GRAPH_SEED,
+                               device="cuda")
+    B, steps = offline["batch"], offline["max_steps"]
+
+    widths = set()
+
+    def run(i):
+        texts = inputs.texts(GRAPH_SEED, i, B, offline["syllables"])
+        widths.add(encode_batch(texts)[0].shape[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with recording() as rec:
+            mel, lens = synth.text_to_mel(texts, seed=GRAPH_SEED + i,
+                                          max_steps=steps)
+        torch.cuda.synchronize()
+        return (mel, lens), time.perf_counter() - t0, graph_counts(rec)
+
+    with graphs_off():
+        _, eager_first, _ = run(0)              # cuBLAS, cuDNN, allocator
+    _, graph_first, first = run(0)
+    walls = {"eager": [], "graph": []}
+    counts = []
+    for i in range(1, GRAPH_BATCHES + 1):
+        outs = {}
+        for graphed in ((False, True) if i % 2 else (True, False)):
+            if graphed:
+                outs[graphed], wall, c = run(i)
+                counts.append(c)
+            else:
+                with graphs_off():
+                    outs[graphed], wall, _ = run(i)
+            walls["graph" if graphed else "eager"].append(wall)
+        if not all(torch.equal(a, b) for a, b in zip(outs[False],
+                                                     outs[True])):
+            raise RuntimeError(f"batch {i}: the graphed text_to_mel differs "
+                               f"from the eager loops")
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"[graphs] text_to_mel at {B} x {outs[True][0].shape[-1]} frames, "
+          f"texts padded to {sorted(widths)} symbols ({info}): "
+          f"first call eager {eager_first * 1e3:.1f} ms, graphed (with its "
+          f"captures) {graph_first * 1e3:.1f} ms, counters {first}; walls "
+          f"eager {[round(w * 1e3, 2) for w in walls['eager']]} ms, graphed "
+          f"{[round(w * 1e3, 2) for w in walls['graph']]} ms; medians eager "
+          f"{med['eager'] * 1e3:.2f} ms, graphed {med['graph'] * 1e3:.2f} "
+          f"ms, eager / graphed {med['eager'] / med['graph']:.3f}; graphed "
+          f"counters a batch {counts}; mels and lengths bit for bit equal")
+    # the encoder's graph, then a graph a block length (64, a shorter tail)
+    blocks = [MASK_BLOCK] * (steps // MASK_BLOCK) + (
+        [steps % MASK_BLOCK] if steps % MASK_BLOCK else [])
+    want = {"taco.graph_captures": 1 + len(set(blocks)),
+            "taco.graph_replays": 1 + len(blocks)}
+    if first != want or any(c != {**want, "taco.graph_captures": 0}
+                            for c in counts):
+        raise RuntimeError(f"graph counters {first}, {counts}: want {want} "
+                           f"in the first call, then no capture")
+
+    sched = serve_open.schedule(GRAPH_SERVE_SEED, serve, GRAPH_SERVE_S)
+    runs = {}
+    for mode in ("eager", "graph"):
+        ctx = graphs_off() if mode == "eager" else contextlib.nullcontext()
+        with ctx:
+            srv = make_server(synth, slots=serve["slots"],
+                              chunk_steps=serve["chunk_steps"],
+                              max_text_len=serve["max_text_len"],
+                              max_steps=serve["max_steps"],
+                              sigma=serve["sigma"])
+            srv.warm_window_widths()
+            for j, text in enumerate(inputs.texts(
+                    GRAPH_SERVE_SEED, 2 ** 20, serve["slots"],
+                    serve["syllables"])):
+                srv.submit(text, seed=j,
+                           denoiser_strength=serve["denoiser_strength"]
+                           * (j % 2))
+            while not srv.idle:
+                srv.step()
+            srv.sessions.clear()
+            with recording() as rec:
+                out = serve_open.drive(srv, sched, GRAPH_SERVE_S,
+                                       serve["drain_s"], Observation())
+        spans = {n: [1e3 * (b - a) for m, a, b, *_ in rec.spans if m == n]
+                 for n in ("serve.admit", "serve.decode")}
+        done = sum(r["done"] for r in out["recs"].values())
+        runs[mode] = {"rounds": out["rounds"], "done": done,
+                      "requests": len(sched), "end_s": out["end"],
+                      **{f"{n}_p50_ms": float(np.median(v))
+                         for n, v in spans.items()},
+                      **{f"{n}_mean_ms": float(np.mean(v))
+                         for n, v in spans.items()},
+                      **graph_counts(rec)}
+        print(f"[graphs] serve {mode} ({info}): {len(sched)} requests at "
+              f"{serve['rate_per_s']} req/s over {GRAPH_SERVE_S:.0f} s, seed "
+              f"{GRAPH_SERVE_SEED}: {out['rounds']} rounds, {done} done, "
+              f"drained at {out['end']:.1f} s; over "
+              f"{len(spans['serve.admit'])} rounds serve.admit median "
+              f"{runs[mode]['serve.admit_p50_ms']:.2f} ms, mean "
+              f"{runs[mode]['serve.admit_mean_ms']:.2f} ms, serve.decode "
+              f"median {runs[mode]['serve.decode_p50_ms']:.2f} ms, mean "
+              f"{runs[mode]['serve.decode_mean_ms']:.2f} ms; counters "
+              f"{graph_counts(rec)}")
+        del srv
+    del synth
+    torch.cuda.empty_cache()
+    return {"medians": med, "serve": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -5839,6 +6003,8 @@ def main() -> int:
     print(f"[time] phase 29: {t:.2f} s")
     print(f"[time] phase 30: "
           f"{sync_time(lambda: recorder_cost(info))[1]:.2f} s")
+    print(f"[time] phase 31: "
+          f"{sync_time(lambda: graph_replay(info))[1]:.2f} s")
     rec["wn_layer_partial"]["max_abs_err"] = max(
         rec["wn_layer_partial"]["max_abs_err"], demo_partial_err)
 

@@ -2515,3 +2515,216 @@ def test_converted_waveglow_fused_matches_the_plain_module(dev):
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 16 * 2.0 ** -8 * want.abs().max()
     assert ((got - want).norm() / want.norm()).item() < 2e-2
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the decoder's steps and the encoder's BiLSTM
+# ---------------------------------------------------------------------------
+
+
+def _eagerly(monkeypatch, fn):
+    """``fn()`` with the graphs off: the eager loops run."""
+    from text2speech_tpu_torch.utils import cuda_graphs
+
+    with monkeypatch.context() as m:
+        m.setattr(cuda_graphs, "usable", lambda *t: False)
+        return fn()
+
+
+def _graph_counts(rec) -> tuple:
+    return tuple([v for _, v in rec.counters.get(name, [])] for name in
+                 ("taco.graph_captures", "taco.graph_replays"))
+
+
+@pytest.fixture(scope="module")
+def full_taco(dev):
+    """Tacotron-2 at the reference widths on the card, seeded, in f32."""
+    from text2speech_tpu_torch.config import HParams
+    from text2speech_tpu_torch.models.tacotron2 import (Tacotron2,
+                                                        init_weights_)
+    from text2speech_tpu_torch.text import N_SYMBOLS
+
+    taco = Tacotron2(HParams(), N_SYMBOLS, device=dev)
+    init_weights_(taco, torch.Generator(device="cuda").manual_seed(11))
+    return taco.eval()
+
+
+def _text_batch(B, T_in, seed, dev):
+    """ids [B, T_in] with lengths in [8, T_in], the longest T_in."""
+    from text2speech_tpu_torch.text import N_SYMBOLS
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lengths = torch.randint(8, T_in + 1, (B,), generator=g, device=dev)
+    lengths[0] = T_in
+    ids = torch.randint(1, N_SYMBOLS, (B, T_in), generator=g, device=dev)
+    ids = torch.where(torch.arange(T_in, device=dev) < lengths[:, None],
+                      ids, 0)
+    return ids, lengths
+
+
+def test_graphed_inference_equals_eager_at_the_offline_shape(
+        dev, full_taco, monkeypatch):
+    """``Tacotron2.inference`` at the offline cell's shape (B = 32, T_in =
+    256, 320 steps) replays one encoder graph and five 64-step decoder
+    graphs, captured in the first call only, and equals the eager loops
+    bit for bit, call after call."""
+    from text2speech_tpu_torch.utils.profiling import recording
+
+    ids, lengths = _text_batch(32, 256, 1, dev)
+    keep = torch.rand((320, 2, 32, 256), device=dev) < 0.5
+
+    def run():
+        with torch.inference_mode():
+            return full_taco.inference(ids, text_lengths=lengths,
+                                       max_steps=320, keep_masks=keep)
+
+    with recording() as rec:
+        got = [run(), run()]
+    want = _eagerly(monkeypatch, run)
+    for out in got:
+        for g, w in zip(out, want):
+            assert g.shape == w.shape and torch.equal(g, w)
+    captures, replays = _graph_counts(rec)
+    assert sum(captures) == 2 and replays == [1, 5, 1, 5]
+
+
+def test_chunked_graphed_decode_equals_the_whole_decode(dev, full_taco,
+                                                        monkeypatch):
+    """Five 64-step ``decode_chunk`` calls from the returned carry against
+    one 320-step decode, both replayed, and the eager whole decode."""
+    from text2speech_tpu_torch.models.tacotron2 import sequence_mask
+
+    taco = full_taco
+    ids, lengths = _text_batch(32, 256, 2, dev)
+    keep = torch.rand((320, 2, 32, 256), device=dev) < 0.5
+
+    def whole():
+        with torch.inference_mode():
+            memory = taco.encode(ids, text_lengths=lengths)
+            return memory, taco.decoder.run_steps(
+                taco.decoder.initial_carry(memory), keep, memory,
+                taco.process_memory(memory), sequence_mask(lengths, 256))
+
+    memory, graphed = whole()
+    _, eager = _eagerly(monkeypatch, whole)
+    with torch.inference_mode():
+        carry, parts = taco.decoder.initial_carry(memory), []
+        for t0 in range(0, 320, 64):
+            carry, *outs = taco.decode_chunk(memory, *carry,
+                                             keep[t0:t0 + 64], lengths)
+            parts.append(outs)
+    for i, d in enumerate((2, 1, 1, 1)):
+        chunked = torch.cat([p[i] for p in parts], d)
+        assert torch.equal(chunked, graphed[1 + i])
+        assert torch.equal(graphed[1 + i], eager[1 + i])
+    for a, b in zip((*carry[0], *carry[1:]),
+                    (*graphed[0][0], *graphed[0][1:])):
+        assert torch.equal(a, b)
+
+
+def test_server_shaped_chunk_replays_equal_eager(dev, full_taco, monkeypatch):
+    """The server's decode: B = ``slots`` = 16 rows padded to 256 symbols,
+    per-row keep-masks, two 64-step chunks from the carry, and its
+    admissions' BiLSTM at (1, 256): graph and eager bit for bit."""
+    taco = full_taco
+    ids, lengths = _text_batch(16, 256, 3, dev)
+    gens = [torch.Generator(device="cuda").manual_seed(100 + b)
+            for b in range(16)]
+    masks = [taco.decoder.draw_keep_masks_per_row(64, gens, dev)
+             for _ in range(2)]
+
+    def serve():
+        with torch.inference_mode():
+            admit = taco.encode(ids[:1], text_lengths=lengths[:1])
+            memory = taco.encode(ids, text_lengths=lengths)
+            carry, outs = taco.decoder.initial_carry(memory), [admit]
+            for m in masks:
+                carry, *o = taco.decode_chunk(memory, *carry, m, lengths)
+                outs += o
+            return outs + [*carry[0], *carry[1:]]
+
+    for g, w in zip(serve(), _eagerly(monkeypatch, serve)):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("transposed", [True, False])
+@pytest.mark.parametrize("B", [1, 32])
+def test_bilstm_graph_with_lengths_equals_eager(dev, B, transposed):
+    """The BiLSTM at the server's admission width and the offline batch,
+    on the encoder convs' layout (a transpose of [B, C, T]) and on a
+    contiguous one."""
+    from text2speech_tpu_torch.ops.lstm import BiLSTM
+    from text2speech_tpu_torch.utils.profiling import recording
+
+    torch.manual_seed(B)
+    mod = BiLSTM(512, 256, device=dev)
+    with torch.inference_mode(), recording() as rec:
+        for seed in (4, 5):
+            xs = (torch.randn(B, 512, 256, device=dev).transpose(1, 2)
+                  if transposed else torch.randn(B, 256, 512, device=dev))
+            _, lengths = _text_batch(B, 256, seed, dev)
+            got = mod(xs, lengths)
+            assert torch.equal(got, mod.forward_eager(xs, lengths))
+            assert torch.equal(mod(xs), mod.forward_eager(xs))
+    captures, replays = _graph_counts(rec)
+    assert captures == [1, 1] and replays == [1] * 4
+
+
+def _graph_synth(dev):
+    from text2speech_tpu_torch.config import HParams
+    from text2speech_tpu_torch.infer import random_synthesizer
+
+    hp = HParams(embedding_size=64, enc_conv_channels=64,
+                 attention_rnn_dim=128, decoder_rnn_dim=128, prenet_dim=32,
+                 attention_dim=32, n_mel_channels=16,
+                 postnet_embedding_dim=32, max_decoder_steps=100)
+    cfg = WaveGlowConfig(n_mel_channels=16, n_flows=4, n_group=8,
+                         n_early_every=2, n_early_size=2, wn_n_layers=4,
+                         wn_n_channels=128, upsample_kernel=64,
+                         upsample_stride=16)
+    return random_synthesizer(hp, cfg, 0, device="cuda", use_denoiser=False)
+
+
+def test_graphs_replay_in_place_weight_swaps(dev, monkeypatch):
+    """``Synthesizer.load_weights`` copies a new Tacotron into the live
+    parameters: the next replay reads it without a new capture, and
+    equals the eager loops on the new weights bit for bit."""
+    from text2speech_tpu_torch.convert import variables_from_tacotron
+    from text2speech_tpu_torch.models.tacotron2 import (Tacotron2,
+                                                        init_weights_)
+    from text2speech_tpu_torch.text import N_SYMBOLS
+    from text2speech_tpu_torch.utils.profiling import recording
+
+    synth = _graph_synth(dev)
+    texts = ["안녕하세요.", "존경하는 사람과 함께 갑니다.", "네."]
+
+    def mel():
+        return synth.text_to_mel(texts, seed=3, max_steps=100)[0]
+
+    before = mel()
+    other = Tacotron2(synth.hp, N_SYMBOLS, device=dev)
+    init_weights_(other, torch.Generator(device="cuda").manual_seed(7))
+    synth.load_weights(taco_variables=variables_from_tacotron(other))
+    with recording() as rec:
+        after = mel()
+    assert not torch.equal(after, before)
+    assert torch.equal(after, _eagerly(monkeypatch, mel))
+    captures, replays = _graph_counts(rec)
+    assert captures == [] and replays == [1, 2]   # 64 + a 36-step tail
+
+
+def test_repeated_calls_capture_once_a_key(dev):
+    """Three calls at one shape capture the encoder's graph and the
+    decoder's two (a 64-step block, a 36-step tail) once; another batch
+    size captures its own three; then no call captures."""
+    from text2speech_tpu_torch.utils.profiling import recording
+
+    synth = _graph_synth(dev)
+    texts = ["안녕하세요.", "존경하는 사람과 함께 갑니다.", "네."]
+    with recording() as rec:
+        for batch in (texts, texts, texts, texts[:2], texts[:2], texts):
+            synth.text_to_mel(batch, seed=3, max_steps=100)
+    captures, replays = _graph_counts(rec)
+    assert sum(captures) == 6 and replays == [1, 2] * 6
+    assert len(synth.taco.decoder._graphs) == 4
+    assert len(synth.taco.encoder.bilstm._graphs) == 2

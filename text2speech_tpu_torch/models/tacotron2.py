@@ -57,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import HParams
 
 from ..ops.lstm import BiLSTM, LSTMCell
+from ..utils import cuda_graphs
 from ..utils.profiling import annotate, count
 
 
@@ -270,6 +271,12 @@ class DecoderState(NamedTuple):
     attention_context: torch.Tensor
 
 
+# the carry's tensors: DecoderState's seven, the frame, the stop flags
+_CARRY = len(DecoderState._fields) + 2
+# the step axis of run_steps' mel, gate, align and active
+_STEP_DIMS = (2, 1, 1, 1)
+
+
 class Decoder(nn.Module):
     """One step = prenet -> attention LSTM -> location attention ->
     decoder LSTM -> mel and gate projections."""
@@ -289,6 +296,7 @@ class Decoder(nn.Module):
                                   device=device)
         self.gate_proj = nn.Linear(hp.decoder_rnn_dim + enc, 1,
                                    device=device)
+        self._graphs = cuda_graphs.GraphCache("taco.graph_captures")
 
     def initial_state(self, memory: torch.Tensor) -> DecoderState:
         hp = self.hp
@@ -361,7 +369,66 @@ class Decoder(nn.Module):
         [B, n, T_in], active bool [B, n]).  ``active[b, t]`` marks frames
         produced at or before row b's stop frame.  The one step loop of the
         whole-utterance and the chunked decode, so that the two agree bit
-        for bit."""
+        for bit.
+
+        Where ``cuda_graphs.usable`` allows (on the card, autograd off),
+        the steps run as replays of a CUDA graph of :meth:`run_steps_eager`
+        over a block of :data:`MASK_BLOCK` steps (a shorter tail is a graph
+        of its own): the same kernels in the same order, so the results
+        equal the eager loop's bit for bit.  The carry stays in the graph's
+        static inputs from one block to the next."""
+        tensors = [keep_masks, *carry[0], *carry[1:], memory,
+                   processed_memory] + ([] if mask is None else [mask])
+        if not cuda_graphs.usable(*tensors):
+            return self.run_steps_eager(carry, keep_masks, memory,
+                                        processed_memory, mask)
+        T = keep_masks.shape[0]
+        full, tail = divmod(T, MASK_BLOCK)
+        runs = ([(MASK_BLOCK, range(0, full * MASK_BLOCK, MASK_BLOCK))]
+                if full else [])
+        if tail:
+            runs.append((tail, [full * MASK_BLOCK]))
+        carry_in = tensors[1:_CARRY + 1]
+        outs = None
+        for n, starts in runs:
+            tensors[0] = keep_masks[:n]
+            tensors[1:_CARRY + 1] = carry_in
+            graph = self._graphs.get(cuda_graphs.graph_key(self, tensors),
+                                     self._graphed_block, tensors)
+            with graph.lock:
+                for i, t0 in enumerate(starts):
+                    block = graph.replay(*([keep_masks[t0:t0 + n]]
+                                           + (tensors[1:] if i == 0 else [])))
+                    if outs is None:
+                        outs = [o.new_empty(o.shape[:d] + (T,)
+                                            + o.shape[d + 1:])
+                                for o, d in zip(block, _STEP_DIMS)]
+                    for out, o, d in zip(outs, block, _STEP_DIMS):
+                        out.narrow(d, t0, n).copy_(o)
+                carry_in = [t.clone() for t in graph.inputs[1:_CARRY + 1]]
+        count("taco.graph_replays", full + (tail > 0))
+        state = DecoderState(*carry_in[:-2])
+        return ((state, carry_in[-2], carry_in[-1]), *outs)
+
+    def _graphed_block(self, keep_masks, *tensors):
+        """:meth:`run_steps_eager` over static inputs (``keep_masks``, the
+        carry's tensors, memory, processed memory, then the mask if any)
+        that leaves the new carry in the carry's inputs -> (mel, gate,
+        align, active)."""
+        carry_in = tensors[:_CARRY]
+        memory, processed_memory = tensors[_CARRY:_CARRY + 2]
+        mask = tensors[_CARRY + 2] if len(tensors) > _CARRY + 2 else None
+        carry = (DecoderState(*carry_in[:-2]), carry_in[-2], carry_in[-1])
+        (state, frame, finished), *outs = self.run_steps_eager(
+            carry, keep_masks, memory, processed_memory, mask)
+        for static, t in zip(carry_in, (*state, frame, finished)):
+            static.copy_(t)
+        return outs
+
+    def run_steps_eager(self, carry, keep_masks: torch.Tensor, memory,
+                        processed_memory, mask):
+        """:meth:`run_steps` as a Python loop of steps, each kernel
+        launched from the host."""
         state, frame, finished = carry
         mels, gates, aligns, actives = [], [], [], []
         for t in range(keep_masks.shape[0]):

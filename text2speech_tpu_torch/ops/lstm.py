@@ -11,6 +11,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..utils import cuda_graphs
+from ..utils.profiling import count
+
 
 class LSTMCell(nn.Module):
     """One LSTM step over ``(h, c)``; ``ih``/``hh`` are ``nn.Linear`` layers
@@ -58,14 +61,36 @@ def reverse_padded(xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 class BiLSTM(nn.Module):
     """Bidirectional LSTM with length-aware reversal: [B, T, D] ->
-    [B, T, 2H], positions past each length zeroed."""
+    [B, T, 2H], positions past each length zeroed.
+
+    Where ``cuda_graphs.usable`` allows (on the card, autograd off), a call
+    replays a CUDA graph of :meth:`forward_eager` (both directions, the
+    reversal and the mask; ``lengths`` a static input): the same kernels in
+    the same order, so the result equals the eager loop's bit for bit."""
 
     def __init__(self, input_size: int, hidden: int, device=None):
         super().__init__()
         self.fwd = LSTMCell(input_size, hidden, device=device)
         self.bwd = LSTMCell(input_size, hidden, device=device)
+        self._graphs = cuda_graphs.GraphCache("taco.graph_captures")
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor | None = None):
+        if lengths is not None:
+            lengths = lengths.to(xs.device)
+        tensors = [xs] if lengths is None else [xs, lengths]
+        if not cuda_graphs.usable(*tensors):
+            return self.forward_eager(xs, lengths)
+        graph = self._graphs.get(cuda_graphs.graph_key(self, tensors),
+                                 self.forward_eager, tensors)
+        with graph.lock:
+            out = graph.replay(*tensors).clone()
+        count("taco.graph_replays", 1)
+        return out
+
+    def forward_eager(self, xs: torch.Tensor,
+                      lengths: torch.Tensor | None = None):
+        """:meth:`forward` as two Python loops of steps, each kernel
+        launched from the host."""
         fwd = run_lstm(self.fwd, xs)
         if lengths is None:
             bwd = run_lstm(self.bwd, xs.flip(1)).flip(1)
