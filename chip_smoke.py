@@ -266,9 +266,17 @@ Phases, each of which passes or raises (the script then exits non-zero):
     seed) through ``make_server`` under a recorder, eager then graphed:
     rounds, requests done, and the medians of the ``serve.admit`` /
     ``serve.decode`` spans.
+32. VITS's coupling flows on the gated activation kernel
+    (``models/vits.py::CouplingLayer.wn``): ``gated_fwd`` against
+    ``gated_plain`` at the benchmark cell ``vits-offline-b32``'s shapes
+    (f32 [32, T_y, 384] with a dense zero ``b``, T_y 1,088 and 1,061, one
+    launch each), then one ``VitsSynthesizer.synthesize`` of 32 of the
+    cell's texts on its seeded weights, the counts reset just before: 16
+    ``gated_fwd`` launches (4 flows x 4 WN layers), no ``gated_bwd`` and
+    no WN-layer kernel, 32 finite waveforms of whole frames.
 
 Phase 25 runs right after phase 7, phases 12-21 between it and phase 8,
-phases 22-24 after phase 11, phases 26, 27, 28, 29, 30 and 31 last.  The line
+phases 22-24 after phase 11, phases 26, 27, 28, 29, 30, 31 and 32 last.  The line
 before the last is a JSON object with one record per kernel (its
 ``paths``: the launches on phase 29's convert path and in its demo); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -5894,6 +5902,74 @@ def graph_replay(info: str) -> dict:
     return {"medians": med, "serve": runs}
 
 
+# ---------------------------------------------------------------------------
+# phase 32: VITS's flows on the gated activation kernel
+# ---------------------------------------------------------------------------
+
+VITS_CELL = "vits-offline-b32"
+VITS_SEED = 3_000_000_023
+
+
+def vits_path() -> float:
+    """Phase 32 (module docstring).  Returns the gated forward's largest
+    error against its plain version at the cell's shapes."""
+    from perfbench import harness, inputs, weights_vits
+    from text2speech_tpu_torch import convert
+    from text2speech_tpu_torch.config import VitsConfig
+    from text2speech_tpu_torch.infer import VitsSynthesizer
+    from text2speech_tpu_torch.ops import gated
+
+    cell, cfg = harness.load_cell(VITS_CELL)
+    p, v = cell["params"], cfg["vits"]
+    B, H2 = p["batch"], 2 * v["hidden_channels"]
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(VITS_SEED)
+    worst = 0.0
+    for T in (1088, 1061):
+        a = torch.randn(B, T, H2, generator=g).to(dev)
+        zero = torch.zeros_like(a)        # CouplingLayer.wn's conditioning
+        reset_counts()
+        got = gated.gated_fwd(a, zero)
+        n = gated.launch_counts()["gated_fwd"]
+        err = (got - gated.gated_plain(a, zero)).abs().max().item()
+        print(f"[vits] gated_fwd f32 {(B, T, H2)} b dense zero: "
+              f"max_abs_err={err:.4g} (bound {GATED_F32_ATOL['fwd']:.4g}), "
+              f"{n} launch")
+        if n != 1 or not torch.isfinite(got).all() or \
+                err > GATED_F32_ATOL["fwd"]:
+            raise RuntimeError(f"gated_fwd at VITS's shape {(B, T, H2)}: "
+                               f"{n} launches, max_abs_err {err}")
+        worst = max(worst, err)
+    del a, zero, got
+
+    vc = VitsConfig.from_dict(v)
+    sd = weights_vits.make_weights(cfg, VITS_SEED, dev)
+    synth = VitsSynthesizer(vc, convert.vits_module_from_torch(sd, vc, dev))
+    texts = inputs.texts(VITS_SEED, 0, B, p["syllables"])
+    reset_counts()
+    t0 = time.perf_counter()
+    wavs = synth.synthesize(texts, noise_scale=p["noise_scale"],
+                            noise_scale_w=p["noise_scale_w"],
+                            length_scale=p["length_scale"], seed=VITS_SEED)
+    wall = time.perf_counter() - t0
+    launches = all_counts()
+    want = {**{k: 0 for k in launches},
+            "gated_fwd": vc.flow_n_flows * vc.flow_n_layers}
+    frames = [w.size // vc.hop for w in wavs]
+    print(f"[vits] synthesize, {B} of the cell's texts ({min(frames)}-"
+          f"{max(frames)} frames) on seeded weights in {wall:.3f} s (first "
+          f"call); launches {launches}")
+    if launches != want:
+        raise RuntimeError(f"VITS launch counts {launches}, want {want}")
+    if len(wavs) != B or any(w.size % vc.hop or not np.isfinite(w).all()
+                             for w in wavs):
+        raise RuntimeError("VITS waveforms: wrong count, partial frames or "
+                           "not finite")
+    del synth, sd
+    torch.cuda.empty_cache()
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
@@ -6005,8 +6081,12 @@ def main() -> int:
           f"{sync_time(lambda: recorder_cost(info))[1]:.2f} s")
     print(f"[time] phase 31: "
           f"{sync_time(lambda: graph_replay(info))[1]:.2f} s")
+    vits_err, t = sync_time(vits_path)
+    print(f"[time] phase 32: {t:.2f} s")
     rec["wn_layer_partial"]["max_abs_err"] = max(
         rec["wn_layer_partial"]["max_abs_err"], demo_partial_err)
+    rec["gated_fwd"]["max_abs_err"] = max(rec["gated_fwd"]["max_abs_err"],
+                                          vits_err)
 
     launches = {**{n: bf16_launches[n] for n in list(KERNELS)[:3]},
                 **{n: int8_launches[n] for n in list(KERNELS)[3:]},

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from dataclasses import dataclass
 from typing import Any, Mapping
 
@@ -235,6 +236,67 @@ class WaveGlowConfig:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+@dataclass(frozen=True)
+class VitsConfig:
+    """VITS (Kim, Kong and Son, arXiv:2106.06103) at the authors'
+    ``configs/ljs_base.json`` widths; the sizes ``models.py`` fixes in code
+    (relative-attention window, the duration predictor's and the coupling
+    flows' shapes) are fields too.  Inference only: dropout and the
+    posterior encoder's sizes are not kept."""
+
+    n_vocab: int = 80
+    inter_channels: int = 192
+    hidden_channels: int = 192
+    filter_channels: int = 768
+    n_heads: int = 2
+    n_layers: int = 6
+    kernel_size: int = 3
+    window_size: int = 4
+    # stochastic duration predictor (models.py: filter 192, kernel 3, 4
+    # flows; modules.ConvFlow: 3 DDSConv layers, 10 bins, tail bound 5)
+    dp_filter_channels: int = 192
+    dp_kernel_size: int = 3
+    dp_n_flows: int = 4
+    dp_n_layers: int = 3
+    dp_num_bins: int = 10
+    dp_tail_bound: float = 5.0
+    # mean-only affine coupling flows (ResidualCouplingBlock(.., 5, 1, 4))
+    flow_n_flows: int = 4
+    flow_kernel_size: int = 5
+    flow_dilation_rate: int = 1
+    flow_n_layers: int = 4
+    # HiFi-GAN V1 generator
+    resblock: str = "1"
+    resblock_kernel_sizes: tuple = (3, 7, 11)
+    resblock_dilation_sizes: tuple = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+    upsample_rates: tuple = (8, 8, 2, 2)
+    upsample_initial_channel: int = 512
+    upsample_kernel_sizes: tuple = (16, 16, 4, 4)
+    # data
+    sampling_rate: int = 22050
+    hop_length: int = 256
+    add_blank: bool = True
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Any]) -> "VitsConfig":
+        """The flat fields, or an upstream config with ``data`` and
+        ``model`` blocks; unknown keys are ignored, lists become tuples."""
+        flat = dict(d)
+        for block in ("data", "model"):
+            flat.update(flat.pop(block, {}) or {})
+        fields = {f.name for f in dataclasses.fields(cls)}
+
+        def frozen(v):
+            return tuple(frozen(x) for x in v) if isinstance(v, list) else v
+
+        return cls(**{k: frozen(v) for k, v in flat.items() if k in fields})
+
+    @property
+    def hop(self) -> int:
+        """Samples per latent frame: the product of the upsample rates."""
+        return math.prod(self.upsample_rates)
 
 
 DEFAULT_HPARAMS = HParams()

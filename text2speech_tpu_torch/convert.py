@@ -61,23 +61,32 @@ the bridges above take into the port's modules.
 * pre-fusion WaveGlow checkpoints (separate res / skip convs) are fused by
   a channel concat, as the reference's ``convert_model.update_model``
   (``convert_model.py:11-38``).
+
+VITS checkpoints (jaywalnut310/vits ``SynthesizerTrn``) go straight into
+the port's module (:func:`vits_module_from_torch`), which has no JAX
+counterpart: q, k and v concatenated, 1x1 kernels as [out, in], weight
+norm folded over every dimension but the first (a transposed conv's
+input channels), the training-only leaves skipped.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
-from .config import HParams, WaveGlowConfig
+from .config import HParams, VitsConfig, WaveGlowConfig
 
 from .models.tacotron2 import Tacotron2
+from .models.vits import GENERATOR_DTYPE, Vits
 from .models.waveglow import TrainableWaveGlow, WaveGlow, fold_weightnorm
 from .models.waveglow_fused import FusedWaveGlowInt8
 from .ops.wn_block import fold_end, fold_first_taps
 from .ops.wn_block_int8 import to_output_major
+from .text import N_SYMBOLS
 from .utils.profiling import annotate
 
 
@@ -555,7 +564,8 @@ def load_torch_checkpoint(path: str) -> dict:
 
     Takes the Tacotron format (a dict with ``"state_dict"``,
     ``train.py:72``), the WaveGlow whole-model pickle (a dict with
-    ``"model"``, ``waveglow/train.py:55``) or a bare ``state_dict``, and
+    ``"model"``, ``waveglow/train.py:55``), VITS's (a dict whose
+    ``"model"`` is the state dict) or a bare ``state_dict``, and
     raises ``ValueError`` on anything else.  The file is read with
     ``weights_only=False``, as the whole-model pickle needs: unpickling it
     RUNS CODE, and needs the model's class importable, so load only files
@@ -564,6 +574,8 @@ def load_torch_checkpoint(path: str) -> dict:
     if isinstance(ckpt, dict):
         if "state_dict" in ckpt:
             return ckpt["state_dict"]
+        if isinstance(ckpt.get("model"), dict):     # VITS's utils.py
+            return ckpt["model"]
         if "model" in ckpt and hasattr(ckpt["model"], "state_dict"):
             return ckpt["model"].state_dict()
         if all(hasattr(v, "shape") for v in ckpt.values()):
@@ -592,3 +604,155 @@ def waveglow_module_from_torch(state_dict: Mapping[str, Any],
         return load_waveglow({"params": waveglow_from_torch(state_dict,
                                                             cfg)},
                              cfg, device=device)
+
+
+# --- VITS (upstream ``SynthesizerTrn`` state dicts) --------------------------
+
+# training-only modules: the posterior encoder, the duration predictor's
+# posterior flows, and ConvFlow_1, which upstream drops at inference
+VITS_SKIPPED = ("enc_q.", "dp.post_", "dp.flows.1.")
+
+
+def _folded(sd, name) -> torch.Tensor:
+    """A weight-normalized (or plain) conv of the upstream layout -> its
+    torch-layout kernel, ``g v / ||v||`` over every dimension but the
+    first (``weight_norm``'s dim 0: output channels of a Conv1d, input
+    channels of a ConvTranspose1d)."""
+    c = _wnconv(sd, name)
+    k = fold_weightnorm(torch.from_numpy(c["v"]), torch.from_numpy(c["g"]))
+    return k.permute(2, 1, 0).contiguous()
+
+
+def vits_state_dict(state_dict: Mapping[str, Any], cfg: VitsConfig) -> dict:
+    """An upstream VITS ``state_dict`` (``enc_p.*``, ``dp.*``, ``flow.*``,
+    ``dec.*``) -> the state dict of :class:`..models.vits.Vits`, f32 on
+    the CPU, weight norm folded.  The training-only keys
+    (:data:`VITS_SKIPPED`) are skipped; any other key the model does not
+    read raises, as does a missing one."""
+    sd = state_dict
+    read: set = set()
+
+    def t(name) -> torch.Tensor:
+        read.add(name)
+        return torch.from_numpy(_np(sd[name]))
+
+    def fold(name) -> torch.Tensor:
+        read.update(k for k in (f"{name}.weight", f"{name}.weight_v",
+                                f"{name}.weight_g") if k in sd)
+        return _folded(sd, name)
+
+    out: dict = {"enc.emb": t("enc_p.emb.weight")}
+    for i in range(cfg.n_layers):
+        a, p = f"enc_p.encoder.attn_layers.{i}", f"enc.layers.{i}"
+        out[f"{p}.qkv_w"] = torch.cat([t(f"{a}.conv_{c}.weight")[:, :, 0]
+                                       for c in "qkv"])
+        out[f"{p}.qkv_b"] = torch.cat([t(f"{a}.conv_{c}.bias")
+                                       for c in "qkv"])
+        out[f"{p}.o_w"] = t(f"{a}.conv_o.weight")[:, :, 0]
+        out[f"{p}.o_b"] = t(f"{a}.conv_o.bias")
+        out[f"{p}.rel_k"] = t(f"{a}.emb_rel_k")[0]
+        out[f"{p}.rel_v"] = t(f"{a}.emb_rel_v")[0]
+        for j in (1, 2):
+            n = f"enc_p.encoder.norm_layers_{j}.{i}"
+            out[f"{p}.ln{j}_g"] = t(f"{n}.gamma")
+            out[f"{p}.ln{j}_b"] = t(f"{n}.beta")
+            f = f"enc_p.encoder.ffn_layers.{i}.conv_{j}"
+            out[f"{p}.ffn{j}_w"] = t(f"{f}.weight")
+            out[f"{p}.ffn{j}_b"] = t(f"{f}.bias")
+    out["enc.proj_w"] = t("enc_p.proj.weight")[:, :, 0]
+    out["enc.proj_b"] = t("enc_p.proj.bias")
+
+    def dds(src, dst):
+        n = cfg.dp_n_layers
+        out[f"{dst}.sep_w"] = torch.stack(
+            [t(f"{src}.convs_sep.{i}.weight") for i in range(n)])
+        out[f"{dst}.sep_b"] = torch.stack(
+            [t(f"{src}.convs_sep.{i}.bias") for i in range(n)])
+        out[f"{dst}.pw_w"] = torch.stack(
+            [t(f"{src}.convs_1x1.{i}.weight")[:, :, 0] for i in range(n)])
+        out[f"{dst}.pw_b"] = torch.stack(
+            [t(f"{src}.convs_1x1.{i}.bias") for i in range(n)])
+        for key, leaf in (("ln_g", "gamma"), ("ln_b", "beta")):
+            out[f"{dst}.{key}"] = torch.stack([torch.stack(
+                [t(f"{src}.norms_{j}.{i}.{leaf}") for j in (1, 2)])
+                for i in range(n)])
+
+    def conv1x1(src, dst):
+        out[f"{dst}_w"] = t(f"{src}.weight")[:, :, 0]
+        out[f"{dst}_b"] = t(f"{src}.bias")
+
+    conv1x1("dp.pre", "dp.pre")
+    dds("dp.convs", "dp.convs")
+    conv1x1("dp.proj", "dp.proj")
+    out["dp.ea_m"] = t("dp.flows.0.m")[:, 0]
+    out["dp.ea_logs"] = t("dp.flows.0.logs")[:, 0]
+    for j in range(cfg.dp_n_flows - 1):
+        # upstream's flows: [ElementwiseAffine, (ConvFlow, Flip) x n];
+        # ConvFlow_(j + 2) sits at 2 (j + 2) - 1
+        src, dst = f"dp.flows.{2 * j + 3}", f"dp.flows.{j}"
+        conv1x1(f"{src}.pre", f"{dst}.pre")
+        dds(f"{src}.convs", f"{dst}.convs")
+        conv1x1(f"{src}.proj", f"{dst}.proj")
+
+    L = cfg.flow_n_layers
+    for j in range(cfg.flow_n_flows):
+        src, dst = f"flow.flows.{2 * j}", f"flows.{j}"
+        conv1x1(f"{src}.pre", f"{dst}.pre")
+        conv1x1(f"{src}.post", f"{dst}.post")
+        out[f"{dst}.in_b"] = torch.stack(
+            [t(f"{src}.enc.in_layers.{i}.bias") for i in range(L)])
+        for i in range(L):
+            out[f"{dst}.in_w.{i}"] = fold(f"{src}.enc.in_layers.{i}")
+            out[f"{dst}.rs_w.{i}"] = fold(
+                f"{src}.enc.res_skip_layers.{i}")[:, :, 0]
+            out[f"{dst}.rs_b.{i}"] = t(f"{src}.enc.res_skip_layers.{i}.bias")
+
+    out["dec.pre_w"] = t("dec.conv_pre.weight")
+    out["dec.pre_b"] = t("dec.conv_pre.bias")
+    nk = len(cfg.resblock_kernel_sizes)
+    for i in range(len(cfg.upsample_rates)):
+        out[f"dec.up_w.{i}"] = fold(f"dec.ups.{i}")
+        out[f"dec.up_b.{i}"] = t(f"dec.ups.{i}.bias")
+        for j, dils in enumerate(cfg.resblock_dilation_sizes):
+            r = f"dec.resblocks.{i * nk + j}"
+            convs = [f"{r}.convs{c}.{d}" for c in (1, 2)
+                     for d in range(len(dils))]
+            out[f"dec.res_w.{i * nk + j}"] = torch.stack(
+                [fold(c) for c in convs])
+            out[f"dec.res_b.{i * nk + j}"] = torch.stack(
+                [t(f"{c}.bias") for c in convs])
+    out["dec.post_w"] = t("dec.conv_post.weight")
+    odd = sorted(k for k in sd if k not in read
+                 and not k.startswith(VITS_SKIPPED))
+    if odd:
+        raise ValueError(f"VITS state dict holds keys the inference model "
+                         f"does not read: {odd[:8]}")
+    return out
+
+
+def vits_module_from_torch(state_dict: Mapping[str, Any], cfg: VitsConfig,
+                           device=None) -> Vits:
+    """An upstream VITS ``state_dict`` -> the port's inference module
+    (weight norm folded); the generator's weights in
+    :data:`..models.vits.GENERATOR_DTYPE`, everything else float32.
+
+    Only a model trained on this package's symbol table (``text/``, whose
+    ids ``text.encode_batch`` gives) loads: its ``n_vocab`` is read from
+    the text embedding and must be ``N_SYMBOLS``.  A published checkpoint
+    (LJSpeech's 178 symbols, or a multi-speaker one) raises."""
+    emb = state_dict.get("enc_p.emb.weight")
+    if emb is not None:
+        if emb.shape[0] != N_SYMBOLS:
+            raise ValueError(
+                f"the VITS checkpoint's text embedding has {emb.shape[0]} "
+                f"symbols, this package's symbol table (text/symbols.py) "
+                f"{N_SYMBOLS}: only a model trained on that table loads")
+        cfg = dataclasses.replace(cfg, n_vocab=N_SYMBOLS)
+    if "emb_g.weight" in state_dict:
+        raise ValueError("a multi-speaker VITS checkpoint (emb_g): only "
+                         "the one-speaker model is ported")
+    with annotate("convert.vits"):
+        model = Vits(cfg, device=device)
+        model.load_state_dict(vits_state_dict(state_dict, cfg))
+        model.dec.to(GENERATOR_DTYPE)
+        return model.eval()

@@ -1,5 +1,7 @@
 """End-to-end synthesis: text -> mel (Tacotron-2) -> waveform (WaveGlow) ->
-denoiser -> PCM16 WAV (counterpart of ``text2speech_tpu/infer.py``): the
+denoiser -> PCM16 WAV (counterpart of ``text2speech_tpu/infer.py``), and
+text -> waveform in one non-autoregressive pass with VITS
+(:class:`VitsSynthesizer`, which has no counterpart there): the
 offline path (single-pass and chunked long-form vocoding over the plain,
 fused bf16 and fused int8 vocoders) and the streaming path (chunked decode,
 windowed vocoding, streaming denoiser), which emits audio before the decode
@@ -19,12 +21,14 @@ explicitly, so a test can hand them the JAX package's.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import ClassVar
 
 import numpy as np
 import torch
 
-from .config import HParams, WaveGlowConfig
+from .config import HParams, VitsConfig, WaveGlowConfig
 from .text import N_SYMBOLS, encode_batch
 
 from .dsp.audio import save_wav
@@ -33,13 +37,14 @@ from .models.chunked import (draw_noise, infer_long,
 from .models.denoiser import (cached_stream_denoiser, denoise_stream,
                               make_denoiser_programs)
 from .models.tacotron2 import Tacotron2
+from .models.vits import GENERATOR_DTYPE, Vits
 from .models.tacotron_serve import (decode_chunk_serve,
                                     extract_decoder_params,
                                     int8_decode_worthwhile,
                                     quantize_decoder_params)
 from .models.waveglow import WaveGlow
 from .models.waveglow_fused import prepare_fused, prepare_fused_int8
-from .utils.profiling import annotate
+from .utils.profiling import annotate, count
 
 
 def speaker_ids_array(speaker_id, batch: int, num_speakers: int):
@@ -296,6 +301,22 @@ def incremental_vocode_stream(cfg, mel_stream, vocode_fn, sigma: float,
         yield chunk
 
 
+def encode_on(texts, device, add_blank: bool = False) -> tuple:
+    """list[str] -> (ids [B, T] long, lengths [B] int32) on ``device``
+    (``text.encode_batch``)."""
+    ids, lengths = encode_batch(texts, add_blank=add_blank)
+    return (torch.from_numpy(ids).long().to(device),
+            torch.from_numpy(lengths).to(device))
+
+
+def read_waveforms(audio: torch.Tensor, lens, hop: int, span: str) -> list:
+    """audio [B, samples] -> float32 numpy waveforms, row i cut to
+    ``lens[i] * hop`` samples; the host read is the span ``span``."""
+    with annotate(span):
+        audio = audio.cpu().numpy()
+    return [audio[i, : int(lens[i]) * hop] for i in range(len(lens))]
+
+
 @dataclass
 class Synthesizer:
     """Text-to-speech with a loaded Tacotron-2 and WaveGlow on one device.
@@ -423,13 +444,11 @@ class Synthesizer:
         ``with_align=True`` also returns the attention alignment [B, T_dec,
         T_enc] f32, as the JAX ``Synthesizer.text_to_mel`` does."""
         with annotate("synth.text"):
-            ids, lengths = encode_batch(texts)
-            sid = speaker_ids_array(speaker_id, ids.shape[0],
+            ids_t, lengths_t = encode_on(texts, self.device)
+            sid = speaker_ids_array(speaker_id, ids_t.shape[0],
                                     self.taco.num_speakers)
-            ids_t = torch.from_numpy(ids).long().to(self.device)
             sid_t = (None if sid is None
                      else torch.from_numpy(sid).long().to(self.device))
-            lengths_t = torch.from_numpy(lengths).to(self.device)
         _, mel_post, _, align, out_lengths = self.taco.inference(
             ids_t, speaker_ids=sid_t, text_lengths=lengths_t,
             max_steps=max_steps, keep_masks=keep_masks,
@@ -484,10 +503,8 @@ class Synthesizer:
             lens = out_lengths.cpu().numpy()
         T = int(lens.max())
         audio = vocode(mel_post[:, :, :T].contiguous())
-        with annotate("synth.read_audio"):
-            audio = audio.cpu().numpy()
-        hop = self.wg_cfg.upsample_stride
-        return [audio[i, : int(lens[i]) * hop] for i in range(len(lens))]
+        return read_waveforms(audio, lens, self.wg_cfg.upsample_stride,
+                              "synth.read_audio")
 
     def synthesize(self, texts, sigma: float = 0.666, seed: int = 0,
                    denoiser_strength: float = 0.0,
@@ -671,6 +688,96 @@ class Synthesizer:
         return wavs
 
 
+@dataclass
+class VitsSynthesizer:
+    """Text-to-speech with a loaded VITS (:class:`..models.vits.Vits`) on
+    one device, with no decoder loop: text, encoder and duration predictor
+    at the batch's padded text width, one host read of the frame counts,
+    then flows and generator at the batch's padded frame count ``T_y``
+    (the longest row rounded up to :attr:`FRAME_BUCKET` frames).
+
+    Seeds: the duration predictor's noise is drawn from a
+    ``torch.Generator`` seeded ``seed``, the latent's from one seeded
+    ``seed + 1``; both can be given instead (``noise_w`` [B, 2, >= T_text],
+    ``noise_z`` [B, C, >= T_y], sliced to what the batch needs)."""
+
+    cfg: VitsConfig
+    model: Vits
+    # a frame count the generator has not met costs ~23 ms more on its
+    # first call (cuDNN plans each new convolution shape; H100, B = 32,
+    # ~1,100 frames), a 64-frame bucket ~6 ms of padding a batch on average
+    FRAME_BUCKET: ClassVar[int] = 64
+
+    def __post_init__(self):
+        self.device = self.model.device
+
+    def _noise(self, given, seed: int, shape: tuple, what: str):
+        if given is None:
+            g = torch.Generator(device=self.device).manual_seed(seed)
+            return torch.randn(shape, generator=g, device=self.device)
+        if given.shape[:2] != shape[:2] or given.shape[2] < shape[2]:
+            raise ValueError(f"{what} {tuple(given.shape)} does not cover "
+                             f"the batch's {shape}")
+        return given[:, :, : shape[2]]
+
+    @torch.inference_mode()
+    def text_to_latent(self, texts, noise_scale: float = 0.667,
+                       noise_scale_w: float = 0.8,
+                       length_scale: float = 1.0, seed: int = 0,
+                       noise_w: torch.Tensor | None = None,
+                       noise_z: torch.Tensor | None = None,
+                       with_durations: bool = False):
+        """list[str] -> (z [B, C, T_y] float32, y_lengths [B] on the host);
+        ``with_durations`` also returns logw and the integer durations
+        [B, T_text] on the device."""
+        with annotate("vits.text"):
+            ids, lengths = encode_on(texts, self.device,
+                                     add_blank=self.cfg.add_blank)
+        B, T_x = ids.shape
+        count("vits.tokens", int(ids.numel()))
+        model = self.model
+        noise_w = self._noise(noise_w, seed, (B, 2, T_x), "noise_w")
+        m_p, logs_p, logw, x_mask = model.encode(ids, lengths, noise_w,
+                                                 noise_scale_w)
+        w_ceil, y_len = model.durations(logw, x_mask, length_scale)
+        with annotate("vits.read_lengths"):
+            y_lengths = y_len.cpu()
+        b = self.FRAME_BUCKET
+        T_y = -(-int(y_lengths.max()) // b) * b
+        count("vits.frames", int(y_lengths.sum()))
+        count("vits.frames_padded", B * T_y)
+        C = self.cfg.inter_channels
+        noise_z = self._noise(noise_z, seed + 1, (B, C, T_y), "noise_z")
+        m, logs = model.expand(m_p, logs_p, w_ceil, T_y)
+        z_p = m + noise_z.transpose(1, 2) * torch.exp(logs) * noise_scale
+        y_mask = (torch.arange(T_y, device=self.device)[None]
+                  < y_len[:, None])[..., None].float()
+        z = model.flow_reverse(z_p, y_mask).transpose(1, 2)
+        if with_durations:
+            return z, y_lengths, logw, w_ceil
+        return z, y_lengths
+
+    @torch.inference_mode()
+    def latent_to_audio(self, z: torch.Tensor) -> torch.Tensor:
+        """z [B, C, T_y] -> audio [B, T_y * hop] float32."""
+        with annotate("vits.generator"):
+            return self.model.dec(z)
+
+    def synthesize(self, texts, noise_scale: float = 0.667,
+                   noise_scale_w: float = 0.8, length_scale: float = 1.0,
+                   seed: int = 0, noise_w: torch.Tensor | None = None,
+                   noise_z: torch.Tensor | None = None) -> list:
+        """list[str] -> list of float32 numpy waveforms, each cut to its
+        utterance's ``y_len * hop`` samples (``Synthesizer.synthesize``'s
+        contract)."""
+        z, y_lengths = self.text_to_latent(
+            texts, noise_scale, noise_scale_w, length_scale, seed,
+            noise_w=noise_w, noise_z=noise_z)
+        return read_waveforms(self.latent_to_audio(z), y_lengths,
+                              self.cfg.hop, "vits.read_audio")
+
+
+
 def waveglow_checkpoint(ckpt_dir: str) -> dict:
     """The newest WaveGlow training checkpoint of ``ckpt_dir`` as the flat
     flax variables ``load_waveglow`` reads (the trainer's state names its
@@ -792,3 +899,52 @@ def random_synthesizer(hp: HParams, wg_cfg: WaveGlowConfig, seed: int = 0,
                        int8_vocoder=int8_vocoder,
                        quantized_decode=quantized_decode,
                        denoiser_kwargs=denoiser_kwargs)
+
+
+@torch.no_grad()
+def random_vits_(model: Vits, generator: torch.Generator) -> None:
+    """Fill a VITS module in place from ``generator``, in name order:
+    kernels N(0, 1 / fan_in) (a transposed convolution's fan-in C_in k / u,
+    a depthwise one's k, a stacked block's that of one kernel), vectors
+    N(0, 0.1^2), LayerNorm gains 1 + N(0, 0.1^2), the embedding N(0, 1 /
+    H), the relative embeddings N(0, 1 / d_k), the duration predictor's
+    affine flow at the identity."""
+    cfg = model.cfg
+    for name, p in sorted(model.named_parameters()):
+        z = torch.randn(p.shape, generator=generator,
+                        device=generator.device).to(p.device)
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("ea_m", "ea_logs"):
+            z.zero_()
+        elif leaf == "emb":
+            z *= p.shape[1] ** -0.5
+        elif leaf in ("rel_k", "rel_v"):
+            z *= p.shape[-1] ** -0.5
+        elif leaf == "ln_g":
+            z = 1.0 + 0.1 * z
+        elif leaf.endswith("_b") or ".in_b" in name or "_b." in name \
+                or leaf == "ln_b":
+            z *= 0.1
+        else:
+            if leaf == "sep_w":
+                fan_in = p.shape[-1]
+            elif leaf in ("res_w", "pw_w"):
+                fan_in = math.prod(p.shape[2:])
+            elif ".up_w." in name:
+                fan_in = p.shape[0] * p.shape[2] / cfg.upsample_rates[
+                    int(leaf)]
+            else:
+                fan_in = math.prod(p.shape[1:])
+            z /= fan_in ** 0.5
+        p.copy_(z)
+
+
+def random_vits_synthesizer(cfg: VitsConfig, seed: int = 0,
+                            device: str | torch.device = "cuda"
+                            ) -> VitsSynthesizer:
+    """A VitsSynthesizer on seeded random weights (:func:`random_vits_`),
+    for runs when no checkpoint exists."""
+    model = Vits(cfg, device=device)
+    random_vits_(model, torch.Generator(device=device).manual_seed(seed))
+    model.dec.to(GENERATOR_DTYPE)
+    return VitsSynthesizer(cfg, model.eval())

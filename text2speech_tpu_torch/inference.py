@@ -6,6 +6,9 @@
     python -m text2speech_tpu_torch.inference --random_init 0 --int8_vocoder
     python -m text2speech_tpu_torch.inference --random_init 0 --int8_vocoder \
         --stream --stream_chunk_steps 64 -d 0.1
+    python -m text2speech_tpu_torch.inference --model vits \
+        --vits_checkpoint G_800000.pth --vits_config config.json
+    python -m text2speech_tpu_torch.inference --model vits --random_init 0
 
 ``--weights`` is the ``.npz`` written by ``export_torch_weights.py`` from the
 JAX package's checkpoints; ``--taco_checkpoint DIR --waveglow_checkpoint
@@ -13,7 +16,13 @@ DIR`` read this package's own training checkpoints (``tacotron_train``,
 ``waveglow_train``); ``--taco_checkpoint DIR`` alone synthesizes without a
 vocoder, by Griffin-Lim on the mel (``--griffin_lim_iters``, default 60);
 ``--random_init SEED`` synthesizes from seeded random weights when no
-checkpoint exists (noise, but the whole path runs).
+checkpoint exists (noise, but the whole path runs).  ``--model vits``
+synthesizes with VITS instead (``infer.VitsSynthesizer``: text encoder,
+stochastic duration predictor, flows, HiFi-GAN generator in bf16, no
+decoder loop) from a checkpoint in upstream's layout
+(``--vits_checkpoint``) or ``--random_init``.  Only a VITS model trained on
+this package's symbol table (``text/``) loads; a published checkpoint
+(LJSpeech's 178 symbols, or a multi-speaker one) raises.
 ``--stream`` decodes in chunks and writes each piece of audio as soon as it
 clears the vocoder's receptive field (the first after about one chunk, not
 the whole decode).  ``--plot_dir DIR`` also draws the attention alignment
@@ -53,11 +62,25 @@ def build_parser() -> argparse.ArgumentParser:
                      "(export_torch_weights.py)")
     src.add_argument("--random_init", type=int, metavar="SEED",
                      help="seeded random weights instead of a checkpoint")
+    src.add_argument("--vits_checkpoint",
+                     help="with --model vits: a VITS checkpoint in "
+                     "jaywalnut310/vits's layout (G_<step>.pth, or its bare "
+                     "state dict) of a model trained on this package's "
+                     "symbol table (text/); published ones do not load")
     src.add_argument("--taco_checkpoint",
                      help="Tacotron training checkpoint directory of this "
                      "package (tacotron_train); without "
                      "--waveglow_checkpoint the mel is inverted by "
                      "Griffin-Lim")
+    p.add_argument("--model", default="tacotron",
+                   choices=("tacotron", "vits"),
+                   help="tacotron: Tacotron-2 with WaveGlow; vits: VITS "
+                   "(--vits_checkpoint or --random_init)")
+    p.add_argument("--vits_config", default=None,
+                   help="with --model vits: the model's config.json "
+                   "(upstream's data and model blocks, or the flat "
+                   "VitsConfig fields; default: ljs_base's widths over the "
+                   "Korean symbols)")
     p.add_argument("--waveglow_checkpoint", default=None,
                    help="WaveGlow training checkpoint directory of this "
                    "package (waveglow_train)")
@@ -286,9 +309,48 @@ def serve_http(args, synth, srv) -> None:
         runner.shutdown()
 
 
+def synthesize_vits(args, parser) -> None:
+    """``--model vits``: one text through ``VitsSynthesizer.synthesize``
+    (weights from ``--vits_checkpoint`` or ``--random_init``), written to
+    ``--out`` at the model's sampling rate."""
+    import json
+
+    from .config import VitsConfig
+    from .dsp.audio import save_wav
+    from .infer import VitsSynthesizer, random_vits_synthesizer
+
+    if args.weights or args.taco_checkpoint or args.waveglow_checkpoint:
+        parser.error("--model vits takes --vits_checkpoint or --random_init")
+    if args.stream or args.serve_slots:
+        parser.error("--model vits synthesizes offline: no --stream or "
+                     "--serve_slots")
+    cfg = VitsConfig()
+    if args.vits_config:
+        with open(args.vits_config, encoding="utf-8") as f:
+            cfg = VitsConfig.from_dict(json.load(f))
+    if args.vits_checkpoint:
+        from .convert import load_torch_checkpoint, vits_module_from_torch
+
+        model = vits_module_from_torch(
+            load_torch_checkpoint(args.vits_checkpoint), cfg,
+            device=args.device)
+        synth = VitsSynthesizer(cfg, model)
+        seed = 0
+    else:
+        synth = random_vits_synthesizer(cfg, args.random_init,
+                                        device=args.device)
+        seed = args.random_init
+    wav = synth.synthesize([args.text], seed=seed)[0]
+    save_wav(wav, args.out, cfg.sampling_rate)
+    print(f"wrote {args.out} ({wav.shape[0]} samples at "
+          f"{cfg.sampling_rate} Hz, VITS)")
+
+
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.vits_checkpoint and args.model != "vits":
+        parser.error("--vits_checkpoint needs --model vits")
     if args.waveglow_checkpoint and not args.taco_checkpoint:
         parser.error("--waveglow_checkpoint needs --taco_checkpoint")
     if args.plot_dir:
@@ -303,6 +365,9 @@ def main(argv=None) -> None:
                            "to synthesize a small configuration on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.model == "vits":
+        synthesize_vits(args, parser)
+        return
     hp = (HParams.load(args.hparams) if args.hparams
           else HParams(sample_rate=args.sample_rate))
     wg_cfg = (WaveGlowConfig.from_json(args.waveglow_config)

@@ -97,19 +97,32 @@ def sequence_to_text(
     return result
 
 
+def intersperse(seq: Sequence[int], item: int = PAD_ID) -> np.ndarray:
+    """``item`` before, between and after the ids (VITS's
+    ``commons.intersperse``): n ids -> 2n + 1."""
+    out = np.full(2 * len(seq) + 1, item, dtype=np.int32)
+    out[1::2] = seq
+    return out
+
+
 def encode_batch(
     texts: Sequence[str],
     pad_to: int | None = None,
     bucket_multiple: int = 32,
+    add_blank: bool = False,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Encode a batch of strings to a padded int32 array + lengths.
 
     Pads to ``pad_to`` if given, else to the max length rounded up to
     ``bucket_multiple`` (few distinct padded lengths reach the model).
+    ``add_blank`` interleaves the blank (PAD, id 0) around every id, EOS
+    included, as VITS's ``add_blank`` does (:func:`intersperse`).
 
     Returns ``(ids[B, T], lengths[B])``.
     """
     seqs = [text_to_sequence(t) for t in texts]
+    if add_blank:
+        seqs = [intersperse(s) for s in seqs]
     lengths = np.asarray([len(s) for s in seqs], dtype=np.int32)
     max_len = int(lengths.max()) if len(seqs) else 0
     if pad_to is None:
