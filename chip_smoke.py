@@ -14,7 +14,8 @@ Phases, each of which passes or raises (the script then exits non-zero):
    tensor-parallel partial, the final and the first layer on s8
    ``wgmma``, the padded WN-layer library and the Hopper redesigns of its
    stream pair and of its spect / padded pair, the gated activation, the
-   k=3 conv backward and its Hopper redesign, one ``nvcc`` each, all
+   k=3 conv backward and its Hopper redesign, VITS's generator
+   convolutions (phase 33), one ``nvcc`` each, all
    started together) and print the times, and for the five Hopper files
    the ``HGMMA`` / ``IGMMA`` count per kernel and the registers, stack
    frames and spills ``-Xptxas -v`` reports (the bf16 first layers, the
@@ -272,13 +273,36 @@ Phases, each of which passes or raises (the script then exits non-zero):
     (f32 [32, T_y, 384] with a dense zero ``b``, T_y 1,088 and 1,061, one
     launch each), then one ``VitsSynthesizer.synthesize`` of 32 of the
     cell's texts on its seeded weights, the counts reset just before: 16
-    ``gated_fwd`` launches (4 flows x 4 WN layers), no ``gated_bwd`` and
-    no WN-layer kernel, 32 finite waveforms of whole frames.
+    ``gated_fwd`` launches (4 flows x 4 WN layers), the generator's 73
+    ``vits_conv.conv`` (by role: conv_pre 1, a pair's first conv 36, its
+    second 28, with the running sum 8), 4 ``vits_conv.up`` and 1
+    ``vits_conv.post``, no ``gated_bwd`` and no WN-layer kernel, 32 finite
+    waveforms of whole frames.
+33. VITS's generator channels-last on the fused convolution kernels of
+    ``csrc/vits_conv_sm90.cu`` (``ops/vits_conv.py``): the library's
+    ``-Xptxas -v`` registers and ``HGMMA`` counts, no tile with a stack
+    frame that could hold an accumulator tile; each role at the cell's
+    shapes (B = 32, T
+    = 1,216 frames: conv_pre, the four transposed convolutions, per stage
+    a pair's first convolution at (k, d) = (3, 1), (7, 3), (11, 5), its
+    second at k 11 with the residual, resblock 3's last with the running
+    sum and 1/3, conv_post) against its plain version on the card, its
+    kernel ms beside the bound from ``perfbench/roofline_vits.py``'s
+    counts, the plain chain's ms and cuDNN's ms for the same convolution
+    on channels-first input (``library_ms``; the port never calls it);
+    then whole generator passes at that shape, ``Generator.first_design``
+    and the kernels in turns, with 78 launches and the
+    ``vits.gen_launches`` counter a pass and the audio's noise against
+    the benchmark's f32 reference generator
+    (``perfbench/reference/vits.py``), the first design's beside it.
 
 Phase 25 runs right after phase 7, phases 12-21 between it and phase 8,
-phases 22-24 after phase 11, phases 26, 27, 28, 29, 30, 31 and 32 last.  The line
+phases 22-24 after phase 11, phases 26, 27, 28, 29, 30, 31, 32 and 33
+last.  The line
 before the last is a JSON object with one record per kernel (its
-``paths``: the launches on phase 29's convert path and in its demo); the
+``paths``: the launches on phase 29's convert path and in its demo; the
+generator's rows V1-V6 take their launches from phase 32's ``synthesize``
+and their times, per case, from phase 33); the
 last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -993,19 +1017,21 @@ def sync_time(fn):
 
 
 def all_counts() -> dict:
-    """Launch counts of the serving kernels and the gated activation (the
-    conv backward keeps its own, read on its own path)."""
-    from text2speech_tpu_torch.ops import gated
+    """Launch counts of the serving kernels, the gated activation and
+    VITS's generator convolutions (the conv backward keeps its own, read
+    on its own path)."""
+    from text2speech_tpu_torch.ops import gated, vits_conv
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
     return {**wb.launch_counts(), **wq.launch_counts(),
-            **wd.launch_counts(), **gated.launch_counts()}
+            **wd.launch_counts(), **gated.launch_counts(),
+            **vits_conv.launch_counts()}
 
 
 def reset_counts() -> None:
-    from text2speech_tpu_torch.ops import gated
+    from text2speech_tpu_torch.ops import gated, vits_conv
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
@@ -1016,19 +1042,23 @@ def reset_counts() -> None:
     wq.reset_launch_counts()
     wd.reset_launch_counts()
     gated.reset_launch_counts()
+    vits_conv.reset_launch_counts()
     tp.reset_launch_counts()
 
 
 def want_counts(wg_cfg, int8: bool, dcond: bool = False) -> dict:
     """Launches of one vocode: 1 / L - 2 / 1 per flow of the path's own
     wrappers, none of the other families'."""
+    from text2speech_tpu_torch.ops import vits_conv
+
     per = (wg_cfg.n_flows, wg_cfg.n_flows * (wg_cfg.wn_n_layers - 2),
            wg_cfg.n_flows)
     names = [*KERNELS, *DCOND_KERNELS]
     first = 6 if dcond else 3 if int8 else 0
     mine = names[first: first + 3]
     return {**dict.fromkeys(names, 0), **dict(zip(mine, per)),
-            "gated_fwd": 0, "gated_bwd": 0}
+            "gated_fwd": 0, "gated_bwd": 0,
+            **dict.fromkeys(vits_conv.launch_counts(), 0)}
 
 
 def main_path(tag: str, int8: bool, rel32_bf16: float | None = None) -> dict:
@@ -5910,14 +5940,37 @@ VITS_CELL = "vits-offline-b32"
 VITS_SEED = 3_000_000_023
 
 
-def vits_path() -> float:
+# the generator's convolutions by role (PERF.md's rows V1-V6) -> the
+# phase-33 cases of the role (their names' prefixes)
+VITS_KERNELS = {"vits_conv.pre": ("pre",), "vits_conv.up": ("up",),
+                "vits_conv.first": ("first",),
+                "vits_conv.second": ("second",),
+                "vits_conv.sum": ("mean",), "vits_conv.post": ("post",)}
+
+
+def vits_role_counts(vc) -> dict:
+    """The launches a generator pass at ``vc``'s shapes makes of each
+    role: conv_pre, the transposed convolutions, a pair's first conv, its
+    second (the residual alone) and the second with the running sum (the
+    last of resblocks 2..n)."""
+    n_up, dils = len(vc.upsample_rates), vc.resblock_dilation_sizes
+    pairs = sum(len(d) for d in dils)
+    return {"vits_conv.pre": 1, "vits_conv.up": n_up,
+            "vits_conv.first": n_up * pairs,
+            "vits_conv.second": n_up * (pairs - len(dils) + 1),
+            "vits_conv.sum": n_up * (len(dils) - 1), "vits_conv.post": 1}
+
+
+def vits_path() -> tuple:
     """Phase 32 (module docstring).  Returns the gated forward's largest
-    error against its plain version at the cell's shapes."""
+    error against its plain version at the cell's shapes, and the
+    generator's launches by role in the ``synthesize`` run."""
     from perfbench import harness, inputs, weights_vits
     from text2speech_tpu_torch import convert
     from text2speech_tpu_torch.config import VitsConfig
     from text2speech_tpu_torch.infer import VitsSynthesizer
-    from text2speech_tpu_torch.ops import gated
+    from text2speech_tpu_torch.models import vits as vits_model
+    from text2speech_tpu_torch.ops import gated, vits_conv
 
     cell, cfg = harness.load_cell(VITS_CELL)
     p, v = cell["params"], cfg["vits"]
@@ -5946,28 +5999,265 @@ def vits_path() -> float:
     sd = weights_vits.make_weights(cfg, VITS_SEED, dev)
     synth = VitsSynthesizer(vc, convert.vits_module_from_torch(sd, vc, dev))
     texts = inputs.texts(VITS_SEED, 0, B, p["syllables"])
+    roles = dict.fromkeys(VITS_KERNELS, 0)
+
+    class ByRole:
+        """``ops/vits_conv.py`` as the generator sees it, its ``conv``
+        calls counted by role on the way through."""
+
+        def __getattr__(self, name):
+            return getattr(vits_conv, name)
+
+        def conv(self, x, w, b, d=1, **kw):
+            roles["vits_conv." + (
+                "sum" if kw.get("acc") is not None else
+                "second" if kw.get("res") is not None else
+                "first" if kw.get("pre") else "pre")] += 1
+            return vits_conv.conv(x, w, b, d, **kw)
+
     reset_counts()
-    t0 = time.perf_counter()
-    wavs = synth.synthesize(texts, noise_scale=p["noise_scale"],
-                            noise_scale_w=p["noise_scale_w"],
-                            length_scale=p["length_scale"], seed=VITS_SEED)
-    wall = time.perf_counter() - t0
+    vits_model.vits_conv = ByRole()
+    try:
+        t0 = time.perf_counter()
+        wavs = synth.synthesize(texts, noise_scale=p["noise_scale"],
+                                noise_scale_w=p["noise_scale_w"],
+                                length_scale=p["length_scale"],
+                                seed=VITS_SEED)
+        wall = time.perf_counter() - t0
+    finally:
+        vits_model.vits_conv = vits_conv
     launches = all_counts()
+    per_role = vits_role_counts(vc)
     want = {**{k: 0 for k in launches},
-            "gated_fwd": vc.flow_n_flows * vc.flow_n_layers}
+            "gated_fwd": vc.flow_n_flows * vc.flow_n_layers,
+            "vits_conv.conv": sum(n for r, n in per_role.items()
+                                  if r not in ("vits_conv.up",
+                                               "vits_conv.post")),
+            "vits_conv.up": per_role["vits_conv.up"],
+            "vits_conv.post": per_role["vits_conv.post"]}
+    roles.update({r: launches[r] for r in ("vits_conv.up",
+                                           "vits_conv.post")})
     frames = [w.size // vc.hop for w in wavs]
     print(f"[vits] synthesize, {B} of the cell's texts ({min(frames)}-"
           f"{max(frames)} frames) on seeded weights in {wall:.3f} s (first "
-          f"call); launches {launches}")
-    if launches != want:
-        raise RuntimeError(f"VITS launch counts {launches}, want {want}")
+          f"call); launches {launches}; the generator's by role {roles}")
+    if launches != want or roles != per_role:
+        raise RuntimeError(f"VITS launch counts {launches}, by role "
+                           f"{roles}; want {want}, {per_role}")
     if len(wavs) != B or any(w.size % vc.hop or not np.isfinite(w).all()
                              for w in wavs):
         raise RuntimeError("VITS waveforms: wrong count, partial frames or "
                            "not finite")
     del synth, sd
     torch.cuda.empty_cache()
-    return worst
+    return worst, roles
+
+
+# ---------------------------------------------------------------------------
+# phase 33: VITS's generator on the fused channels-last convolution kernels
+# ---------------------------------------------------------------------------
+
+VITS_FRAMES = 1216
+
+
+def vits_roles(v: dict, B: int, T: int) -> list:
+    """(name, C_in, C_out, k, d, u, t_in, kwargs) of each role timed at the
+    cell's shapes; ``u`` > 0 marks a transposed convolution."""
+    c0 = v["upsample_initial_channel"]
+    out = [("pre", v["inter_channels"], c0, 7, 1, 0, T, {})]
+    t = T
+    for i, u in enumerate(v["upsample_rates"]):
+        cin, c = c0 >> i, c0 >> (i + 1)
+        out.append((f"up{i}", cin, c, 2 * u, 1, u, t, {}))
+        t *= u
+        for k, d in ((3, 1), (7, 3), (11, 5)):
+            out.append((f"first{c}_k{k}d{d}", c, c, k, d, 0, t,
+                        {"pre": True, "post": True}))
+        out.append((f"second{c}_k11", c, c, 11, 1, 0, t, {"res": True}))
+        out.append((f"mean{c}_k11", c, c, 11, 1, 0, t,
+                    {"res": True, "acc": True, "scale": 1 / 3}))
+    return out
+
+
+def vits_role_case(vc, dev, g, cin, cout, k, d, u, t_in, kw, B: int):
+    """Inputs of a role on the card, and (kernel, plain, library) calls."""
+    import torch.nn.functional as F
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    x = rn(B, t_in, cin)
+    if u:
+        w, b = rn(cin, cout, k, scale=(cin * 2) ** -0.5), rn(cout, scale=0.1)
+        pk = vc.pack(w, u)
+        xcf = x.transpose(1, 2).contiguous()
+        return (lambda: vc.up(x, w, b, u, packed=pk),
+                lambda: vc.up_plain(x, w, b, u),
+                lambda: F.conv_transpose1d(xcf, w, b, stride=u,
+                                           padding=u // 2))
+    w, b = rn(cout, cin, k, scale=(cin * k) ** -0.5), rn(cout, scale=0.1)
+    res = rn(B, t_in, cout) if kw.get("res") else None
+    acc = rn(B, t_in, cout) if kw.get("acc") else None
+    args = {"pre": kw.get("pre", False), "post": kw.get("post", False),
+            "res": res, "acc": acc, "scale": kw.get("scale", 1.0)}
+    pk = vc.pack(w)
+    xcf = x.transpose(1, 2).contiguous()
+    return (lambda: vc.conv(x, w, b, d, packed=pk, **args),
+            lambda: vc.conv_plain(x, w, b, d, **args),
+            lambda: F.conv1d(xcf, w, b, padding=(k - 1) * d // 2,
+                             dilation=d))
+
+
+def vits_conv_frames(lib) -> None:
+    """Raise when a tile of ``csrc/vits_conv_sm90.cu`` (``vits_conv_kernel<N,
+    MT>``) has a stack frame as large as one 64-row accumulator tile (N / 2
+    floats a thread): an accumulator array in local memory.  Smaller frames
+    are a few registers spilled where the tile's register cap (168 a
+    thread with one block an SM, 96 with two) is reached; they are
+    printed.  This is looser than :func:`require_no_local_memory`, which
+    the port's other Hopper kernels meet: four of these five tiles spill
+    8-40 bytes, and one block an SM, which clears the 96-register tiles'
+    spills, costs 10-40% at 64 and 32 channels (PERF.md)."""
+    name, seen = None, {}
+    for line in lib.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame", line)
+        r = re.search(r"vits_conv_kernelILi(\d+)ELi(\d+)E", name or "")
+        if m and r:
+            seen[(int(r.group(1)), int(r.group(2)))] = int(m.group(1))
+    print(f"[vits-gen] stack frames (bytes) by (N, MT): {seen}")
+    if not seen:
+        raise RuntimeError(f"{lib.source.name}: no -Xptxas -v report")
+    for (n, mt), frame in seen.items():
+        if frame >= n // 2 * 4:
+            raise RuntimeError(f"{lib.source.name}: the N={n}, MT={mt} tile "
+                               f"has a {frame} B stack frame")
+
+
+def vits_generator_path(info: str) -> dict:
+    """Phase 33 (module docstring).  Returns {role: record}."""
+    from perfbench import harness, roofline_vits, weights_vits
+    from perfbench.reference import vits as ref_vits
+    from perfbench.roofline import bound_s
+    from text2speech_tpu_torch import convert
+    from text2speech_tpu_torch.config import VitsConfig
+    from text2speech_tpu_torch.ops import vits_conv as vc
+    from text2speech_tpu_torch.utils.profiling import recording
+
+    cell, cfg = harness.load_cell(VITS_CELL)
+    v, B, T = cfg["vits"], cell["params"]["batch"], VITS_FRAMES
+    dev = torch.device("cuda")
+    if not vc.LIB.build_log:      # run alone: phase 2 has not built it
+        vc.LIB.build()
+    vc.LIB.get()
+    print(f"[vits-gen] {info}; {vc.LIB.source.name} nvcc "
+          f"{vc.LIB.build_seconds:.2f} s; SASS {hgmma_counts(vc.LIB.path)}")
+    print(f"[vits-gen] registers (-Xptxas -v): "
+          f"{ptxas_registers(vc.LIB.build_log)}")
+    vits_conv_frames(vc.LIB)
+    g = torch.Generator(device=dev).manual_seed(VITS_SEED)
+    rec = {}
+    for name, cin, cout, k, d, u, t_in, kw in vits_roles(v, B, T):
+        kernel, plain, library = vits_role_case(vc, dev, g, cin, cout, k, d,
+                                                u, t_in, kw, B)
+        err = compare(f"vits_conv {name}", kernel(), plain())
+        t_out = t_in * (u or 1)
+        ops, bytes_ = roofline_vits._conv(B, cin, cout, k, t_in, t_out, t_in)
+        bound = bound_s(ops, bytes_) * 1e3
+        ms = time_ms(kernel, iters=10)
+        r = {"ms": ms, "plain_ms": time_ms(plain, warmup=1, iters=3),
+             "library_ms": time_ms(library, iters=10), "bound_ms": bound,
+             "bound_by": ("operations" if ops / 989e12 >= bytes_ / 3.35e12
+                          else "bytes"),
+             "share": bound / ms, "max_abs_err": err,
+             "shape": [B, t_in, cin, cout, k, d, u]}
+        rec[name] = r
+        print(f"[vits-gen] {name}: {B}x{t_in}x{cin} -> {cout}, k {k} d {d}"
+              f"{f' u {u}' if u else ''}: kernel {ms:.4f} ms, bound "
+              f"{bound:.4f} ({r['bound_by']}, {100 * r['share']:.1f}%), "
+              f"plain {r['plain_ms']:.4f}, cuDNN {r['library_ms']:.4f}, "
+              f"max_abs_err {err:.4g}", flush=True)
+        del kernel, plain, library
+        torch.cuda.empty_cache()
+    x = (torch.randn(B, T, 32, generator=g, device=dev)).to(torch.bfloat16)
+    w = torch.randn(1, 32, 7, generator=g, device=dev) * 0.05
+    w = w.to(torch.bfloat16)
+    pk = vc.pack_post(w)
+    err = compare("vits_conv post", vc.post(x, w, packed=pk),
+                  vc.post_plain(x, w))
+    x = torch.randn(B, T * roofline_vits.hop(v), 32, generator=g,
+                    device=dev).to(torch.bfloat16)
+    ms = time_ms(lambda: vc.post(x, w, packed=pk), iters=10)
+    ops, bytes_ = roofline_vits._conv(B, 32, 1, 7, x.shape[1], x.shape[1],
+                                      x.shape[1])
+    rec["post"] = {"ms": ms, "bound_ms": bound_s(ops, bytes_) * 1e3,
+                   "plain_ms": time_ms(lambda: vc.post_plain(x, w),
+                                       warmup=1, iters=3),
+                   "max_abs_err": err}
+    print(f"[vits-gen] post: {B}x{x.shape[1]}x32 -> 1: kernel {ms:.4f} ms, "
+          f"bound {rec['post']['bound_ms']:.4f} (bytes), plain "
+          f"{rec['post']['plain_ms']:.4f}, max_abs_err {err:.4g}")
+    del x
+    torch.cuda.empty_cache()
+
+    vcfg = VitsConfig.from_dict(v)
+    sd = weights_vits.make_weights(cfg, VITS_SEED, dev)
+    gen = convert.vits_module_from_torch(sd, vcfg, dev).dec
+    z = torch.randn(B, vcfg.inter_channels, T, generator=g, device=dev)
+    with torch.inference_mode():
+        vc.reset_launch_counts()
+        with recording() as r:
+            got = gen(z)
+        torch.cuda.synchronize()
+        n = vc.total_launches()
+        seen = [c for _, c in r.counters.get("vits.gen_launches", [])]
+        if n != 78 or seen != [78]:
+            raise RuntimeError(f"generator pass: {n} kernel launches, counter "
+                               f"{seen}; want 78")
+        first = gen.first_design(z)
+        want = ref_vits.generator(sd, v, z)[:, 0]
+        nsr = rel_l2(got, want) ** 2
+        nsr_first = rel_l2(first, want) ** 2
+        print(f"[vits-gen] pass at B {B} x {T} frames: 78 launches, counter "
+              f"{seen}; audio noise against the f32 reference generator "
+              f"(perfbench/reference/vits.py): kernels {nsr:.3e}, first "
+              f"design {nsr_first:.3e}")
+        if not torch.isfinite(got).all() or nsr > 1.2e-3:
+            raise RuntimeError(f"generator pass: audio noise {nsr}")
+        del got, first, want
+        turns = []
+        for name, fn in (("first_design", gen.first_design), ("kernels", gen),
+                         ("kernels", gen),
+                         ("first_design", gen.first_design)):
+            turns.append((name, time_ms(lambda: fn(z), warmup=1, iters=3)))
+        print(f"[vits-gen] pass in turns (ms): {turns}")
+    rec["pass"] = {"turns": turns, "nsr": nsr, "nsr_first": nsr_first}
+    print(json.dumps({"vits_generator": rec}))
+    del gen, z, sd
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vits_kernel_rows(launches: dict, rec: dict) -> list:
+    """The ``kernels`` line's rows V1-V6: each role's launches in phase
+    32's ``synthesize`` and, per phase-33 case of the role, its ms, bound,
+    plain chain's and cuDNN's ms and error.  No TPU kernel is replaced."""
+    rows = []
+    for n, prefixes in VITS_KERNELS.items():
+        cases = {c: r for c, r in rec.items() if c.startswith(prefixes)}
+        if not cases:
+            raise RuntimeError(f"phase 33 timed no case of {n}")
+        rows.append({
+            "name": n, "route": "cuda", "source": CSRC + "vits_conv_sm90.cu",
+            "replaces": None, "launches": launches[n],
+            "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+            **{k: {c: r.get(k) for c, r in cases.items()}
+               for k in ("ms", "bound_ms", "bound_by", "plain_ms",
+                         "library_ms", "shape")}})
+    return rows
 
 
 def main() -> int:
@@ -5982,7 +6272,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    from text2speech_tpu_torch.ops import gated, wn_backward
+    from text2speech_tpu_torch.ops import gated, vits_conv, wn_backward
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
     from text2speech_tpu_torch.ops import wn_block_padded as wp
@@ -5990,7 +6280,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = (wb.LIB, wb.LIB_SM90, wq.LIB, wq.LIB_SM90, gated.LIB,
             wn_backward.LIB, wn_backward.LIB_SM90, wp.LIB, wp.LIB_SM90,
-            wp.LIB_TILES)
+            wp.LIB_TILES, vits_conv.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
@@ -6081,8 +6371,10 @@ def main() -> int:
           f"{sync_time(lambda: recorder_cost(info))[1]:.2f} s")
     print(f"[time] phase 31: "
           f"{sync_time(lambda: graph_replay(info))[1]:.2f} s")
-    vits_err, t = sync_time(vits_path)
+    (vits_err, vits_launches), t = sync_time(vits_path)
     print(f"[time] phase 32: {t:.2f} s")
+    vits_rec, t = sync_time(lambda: vits_generator_path(info))
+    print(f"[time] phase 33: {t:.2f} s")
     rec["wn_layer_partial"]["max_abs_err"] = max(
         rec["wn_layer_partial"]["max_abs_err"], demo_partial_err)
     rec["gated_fwd"]["max_abs_err"] = max(rec["gated_fwd"]["max_abs_err"],
@@ -6092,7 +6384,7 @@ def main() -> int:
                 **{n: int8_launches[n] for n in list(KERNELS)[3:]},
                 **{n: dcond_launches[n] for n in DCOND_KERNELS},
                 **tp_launches, **trained, "conv_k3_bwd": chain_launches,
-                **ladder_launches}
+                **ladder_launches, **vits_launches}
     if not all(launches.values()):
         raise RuntimeError(f"a kernel was launched on no path: {launches}")
     kernels = [{
@@ -6117,6 +6409,7 @@ def main() -> int:
         "paths": {path: paths[path].get(n, 0) for path in paths},
     } for n, (src, repl) in {**KERNELS, **DCOND_KERNELS, **PARTIAL_KERNELS,
                              **TRAIN_KERNELS, **PADDED_KERNELS}.items()]
+    kernels += vits_kernel_rows(vits_launches, vits_rec)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -241,7 +241,7 @@ def test_port_imports_with_jax_blocked():
         "          'convert', 'convert_checkpoint', 'utils.quality',\n"
         "          'utils.profiling', 'examples', 'examples.demo',\n"
         "          'examples.corpus_drill',\n"
-        "          'examples.reference_checkpoints'):\n"
+        "          'examples.reference_checkpoints', 'ops.vits_conv'):\n"
         "    assert pkg.__name__ + '.' + n in names, n\n"
         "print(len(names))\n"
     )

@@ -755,4 +755,6 @@ def vits_module_from_torch(state_dict: Mapping[str, Any], cfg: VitsConfig,
         model = Vits(cfg, device=device)
         model.load_state_dict(vits_state_dict(state_dict, cfg))
         model.dec.to(GENERATOR_DTYPE)
+        if model.dec.pre_w.is_cuda:    # the kernels' weight images, once
+            model.dec.pack()
         return model.eval()

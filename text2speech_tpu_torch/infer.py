@@ -947,4 +947,6 @@ def random_vits_synthesizer(cfg: VitsConfig, seed: int = 0,
     model = Vits(cfg, device=device)
     random_vits_(model, torch.Generator(device=device).manual_seed(seed))
     model.dec.to(GENERATOR_DTYPE)
+    if model.dec.pre_w.is_cuda:    # the kernels' weight images, once
+        model.dec.pack()
     return VitsSynthesizer(cfg, model.eval())

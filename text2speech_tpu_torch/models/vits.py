@@ -12,9 +12,12 @@ Layouts.  Text encoder, duration predictor and flows run channels-last
 unfolded taps (:func:`conv_cl`), a 1x1 convolution one ``F.linear``, the
 depthwise convolutions k shifted products, and the flows' gated
 activation the WN kernel of ``ops/gated.py``.  The generator runs
-channels-first ([B, C, T]) in :data:`GENERATOR_DTYPE` (bfloat16, as the
-WaveGlow vocoder serves) on cuDNN's convolutions.  Weight norm is folded once
-when the weights are loaded (``convert.vits_module_from_torch``).
+channels-last too, in :data:`GENERATOR_DTYPE` (bfloat16, as the WaveGlow
+vocoder serves), on the fused convolutions of ``ops/vits_conv.py`` (its
+eager cuDNN form stays as :meth:`Generator.first_design`).  Weight norm is
+folded once when the weights are loaded
+(``convert.vits_module_from_torch``), and the generator's weights are then
+packed once for its kernel (:meth:`Generator.pack`).
 
 Departures from upstream, none of which changes the mathematics:
 
@@ -38,8 +41,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import VitsConfig
+from ..ops import vits_conv
 from ..ops.gated import gated_fwd
-from ..utils.profiling import annotate
+from ..utils.profiling import annotate, count
 
 F32 = torch.float32
 # the generator's weights and activations as loaded to serve
@@ -364,7 +368,14 @@ def _pad(k: int, d: int) -> int:
 class Generator(nn.Module):
     """HiFi-GAN V1 (``resblock "1"``): conv_pre, per stage leaky ReLU, a
     transposed convolution and the mean of the multi-receptive-field
-    ResBlock1s, then leaky ReLU (0.01), conv_post and tanh."""
+    ResBlock1s, then leaky ReLU (0.01), conv_post and tanh.
+
+    :meth:`forward` runs channels-last, one call of ``ops/vits_conv.py`` a
+    convolution (78 a pass at V1's shapes), each with the activations,
+    bias, residual, running sum and mean around it; on a card those are
+    the kernels, which read the weight images :meth:`pack` made (the
+    loaders call it; call it again after changing a weight).
+    :meth:`first_design` is the eager channels-first form on cuDNN."""
 
     def __init__(self, cfg: VitsConfig, device=None):
         super().__init__()
@@ -389,19 +400,69 @@ class Generator(nn.Module):
                                      device=device))
                 self.res_b.append(_p(2 * len(dils), cout, device=device))
         self.post_w = _p(1, c0 >> len(cfg.upsample_rates), 7, device=device)
+        self.packed: dict | None = None
 
-    def resblock(self, x, w, b, dils):
-        k, n = w.shape[-1], len(dils)
-        for j, d in enumerate(dils):
-            xt = F.conv1d(F.leaky_relu(x, LRELU_SLOPE), w[j], b[j],
-                          padding=_pad(k, d), dilation=d)
-            xt = F.conv1d(F.leaky_relu(xt, LRELU_SLOPE), w[n + j], b[n + j],
-                          padding=_pad(k, 1))
-            x = xt + x
-        return x
+    @torch.no_grad()
+    def pack(self) -> dict:
+        """The kernels' weight images (``vits_conv.pack``), made from the
+        weights as they stand; the loaders call it once weight norm is
+        folded and the cast done."""
+        cfg = self.cfg
+        self.packed = {
+            "pre": vits_conv.pack(self.pre_w),
+            "up": [vits_conv.pack(w, u)
+                   for w, u in zip(self.up_w, cfg.upsample_rates)],
+            "res": [[vits_conv.pack(w[i]) for i in range(w.shape[0])]
+                    for w in self.res_w],
+            "post": vits_conv.pack_post(self.post_w)}
+        return self.packed
+
+    def resblock(self, x, r: int, dils, xs, scale: float, pk):
+        """ResBlock1 ``r`` on x [B, T, C]; its last convolution adds the
+        running sum ``xs`` (when given) and scales: (resblock(x) + xs) *
+        scale."""
+        w, b, n = self.res_w[r], self.res_b[r], len(dils)
+        h = x
+        for m, d in enumerate(dils):
+            last = m == n - 1
+            a = vits_conv.conv(h, w[m], b[m], d, pre=True, post=True,
+                               packed=pk and pk["res"][r][m])
+            h = vits_conv.conv(a, w[n + m], b[n + m], 1, res=h,
+                               acc=xs if last else None,
+                               scale=scale if last else 1.0,
+                               packed=pk and pk["res"][r][n + m])
+        return h
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """z [B, C, T] -> audio [B, T * hop] float32."""
+        cfg = self.cfg
+        x = z.transpose(1, 2).to(self.pre_w.dtype).contiguous()
+        pk = None
+        if x.is_cuda:
+            pk = self.packed
+            if pk is None:
+                raise ValueError("Generator: no weight images for the "
+                                 "kernels; call pack() once the weights "
+                                 "are loaded")
+        n0 = vits_conv.total_launches()
+        x = vits_conv.conv(x, self.pre_w, self.pre_b,
+                           packed=pk and pk["pre"])
+        nk = len(cfg.resblock_kernel_sizes)
+        for i, u in enumerate(cfg.upsample_rates):
+            x = vits_conv.up(x, self.up_w[i], self.up_b[i], u,
+                             packed=pk and pk["up"][i])
+            xs = None
+            for j, dils in enumerate(cfg.resblock_dilation_sizes):
+                xs = self.resblock(x, i * nk + j, dils, xs,
+                                   1.0 / nk if j == nk - 1 else 1.0, pk)
+            x = xs
+        audio = vits_conv.post(x, self.post_w, packed=pk and pk["post"])
+        count("vits.gen_launches", vits_conv.total_launches() - n0)
+        return audio
+
+    def first_design(self, z: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` as first written: channels-first on cuDNN's
+        convolutions, every activation and add a pass of its own."""
         cfg = self.cfg
         x = F.conv1d(z.to(self.pre_w.dtype), self.pre_w, self.pre_b,
                      padding=3)
@@ -413,8 +474,15 @@ class Generator(nn.Module):
                                    padding=(k - u) // 2)
             xs = None
             for j, dils in enumerate(cfg.resblock_dilation_sizes):
-                r = self.resblock(x, self.res_w[i * nk + j],
-                                  self.res_b[i * nk + j], dils)
+                w, b, n = self.res_w[i * nk + j], self.res_b[i * nk + j], \
+                    len(dils)
+                r = x
+                for m, d in enumerate(dils):
+                    xt = F.conv1d(F.leaky_relu(r, LRELU_SLOPE), w[m], b[m],
+                                  padding=_pad(w.shape[-1], d), dilation=d)
+                    xt = F.conv1d(F.leaky_relu(xt, LRELU_SLOPE), w[n + m],
+                                  b[n + m], padding=_pad(w.shape[-1], 1))
+                    r = xt + r
                 xs = r if xs is None else xs + r
             x = xs / nk
         x = F.conv1d(F.leaky_relu(x), self.post_w, None, padding=3)
