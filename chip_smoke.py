@@ -7,16 +7,13 @@ Phases, each of which passes or raises (the script then exits non-zero):
 
 1. require CUDA; print the card's name and power limit; turn TF32 off;
 2. build the hand-written kernels from ``csrc/`` (the bf16 WN-layer
-   library and its Hopper redesign of the first, standard, final, ``dcond``
-   first, standard and final and tensor-parallel partial layers (both
-   forms), the int8
-   WN-layer library and its Hopper redesign of the standard, the
-   tensor-parallel partial, the final and the first layer on s8
-   ``wgmma``, the padded WN-layer library and the Hopper redesigns of its
-   stream pair and of its spect / padded pair, the gated activation, the
-   k=3 conv backward and its Hopper redesign, VITS's generator
-   convolutions (phase 33), one ``nvcc`` each, all
-   started together) and print the times, and for the five Hopper files
+   library of the first, standard, final, ``dcond`` first, standard and
+   final and tensor-parallel partial layers (both forms), the int8
+   WN-layer library of the standard, the tensor-parallel partial, the
+   final and the first layer on s8 ``wgmma``, the padded layout's stream
+   pair and its spect / padded pair, the gated activation, the k=3 conv
+   backward, VITS's generator convolutions (phase 33), one ``nvcc`` each,
+   all started together) and print the times, and for the five Hopper files
    the ``HGMMA`` / ``IGMMA`` count per kernel and the registers, stack
    frames and spills ``-Xptxas -v`` reports (the bf16 first layers, the
    partial layer's layer-0 form, the s8 final and first layers and both
@@ -26,16 +23,16 @@ Phases, each of which passes or raises (the script then exits non-zero):
    valid lengths and flow widths, and the standard and final layers also at
    the edges of their 128-row tile (T and n_valid off the tile grid, a
    halo of a whole tile, batch 3, nothing valid), the s8 standard, final
-   and first layers there also against their first design and run twice
-   (bitwise equal), the bf16 first layer against its plain version and its
-   first design over n_half 2-4, d 1, 64, 128, n_valid = T, < T, < d and
-   0, batch 1 and 3, C 512 and 256; time them with CUDA events at one
-   vocode's shapes and compute the card's bound for the same work; time
-   the first, standard and final and s8 standard, first and final layers
-   at batch 1 and 3 beside their first design (``wn_block.first_design``,
-   ``wn_block_int8.first_design``), with ``structure`` lines (the bf16 and
-   s8 standard layers at n_valid = 0: the first layers' skeletons), and
-   the two products of the standard layer as one library call each;
+   and first layers there also run twice (bitwise equal), the bf16 first
+   layer against its plain version over n_half 2-4, d 1, 64, 128, n_valid
+   = T, < T, < d and 0, batch 1 and 3, C 512 and 256; time them with CUDA
+   events at one vocode's shapes and compute the card's bound for the
+   same work; time the first, standard and final and s8 standard, first
+   and final layers at batch 1 and 3 with their tiles, each plan's shared
+   memory held to the kernel's own count, with ``structure`` lines (the
+   bf16 and s8 standard layers at n_valid = 0: the first layers'
+   skeletons), and the two products of the standard layer as one library
+   call each;
 4. bf16 main path: synthesize a small batch of Korean texts end to end at
    full reference width (seeded random weights) through the fused vocoder
    and the denoiser, write the WAVs, check the audio, the launch counts
@@ -53,11 +50,10 @@ Phases, each of which passes or raises (the script then exits non-zero):
    then phase 25;
 8. training kernels: the gated activation's forward and backward kernel
    and the k=3 dilated conv's backward kernel against their plain versions
-   (the last also against autograd of ``F.conv1d`` and its first design,
-   ``wn_backward.first_design``, two runs bitwise equal) at the training
-   shapes and at odd ones, f32 and bf16; times, bounds and the library's
-   time, the conv backward beside its first design in turns at d = 1, 8,
-   128 in both dtypes;
+   (the last also against autograd of ``F.conv1d``, two runs bitwise
+   equal) at the training shapes and at odd ones, f32 and bf16; times,
+   bounds and the library's time, the conv backward at d = 1, 8, 128 in
+   both dtypes;
    then the conv backward's own path, a chain of calls down the WN
    dilation ladder (it is a probe beside the trainer, as in the JAX
    package, and no training step launches it);
@@ -77,12 +73,11 @@ Phases, each of which passes or raises (the script then exits non-zero):
 12. the three composed-conditioning (``dcond``) kernels against their plain
     versions at C=512, L=8: batches 1 and 3, every dilation 1..128,
     ``n_valid < T``, the first and the last ``cond_index``, flow widths;
-    all three (the sm90 kernel) also at the edges of their tile and
-    against their first design (the final one leaving ``skip_acc``
-    untouched; the first one over n_half, d, n_valid < d and 0, C 512 and
-    256); times and bounds, all three at batch 1 and 3 beside their first
-    design in turns, and a ``structure`` line (the standard one at n_valid
-    = 0: the first one's skeleton);
+    all three (the sm90 kernel) also at the edges of their tile (the final
+    one leaving ``skip_acc`` untouched; the first one over n_half, d,
+    n_valid < d and 0, C 512 and 256); times and bounds, all three at
+    batch 1 and 3 with their tiles, and a ``structure`` line (the standard
+    one at n_valid = 0: the first one's skeleton);
 13. the composed vocoder at full width on the main path's mel
     (``precompute_composed_cond`` once, ``infer_fused(composed_cond=...)``):
     12/72/12 launches of the ``dcond`` wrappers and none of the projecting
@@ -104,17 +99,15 @@ Phases, each of which passes or raises (the script then exits non-zero):
     1..128, ``n_valid < T``, ``rs_out`` 2C and C, the layer-0 form (n_half
     2..4 with the edge-bias rows; the sm90 ``PART_FIRST`` role, also at p
     = 1, d 1 and 64, n_valid = T, < T, 1 and 0, T = 6400 and off the tile,
-    M 640 and 96, and the ranks' sum against the whole first layer); all
-    three sm90 forms (``PART``, ``PART_FIRST``, s8 ``PART``) also against
-    their first design, the int8 one equal to its plain version bit for bit,
-    also at the edges of its tile (nothing valid, T - 1, off the tile, d
-    = 400, batch 3); the sum of the p partials plus the bias against the
-    whole layer's plain res/skip product; times and bounds at B=1, T=6400
-    for p = 2 and 4, both beside their first design in turns at batch 1
-    and 3, the layer-0 form so too at d = 1 with its bound and share, after
-    a ``structure`` line (the sm90 ``PART`` form at n_valid = 0: the
-    layer-0 role's skeleton), and the bf16 one's 64- against its 128-row
-    tile at batch 1;
+    M 640 and 96, and the ranks' sum against the whole first layer); the
+    int8 one equal to its plain version bit for bit, also at the edges of
+    its tile (nothing valid, T - 1, off the tile, d = 400, batch 3); the
+    sum of the p partials plus the bias against the whole layer's plain
+    res/skip product; times and bounds at B=1, T=6400 for p = 2 and 4, both
+    at batch 1 and 3 with their tiles, the layer-0 form so too at d = 1
+    with its bound and share, after a ``structure`` line (the sm90 ``PART``
+    form at n_valid = 0: the layer-0 role's skeleton), and the bf16 one's
+    64- against its 128-row tile at batch 1;
     the s8 standard and final layers with one against two column groups
     at batch 1 and 3, and the s8 partial layer so at p = 8, and at p = 4,
     2 its wrapper against the kernel alone;
@@ -142,13 +135,12 @@ Phases, each of which passes or raises (the script then exits non-zero):
     ``n_valid``, pad tiles exactly zero; then rows 13 and 12
     (``csrc/wn_block_padded_tiles_sm90.cu`` SPECT and PADDED) and rows
     14-15 (``csrc/wn_block_padded_sm90.cu`` STREAM and STREAM_FINAL)
-    against their plain versions and their first design over d = 0, 1,
-    63, 64, 128, n_valid = T, T - 301, 1, 0, batch 1 and 3, rs_out 2C and
-    C (cond_index 0 and 1, E 8 and 1) and C=192, M=96, and each kernel at
-    the widest width its plan takes; the in-place skip sums between guard
-    rows, the final layer's skip sum and row 12's ``cond_p`` untouched;
-    all four timed at batch 1 and 3 beside the first design in turns,
-    with the plain version and the bound;
+    against their plain versions over d = 0, 1, 63, 64, 128, n_valid = T,
+    T - 301, 1, 0, batch 1 and 3, rs_out 2C and C (cond_index 0 and 1, E 8
+    and 1) and C=192, M=96, and each kernel at the widest width its plan
+    takes; the in-place skip sums between guard rows, the final layer's
+    skip sum and row 12's ``cond_p`` untouched; all four timed at batch 1
+    and 3 with the plain version and the bound;
 23. their own path, the parity ladder across kernels: the unpadded
     standard layer (kernel 2) against the stream kernel (14), the unpadded
     final layer (3) against the stream final (15), the ``dcond`` layer (9)
@@ -290,11 +282,10 @@ Phases, each of which passes or raises (the script then exits non-zero):
     kernel ms beside the bound from ``perfbench/roofline_vits.py``'s
     counts, the plain chain's ms and cuDNN's ms for the same convolution
     on channels-first input (``library_ms``; the port never calls it);
-    then whole generator passes at that shape, ``Generator.first_design``
-    and the kernels in turns, with 78 launches and the
-    ``vits.gen_launches`` counter a pass and the audio's noise against
+    then a whole generator pass at that shape, timed, with 78 launches and
+    the ``vits.gen_launches`` counter a pass and the audio's noise against
     the benchmark's f32 reference generator
-    (``perfbench/reference/vits.py``), the first design's beside it.
+    (``perfbench/reference/vits.py``).
 
 Phase 25 runs right after phase 7, phases 12-21 between it and phase 8,
 phases 22-24 after phase 11, phases 26, 27, 28, 29, 30, 31, 32 and 33
@@ -722,11 +713,8 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
     # the edges of the sm90 kernels' 128-row tile: T and n_valid off the
     # tile grid, a halo of a whole tile (d=128), batch 3, nothing valid, a
     # grid of 128-row tiles that fills the card; the skip sum on every row
-    # (rows past n_valid too are computed alike).  The s8 kernel also
-    # against its first design, and run twice: bitwise equal
-    def first_int8(*a, n_valid):
-        return wq.first_design("wn_layer_int8", *a, n_valid=n_valid)
-
+    # (rows past n_valid too are computed alike).  The s8 kernel is also
+    # run twice: bitwise equal
     for B, T, nv in ((1, 1000, 937), (1, 1000, 128), (1, 1000, 129),
                      (3, 1000, 1000), (3, 777, 700), (2, 1000, 0),
                      (3, 6450, 6401)):   # the last: 128-row tiles
@@ -743,8 +731,6 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
             note("wn_layer_int8", compare_int8(
                 f"{tag} vs plain", got, call_std(wq.wn_layer_int8_plain, a8,
                                                  nv), T))
-            compare_int8(f"{tag} vs first design", got,
-                         call_std(first_int8, a8, nv), T)
             again = call_std(wq.wn_layer_int8, a8, nv)
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise RuntimeError(f"{tag}: two runs differ")
@@ -753,22 +739,18 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
             args = layer_args(k, d)
             check_pair("wn_layer_final", args["wn_layer_final"], nv,
                        f"{shape} d={d} E=8")
-            # the s8 final layer: against its plain version (every row) and
-            # its first design; run twice, bitwise equal
+            # the s8 final layer: against its plain version (every row); run
+            # twice, bitwise equal
             a8 = args["wn_layer_final_int8"]
             got = wq.wn_layer_final_int8(*a8, n_valid=nv)
             tag = f"wn_layer_final_int8 {shape} d={d} E=8"
-            for ref, want in (
-                    ("plain", wq.wn_layer_final_int8_plain(*a8, n_valid=nv)),
-                    ("first design", wq.first_design(
-                        "wn_layer_final_int8", *a8, n_valid=nv))):
-                err = (got - want).abs().max().item()
-                print(f"  {tag} vs {ref}: max_abs_err={err:.6g} (bound "
-                      f"{INT8_FINAL_ATOL})")
-                if not torch.isfinite(got).all() or err > INT8_FINAL_ATOL:
-                    raise RuntimeError(f"{tag}: disagrees with its {ref}")
-                if ref == "plain":
-                    note("wn_layer_final_int8", err)
+            want = wq.wn_layer_final_int8_plain(*a8, n_valid=nv)
+            err = (got - want).abs().max().item()
+            print(f"  {tag} vs plain: max_abs_err={err:.6g} (bound "
+                  f"{INT8_FINAL_ATOL})")
+            if not torch.isfinite(got).all() or err > INT8_FINAL_ATOL:
+                raise RuntimeError(f"{tag}: disagrees with its plain")
+            note("wn_layer_final_int8", err)
             if not torch.equal(got, wq.wn_layer_final_int8(*a8, n_valid=nv)):
                 raise RuntimeError(f"{tag}: two runs differ")
             # the s8 first layer likewise, the skip on every row
@@ -781,19 +763,14 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
             note("wn_layer_first_int8", compare_int8(
                 f"{tag} vs plain", got,
                 wq.wn_layer_first_int8_plain(*a8, n_valid=nv), T))
-            compare_int8(f"{tag} vs first design", got, wq.first_design(
-                "wn_layer_first_int8", *a8, n_valid=nv), T)
             again = wq.wn_layer_first_int8(*a8, n_valid=nv)
             if not all(torch.equal(x, y) for x, y in zip(got, again)):
                 raise RuntimeError(f"{tag}: two runs differ")
 
-    # the sm90 first layer at its edges against its plain version and its
-    # first design, the skip on every row: n_half 2-4, d 1, 64 and the
-    # config's largest (128), n_valid = T, < T, < d and 0, batch 1 and 3,
-    # the reference width and a narrower one the plan takes
-    def first_bf16(*a, n_valid):
-        return wb.first_design("wn_layer_first", *a, n_valid=n_valid)
-
+    # the sm90 first layer at its edges against its plain version, the skip
+    # on every row: n_half 2-4, d 1, 64 and the config's largest (128),
+    # n_valid = T, < T, < d and 0, batch 1 and 3, the reference width and a
+    # narrower one the plan takes
     for width in (C, 256):
         for B, T, nv, d, n_half in ((1, 1000, 1000, 1, 2),
                                     (3, 777, 700, 64, 3),
@@ -807,18 +784,14 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
             got = wb.wn_layer_first(*args, n_valid=nv)
             tag = (f"wn_layer_first edge C={width} B={B} T={T} n_valid={nv}"
                    f" d={d} n_half={n_half}")
-            for ref, fn in (("plain", wb.wn_layer_first_plain),
-                            ("first design", first_bf16)):
-                want = fn(*args, n_valid=nv)
-                if got[0][:, nv:].any() or want[0][:, nv:].any():
-                    raise RuntimeError(f"{tag}: rows past n_valid are not "
-                                       f"zero")
-                errs = [compare(f"{tag} vs {ref} skip", got[1], want[1])]
-                if nv:
-                    errs.append(compare(f"{tag} vs {ref} x", got[0],
-                                        want[0]))
-                if ref == "plain" and width == C:
-                    note("wn_layer_first", max(errs))
+            want = wb.wn_layer_first_plain(*args, n_valid=nv)
+            if got[0][:, nv:].any() or want[0][:, nv:].any():
+                raise RuntimeError(f"{tag}: rows past n_valid are not zero")
+            errs = [compare(f"{tag} vs plain skip", got[1], want[1])]
+            if nv:
+                errs.append(compare(f"{tag} vs plain x", got[0], want[0]))
+            if width == C:
+                note("wn_layer_first", max(errs))
 
     # times at one vocode's shapes: B=1, 200 mel frames = 6400 groups
     B, T = 1, 6400
@@ -842,7 +815,7 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (by "
               f"{r['bound_by']})")
 
-    time_beside_first_design(rec, C, M)
+    time_tiles(rec, C, M)
 
     # yardsticks of the tensor-core rates: the standard layer's two
     # products (in-act, res/skip) as one library call each, at batch 1 and
@@ -860,17 +833,16 @@ def check_kernels(C: int = 512, M: int = 640) -> dict:
     return rec
 
 
-def time_beside_first_design(rec: dict, C: int, M: int) -> None:
+def time_tiles(rec: dict, C: int, M: int) -> None:
     """The sm90 first, standard and final layers and the s8 standard, first
-    and final layers beside their first design on the same inputs at one
-    vocode's shapes, batch 1 and 3 x 6400 groups, timed in turns (first,
-    sm90, sm90, first); the two agree within the kernel bounds.  Adds
-    ``prev_ms`` (the first design at batch 1), ``ms_b3``, ``prev_ms_b3``
-    and ``bound_ms_b3`` to the six rows of ``rec``.  The ``structure``
-    lines time the skeletons the first layers share with the standard
-    ones: the sm90 standard layer at n_valid = 0 (the bf16 first layer's
-    products without its tap stage, residual base or edge take-back) and
-    the s8 standard and final layers there."""
+    and final layers at one vocode's shapes, batch 1 and 3 x 6400 groups:
+    each plan's shared memory against the kernel's own count, its tile, and
+    the time beside the card's bound.  Adds ``ms_b3`` and ``bound_ms_b3``
+    to the six rows of ``rec``.  The ``structure`` lines time the
+    skeletons the first layers share with the standard ones: the sm90
+    standard layer at n_valid = 0 (the bf16 first layer's products without
+    its tap stage, residual base or edge take-back) and the s8 standard and
+    final layers there."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
@@ -896,44 +868,11 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
         for name, args in runs.items():
             mod = wq if name.endswith("int8") else wb
             kern = getattr(mod, name)
-
-            def first(*a, n_valid=None, name=name, mod=mod):
-                return mod.first_design(name, *a, n_valid=n_valid)
-
-            tag = f"{name} sm90 vs first design B={B}"
-            if name == "wn_layer":
-                got, want = call_std(kern, args, T), call_std(first, args, T)
-                compare(f"{tag} x", got[0], want[0])
-                compare(f"{tag} skip", got[1], want[1])
-            elif name == "wn_layer_first":
-                got, want = kern(*args), first(*args)
-                compare(f"{tag} x", got[0], want[0])
-                compare(f"{tag} skip", got[1], want[1])
-            elif name == "wn_layer_int8":
-                compare_int8(tag, call_std(kern, args, T),
-                             call_std(first, args, T), T)
-            elif name == "wn_layer_first_int8":
-                compare_int8(tag, kern(*args), first(*args), T)
-            elif name == "wn_layer_final_int8":
-                err = (kern(*args) - first(*args)).abs().max().item()
-                print(f"  {tag}: max_abs_err={err:.6g} (bound "
-                      f"{INT8_FINAL_ATOL})")
-                if err > INT8_FINAL_ATOL:
-                    raise RuntimeError(f"{tag}: the designs disagree")
-            else:
-                compare(tag, kern(*args), first(*args))
             outs = kern(*args)
             outs = outs if isinstance(outs, tuple) else (outs,)
             tensors = [t for t in (*args, *outs) if torch.is_tensor(t)]
             bound, by = bound_ms(work(name, B, T, C, M), tensors)
-            times = {"first": [], "sm90": []}
-            for tag_, fn in (("first", lambda: first(*args)),
-                             ("sm90", lambda: kern(*args)),
-                             ("sm90", lambda: kern(*args)),
-                             ("first", lambda: first(*args))):
-                times[tag_].append(time_ms(fn))
-            first_ms, sm90 = times["first"], times["sm90"]
-            ms, prev = sum(sm90) / 2, sum(first_ms) / 2
+            ms = time_ms(lambda: kern(*args))
             if mod is wq:
                 role = {"wn_layer_first_int8": "first",
                         "wn_layer_final_int8": "final"}.get(name, "std")
@@ -954,18 +893,13 @@ def time_beside_first_design(rec: dict, C: int, M: int) -> None:
                 raise RuntimeError(f"{name} plan: {plan['smem']} B of shared "
                                    f"memory, the kernel asks {smem}")
             blocks = plan["grid"][0] * plan["grid"][1]
-            print(f"  {name} B={B} T={T}: sm90 {sm90[0]:.4f} / {sm90[1]:.4f}"
-                  f" ms ({bound / ms:.1%} of the {bound:.4f} ms bound by "
-                  f"{by}), first design {first_ms[0]:.4f} / "
-                  f"{first_ms[1]:.4f} ms ({bound / prev:.1%}); sm90 tile "
+            print(f"  {name} B={B} T={T}: sm90 {ms:.4f} ms ({bound / ms:.1%} "
+                  f"of the {bound:.4f} ms bound by {by}); sm90 tile "
                   f"{plan['bm']} rows, {ring}, {plan['smem']} B shared, "
                   f"{blocks} blocks = {blocks / wb.SM90_SMS:.2f} per SM (1 "
-                  f"resident); first design {-(-T // 64) * B} blocks")
-            if B == 1:
-                rec[name]["prev_ms"] = prev
-            else:
-                rec[name]["ms_b3"], rec[name]["prev_ms_b3"] = ms, prev
-                rec[name]["bound_ms_b3"] = bound
+                  f"resident)")
+            if B == 3:
+                rec[name]["ms_b3"], rec[name]["bound_ms_b3"] = ms, bound
         # what FIRST's structure costs without its taps: the sm90 standard
         # layer at n_valid = 0 runs the bf16 first layer's products (in-act
         # K = M, the res/skip product) without its tap stage, residual base
@@ -1345,7 +1279,6 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
     """Phase 12: kernels 9-11 against their plain versions at reference
     width, then kernel and plain times and the card's bound at one
     main-path shape (B=1, T=6400, cond_all [1, 6400, 8192])."""
-    from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
 
     fns = {n: (getattr(wd, n), getattr(wd, n + "_plain"))
@@ -1407,9 +1340,8 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
     # the sm90 standard and final layers at the edges of their tile (as
     # phase 3 does for the in-kernel projection: T and n_valid off the tile
     # grid, a halo of a whole tile, batch 3, nothing valid, 128-row tiles)
-    # against their plain versions and their first design, the skip sum
-    # and the final layer's output on every row; the final layer leaves
-    # skip_acc as it found it
+    # against their plain versions, the skip sum and the final layer's
+    # output on every row; the final layer leaves skip_acc as it found it
     for B, T, nv in ((1, 1000, 129), (3, 777, 700), (2, 1000, 0),
                      (3, 6450, 6401)):
         cond_all = cond_for(B, T, seed)
@@ -1424,8 +1356,6 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
             note("wn_layer_final_dcond", compare(
                 f"{tag} vs plain", got,
                 wd.wn_layer_final_dcond_plain(*args, n_valid=nv)))
-            compare(f"{tag} vs first design", got, wb.first_design(
-                "wn_layer_final_dcond", *args, n_valid=nv))
             if not torch.equal(k["skip_acc"], skip_before):
                 raise RuntimeError(f"{tag}: skip_acc was written")
         for d, li, rs_full in ((1, 0, True), (128, L - 1, False)):
@@ -1438,22 +1368,14 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
             got = call_std(wd.wn_layer_dcond, args, nv)
             tag = (f"wn_layer_dcond edge B={B} T={T} n_valid={nv} d={d} "
                    f"li={li} rs_out={k['w_rs'].shape[1]}")
-            for ref, want in (
-                    ("plain", call_std(wd.wn_layer_dcond_plain, args, nv)),
-                    ("first design", call_std(
-                        lambda *a, n_valid: wb.first_design(
-                            "wn_layer_dcond", *a, n_valid=n_valid),
-                        args, nv))):
-                if got[0][:, nv:].any() or want[0][:, nv:].any():
-                    raise RuntimeError(f"{tag}: rows past n_valid are not "
-                                       f"zero")
-                if nv:
-                    err = compare(f"{tag} vs {ref} x", got[0], want[0])
-                    if ref == "plain":
-                        note("wn_layer_dcond", err)
-                err = compare(f"{tag} vs {ref} skip", got[1], want[1])
-                if ref == "plain":
-                    note("wn_layer_dcond", err)
+            want = call_std(wd.wn_layer_dcond_plain, args, nv)
+            if got[0][:, nv:].any() or want[0][:, nv:].any():
+                raise RuntimeError(f"{tag}: rows past n_valid are not zero")
+            if nv:
+                note("wn_layer_dcond",
+                     compare(f"{tag} vs plain x", got[0], want[0]))
+            note("wn_layer_dcond",
+                 compare(f"{tag} vs plain skip", got[1], want[1]))
 
     # the sm90 dcond first layer likewise (as phase 3 does for the bf16
     # one): n_half 2-4, d 1, 64, 128, n_valid = T, < T, < d and 0, batch 1
@@ -1474,20 +1396,14 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
             got = wd.wn_layer_first_dcond(*args, n_valid=nv)
             tag = (f"wn_layer_first_dcond edge C={width} B={B} T={T} "
                    f"n_valid={nv} d={d} n_half={n_half}")
-            for ref, want in (
-                    ("plain", wd.wn_layer_first_dcond_plain(*args,
-                                                            n_valid=nv)),
-                    ("first design", wb.first_design(
-                        "wn_layer_first_dcond", *args, n_valid=nv))):
-                if got[0][:, nv:].any() or want[0][:, nv:].any():
-                    raise RuntimeError(f"{tag}: rows past n_valid are not "
-                                       f"zero")
-                errs = [compare(f"{tag} vs {ref} skip", got[1], want[1])]
-                if nv:
-                    errs.append(compare(f"{tag} vs {ref} x", got[0],
-                                        want[0]))
-                if ref == "plain" and width == C:
-                    note("wn_layer_first_dcond", max(errs))
+            want = wd.wn_layer_first_dcond_plain(*args, n_valid=nv)
+            if got[0][:, nv:].any() or want[0][:, nv:].any():
+                raise RuntimeError(f"{tag}: rows past n_valid are not zero")
+            errs = [compare(f"{tag} vs plain skip", got[1], want[1])]
+            if nv:
+                errs.append(compare(f"{tag} vs plain x", got[0], want[0]))
+            if width == C:
+                note("wn_layer_first_dcond", max(errs))
 
     B, T = 1, 6400
     cond_all = cond_for(B, T, 77)
@@ -1519,20 +1435,17 @@ def check_dcond_kernels(C: int = 512, L: int = 8) -> dict:
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (by "
               f"{r['bound_by']})")
     for name in DCOND_KERNELS:
-        time_dcond_beside_first_design(name, rec[name], C, L)
+        time_dcond_tiles(name, rec[name], C, L)
     return rec
 
 
-def time_dcond_beside_first_design(name: str, r: dict, C: int,
-                                   L: int) -> None:
-    """The sm90 dcond first, standard or final layer and its first design
-    on the same inputs at the composed vocode's shapes, batch 1 and 3 x
-    6400 groups, timed in turns (first, sm90, sm90, first); the two agree
-    within the kernel bounds.  Adds ``prev_ms`` (the first design at batch
-    1), ``ms_b3``, ``prev_ms_b3`` and ``bound_ms_b3`` to the row ``r``.
-    With the standard layer, a ``structure`` line: it at n_valid = 0 is the
-    dcond first layer's skeleton (the gate of b_in + cond and the whole
-    res/skip ring, without the tap stage or the residual base)."""
+def time_dcond_tiles(name: str, r: dict, C: int, L: int) -> None:
+    """The sm90 dcond first, standard or final layer at the composed
+    vocode's shapes, batch 1 and 3 x 6400 groups: its tile and its time
+    beside the card's bound.  Adds ``ms_b3`` and ``bound_ms_b3`` to the row
+    ``r``.  With the standard layer, a ``structure`` line: it at n_valid =
+    0 is the dcond first layer's skeleton (the gate of b_in + cond and the
+    whole res/skip ring, without the tap stage or the residual base)."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
 
@@ -1551,60 +1464,35 @@ def time_dcond_beside_first_design(name: str, r: dict, C: int,
             B, T, T, C, 64, 93, dev, n_half=4 if first_layer else None,
             E=8 if name == "wn_layer_final_dcond" else None),
             cond_all, li, d)[name]
-
-        def first(*a, n_valid=None):
-            return wb.first_design(name, *a, n_valid=n_valid)
-
         bt = 2 * B * T
         if first_layer:
-            got, want = kern(*args), first(*args)
-            compare(f"{name} sm90 vs first design B={B} x", got[0], want[0])
-            compare(f"{name} sm90 vs first design B={B} skip", got[1],
-                    want[1])
-            outs = got
+            outs = kern(*args)
             ops = bt * 3 * 4 * 2 * C + bt * 4 * C + bt * C * 2 * C
         elif std:
-            got = call_std(kern, args, T)
-            want = call_std(first, args, T)
-            compare(f"{name} sm90 vs first design B={B} x", got[0], want[0])
-            compare(f"{name} sm90 vs first design B={B} skip", got[1],
-                    want[1])
-            outs, ops = (got[0], args[-2]), bt * 3 * C * 2 * C + bt * C * 2 * C
+            outs = (call_std(kern, args, T)[0], args[-2])
+            ops = bt * 3 * C * 2 * C + bt * C * 2 * C
         else:
-            got = kern(*args)
-            compare(f"{name} sm90 vs first design B={B}", got, first(*args))
-            outs, ops = (got,), bt * 3 * C * 2 * C + 2 * bt * C * 8
+            outs, ops = (kern(*args),), bt * 3 * C * 2 * C + 2 * bt * C * 8
         # the function reads its 2C-wide slice of cond_all, not all of it
         bound, by = bound_ms(
             {"bf16": ops},
             [t[..., li * 2 * C: (li + 1) * 2 * C] if t is cond_all else t
              for t in (*args, *outs) if torch.is_tensor(t)])
-        firsts, sm90 = [], []
-        for fn, acc in ((lambda: first(*args), firsts),
-                        (lambda: kern(*args), sm90),
-                        (lambda: kern(*args), sm90),
-                        (lambda: first(*args), firsts)):
-            acc.append(time_ms(fn))
-        ms, prev = sum(sm90) / 2, sum(firsts) / 2
+        ms = time_ms(lambda: kern(*args))
         plan = wb.sm90_plan(C, T, B, role="first" if first_layer else "std")
         blocks = plan["grid"][0] * plan["grid"][1]
         chunk = ("1 tap stage" if first_layer
                  else f"{3 * C // plan['bk']}")
-        print(f"  {name} B={B} T={T}: sm90 {sm90[0]:.4f} / "
-              f"{sm90[1]:.4f} ms ({bound / ms:.1%} of the {bound:.4f} ms "
-              f"bound by {by}), first design {firsts[0]:.4f} / "
-              f"{firsts[1]:.4f} ms ({bound / prev:.1%}); sm90 tile "
-              f"{plan['bm']} rows, {plan['stages']} stages of K={plan['bk']}"
-              f" ({chunk} per gate-pair chunk), "
-              f"{plan['smem']} B shared, {blocks} blocks")
+        print(f"  {name} B={B} T={T}: sm90 {ms:.4f} ms ({bound / ms:.1%} of "
+              f"the {bound:.4f} ms bound by {by}); sm90 tile {plan['bm']} "
+              f"rows, {plan['stages']} stages of K={plan['bk']} ({chunk} per "
+              f"gate-pair chunk), {plan['smem']} B shared, {blocks} blocks")
         if std:
             print(f"  structure B={B} T={T}: wn_layer_dcond at n_valid=0 "
                   f"{time_ms(lambda: call_std(kern, args, 0)):.4f} ms (the "
                   f"dcond first layer's skeleton)")
-        if B == 1:
-            r["prev_ms"] = prev
-        else:
-            r["ms_b3"], r["prev_ms_b3"], r["bound_ms_b3"] = ms, prev, bound
+        if B == 3:
+            r["ms_b3"], r["bound_ms_b3"] = ms, bound
 
 
 def composed_path(synth, mel: torch.Tensor, rel32_bf16: float) -> dict:
@@ -1963,12 +1851,6 @@ def cli_stream() -> None:
 # the tensor-parallel vocoder: kernels 4 and 8 and their path
 # ---------------------------------------------------------------------------
 
-# int8 partial against its plain version: the integer products are exact on
-# both sides; a gated value on a rounding knife edge may land one count
-# apart, which moves an output by at most that column's weight scale.  The
-# f32 partial is held to the final int8 layer's bound and to the bf16
-# kernels' relative L2.
-INT8_PARTIAL_ATOL = INT8_FINAL_ATOL
 # TP audio against f32: the hidden state and the skip sum stay f32 between
 # the layers, so the bf16 TP path is held to the fused path's own distance
 # from f32 (3 x, at least 2e-2, as the composed path); the int8 TP path to
@@ -2003,11 +1885,10 @@ def rank_share(k: dict, p: int, i: int, int8: bool) -> tuple:
 
 def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
     """Phase 17: kernels 4 and 8 against their plain versions at reference
-    width (their sm90 forms also against their first design; kernel 8's
-    equal to its plain version bit for bit), then kernel and plain times
-    and the card's bound at B=1, T=6400 for p = 2 and 4 (the record holds p
-    = 4's), and both beside their first design in turns at batch 1 and
-    3."""
+    width (kernel 8's equal to its plain version bit for bit), then kernel
+    and plain times and the card's bound at B=1, T=6400 for p = 2 and 4
+    (the record holds p = 4's), and both at batch 1 and 3 with their
+    tiles."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
@@ -2019,19 +1900,16 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
 
     def check_bf16(tag, args, kw, nv):
         """Either sm90 form (``PART``, or ``PART_FIRST`` with ``b_edge`` in
-        ``kw``) against its plain version and its first design; one launch
-        a call, none for the first design."""
+        ``kw``) against its plain version; one launch a call."""
         n0 = wb.wn_layer_partial.launches
         got = wb.wn_layer_partial(*args, n_valid=nv, **kw)
         want = wb.wn_layer_partial_plain(*args, n_valid=nv, **kw)
-        first = wb.first_design("wn_layer_partial", *args, n_valid=nv, **kw)
         if wb.wn_layer_partial.launches != n0 + 1:
             raise RuntimeError(f"{tag}: {wb.wn_layer_partial.launches - n0}"
                                f" launches counted, want 1")
         if got.dtype != torch.float32 or got[:, nv:].any():
             raise RuntimeError(f"{tag}: not f32, or rows past n_valid not 0")
         note("wn_layer_partial", compare(f"wn_layer_partial {tag}", got, want))
-        compare(f"wn_layer_partial {tag} vs first design", got, first)
         return got
 
     def layer0(k, p, i, d, nv, tag):
@@ -2044,22 +1922,16 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
                           {"b_edge": b_edge}, nv)
 
     def check_int8(tag, args, nv):
-        """The s8 wgmma form: equal to the plain version bit for bit, and
-        to the first design within the int8 partial bound."""
+        """The s8 wgmma form: equal to the plain version bit for bit."""
         got = wq.wn_layer_partial_int8(*args, n_valid=nv)
         want = wq.wn_layer_partial_int8_plain(*args, n_valid=nv)
-        first = wq.first_design("wn_layer_partial_int8", *args, n_valid=nv)
         err = (got - want).abs().max().item()
-        err_first = (got - first).abs().max().item()
         same = torch.equal(got, want)
         print(f"  wn_layer_partial_int8 {tag}: equal to plain {same} "
-              f"(max_abs_err={err:.6g}); vs first design max_abs_err="
-              f"{err_first:.6g} (bound {INT8_PARTIAL_ATOL})")
-        if not torch.isfinite(got).all() or got[:, nv:].any() or not same \
-                or err_first > INT8_PARTIAL_ATOL:
+              f"(max_abs_err={err:.6g})")
+        if not torch.isfinite(got).all() or got[:, nv:].any() or not same:
             raise RuntimeError(f"wn_layer_partial_int8 {tag}: kernel "
-                               f"disagrees with its plain version or its "
-                               f"first design")
+                               f"disagrees with its plain version")
         note("wn_layer_partial_int8", err)
 
     seed = 700
@@ -2188,25 +2060,22 @@ def check_partial_kernels(C: int = 512, M: int = 640) -> dict:
             if p == 4:
                 rec[name].update(r)
     for name in PARTIAL_KERNELS:
-        time_partial_beside_first_design(name, rec[name], C, M)
-    time_partial_first_beside_first_design(C, M)
+        time_partial_tiles(name, rec[name], C, M)
+    time_partial_first(C, M)
     return rec
 
 
-def time_partial_beside_first_design(name: str, r: dict, C: int,
-                                     M: int) -> None:
-    """Kernel 4's or 8's sm90 form and its first design on the same inputs,
-    rank 0 of p = 2 and 4, d=64, batch 1 and 3 x 6400 groups, in turns
-    (first, sm90, sm90, first).  Adds ``prev_ms`` (p = 4, batch 1),
-    ``ms_b3``, ``prev_ms_b3`` and ``bound_ms_b3`` (p = 4) to ``r``."""
+def time_partial_tiles(name: str, r: dict, C: int, M: int) -> None:
+    """Kernel 4's or 8's sm90 form, rank 0 of p = 2 and 4, d=64, batch 1
+    and 3 x 6400 groups: its tile and its time beside the card's bound.
+    Adds ``ms_b3`` and ``bound_ms_b3`` (p = 4) to ``r``."""
     from text2speech_tpu_torch.ops import wn_block as wb
     from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
     dev = torch.device("cuda")
     T, d = 6400, 64
     int8 = name == "wn_layer_partial_int8"
-    mod = wq if int8 else wb
-    kern = getattr(mod, name)
+    kern = getattr(wq if int8 else wb, name)
     for B in (1, 3):
         k = layer_inputs(B, T, T, C, M, 92, dev)
         acts = ((*wq.quantize_rows(k["x"]), *wq.quantize_rows(k["spect"]))
@@ -2214,30 +2083,11 @@ def time_partial_beside_first_design(name: str, r: dict, C: int,
         for p in (2, 4):
             Cp = C // p
             args = (*acts, *rank_share(k, p, 0, int8), d)
-
-            def first(args=args):
-                return mod.first_design(name, *args)
-
             out = kern(*args)
-            tag = f"{name} sm90 vs first design p={p} B={B}"
-            if int8:
-                err = (out - first()).abs().max().item()
-                print(f"  {tag}: max_abs_err={err:.6g} (bound "
-                      f"{INT8_PARTIAL_ATOL})")
-                if err > INT8_PARTIAL_ATOL:
-                    raise RuntimeError(f"{tag}: the designs disagree")
-            else:
-                compare(tag, out, first())
             ops = 2 * B * T * ((3 * C + M) * 2 * Cp + Cp * 2 * C)
             tensors = [t for t in (*args, out) if torch.is_tensor(t)]
             bound, by = bound_ms({"int8" if int8 else "bf16": ops}, tensors)
-            times = {"first": [], "sm90": []}
-            for tag, fn in (("first", first),
-                            ("sm90", lambda: kern(*args)),
-                            ("sm90", lambda: kern(*args)),
-                            ("first", first)):
-                times[tag].append(time_ms(fn))
-            ms, prev = sum(times["sm90"]) / 2, sum(times["first"]) / 2
+            ms = time_ms(lambda: kern(*args))
             if int8:
                 plan = wq.int8_sm90_plan(Cp, T, B)
                 tile = (f"{plan['nc']} column groups, {plan['stages']} "
@@ -2245,30 +2095,23 @@ def time_partial_beside_first_design(name: str, r: dict, C: int,
             else:
                 plan = wb.sm90_plan(Cp, T, B)
                 tile = f"{plan['stages']} stages of K={plan['bk']}"
-            print(f"  {name} p={p} B={B} T={T}: sm90 "
-                  f"{times['sm90'][0]:.4f} / {times['sm90'][1]:.4f} ms "
-                  f"({bound / ms:.1%} of the {bound:.4f} ms bound by {by}), "
-                  f"first design {times['first'][0]:.4f} / "
-                  f"{times['first'][1]:.4f} ms ({bound / prev:.1%}); tile "
-                  f"{plan['bm']} rows, {tile}, {plan['grid'][0] * B} blocks")
-            if p == 4 and B == 1:
-                r["prev_ms"] = prev
-            elif p == 4:
-                r["ms_b3"], r["prev_ms_b3"], r["bound_ms_b3"] = (ms, prev,
-                                                                 bound)
+            print(f"  {name} p={p} B={B} T={T}: sm90 {ms:.4f} ms "
+                  f"({bound / ms:.1%} of the {bound:.4f} ms bound by {by}); "
+                  f"tile {plan['bm']} rows, {tile}, {plan['grid'][0] * B} "
+                  f"blocks")
+            if p == 4 and B == 3:
+                r["ms_b3"], r["bound_ms_b3"] = ms, bound
 
 
-def time_partial_first_beside_first_design(C: int, M: int) -> None:
-    """Kernel 4's layer-0 form, the sm90 ``PART_FIRST`` role, and its first
-    design (``csrc/wn_block.cu`` ``PART_FIRST``) on the same inputs, rank 0
-    of p = 2 and 4, d = 1 (layer 0's), n_half = 4, rs_out = 2C, batch 1
-    and 3 x 6400 groups, in turns (first, sm90, sm90, first), with the
-    card's bound, each one's share of it, the plain version's time and the
-    kernel alone (raw launches, without the wrapper's host work); before
-    it a ``structure``
-    line: the sm90 ``PART`` form at n_valid = 0 (no tap stage, so the
-    conditioning's stages, the gate, the res/skip product and the f32
-    write: the layer-0 role without its tap stage and edge take-back)."""
+def time_partial_first(C: int, M: int) -> None:
+    """Kernel 4's layer-0 form, the sm90 ``PART_FIRST`` role, rank 0 of p =
+    2 and 4, d = 1 (layer 0's), n_half = 4, rs_out = 2C, batch 1 and 3 x
+    6400 groups, with the card's bound, its share of it, the plain
+    version's time and the kernel alone (raw launches, without the
+    wrapper's host work); before it a ``structure`` line: the sm90 ``PART``
+    form at n_valid = 0 (no tap stage, so the conditioning's stages, the
+    gate, the res/skip product and the f32 write: the layer-0 role without
+    its tap stage and edge take-back)."""
     from text2speech_tpu_torch.ops import wn_block as wb
 
     dev = torch.device("cuda")
@@ -2291,22 +2134,12 @@ def time_partial_first_beside_first_design(C: int, M: int) -> None:
             def sm90(args=args, b_edge=b_edge):
                 return wb.wn_layer_partial(*args, b_edge=b_edge)
 
-            def first(args=args, b_edge=b_edge):
-                return wb.first_design("wn_layer_partial", *args,
-                                       b_edge=b_edge)
-
             out = sm90()
-            tag = f"wn_layer_partial layer 0 sm90 vs first design p={p} B={B}"
-            compare(tag, out, first())
             # taps (K = 16 on the tensor cores), conditioning, res/skip
             ops = 2 * B * T * ((16 + M) * 2 * Cp + Cp * 2 * C)
             tensors = [t for t in (*args, b_edge, out) if torch.is_tensor(t)]
             bound, by = bound_ms({"bf16": ops}, tensors)
-            times = {"first": [], "sm90": []}
-            for n, fn in (("first", first), ("sm90", sm90), ("sm90", sm90),
-                          ("first", first)):
-                times[n].append(time_ms(fn))
-            ms, prev = sum(times["sm90"]) / 2, sum(times["first"]) / 2
+            ms = time_ms(sm90)
             plain_ms = time_ms(lambda: wb.wn_layer_partial_plain(
                 *args, b_edge=b_edge))
             plan = wb.sm90_plan(Cp, T, B, role="part_first")
@@ -2331,12 +2164,9 @@ def time_partial_first_beside_first_design(C: int, M: int) -> None:
                 raise RuntimeError(f"part_first plan: {plan['smem']} B of "
                                    f"shared memory, the kernel asks {smem}")
             print(f"  wn_layer_partial layer 0 (PART_FIRST) p={p} B={B} "
-                  f"T={T}: sm90 {times['sm90'][0]:.4f} / "
-                  f"{times['sm90'][1]:.4f} ms ({bound / ms:.1%} of the "
+                  f"T={T}: sm90 {ms:.4f} ms ({bound / ms:.1%} of the "
                   f"{bound:.4f} ms bound by {by}), kernel alone "
-                  f"{alone_ms:.4f} ms, first design "
-                  f"{times['first'][0]:.4f} / {times['first'][1]:.4f} ms "
-                  f"({bound / prev:.1%}), plain {plain_ms:.4f} ms; tile "
+                  f"{alone_ms:.4f} ms, plain {plain_ms:.4f} ms; tile "
                   f"{plan['bm']} rows, {plan['stages']} stages of "
                   f"K={plan['bk']}, {plan['smem']} B shared, "
                   f"{plan['grid'][0] * B} blocks")
@@ -2983,8 +2813,7 @@ def check_train_kernels() -> dict:
             F.conv1d(xr.transpose(1, 2), wr.permute(2, 1, 0), padding=d,
                      dilation=d).transpose(1, 2).backward(cot.float())
             refs = {"plain": twb.conv_k3_bwd_plain(x, cot, w, d),
-                    "autograd": (xr.grad, wr.grad),
-                    "first design": twb.first_design(x, cot, w, d)}
+                    "autograd": (xr.grad, wr.grad)}
             for ref, (want_dx, want_dw) in refs.items():
                 want_dx = want_dx.float()
                 e_x = (dx.float() - want_dx).abs().max().item()
@@ -3030,9 +2859,8 @@ def check_train_kernels() -> dict:
                   f"(by {t['bound_by']})")
             if dtype == f32:
                 rec[name].update(t)
-    # times at the training shape, both dtypes, beside the first design in
-    # turns (first, sm90, sm90, first); the record holds bf16 at d=8, and
-    # the f32 form's numbers under "f32"
+    # times at the training shape, both dtypes; the record holds bf16 at
+    # d=8, and the f32 form's numbers under "f32"
     B, T, C = 3, 2000, 512
     r = rec["conv_k3_bwd"]
     for dtype, kind in ((bf16, "bf16"), (f32, "f32")):
@@ -3047,23 +2875,15 @@ def check_train_kernels() -> dict:
                     w.permute(2, 1, 0), None, [1], [d], [d], False, [0], 1,
                     [True, True, False])
 
-            firsts, sm90 = [], []
-            for fn, acc in ((lambda: twb.first_design(x, cot, w, d), firsts),
-                            (lambda: twb.conv_k3_bwd(x, cot, w, d), sm90),
-                            (lambda: twb.conv_k3_bwd(x, cot, w, d), sm90),
-                            (lambda: twb.first_design(x, cot, w, d),
-                             firsts)):
-                acc.append(time_ms(fn))
-            t = {"ms": sum(sm90) / 2, "prev_ms": sum(firsts) / 2,
+            t = {"ms": time_ms(lambda: twb.conv_k3_bwd(x, cot, w, d)),
                  "plain_ms": time_ms(
                      lambda: twb.conv_k3_bwd_plain(x, cot, w, d)),
                  "library_ms": time_ms(library)}
             t["bound_ms"], t["bound_by"] = bound_ms(
                 {kind: 12 * B * T * C * 2 * C}, (x, cot, w, dx, dw))
             print(f"  conv_k3_bwd {kind} B={B} T={T} C={C} d={d}: sm90 "
-                  f"{sm90[0]:.4f} / {sm90[1]:.4f} ms ({t['bound_ms'] / t['ms']:.1%} "
-                  f"of the {t['bound_ms']:.4f} ms bound by {t['bound_by']}), "
-                  f"first design {firsts[0]:.4f} / {firsts[1]:.4f} ms, plain "
+                  f"{t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%} of the "
+                  f"{t['bound_ms']:.4f} ms bound by {t['bound_by']}), plain "
                   f"{t['plain_ms']:.4f} ms, aten.convolution_backward "
                   f"{t['library_ms']:.4f} ms; route {plan['route']}, "
                   f"{plan['dx_blocks']} dx + {plan['dw_blocks']} dW blocks "
@@ -3082,7 +2902,7 @@ def conv_split_and_widths(twb, conv_inputs) -> None:
     ``bwd_plan``'s restatement of them, the dW split the plan picks beside
     others at the training shape (the entry called directly, d=8), and
     bf16 at a width the tensor-core route does not take (C % 128 != 0:
-    the FMA route) beside the first design, in turns."""
+    the FMA route) beside the plain version and the library."""
     import ctypes
 
     dev = torch.device("cuda")
@@ -3116,23 +2936,16 @@ def conv_split_and_widths(twb, conv_inputs) -> None:
               f"{', '.join(times)} ms; the plan's S={plan['splits']}")
     B, T, C = 3, 2000, 320
     x, cot, w = conv_inputs(B, T, C, bf16, 93)
-    twb.conv_k3_bwd(x, cot, w, d)
-    firsts, sm90 = [], []
-    for fn, acc in ((lambda: twb.first_design(x, cot, w, d), firsts),
-                    (lambda: twb.conv_k3_bwd(x, cot, w, d), sm90),
-                    (lambda: twb.conv_k3_bwd(x, cot, w, d), sm90),
-                    (lambda: twb.first_design(x, cot, w, d), firsts)):
-        acc.append(time_ms(fn))
+    ms = time_ms(lambda: twb.conv_k3_bwd(x, cot, w, d))
     plan = twb.bwd_plan(B, T, C, bf16)
     plain = time_ms(lambda: twb.conv_k3_bwd_plain(x, cot, w, d))
     library = time_ms(lambda: torch.ops.aten.convolution_backward(
         cot.transpose(1, 2), x.transpose(1, 2), w.permute(2, 1, 0), None,
         [1], [d], [d], False, [0], 1, [True, True, False]))
     print(f"  conv_k3_bwd bf16 B={B} T={T} C={C} d={d} (route "
-          f"{plan['route']}, {plan['splits']} splits): sm90 {sm90[0]:.4f} / "
-          f"{sm90[1]:.4f} ms, first design {firsts[0]:.4f} / "
-          f"{firsts[1]:.4f} ms, plain {plain:.4f} ms, "
-          f"aten.convolution_backward {library:.4f} ms")
+          f"{plan['route']}, {plan['splits']} splits): sm90 {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, aten.convolution_backward {library:.4f} "
+          f"ms")
 
 
 def conv_backward_path() -> int:
@@ -3309,16 +3122,13 @@ def check_tiles_sm90(rec: dict, C: int = 512, M: int = 640) -> dict:
     1, 64, 128, a width with C % 128 == 64 (C=192, M=96, T=1024, B 1 and
     3) and the widest widths the plan takes, with two stages (SPECT alone
     at C=1408, both at C=1280); rs_out 2C and C and cond_index 0 and 1
-    alternate, and each case's seeded inputs serve both roles.  The first
-    case of each batch, width and dilation is also held against the first
-    design (``wn_block_padded.first_design``).  Pad tiles exactly zero;
-    SPECT's skip sum is updated in place in a buffer with guard rows on
+    alternate, and each case's seeded inputs serve both roles.  Pad tiles
+    exactly zero; SPECT's skip sum is updated in place in a buffer with guard rows on
     both sides, which stay as they were; PADDED leaves ``cond_p`` as it
     found it; the plan's shared memory is the kernel's own
     (``t2s_wn_padded_tiles_sm90_smem_bytes``).  Then the two times at B=1
-    and 3, d=64, beside the first design in turns (first, sm90, sm90,
-    first), the plain version and the bound (``ms``, ``prev_ms``,
-    ``plain_ms``, ``bound_ms`` and their ``_b3`` forms in ``rec``).
+    and 3, d=64, the plain version and the bound (``ms``, ``plain_ms``,
+    ``bound_ms`` and their ``_b3`` forms in ``rec``).
     Returns the seconds of the cases and of the times."""
     from text2speech_tpu_torch.ops import wn_block_padded as wp
 
@@ -3337,13 +3147,10 @@ def check_tiles_sm90(rec: dict, C: int = 512, M: int = 640) -> dict:
     cases += [(1, 512, 1408, 64, 128, 450, ("wn_layer_spect",)),
               (3, 512, 1280, 64, 127, 512, both)]
     guard = 64                     # bf16 values of guard on each side
-    seen = set()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, (B, Tc, Cc, Mc, d, nv, names) in enumerate(cases):
         rs_half, ci = i % 2 == 1, i // 2 % 2
-        vs_first = (B, Cc, d) not in seen
-        seen.add((B, Cc, d))
         for name in names:
             role, _ = PADDED_TILES_ROLES[name]
             plan = wp.padded_tiles_plan(Cc, Tc, B, d, role)
@@ -3372,11 +3179,8 @@ def check_tiles_sm90(rec: dict, C: int = 512, M: int = 640) -> dict:
                 raise RuntimeError(f"wn_layer_spect {tag}: the in-place "
                                    f"skip sum wrote outside its rows")
             want = wp.wn_layer_spect_plain(*args[:-2], acc, d, nv)
-            first = (wp.first_design("wn_layer_spect", *args[:-2],
-                                     acc.clone(), d, n_valid=nv)
-                     if vs_first else (None,) * 2)
-            outs += [(f"wn_layer_spect[{j}]", g, w, f)
-                     for j, (g, w, f) in enumerate(zip(got, want, first))]
+            outs += [(f"wn_layer_spect[{j}]", g, w)
+                     for j, (g, w) in enumerate(zip(got, want))]
         if "wn_layer_padded" in names:
             args = a["wn_layer_padded"]
             keep = args[1].clone()
@@ -3384,17 +3188,12 @@ def check_tiles_sm90(rec: dict, C: int = 512, M: int = 640) -> dict:
             if not torch.equal(args[1], keep):
                 raise RuntimeError(f"wn_layer_padded {tag}: cond_p changed")
             want = wp.wn_layer_padded_plain(*args, ci, nv)
-            first = (wp.first_design("wn_layer_padded", *args, ci,
-                                     n_valid=nv)
-                     if vs_first else (None,) * 2)
-            outs += [(f"wn_layer_padded[{j}] cond_index={ci}", g, w, f)
-                     for j, (g, w, f) in enumerate(zip(got, want, first))]
-        for name, g, w, f in outs:
+            outs += [(f"wn_layer_padded[{j}] cond_index={ci}", g, w)
+                     for j, (g, w) in enumerate(zip(got, want))]
+        for name, g, w in outs:
             if g[:, :bt].any() or g[:, -bt:].any():
                 raise RuntimeError(f"{name} {tag}: pad tiles not zero")
             err = compare(f"{name} {tag}", g, w)
-            if f is not None:
-                compare(f"{name} {tag} vs first design", g, f)
             r = rec[name.split("[")[0]]
             r["max_abs_err"] = max(r["max_abs_err"], err)
     torch.cuda.synchronize()
@@ -3403,33 +3202,23 @@ def check_tiles_sm90(rec: dict, C: int = 512, M: int = 640) -> dict:
         a = tiles_case_args(B, T, T, C, M, 990 + B, dev, 64, n_cond=1)
         for name, args in a.items():
             kern, plain = getattr(wp, name), getattr(wp, name + "_plain")
-
-            def first(name=name, args=args):
-                return wp.first_design(name, *args)
-
-            turns = [time_ms(f, iters=10 if f is first else 50)
-                     for f in (first, lambda: kern(*args),
-                               lambda: kern(*args), first)]
+            ms = time_ms(lambda: kern(*args), iters=50)
             outs = kern(*args)
             tensors = [t for t in (*args, *outs) if torch.is_tensor(t)]
             bound, by = bound_ms(padded_work(name, B, T, C, M, 8), tensors)
-            ms, prev = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
             plain_ms = time_ms(lambda: plain(*args), warmup=1, iters=3)
             sfx = "" if B == 1 else "_b3"
-            rec[name].update({"ms" + sfx: ms, "prev_ms" + sfx: prev,
-                              "plain_ms" + sfx: plain_ms,
+            rec[name].update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
                               "bound_ms" + sfx: bound})
             if B == 1:
                 rec[name]["bound_by"] = by
             role, code = PADDED_TILES_ROLES[name]
             plan = wp.padded_tiles_plan(C, T, B, 64, role)
             print(f"[kernels] {name} ({code}) B={B} T={T} d=64: sm90 "
-                  f"{turns[1]:.4f} / {turns[2]:.4f} ms, first design "
-                  f"{turns[0]:.4f} / {turns[3]:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms (by {by}; "
-                  f"{100 * bound / ms:.2f}% of it, first design "
-                  f"{100 * bound / prev:.2f}%), {plan['tiles']} tiles of "
-                  f"{plan['bm']} rows, {plan['nst']} stages")
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} "
+                  f"ms (by {by}; {100 * bound / ms:.2f}% of it), "
+                  f"{plan['tiles']} tiles of {plan['bm']} rows, "
+                  f"{plan['nst']} stages")
     torch.cuda.synchronize()
     return {"rows 12-13 cases": t1 - t0,
             "rows 12-13 times": time.perf_counter() - t1}
@@ -3442,15 +3231,12 @@ def check_stream_sm90(rec: dict, C: int = 512, M: int = 640,
     1, 63, 64, 128 at n_valid = T - 301, T, 1 and 0 (B=1, T=6400), batch 3
     at d = 1, 64, 128, a width with C % 128 == 64 (C=192, M=96, T=1024, B 1
     and 3) and one that leaves room for one window slot only (C=1024, M=64,
-    d 127 and 128); rs_out 2C and C and E 8 and 1 alternate.  The first
-    case of each batch, width and dilation is also held against the first
-    design (``wn_block_padded.first_design``).  Pad tiles exactly zero; the
-    stream layer's skip sum is updated in place in a buffer with guard rows
+    d 127 and 128); rs_out 2C and C and E 8 and 1 alternate.  Pad tiles
+    exactly zero; the stream layer's skip sum is updated in place in a buffer with guard rows
     on both sides, which stay as they were; the final layer leaves its skip
     sum as it found it; the plan's shared memory is the kernel's own
     (``t2s_wn_padded_sm90_smem_bytes``).  Then the two times at B=1 and 3,
-    d=64, beside the first design in turns (first, sm90, sm90, first), the
-    plain version and the bound (``ms``, ``prev_ms``, ``plain_ms``,
+    d=64, the plain version and the bound (``ms``, ``plain_ms``,
     ``bound_ms`` and their ``_b3`` forms in ``rec``).  Returns the seconds
     of the cases and of the times."""
     from text2speech_tpu_torch.ops import wn_block_padded as wp
@@ -3466,13 +3252,10 @@ def check_stream_sm90(rec: dict, C: int = 512, M: int = 640,
     # C = 1024 at d = 127, 128: the plan's one window slot
     cases += [(1, 1024, 1024, 64, 128, 1000), (3, 512, 1024, 64, 127, 512)]
     guard = 64                     # bf16 values of guard on each side
-    seen = set()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i, (B, Tc, Cc, Mc, d, nv) in enumerate(cases):
         rs_half, Ec = i % 2 == 1, 1 if i % 3 == 1 else E
-        vs_first = (B, Tc, Cc, d) not in seen
-        seen.add((B, Tc, Cc, d))
         for role, code in wp.PADDED_SM90_ROLES.items():
             plan = wp.padded_sm90_plan(Cc, Tc, B, d, role)
             smem = lib.t2s_wn_padded_sm90_smem_bytes(
@@ -3497,10 +3280,8 @@ def check_stream_sm90(rec: dict, C: int = 512, M: int = 640,
             raise RuntimeError(f"wn_layer_stream {tag}: the in-place skip "
                                f"sum wrote outside its rows")
         want = wp.wn_layer_stream_plain(*args[:-2], acc, d, nv)
-        first = (wp.first_design("wn_layer_stream", *args[:-2], acc.clone(),
-                                 d, n_valid=nv) if vs_first else (None,) * 2)
-        outs = [(f"wn_layer_stream[{j}]", g, w, f)
-                for j, (g, w, f) in enumerate(zip(got, want, first))]
+        outs = [(f"wn_layer_stream[{j}]", g, w)
+                for j, (g, w) in enumerate(zip(got, want))]
         args = a["wn_layer_stream_final"]
         keep = args[-4].clone()
         got = wp.wn_layer_stream_final(*args, n_valid=nv)
@@ -3508,15 +3289,11 @@ def check_stream_sm90(rec: dict, C: int = 512, M: int = 640,
             raise RuntimeError(f"wn_layer_stream_final {tag}: skip_acc "
                                f"changed")
         outs.append((f"wn_layer_stream_final E={Ec}", got,
-                     wp.wn_layer_stream_final_plain(*args, nv),
-                     wp.first_design("wn_layer_stream_final", *args,
-                                     n_valid=nv) if vs_first else None))
-        for name, g, w, f in outs:
+                     wp.wn_layer_stream_final_plain(*args, nv)))
+        for name, g, w in outs:
             if g[:, :bt].any() or g[:, -bt:].any():
                 raise RuntimeError(f"{name} {tag}: pad tiles not zero")
             err = compare(f"{name} {tag}", g, w)
-            if f is not None:
-                compare(f"{name} {tag} vs first design", g, f)
             r = rec[name.split("[")[0].split()[0]]
             r["max_abs_err"] = max(r["max_abs_err"], err)
     torch.cuda.synchronize()
@@ -3525,35 +3302,24 @@ def check_stream_sm90(rec: dict, C: int = 512, M: int = 640,
         a = stream_case_args(B, T, T, C, M, E, 790 + B, dev, 64)
         for name, args in a.items():
             kern, plain = getattr(wp, name), getattr(wp, name + "_plain")
-
-            def first(name=name, args=args):
-                return wp.first_design(name, *args)
-
-            turns = [time_ms(f, iters=10 if f is first else 50)
-                     for f in (first, lambda: kern(*args),
-                               lambda: kern(*args), first)]
+            ms = time_ms(lambda: kern(*args), iters=50)
             outs = kern(*args)
             outs = outs if isinstance(outs, tuple) else (outs,)
             tensors = [t for t in (*args, *outs) if torch.is_tensor(t)]
             bound, by = bound_ms(padded_work(name, B, T, C, M, E), tensors)
-            ms, prev = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
             plain_ms = time_ms(lambda: plain(*args), warmup=1, iters=3)
             sfx = "" if B == 1 else "_b3"
-            rec[name].update({"ms" + sfx: ms, "prev_ms" + sfx: prev,
-                              "plain_ms" + sfx: plain_ms,
+            rec[name].update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
                               "bound_ms" + sfx: bound})
             if B == 1:
                 rec[name]["bound_by"] = by
             role = "stream_final" if name.endswith("final") else "stream"
             plan = wp.padded_sm90_plan(C, T, B, 64, role)
             print(f"[kernels] {name} ({PADDED_SM90_ROLES[name]}) B={B} T={T} "
-                  f"d=64: sm90 {turns[1]:.4f} / {turns[2]:.4f} ms, first "
-                  f"design {turns[0]:.4f} / {turns[3]:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound:.4f} ms (by {by}; "
-                  f"{100 * bound / ms:.2f}% of it, first design "
-                  f"{100 * bound / prev:.2f}%), {plan['tiles']} tiles of "
-                  f"{plan['bm']} rows, {plan['nwin']} window / "
-                  f"{plan['nwst']} weight slots")
+                  f"d=64: sm90 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms (by {by}; {100 * bound / ms:.2f}% of it), "
+                  f"{plan['tiles']} tiles of {plan['bm']} rows, "
+                  f"{plan['nwin']} window / {plan['nwst']} weight slots")
     torch.cuda.synchronize()
     return {"rows 14-15 cases": t1 - t0,
             "rows 14-15 times": time.perf_counter() - t1}
@@ -6217,24 +5983,17 @@ def vits_generator_path(info: str) -> dict:
         if n != 78 or seen != [78]:
             raise RuntimeError(f"generator pass: {n} kernel launches, counter "
                                f"{seen}; want 78")
-        first = gen.first_design(z)
         want = ref_vits.generator(sd, v, z)[:, 0]
         nsr = rel_l2(got, want) ** 2
-        nsr_first = rel_l2(first, want) ** 2
         print(f"[vits-gen] pass at B {B} x {T} frames: 78 launches, counter "
               f"{seen}; audio noise against the f32 reference generator "
-              f"(perfbench/reference/vits.py): kernels {nsr:.3e}, first "
-              f"design {nsr_first:.3e}")
+              f"(perfbench/reference/vits.py): {nsr:.3e}")
         if not torch.isfinite(got).all() or nsr > 1.2e-3:
             raise RuntimeError(f"generator pass: audio noise {nsr}")
-        del got, first, want
-        turns = []
-        for name, fn in (("first_design", gen.first_design), ("kernels", gen),
-                         ("kernels", gen),
-                         ("first_design", gen.first_design)):
-            turns.append((name, time_ms(lambda: fn(z), warmup=1, iters=3)))
-        print(f"[vits-gen] pass in turns (ms): {turns}")
-    rec["pass"] = {"turns": turns, "nsr": nsr, "nsr_first": nsr_first}
+        del got, want
+        ms = time_ms(lambda: gen(z), warmup=1, iters=3)
+        print(f"[vits-gen] pass: {ms:.4f} ms")
+    rec["pass"] = {"ms": ms, "nsr": nsr}
     print(json.dumps({"vits_generator": rec}))
     del gen, z, sd
     torch.cuda.empty_cache()
@@ -6278,9 +6037,8 @@ def main() -> int:
     from text2speech_tpu_torch.ops import wn_block_padded as wp
 
     t0 = time.perf_counter()
-    libs = (wb.LIB, wb.LIB_SM90, wq.LIB, wq.LIB_SM90, gated.LIB,
-            wn_backward.LIB, wn_backward.LIB_SM90, wp.LIB, wp.LIB_SM90,
-            wp.LIB_TILES, vits_conv.LIB)
+    libs = (wb.LIB_SM90, wq.LIB_SM90, gated.LIB, wn_backward.LIB_SM90,
+            wp.LIB_SM90, wp.LIB_TILES, vits_conv.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for f in [pool.submit(lib.build) for lib in libs]:
             f.result()
@@ -6395,11 +6153,10 @@ def main() -> int:
         # no one PyTorch call computes a fused WN layer or the gated
         # activation; the conv backward has aten.convolution_backward
         "library_ms": rec[n].get("library_ms"),
-        # the redesigned kernels: their first design's time, both at batch
-        # 3 (the WN layers; the main paths' other WN layers too, with the
-        # bound there) and the conv backward's f32 form
-        **{k: rec[n][k] for k in ("prev_ms", "ms_b3", "prev_ms_b3",
-                                  "bound_ms_b3", "plain_ms_b3", "f32")
+        # the WN layers at batch 3, with the bound there, and the conv
+        # backward's f32 form
+        **{k: rec[n][k] for k in ("ms_b3", "bound_ms_b3", "plain_ms_b3",
+                                  "f32")
            if k in rec[n]},
         **({"role": PADDED_SM90_ROLES[n]} if n in PADDED_SM90_ROLES else {}),
         **({"role": PADDED_TILES_ROLES[n][1]} if n in PADDED_TILES_ROLES

@@ -105,7 +105,7 @@ def launch(args) -> int:
         from text2speech_tpu_torch.ops import wn_block as wb
         from text2speech_tpu_torch.ops import wn_block_int8 as wq
 
-        libs = (wb.LIB, wb.LIB_SM90, wq.LIB, wq.LIB_SM90, gated.LIB)
+        libs = (wb.LIB_SM90, wq.LIB_SM90, gated.LIB)
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(libs)) as pool:
             for f in [pool.submit(lib.build) for lib in libs]:

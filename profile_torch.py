@@ -30,13 +30,11 @@ kernels that took most of the device time, and under "named" the WN-layer
 kernels by their (mangled) names: ``wn_sm90_kernel<ROLE, NWG, BK, DCOND>``
 of ``csrc/wn_block_sm90.cu`` (ROLE 0 standard, 1 final, 2 partial, 3
 first, 4 the partial layer's layer-0 form; DCOND 1 for the composed
-vocoder's layers), ``wn_int8_sm90_kernel<ROLE, NC>`` of
+vocoder's layers) and ``wn_int8_sm90_kernel<ROLE, NC>`` of
 ``csrc/wn_block_int8_sm90.cu`` (ROLE 0 the int8 standard layer, 1 the int8
 tensor-parallel partial layer, 2 the int8 final layer, 3 the int8 first
-layer) and the first design's ``wn_layer_kernel`` of ``csrc/wn_block.cu``
-(no served path launches it now).  One JSON line per stage,
-then the card's name and power limit.  Needs a GPU; imports nothing of
-JAX.
+layer).  One JSON line per stage, then the card's name and power limit.
+Needs a GPU; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -284,8 +282,8 @@ def serve_stages(args) -> None:
         composed_cond=cc)))
     print(f"batch {len(texts)} x {args.steps} frames, reference width")
     for name, fn in stages:
-        also = (("wn_layer_kernel", "wn_sm90_kernel", "wn_int8_sm90_kernel",
-                 "wn_layer_int8_kernel") if name.startswith("vocode") else ())
+        also = (("wn_sm90_kernel", "wn_int8_sm90_kernel")
+                if name.startswith("vocode") else ())
         print(json.dumps(profile_stage(name, fn, also), ensure_ascii=False))
     del cc
 

@@ -159,25 +159,24 @@ def test_final_layer_kernel_at_tile_edges(dev, B, T, nv, d):
 
 
 @pytest.mark.parametrize("C", [128, 512, 640])
-def test_sm90_kernels_agree_with_the_first_design(dev, C):
-    """The sm90 standard and final layers against their first design
-    (``csrc/wn_block.cu``, 64-row blocks, mma.sync) on the same inputs,
-    within the kernel bounds; 640 takes the 64-row tile."""
+def test_sm90_kernels_agree_with_plain(dev, C):
+    """The sm90 standard and final layers against their plain versions on
+    the same inputs, within the kernel bounds; 640 takes the 64-row
+    tile."""
     B, T, nv, M, d = 2, 500, 451, 64, 64
     k = inputs(dev, B, T, nv, C, M, 31 + C, E=8)
     args = (k["x"], k["spect"], k["w_in"], k["b_in"], k["w_cond"],
             k["b_cond"], k["w_rs"], k["b_rs"])
     gx, gs = wb.wn_layer(*args, k["acc"].clone(), d, n_valid=nv)
-    fx, fs = wb.first_design("wn_layer", *args, k["acc"].clone(), d,
-                             n_valid=nv)
-    close(gx, fx)
-    close(gs[:, :nv], fs[:, :nv])
+    px, ps = wb.wn_layer_plain(*args, k["acc"], d, n_valid=nv)
+    close(gx, px)
+    close(gs[:, :nv], ps[:, :nv])
     w_eff, b_eff = wb.fold_end(k["w_rs"][:, :C].contiguous(),
                                k["b_rs"][:C].contiguous(), k["w_end"],
                                k["b_end"])
     fargs = (*args[:6], w_eff, k["acc"], k["w_end"], b_eff, d)
     close(wb.wn_layer_final(*fargs, n_valid=nv),
-          wb.first_design("wn_layer_final", *fargs, n_valid=nv))
+          wb.wn_layer_final_plain(*fargs, n_valid=nv))
 
 
 def test_sm90_wrappers_raise_where_no_tile_fits(dev):
@@ -228,41 +227,34 @@ def _close_first(got, want, nv):
 @pytest.mark.parametrize("n_half", [2, 3, 4])
 @pytest.mark.parametrize("B,T,nv,d", FIRST_EDGES)
 @pytest.mark.parametrize("C,M", [(512, 640), (256, 96)])
-def test_sm90_first_agrees_with_plain_and_first_design(dev, C, M, B, T, nv,
-                                                       d, n_half):
+def test_sm90_first_agrees_with_plain(dev, C, M, B, T, nv, d, n_half):
     """Row 1, the sm90 kernel's FIRST role (the tap stage on the tensor
     cores, the conditioning's K = M stages, the edge take-back, the
-    residual base), against its plain version and its first design
-    (``first_design("wn_layer_first", ...)``), within the kernel bounds."""
+    residual base), against its plain version within the kernel
+    bounds."""
     k = inputs(dev, B, T, nv, C, M, 3 * d + n_half + C, n_half=n_half)
     args = _first_args(k, d)
     got = wb.wn_layer_first(*args, n_valid=nv)
     _close_first(got, wb.wn_layer_first_plain(*args, n_valid=nv), nv)
-    _close_first(got, wb.first_design("wn_layer_first", *args, n_valid=nv),
-                 nv)
 
 
 @pytest.mark.parametrize("n_half", [2, 3, 4])
 @pytest.mark.parametrize("B,T,nv,d", FIRST_EDGES)
 @pytest.mark.parametrize("C", [512, 256])
-def test_sm90_first_dcond_agrees_with_plain_and_first_design(dev, C, B, T,
-                                                             nv, d, n_half):
+def test_sm90_first_dcond_agrees_with_plain(dev, C, B, T, nv, d, n_half):
     """Row 10, FIRST with DCOND (the tap stage the whole in-act product,
-    slice 0 of ``cond_all`` in the gate), against its plain version and
-    its first design."""
+    slice 0 of ``cond_all`` in the gate), against its plain version."""
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
 
     k = inputs(dev, B, T, nv, C, 64, 5 * d + n_half + C, n_half=n_half)
     args = _first_args(k, d, cond_all_for(dev, B, T, C, 3, d + n_half))
     got = wd.wn_layer_first_dcond(*args, n_valid=nv)
     _close_first(got, wd.wn_layer_first_dcond_plain(*args, n_valid=nv), nv)
-    _close_first(got, wb.first_design("wn_layer_first_dcond", *args,
-                                      n_valid=nv), nv)
 
 
-def test_sm90_first_layers_count_once_and_first_design_none(dev):
+def test_sm90_first_layers_count_once(dev):
     """Each wrapper call is one launch of its counter, under the names the
-    paths count (12 per vocode each); ``first_design`` counts none."""
+    paths count (12 per vocode each)."""
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
 
     k = inputs(dev, 1, 200, 180, 128, 64, 6, n_half=2)
@@ -272,8 +264,6 @@ def test_sm90_first_layers_count_once_and_first_design_none(dev):
     wd.reset_launch_counts()
     wb.wn_layer_first(*args, n_valid=180)
     wd.wn_layer_first_dcond(*dargs, n_valid=180)
-    wb.first_design("wn_layer_first", *args, n_valid=180)
-    wb.first_design("wn_layer_first_dcond", *dargs, n_valid=180)
     assert wb.launch_counts() == {"wn_layer_first": 1, "wn_layer": 0,
                                   "wn_layer_final": 0}
     assert wd.launch_counts() == {"wn_layer_first_dcond": 1,
@@ -283,7 +273,7 @@ def test_sm90_first_layers_count_once_and_first_design_none(dev):
 
 def test_sm90_plan_is_the_kernels(dev):
     """The plan's shared memory is what the kernel asks for, for every role
-    of ``csrc/wn_block_sm90.cu``, up to the first design's widest width."""
+    of ``csrc/wn_block_sm90.cu``, up to C = 1408."""
     lib = wb.LIB_SM90.get()
     for role, code in wb.SM90_ROLES.items():
         for C in (128, 512, 1024, 1408):
@@ -523,11 +513,11 @@ def _std_int8_args(q):
 
 
 @pytest.mark.parametrize("B,T,nv,d", S8_EDGES)
-def test_sm90_int8_layer_agrees_with_first_design_and_plain(dev, B, T, nv, d):
+def test_sm90_int8_layer_agrees_with_plain(dev, B, T, nv, d):
     """At the edges of the 64-row tile (T and n_valid off the grid, a halo
     of a whole tile and more, nothing valid, batch 3): against the plain
-    version and the first design by the int8 rule, the skip sum on every
-    row (rows past n_valid are computed alike); two runs bitwise equal."""
+    version by the int8 rule, the skip sum on every row (rows past n_valid
+    are computed alike); two runs bitwise equal."""
     C, M = 512, 640
     q = int8_inputs(dev, B, T, nv, C, M, 11 + d + nv)
     args = _std_int8_args(q)
@@ -535,25 +525,31 @@ def test_sm90_int8_layer_agrees_with_first_design_and_plain(dev, B, T, nv, d):
     again = wq.wn_layer_int8(*args, q["acc"].clone(), d, n_valid=nv)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = wq.wn_layer_int8_plain(*args, q["acc"], d, n_valid=nv)
-    first = wq.first_design("wn_layer_int8", *args, q["acc"].clone(), d,
-                            n_valid=nv)
     close_int8(got, want, T)
-    close_int8(got, first, T)
     assert (got[0][:, nv:] == 0).all()
 
 
+@pytest.fixture
+def exact_wide_qdot(monkeypatch):
+    """The plain int8 versions' integer products in float64 for widths past
+    their f32 limit (K = 1040): sums of up to 2816 s8 products stay far
+    under 2^53, so they are exact, and round to f32 once, as the kernels'
+    s32 sums are converted."""
+    monkeypatch.setattr(
+        wq, "_qdot", lambda q, qw: (q.double() @ qw.double().T).float())
+
+
 @pytest.mark.parametrize("C,M", [(1024, 128), (1792, 64), (2816, 64)])
-def test_sm90_int8_layer_takes_the_first_designs_widths(dev, C, M):
+def test_sm90_int8_layer_takes_wide_widths(dev, exact_wide_qdot, C, M):
     """Wide layers (one column group past C = 1664, a shallow ring) against
-    the first design; the plain version's f32 products are exact only up
-    to K = 1040."""
+    the plain version, its integer products exact in float64, by the int8
+    rule."""
     B, T, nv, d = 2, 300, 271, 8
     q = int8_inputs(dev, B, T, nv, C, M, C)
     args = _std_int8_args(q)
     got = wq.wn_layer_int8(*args, q["acc"].clone(), d, n_valid=nv)
-    first = wq.first_design("wn_layer_int8", *args, q["acc"].clone(), d,
-                            n_valid=nv)
-    close_int8(got, first, T)
+    want = wq.wn_layer_int8_plain(*args, q["acc"], d, n_valid=nv)
+    close_int8(got, want, T)
 
 
 def test_int8_sm90_plan_is_the_kernels(dev):
@@ -590,11 +586,10 @@ def _first_int8_args(q, d):
 @pytest.mark.parametrize("E", [1, 8])
 @pytest.mark.parametrize("B,T,nv,d", S8_END_EDGES)
 @pytest.mark.parametrize("C,M", [(512, 640), (128, 192), (640, 64)])
-def test_sm90_final_int8_agrees_with_plain_and_first_design(dev, C, M, B, T,
-                                                            nv, d, E):
+def test_sm90_final_int8_agrees_with_plain(dev, C, M, B, T, nv, d, E):
     """FINAL at the edges of its 64-row tile, C 128 / 512 / 640, M % 128 !=
-    0: against the plain version and the first design within 0.02 on every
-    row, skip_acc untouched, two runs bitwise equal."""
+    0: against the plain version within 0.02 on every row, skip_acc
+    untouched, two runs bitwise equal."""
     q = int8_inputs(dev, B, T, nv, C, M, 5 * d + E + C, E=E)
     args = _final_int8_args(q, d)
     acc = q["acc"].clone()
@@ -603,19 +598,16 @@ def test_sm90_final_int8_agrees_with_plain_and_first_design(dev, C, M, B, T,
     assert torch.equal(wq.wn_layer_final_int8(*args, n_valid=nv), got)
     assert torch.equal(q["acc"], acc)
     want = wq.wn_layer_final_int8_plain(*args, n_valid=nv)
-    first = wq.first_design("wn_layer_final_int8", *args, n_valid=nv)
     assert (got - want).abs().max().item() <= 0.02
-    assert (got - first).abs().max().item() <= 0.02
 
 
 @pytest.mark.parametrize("n_half", [1, 2, 3, 4])
 @pytest.mark.parametrize("B,T,nv,d", S8_END_EDGES)
 @pytest.mark.parametrize("C,M", [(512, 640), (128, 192), (640, 64)])
-def test_sm90_first_int8_agrees_with_plain_and_first_design(dev, C, M, B, T,
-                                                            nv, d, n_half):
+def test_sm90_first_int8_agrees_with_plain(dev, C, M, B, T, nv, d, n_half):
     """FIRST at the edges of its 64-row tile, n_half 1..4, C 128 / 512 /
-    640, M % 128 != 0: against the plain version and the first design by
-    the int8 rule, the skip on every row; rows past n_valid hold a zero
+    640, M % 128 != 0: against the plain version by the int8 rule, the
+    skip on every row; rows past n_valid hold a zero
     payload with the floor scale; two runs bitwise equal."""
     q = int8_inputs(dev, B, T, nv, C, M, 7 * d + n_half + C, n_half=n_half)
     args = _first_int8_args(q, d)
@@ -623,44 +615,38 @@ def test_sm90_first_int8_agrees_with_plain_and_first_design(dev, C, M, B, T,
     again = wq.wn_layer_first_int8(*args, n_valid=nv)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = wq.wn_layer_first_int8_plain(*args, n_valid=nv)
-    first = wq.first_design("wn_layer_first_int8", *args, n_valid=nv)
     close_int8(got, want, T)
-    close_int8(got, first, T)
     assert (got[0][:, nv:] == 0).all()
     assert torch.equal(got[1][:, nv:], want[1][:, nv:])
 
 
 @pytest.mark.parametrize("role,C", [("final", 1024), ("final", 1408),
                                     ("first", 1664), ("first", 2688)])
-def test_sm90_end_layers_take_wide_widths(dev, role, C):
-    """One column group (FIRST past C = 1536) and shallow rings, up to the
-    first designs' widest widths, against the first design (the plain
-    version's f32 products are exact only up to K = 1040)."""
+def test_sm90_end_layers_take_wide_widths(dev, exact_wide_qdot, role, C):
+    """One column group (FIRST past C = 1536) and shallow rings, up to C =
+    1408 (FINAL) and 2688 (FIRST), against the plain version, its integer
+    products exact in float64."""
     B, T, nv, d, M = 2, 300, 271, 8, 64
     if role == "final":
         q = int8_inputs(dev, B, T, nv, C, M, C, E=8)
         args = _final_int8_args(q, d)
         got = wq.wn_layer_final_int8(*args, n_valid=nv)
-        first = wq.first_design("wn_layer_final_int8", *args, n_valid=nv)
-        assert (got - first).abs().max().item() <= 0.02
+        want = wq.wn_layer_final_int8_plain(*args, n_valid=nv)
+        assert (got - want).abs().max().item() <= 0.02
     else:
         q = int8_inputs(dev, B, T, nv, C, M, C, n_half=4)
         args = _first_int8_args(q, d)
         close_int8(wq.wn_layer_first_int8(*args, n_valid=nv),
-                   wq.first_design("wn_layer_first_int8", *args, n_valid=nv),
-                   T)
+                   wq.wn_layer_first_int8_plain(*args, n_valid=nv), T)
 
 
 def test_sm90_end_layers_launch_the_new_roles_and_count_once(dev):
-    """Each wrapper call is one launch of its counter; ``first_design``
-    counts none."""
+    """Each wrapper call is one launch of its counter."""
     q = int8_inputs(dev, 1, 200, 180, 128, 64, 3, E=8)
     p = int8_inputs(dev, 1, 200, 180, 128, 64, 4, n_half=2)
     wq.reset_launch_counts()
     wq.wn_layer_final_int8(*_final_int8_args(q, 2), n_valid=180)
     wq.wn_layer_first_int8(*_first_int8_args(p, 1), n_valid=180)
-    wq.first_design("wn_layer_final_int8", *_final_int8_args(q, 2))
-    wq.first_design("wn_layer_first_int8", *_first_int8_args(p, 1))
     assert wq.launch_counts() == {"wn_layer_first_int8": 1,
                                   "wn_layer_int8": 0,
                                   "wn_layer_final_int8": 1}
@@ -735,8 +721,7 @@ def test_infer_fused_int8_at_reference_depth_launches_12_72_12(dev):
 @pytest.mark.parametrize("B,T,nv,d,rs_full", [
     (1, 1000, 937, 1, True), (3, 777, 700, 128, False),
     (3, 6450, 6401, 64, True), (2, 1000, 0, 1, True)])
-def test_sm90_partial_agrees_with_first_design_and_plain(dev, p, B, T, nv, d,
-                                                         rs_full):
+def test_sm90_partial_agrees_with_plain(dev, p, B, T, nv, d, rs_full):
     """The first and the last rank's share at reference width: Cp = 256,
     128 and 64 (a half gate chunk), rs_out 2C and C, 64- and 128-row
     tiles, nothing valid."""
@@ -754,8 +739,6 @@ def test_sm90_partial_agrees_with_first_design_and_plain(dev, p, B, T, nv, d,
         assert (got[:, nv:] == 0).all()
         if nv:
             close(got, wb.wn_layer_partial_plain(*args, n_valid=nv))
-            close(got, wb.first_design("wn_layer_partial", *args,
-                                       n_valid=nv))
 
 
 @pytest.mark.parametrize("p", [2, 4])
@@ -907,12 +890,11 @@ def test_conv_k3_bwd_kernel_matches_plain_and_autograd(dev, dtype, B, T, C, d):
 @pytest.mark.parametrize("B,T,C,d", [(3, 2000, 512, 8), (2, 333, 256, 1),
                                      (1, 300, 128, 128), (2, 61, 384, 4),
                                      (2, 99, 24, 128)])
-def test_conv_k3_bwd_sm90_agrees_with_the_first_design(dev, dtype, B, T, C,
-                                                       d):
+def test_conv_k3_bwd_sm90_agrees_with_plain_and_autograd(dev, dtype, B, T,
+                                                         C, d):
     """The sm90 conv backward (wgmma for bf16 at C % 128 == 0, the
-    register-tiled FMA GEMM else) against its first design
-    (``wn_backward.first_design``) and autograd of ``F.conv1d`` on the same
-    inputs: T ragged against both routes' tiles, a dilation of a whole
+    register-tiled FMA GEMM else) against its plain version and autograd
+    of ``F.conv1d`` on the same inputs: T ragged against both routes' tiles, a dilation of a whole
     128-row tile, widths that leave part of a 256-column dx tile empty
     (128, 384); two runs bitwise equal.  Bounds as above: both sum f32
     products in another order; a bf16 dx may round to the neighbouring
@@ -927,7 +909,7 @@ def test_conv_k3_bwd_sm90_agrees_with_the_first_design(dev, dtype, B, T, C,
     cot = torch.randn(B, T, 2 * C, generator=g).to(dev, dtype)
     twb.reset_launch_counts()
     dx, dw = twb.conv_k3_bwd(x, cot, w, d)
-    fx, fw = twb.first_design(x, cot, w, d)
+    px, pw = twb.conv_k3_bwd_plain(x, cot, w, d)
     assert twb.launch_counts() == {"conv_k3_bwd": 1}
     dx2, dw2 = twb.conv_k3_bwd(x, cot, w, d)
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
@@ -935,7 +917,7 @@ def test_conv_k3_bwd_sm90_agrees_with_the_first_design(dev, dtype, B, T, C,
     wr = w.float().requires_grad_()
     F.conv1d(xr.transpose(1, 2), wr.permute(2, 1, 0), padding=d,
              dilation=d).transpose(1, 2).backward(cot.float())
-    for want_dx, want_dw in ((fx, fw), (xr.grad, wr.grad)):
+    for want_dx, want_dw in ((px, pw), (xr.grad, wr.grad)):
         want_dx = want_dx.float()
         peak_x, peak_w = want_dx.abs().max().item(), want_dw.abs().max().item()
         tol_x = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * peak_x + 1e-4
@@ -1087,11 +1069,9 @@ def test_final_dcond_kernel_matches_plain(dev, E, d, li):
     (256, 3, 6400, 6400, 8),    # 128-row tile, K = 64 stages
 ])
 @pytest.mark.parametrize("rs_full", [True, False])
-def test_sm90_dcond_layer_agrees_with_first_design_and_plain(dev, C, B, T,
-                                                             nv, d, rs_full):
-    """The sm90 ``dcond`` standard layer against its first design
-    (``wn_block.first_design("wn_layer_dcond", ...)``) and its plain
-    version, at the first and the last ``cond_index``; rows past n_valid of
+def test_sm90_dcond_layer_agrees_with_plain(dev, C, B, T, nv, d, rs_full):
+    """The sm90 ``dcond`` standard layer against its plain version, at the
+    first and the last ``cond_index``; rows past n_valid of
     x_out are zero, and the skip sum is updated in place on every row."""
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
 
@@ -1107,17 +1087,14 @@ def test_sm90_dcond_layer_agrees_with_first_design_and_plain(dev, C, B, T,
         gx, gs = wd.wn_layer_dcond(*args, acc, d, n_valid=nv)
         assert wd.launch_counts()["wn_layer_dcond"] == 1
         assert gs.data_ptr() == acc.data_ptr()
-        fx, fs = wb.first_design("wn_layer_dcond", *args, k["acc"].clone(),
-                                 d, n_valid=nv)
         px, ps = wd.wn_layer_dcond_plain(*args, k["acc"], d, n_valid=nv)
         assert wd.launch_counts()["wn_layer_dcond"] == 1
         assert not gx[:, nv:].any()
-        for want_x, want_s in ((fx, fs), (px, ps)):
-            if nv:
-                close(gx, want_x)
-            else:
-                assert not want_x.any()
-            close(gs, want_s)
+        if nv:
+            close(gx, px)
+        else:
+            assert not px.any()
+        close(gs, ps)
 
 
 @pytest.mark.parametrize("C,B,T,nv,d,E", [
@@ -1127,12 +1104,10 @@ def test_sm90_dcond_layer_agrees_with_first_design_and_plain(dev, C, B, T,
     (128, 2, 333, 300, 400, 4),     # n_valid off the tile, a halo past it
     (256, 3, 6400, 6400, 8, 6),     # 128-row tile, K = 64 stages
 ])
-def test_sm90_final_dcond_agrees_with_first_design_and_plain(dev, C, B, T,
-                                                             nv, d, E):
+def test_sm90_final_dcond_agrees_with_plain(dev, C, B, T, nv, d, E):
     """The sm90 ``dcond`` final layer (``FINAL`` with ``DCOND``) against its
-    first design (``wn_block.first_design("wn_layer_final_dcond", ...)``)
-    and its plain version at the first and the last ``cond_index``, on
-    every row; skip_acc is read, never written; one launch per call."""
+    plain version at the first and the last ``cond_index``, on every
+    row; skip_acc is read, never written; one launch per call."""
     from text2speech_tpu_torch.ops import wn_block_dcond as wd
 
     L = 4
@@ -1145,11 +1120,9 @@ def test_sm90_final_dcond_agrees_with_first_design_and_plain(dev, C, B, T,
                 k["w_end"], b_eff, d)
         wd.reset_launch_counts()
         got = wd.wn_layer_final_dcond(*args, n_valid=nv)
-        first = wb.first_design("wn_layer_final_dcond", *args, n_valid=nv)
         want = wd.wn_layer_final_dcond_plain(*args, n_valid=nv)
         assert wd.launch_counts()["wn_layer_final_dcond"] == 1
         assert got.shape == (B, T, E) and got.dtype == torch.float32
-        close(got, first)
         close(got, want)
         assert torch.equal(k["acc"], acc)
 
@@ -1394,30 +1367,24 @@ def partial_first_args(k, C, p, i, d):
     (1, 777, 1, 64, 640, 3),        # n_valid = 1
     (3, 1000, 0, 1, 640, 4),        # nothing valid
     (2, 333, 50, 1, 96, 2)])        # a narrower M
-def test_sm90_partial_first_matches_plain_and_first_design(dev, p, B, T, nv,
-                                                           d, M, n_half):
+def test_sm90_partial_first_matches_plain(dev, p, B, T, nv, d, M, n_half):
     """The layer-0 form on the sm90 kernel's ``PART_FIRST`` role: the first
-    and the last rank against the plain version and the first design
-    (``csrc/wn_block.cu`` ``PART_FIRST``); one launch a call, none for the
-    first design; zero from n_valid on."""
+    and the last rank against the plain version; one launch a call; zero
+    from n_valid on."""
     C = 512
     k = inputs(dev, B, T, nv, C, M, 17 * p + d + nv, n_half=n_half)
     for i in (0, p - 1) if p > 1 else (0,):
         args, b_edge = partial_first_args(k, C, p, i, d)
         wb.wn_layer_partial.launches = 0
         got = wb.wn_layer_partial(*args, b_edge=b_edge, n_valid=nv)
-        assert wb.wn_layer_partial.launches == 1
-        first = wb.first_design("wn_layer_partial", *args, b_edge=b_edge,
-                                n_valid=nv)
-        assert wb.wn_layer_partial.launches == 1
         want = wb.wn_layer_partial_plain(*args, b_edge=b_edge, n_valid=nv)
+        assert wb.wn_layer_partial.launches == 1
         assert got.dtype == torch.float32 and got.shape == (B, T, 2 * C)
         assert torch.isfinite(got).all() and (got[:, nv:] == 0).all()
         if nv:
             close(got, want)
-            close(got, first)
         else:
-            assert not got.any() and not first.any()
+            assert not got.any() and not want.any()
 
 
 def test_sm90_partial_first_ranks_sum_to_the_first_layer(dev):
@@ -1482,19 +1449,16 @@ def test_partial_at_the_demo_widths(dev, layer, B, T):
     close(total + k["b_rs"], whole)
 
 
-def test_partial_first_design_counts_no_launch(dev):
-    """``first_design("wn_layer_partial", ..., b_edge=)`` runs the first
-    design's layer-0 form and counts nothing; the wrapper counts one."""
+def test_partial_first_form_counts_one_launch(dev):
+    """The layer-0 form's wrapper counts one launch a call; its plain
+    version counts none."""
     k = inputs(dev, 1, 200, 180, 512, 64, 5, n_half=3)
     args, b_edge = partial_first_args(k, 512, 2, 1, 1)
     wb.wn_layer_partial.launches = 0
-    first = wb.first_design("wn_layer_partial", *args, b_edge=b_edge,
-                            n_valid=180)
+    want = wb.wn_layer_partial_plain(*args, b_edge=b_edge, n_valid=180)
     assert wb.wn_layer_partial.launches == 0
-    close(wb.wn_layer_partial(*args, b_edge=b_edge, n_valid=180), first)
+    close(wb.wn_layer_partial(*args, b_edge=b_edge, n_valid=180), want)
     assert wb.wn_layer_partial.launches == 1
-    with pytest.raises(ValueError, match="takes no b_edge"):
-        wb.first_design("wn_layer", *args, b_edge=b_edge)
 
 
 @pytest.mark.parametrize("p,d,rs_full", [(2, 1, True), (4, 128, False),
@@ -1537,8 +1501,7 @@ def test_sm90_partial_int8_equals_plain_at_tile_edges(dev, p, B, T, nv, d,
     """The s8 wgmma ``PART`` form (csrc/wn_block_int8_sm90.cu) equals its
     plain version bit for bit (the integer sums are exact on both sides and
     every f32 operation after them runs in the plain version's order), at
-    the first and the last rank; its first design within the int8 partial
-    bound; one launch per call."""
+    the first and the last rank; one launch per call."""
     C, M = 512, 640
     Cp = C // p
     k = inputs(dev, B, T, nv, C, M, 5 * p + d, rs_out=2 * C if rs_full else C)
@@ -1558,11 +1521,9 @@ def test_sm90_partial_int8_equals_plain_at_tile_edges(dev, p, B, T, nv, d,
         got = wq.wn_layer_partial_int8(*args, n_valid=nv)
         assert wq.wn_layer_partial_int8.launches == 1
         want = wq.wn_layer_partial_int8_plain(*args, n_valid=nv)
-        first = wq.first_design("wn_layer_partial_int8", *args, n_valid=nv)
         assert wq.wn_layer_partial_int8.launches == 1
         assert torch.equal(got, want)
         assert (got[:, nv:] == 0).all()
-        assert (got - first).abs().max().item() <= 0.02
 
 
 def test_int8_partial_plan_is_the_kernels(dev):
@@ -1743,7 +1704,7 @@ STREAM_CASES = (
 
 
 @pytest.mark.parametrize("case", range(len(STREAM_CASES)))
-def test_stream_sm90_matches_plain_and_first_design(dev, case):
+def test_stream_sm90_matches_plain(dev, case):
     from text2speech_tpu_torch.ops import wn_block_padded as wp
 
     B, T, C, M, d, nv = STREAM_CASES[case]
@@ -1753,21 +1714,17 @@ def test_stream_sm90_matches_plain_and_first_design(dev, case):
     acc = std[-2]
     x_new, skip = wp.wn_layer_stream(*std[:-2], acc.clone(), d, n_valid=nv)
     want = wp.wn_layer_stream_plain(*std[:-2], acc, d, nv)
-    first = wp.first_design("wn_layer_stream", *std[:-2], acc.clone(), d,
-                            n_valid=nv)
     keep = fin[-4].clone()
     out = wp.wn_layer_stream_final(*fin, n_valid=nv)
     assert torch.equal(fin[-4], keep)
-    pairs = list(zip((x_new, skip), want, first)) + [
-        (out, wp.wn_layer_stream_final_plain(*fin, nv),
-         wp.first_design("wn_layer_stream_final", *fin, n_valid=nv))]
-    for g, w, f in pairs:
+    pairs = list(zip((x_new, skip), want)) + [
+        (out, wp.wn_layer_stream_final_plain(*fin, nv))]
+    for g, w in pairs:
         assert not g[:, :bt].any() and not g[:, -bt:].any()
         if not w.any():          # x_new at n_valid = 0: zero, exactly
-            assert not g.any() and not f.any()
+            assert not g.any()
             continue
         close(g, w)
-        close(g, f)
     assert not wp.unpad_tiles(x_new)[:, nv:].any()
 
 
@@ -1802,15 +1759,11 @@ def test_stream_sm90_plan_is_the_kernels_shared_memory(dev):
                     code, C, d, p["nwin"], p["nwst"]) == p["smem"]
 
 
-def test_stream_sm90_first_design_counts_no_launch(dev):
+def test_stream_sm90_counts_one_launch_a_call(dev):
     from text2speech_tpu_torch.ops import wn_block_padded as wp
 
     std, fin = stream_case(dev, 1, 512, 512, 128, 64, 8, 1, 3, False)
     wp.reset_launch_counts()
-    wp.first_design("wn_layer_stream", *std[:-2], std[-2].clone(), 1)
-    wp.first_design("wn_layer_stream_final", *fin)
-    torch.cuda.synchronize()
-    assert not any(wp.launch_counts().values())
     wp.wn_layer_stream(*std[:-2], std[-2].clone(), 1)
     wp.wn_layer_stream_final(*fin)
     assert wp.launch_counts() == {"wn_layer_padded": 0, "wn_layer_spect": 0,
@@ -1878,7 +1831,7 @@ TILES_CASES = (
 
 
 @pytest.mark.parametrize("case", range(len(TILES_CASES)))
-def test_tiles_sm90_matches_plain_and_first_design(dev, case):
+def test_tiles_sm90_matches_plain(dev, case):
     from text2speech_tpu_torch.ops import wn_block_padded as wp
 
     B, T, C, M, d, nv = TILES_CASES[case]
@@ -1888,25 +1841,20 @@ def test_tiles_sm90_matches_plain_and_first_design(dev, case):
     acc = spect[-2]
     sx, ss = wp.wn_layer_spect(*spect[:-2], acc.clone(), d, n_valid=nv)
     pairs = list(zip(
-        (sx, ss), wp.wn_layer_spect_plain(*spect[:-2], acc, d, nv),
-        wp.first_design("wn_layer_spect", *spect[:-2], acc.clone(), d,
-                        n_valid=nv)))
+        (sx, ss), wp.wn_layer_spect_plain(*spect[:-2], acc, d, nv)))
     outs = [sx]
     if C <= 1280:
         keep = padded[1].clone()
         px, ps = wp.wn_layer_padded(*padded, ci, n_valid=nv)
         assert torch.equal(padded[1], keep)
-        pairs += zip((px, ps), wp.wn_layer_padded_plain(*padded, ci, nv),
-                     wp.first_design("wn_layer_padded", *padded, ci,
-                                     n_valid=nv))
+        pairs += zip((px, ps), wp.wn_layer_padded_plain(*padded, ci, nv))
         outs.append(px)
-    for g, w, f in pairs:
+    for g, w in pairs:
         assert not g[:, :bt].any() and not g[:, -bt:].any()
         if not w.any():          # x_new at n_valid = 0: zero, exactly
-            assert not g.any() and not f.any()
+            assert not g.any()
             continue
         close(g, w)
-        close(g, f)
     for x_new in outs:
         assert not wp.unpad_tiles(x_new)[:, nv:].any()
 
@@ -1942,15 +1890,11 @@ def test_tiles_sm90_plan_is_the_kernels_shared_memory(dev):
                     code, C, p["nst"]) == p["smem"]
 
 
-def test_tiles_sm90_first_design_counts_no_launch(dev):
+def test_tiles_sm90_counts_one_launch_a_call(dev):
     from text2speech_tpu_torch.ops import wn_block_padded as wp
 
     spect, padded = tiles_case(dev, 1, 512, 512, 128, 64, 1, 3, False)
     wp.reset_launch_counts()
-    wp.first_design("wn_layer_spect", *spect[:-2], spect[-2].clone(), 1)
-    wp.first_design("wn_layer_padded", *padded, 1)
-    torch.cuda.synchronize()
-    assert not any(wp.launch_counts().values())
     wp.wn_layer_spect(*spect[:-2], spect[-2].clone(), 1)
     wp.wn_layer_padded(*padded, 1)
     assert wp.launch_counts() == {"wn_layer_padded": 1, "wn_layer_spect": 1,

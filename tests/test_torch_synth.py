@@ -26,6 +26,7 @@ from text2speech_tpu.text import N_SYMBOLS
 from text2speech_tpu_torch import convert
 from text2speech_tpu_torch.dsp import stft as tstft
 from text2speech_tpu_torch.infer import Synthesizer
+from text2speech_tpu_torch.ops.build import CSRC_DIR
 
 torch.set_num_threads(1)
 
@@ -262,11 +263,39 @@ def test_cuda_build_raises_without_nvcc(monkeypatch, tmp_path):
         pytest.skip("this machine has a CUDA toolkit at /usr/local/cuda")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.find_nvcc()
-    lib = build.CudaLibrary("wn_block", {})
+    lib = build.CudaLibrary("wn_block_sm90", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         lib.build()
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        wn_block.LIB.build()
+        wn_block.LIB_SM90.build()
+
+
+def _declared_libraries() -> list:
+    """Every ``CudaLibrary`` the modules of ``text2speech_tpu_torch.ops``
+    declare, each once (a module may import another's)."""
+    import importlib
+    import pkgutil
+
+    from text2speech_tpu_torch import ops
+    from text2speech_tpu_torch.ops.build import CudaLibrary
+
+    libs = {}
+    for m in pkgutil.iter_modules(ops.__path__):
+        mod = importlib.import_module(f"{ops.__name__}.{m.name}")
+        libs.update((id(v), v) for v in vars(mod).values()
+                    if isinstance(v, CudaLibrary))
+    return list(libs.values())
+
+
+@pytest.mark.parametrize("source", sorted(
+    p.name for p in CSRC_DIR.glob("*.cu")))
+def test_every_kernel_source_is_one_librarys(source):
+    """Each ``csrc/*.cu`` is the source of exactly one ``CudaLibrary`` of
+    ``ops/``, and every declared library's source exists: a kernel file
+    that nothing loads, or a library without its file, fails here."""
+    libs = _declared_libraries()
+    assert [lib.source.name for lib in libs].count(source) == 1
+    assert all(lib.source.is_file() for lib in libs)
 
 
 def test_exported_npz_loads_into_the_port(pair, tmp_path, monkeypatch):

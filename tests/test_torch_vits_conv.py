@@ -5,8 +5,9 @@ On the CPU: each role's plain version against today's channels-first
 chain (``F.conv1d`` / ``F.conv_transpose1d`` + ``F.leaky_relu`` + adds)
 in float32 at small widths for every (k, d) of ``ljs_base.json``, the
 transposed convolution at u = 2 and 8, ragged T, the running sum with its
-1/3, conv_post's 0.01 slope and tanh; the whole ``Generator`` against its
-first design; a walk of ``csrc/vits_conv_sm90.cu``'s indexing (the window
+1/3, conv_post's 0.01 slope and tanh; the whole ``Generator`` against the
+benchmark's f32 reference generator (``perfbench/reference/vits.py``); a
+walk of ``csrc/vits_conv_sm90.cu``'s indexing (the window
 slot's 8-channel columns, each tap's A at a row offset, the packed weight
 stages, the phases of a transposed convolution) from :func:`pack`'s
 images; :func:`plan` at every convolution of the published generator.
@@ -32,6 +33,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from perfbench.reference import vits as ref
 from text2speech_tpu_torch.config import VitsConfig
 from text2speech_tpu_torch.models import vits as port
 from text2speech_tpu_torch.ops import vits_conv as vc
@@ -120,8 +122,8 @@ def test_post_takes_slope_0_01_and_tanh():
 
 
 def test_the_running_sum_and_its_third():
-    """Resblock 3's last convolution: (conv + b + h + (r1 + r2)) / 3, as
-    the first design's mean of the three resblocks."""
+    """Resblock 3's last convolution: (conv + b + h + (r1 + r2)) / 3, the
+    mean of the three resblocks."""
     g = torch.Generator().manual_seed(6)
     x, h, r1 = (rn(g, 2, 29, 16) for _ in range(3))
     w, b = rn(g, 16, 16, 3, scale=48 ** -0.5), rn(g, 16, scale=0.1)
@@ -151,13 +153,36 @@ def small_generator(c0=32, seed=7):
     return cfg, gen
 
 
+def reference_state(gen) -> dict:
+    """``gen``'s weights as the upstream state dict the reference reads:
+    each weight-normalised convolution as ``weight_v`` = its folded kernel
+    and ``weight_g`` = that kernel's norm over all but the first axis."""
+    sd = {"dec.conv_pre.weight": gen.pre_w, "dec.conv_pre.bias": gen.pre_b,
+          "dec.conv_post.weight": gen.post_w}
+
+    def normed(name, w, b):
+        sd[f"{name}.weight_v"] = w
+        sd[f"{name}.weight_g"] = w.norm(dim=(1, 2), keepdim=True)
+        sd[f"{name}.bias"] = b
+
+    for i, (w, b) in enumerate(zip(gen.up_w, gen.up_b)):
+        normed(f"dec.ups.{i}", w, b)
+    for r, (ws, bs) in enumerate(zip(gen.res_w, gen.res_b)):
+        n = len(ws) // 2                     # convs1 then convs2
+        for m in range(2 * n):
+            normed(f"dec.resblocks.{r}.convs{1 + m // n}.{m % n}", ws[m],
+                   bs[m])
+    return sd
+
+
 @pytest.mark.parametrize("T", [13, 6])
-def test_generator_equals_its_first_design(T):
+def test_generator_equals_the_reference(T):
     cfg, gen = small_generator()
     z = rn(torch.Generator().manual_seed(T), 2, 16, T)
     with torch.no_grad(), recording() as rec:
         got = gen(z)
-    want = gen.first_design(z)
+    with torch.no_grad():
+        want = ref.generator(reference_state(gen), V, z)[:, 0]
     assert got.dtype == torch.float32 and got.shape == (2, T * cfg.hop)
     assert rel(got, want) < F32_TOL
     assert 0.02 < want.pow(2).mean().sqrt() < 0.95   # tanh off its rails

@@ -204,7 +204,7 @@ def test_dcond_tile_walk_matches_plain_bf16(n_valid, d, rs_full, li):
 
 def test_dcond_walk_reads_cond_rows_up_to_t_not_n_valid():
     """Rows at or past n_valid of cond_all reach the skip sum of their own
-    rows (read for t < T, as the first design does) and no valid row."""
+    rows (read for t < T) and no valid row."""
     T, n_valid, d, li = 333, 200, 64, 1
     _, t = _inputs(60, 1, T, n_valid, 2 * C)
     x_a, s_a = tile_walk_dcond(*[t[n] for n in ARGS[:2]], li,

@@ -250,13 +250,3 @@ def test_final_dcond_sm90_ctypes_signature():
     body = m.group(2)
     assert "dispatch<FINAL, true>" in body and "encode_taps" in body
     assert "encode_inact" not in body and "encode_wrs" not in body
-
-
-def test_first_design_names_the_final_dcond_layer():
-    """``wn_block.first_design`` reaches the first design of the dcond final
-    layer (``csrc/wn_block.cu``'s ``t2s_wn_layer_final_dcond``)."""
-    import inspect
-
-    src = inspect.getsource(twb.first_design)
-    assert '"wn_layer_final_dcond"' in src
-    assert "lib.t2s_wn_layer_final_dcond" in src

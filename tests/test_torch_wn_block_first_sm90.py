@@ -24,7 +24,8 @@ The walks are held to the JAX package's Pallas kernels
 (interpret mode, as ``tests/test_torch_wn_block.py`` and
 ``tests/test_torch_wn_block_dcond.py`` run them) and to the port's plain
 versions, and the launch plan of the role is checked at every width the
-first design (``csrc/wn_block.cu``) took.
+role's first CUDA design took (its shared-memory rule is restated
+below).
 
 Tolerances, those of ``tests/test_torch_wn_block_sm90.py``.  Against
 Pallas in float32: the same f32 products summed in another order, values
@@ -322,8 +323,7 @@ def test_first_walk_is_independent_of_the_row_tile(monkeypatch):
 
 
 def _first_design_smem(C: int) -> int:
-    """Shared memory of ``csrc/wn_block.cu``'s FIRST block (its
-    ``launch``): three cp.async stages of a [64, 40] and a [32, 136] bf16
+    """Shared memory of the first CUDA design's FIRST block: three cp.async stages of a [64, 40] and a [32, 136] bf16
     tile, the gated tile [64, C + 8] and the tap tables (768 + 1536 bf16
     values)."""
     return (3 * (64 * 40 + 32 * 136) + 64 * (C + 8) + 768 + 1536) * 2
@@ -398,15 +398,3 @@ def test_first_role_constants_and_c_interface():
         kinds = [P if "*" in p else I for p in decls[name].split(",")]
         assert kinds == twb.LIB_SM90.signatures[name]
         assert kinds[:len(want)] == want
-
-
-def test_first_design_names():
-    """The first designs reachable beside the sm90 kernel now include both
-    first layers; an unknown name still raises."""
-    doc = twb.first_design.__doc__
-    for name in ("wn_layer_first", "wn_layer_first_dcond"):
-        assert f'"{name}"' in doc
-    assert {"wn_layer_first", "wn_layer_first_dcond"} <= set(
-        twb.FIRST_DESIGNS)
-    with pytest.raises(ValueError, match="no first design"):
-        twb.first_design("wn_layer_first_int8")

@@ -284,19 +284,29 @@ def test_cpu_wrappers_count_no_launches_and_mixed_devices_raise():
         twp.wn_layer_padded(*args)
 
 
-def test_ctypes_signatures_match_the_c_interface():
-    """Every exported function's argument list in ``csrc/
-    wn_block_padded.cu`` (pointers, ints, the stream) is what the wrapper
-    module declares to ctypes: a miscount is caught here, not on a card."""
+@pytest.mark.parametrize("module,lib", [
+    ("wn_block_padded", "LIB_SM90"), ("wn_block_padded", "LIB_TILES"),
+    ("gated", "LIB"), ("vits_conv", "LIB")])
+def test_ctypes_signatures_match_the_c_interface(module, lib):
+    """Every ``t2s_*`` function the library's C source exports has the
+    argument list its wrapper module declares to ctypes (pointers and the
+    stream as ``c_void_p``, ``int``, ``long long`` and ``float`` as their
+    ctypes widths): a miscount or a wrong width is caught here, not on a
+    card."""
     import ctypes
+    import importlib
     import re
-    from pathlib import Path
 
-    src = (Path(twp.__file__).parent.parent / "csrc"
-           / "wn_block_padded.cu").read_text()
-    decls = dict(re.findall(r"^int (t2s_\w+)\(([^)]*)\)", src, re.M))
-    assert set(decls) == set(twp.LIB.signatures)
+    lib = getattr(importlib.import_module(
+        f"text2speech_tpu_torch.ops.{module}"), lib)
+    src = re.sub(r"//[^\n]*", "", lib.source.read_text())
+    decls = dict(re.findall(r"^(?:int|size_t) (t2s_\w+)\(([^)]*)\)", src,
+                            re.M))
+    assert decls and set(decls) == set(lib.signatures)
+    scalar = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+              "float": ctypes.c_float}
     for name, params in decls.items():
-        kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int
+        kinds = [ctypes.c_void_p if "*" in p
+                 else scalar[" ".join(p.split()[:-1])]
                  for p in params.split(",")]
-        assert kinds == twp.LIB.signatures[name], name
+        assert kinds == lib.signatures[name], name

@@ -467,19 +467,6 @@ def test_the_oracle_shares_no_code_with_the_serving_kernel():
     assert not ours & serving
 
 
-def test_first_design_is_reachable():
-    """``first_design`` names the first design's two stream entry points,
-    which the first-design library still exports; other names raise."""
-    assert twp.FIRST_DESIGNS[2:] == ("wn_layer_stream",
-                                     "wn_layer_stream_final")
-    assert {"t2s_wn_stream", "t2s_wn_stream_final"} <= set(
-        twp.LIB.signatures)
-    assert "t2s_wn_stream" in twp.first_design.__doc__
-    with pytest.raises(ValueError, match="no first design"):
-        twp.first_design("wn_layer_stream_first", torch.zeros(1, 384, 64),
-                         torch.zeros(1, 384, 32))
-
-
 def test_wrappers_on_the_cpu_take_the_plain_versions():
     """CPU tensors take the plain versions and count no launch; the plan
     is only computed for CUDA tensors."""

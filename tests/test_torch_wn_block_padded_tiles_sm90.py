@@ -432,13 +432,13 @@ def _defined_functions(text):
     return {n for n in names if n not in keywords}
 
 
-@pytest.mark.parametrize("other", ["wn_block_sm90.cu", "wn_common.cuh",
+@pytest.mark.parametrize("other", ["wn_block_sm90.cu",
                                    "wn_block_padded_sm90.cu"])
 def test_the_oracle_shares_no_code(other):
     """The new file includes ``sm90.cuh`` (PTX wrappers) and system headers
-    only, and defines no function that the serving kernel, its common
-    header or the stream kernel (the other side of the ladder's rung 13 vs
-    14) define: an oracle built from their code would prove nothing."""
+    only, and defines no function that the serving kernel or the stream
+    kernel (the other side of the ladder's rung 13 vs 14) define: an oracle
+    built from their code would prove nothing."""
     src = SRC.read_text()
     includes = re.findall(r'#include\s+([<"][^>"]+[>"])', src)
     assert [i for i in includes if i.startswith('"')] == ['"sm90.cuh"']
@@ -449,18 +449,6 @@ def test_the_oracle_shares_no_code(other):
             "rs_product", "store_rows", "launch_tiles"} <= ours
     assert len(theirs) > 10
     assert not ours & theirs
-
-
-def test_first_design_reaches_both_new_names():
-    """``first_design`` names the first design's spect and padded entry
-    points beside the stream pair's; the first-design library still
-    exports them; other names raise."""
-    assert twp.FIRST_DESIGNS[:2] == ("wn_layer_padded", "wn_layer_spect")
-    assert {"t2s_wn_padded", "t2s_wn_spect"} <= set(twp.LIB.signatures)
-    assert "t2s_wn_padded" in twp.first_design.__doc__
-    assert "t2s_wn_spect" in twp.first_design.__doc__
-    with pytest.raises(ValueError, match="no first design"):
-        twp.first_design("wn_layer", torch.zeros(1, 384, 64))
 
 
 def test_wrappers_on_the_cpu_take_the_plain_versions():

@@ -393,13 +393,3 @@ def test_part_first_role_constants_and_c_interface():
     assert params[:9] == ["x0", "spect", "wp", "b_all", "b_edge", "w_cond",
                           "b_cond", "w_rs", "out"]
     assert "dispatch<PART_FIRST>(p, B, nwg, bk, stream)" in src
-
-
-def test_part_first_first_design_is_reachable():
-    """``first_design("wn_layer_partial", ..., b_edge=)`` names the first
-    design's layer-0 form; other names take no ``b_edge``."""
-    assert "b_edge" in twb.first_design.__doc__
-    assert "wn_layer_partial" in twb.FIRST_DESIGNS
-    x = torch.zeros(1, 4, 4)
-    with pytest.raises(ValueError, match="takes no b_edge"):
-        twb.first_design("wn_layer", x, x, b_edge=x)

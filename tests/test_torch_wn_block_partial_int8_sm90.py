@@ -371,11 +371,3 @@ def test_partial_ctypes_signature_and_constants():
     assert int(const["QN"]) == QN and "constexpr int QH = QN / 2;" in src
     assert tq.int8_sm90_smem_bytes(2, 64, 5) == tq.int8_sm90_smem_bytes(
         2, 128, 5)
-
-
-def test_first_design_names():
-    """The first designs reachable beside the sm90 kernel (all four int8
-    roles have one); any other name raises before a tensor is read."""
-    for name in ("wn_layer_first_dcond", "wn_layer_partial"):
-        with pytest.raises(ValueError, match="no first design"):
-            tq.first_design(name)

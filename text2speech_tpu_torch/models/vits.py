@@ -13,9 +13,8 @@ unfolded taps (:func:`conv_cl`), a 1x1 convolution one ``F.linear``, the
 depthwise convolutions k shifted products, and the flows' gated
 activation the WN kernel of ``ops/gated.py``.  The generator runs
 channels-last too, in :data:`GENERATOR_DTYPE` (bfloat16, as the WaveGlow
-vocoder serves), on the fused convolutions of ``ops/vits_conv.py`` (its
-eager cuDNN form stays as :meth:`Generator.first_design`).  Weight norm is
-folded once when the weights are loaded
+vocoder serves), on the fused convolutions of ``ops/vits_conv.py``.
+Weight norm is folded once when the weights are loaded
 (``convert.vits_module_from_torch``), and the generator's weights are then
 packed once for its kernel (:meth:`Generator.pack`).
 
@@ -48,7 +47,6 @@ from ..utils.profiling import annotate, count
 F32 = torch.float32
 # the generator's weights and activations as loaded to serve
 GENERATOR_DTYPE = torch.bfloat16
-LRELU_SLOPE = 0.1
 LN_EPS = 1e-5
 
 
@@ -361,10 +359,6 @@ class CouplingLayer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _pad(k: int, d: int) -> int:
-    return (k * d - d) // 2
-
-
 class Generator(nn.Module):
     """HiFi-GAN V1 (``resblock "1"``): conv_pre, per stage leaky ReLU, a
     transposed convolution and the mean of the multi-receptive-field
@@ -374,8 +368,7 @@ class Generator(nn.Module):
     convolution (78 a pass at V1's shapes), each with the activations,
     bias, residual, running sum and mean around it; on a card those are
     the kernels, which read the weight images :meth:`pack` made (the
-    loaders call it; call it again after changing a weight).
-    :meth:`first_design` is the eager channels-first form on cuDNN."""
+    loaders call it; call it again after changing a weight)."""
 
     def __init__(self, cfg: VitsConfig, device=None):
         super().__init__()
@@ -459,34 +452,6 @@ class Generator(nn.Module):
         audio = vits_conv.post(x, self.post_w, packed=pk and pk["post"])
         count("vits.gen_launches", vits_conv.total_launches() - n0)
         return audio
-
-    def first_design(self, z: torch.Tensor) -> torch.Tensor:
-        """:meth:`forward` as first written: channels-first on cuDNN's
-        convolutions, every activation and add a pass of its own."""
-        cfg = self.cfg
-        x = F.conv1d(z.to(self.pre_w.dtype), self.pre_w, self.pre_b,
-                     padding=3)
-        nk = len(cfg.resblock_kernel_sizes)
-        for i, (u, k) in enumerate(zip(cfg.upsample_rates,
-                                       cfg.upsample_kernel_sizes)):
-            x = F.conv_transpose1d(F.leaky_relu(x, LRELU_SLOPE),
-                                   self.up_w[i], self.up_b[i], stride=u,
-                                   padding=(k - u) // 2)
-            xs = None
-            for j, dils in enumerate(cfg.resblock_dilation_sizes):
-                w, b, n = self.res_w[i * nk + j], self.res_b[i * nk + j], \
-                    len(dils)
-                r = x
-                for m, d in enumerate(dils):
-                    xt = F.conv1d(F.leaky_relu(r, LRELU_SLOPE), w[m], b[m],
-                                  padding=_pad(w.shape[-1], d), dilation=d)
-                    xt = F.conv1d(F.leaky_relu(xt, LRELU_SLOPE), w[n + m],
-                                  b[n + m], padding=_pad(w.shape[-1], 1))
-                    r = xt + r
-                xs = r if xs is None else xs + r
-            x = xs / nk
-        x = F.conv1d(F.leaky_relu(x), self.post_w, None, padding=3)
-        return torch.tanh(x.float())[:, 0]
 
 
 # ---------------------------------------------------------------------------

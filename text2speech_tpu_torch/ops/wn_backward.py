@@ -22,8 +22,6 @@ order (no atomics), so the result is the same from run to run;
 f32 and for bf16 at other widths with C % 8 == 0) and takes
 :func:`conv_k3_bwd_plain` only for CPU tensors; a CUDA tensor the kernels do
 not take raises.  It counts its launches in ``launches``.
-:func:`first_design` runs the first design (``csrc/wn_backward.cu``) on the
-same arguments, for timing beside it.
 """
 
 from __future__ import annotations
@@ -37,9 +35,6 @@ from .wn_block import _check, _on_cpu, _run, _shift
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-LIB = CudaLibrary("wn_backward", {
-    "t2s_conv_k3_bwd": [_P] * 6 + [_I] * 7 + [_P],
-})
 LIB_SM90 = CudaLibrary("wn_backward_sm90", {
     "t2s_conv_k3_bwd_sm90": [_P] * 6 + [_I] * 7 + [_P],
     "t2s_conv_k3_bwd_sm90_tile": [_I, _P],
@@ -47,8 +42,6 @@ LIB_SM90 = CudaLibrary("wn_backward_sm90", {
 
 F32 = torch.float32
 MAX_DILATION = 128
-# the first design's dW grid aims for four blocks per SM of an H100
-_TARGET_BLOCKS = 4 * 132
 
 # The tiles of ``csrc/wn_backward_sm90.cu`` by route: rows, columns, K per
 # stage, blocks per SM.  Restated from the kernel, whose
@@ -136,33 +129,6 @@ def conv_k3_bwd(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
          g.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
          partial.data_ptr(), B, T, C, d, S, int(x.dtype == torch.bfloat16),
          int(plan["route"] == "wgmma"))
-    return dx, dw
-
-
-def first_design(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
-                 dilation: int):
-    """The first CUDA design of the conv backward (``csrc/wn_backward.cu``:
-    ``mma.sync`` for bf16 at C % 128 == 0, else an FMA tile of 4 x 4
-    outputs a thread), kept so that the sm90 kernels can be timed and
-    checked beside it on the same inputs; no path calls it.  The arguments
-    are :func:`conv_k3_bwd`'s (CUDA tensors, already checked by a call of
-    the wrapper).  It counts no launch."""
-    B, T, C = x.shape
-    bf16 = x.dtype == torch.bfloat16
-    use_mma = bf16 and C % 128 == 0
-    if use_mma:
-        tiles = 3 * (C // 64) * (2 * C // 128)
-        chunks = B * -(-T // 32)
-    else:
-        tiles = 3 * -(-C // 64) * -(-2 * C // 64)
-        chunks = -(-B * T // 16)
-    splits = max(1, min(16, -(-_TARGET_BLOCKS // tiles), chunks))
-    dx = torch.empty_like(x)
-    dw = torch.empty((3, C, 2 * C), dtype=F32, device=x.device)
-    partial = torch.empty((3 * splits, C, 2 * C), dtype=F32, device=x.device)
-    _run(LIB.get().t2s_conv_k3_bwd, x.device, x.data_ptr(), g.data_ptr(),
-         w.data_ptr(), dx.data_ptr(), dw.data_ptr(), partial.data_ptr(), B,
-         T, C, int(dilation), splits, int(bf16), int(use_mma))
     return dx, dw
 
 

@@ -38,15 +38,6 @@ from .build import CudaLibrary
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-LIB = CudaLibrary("wn_block", {
-    "t2s_wn_layer_first": [_P] * 13 + [_I] * 7 + [_P],
-    "t2s_wn_layer": [_P] * 11 + [_I] * 7 + [_P],
-    "t2s_wn_layer_final": [_P] * 11 + [_I] * 7 + [_P],
-    "t2s_wn_layer_partial": [_P] * 9 + [_I] * 8 + [_P],
-    "t2s_wn_layer_first_dcond": [_P] * 11 + [_I] * 8 + [_P],
-    "t2s_wn_layer_dcond": [_P] * 9 + [_I] * 8 + [_P],
-    "t2s_wn_layer_final_dcond": [_P] * 9 + [_I] * 8 + [_P],
-})
 LIB_SM90 = CudaLibrary("wn_block_sm90", {
     "t2s_wn_layer_sm90": [_P] * 10 + [_I] * 10 + [_P],
     "t2s_wn_layer_final_sm90": [_P] * 11 + [_I] * 10 + [_P],
@@ -356,9 +347,7 @@ def wn_layer_first(x0, spect, start_k, start_b, wp, b_all, b_edge, w_cond,
     [C, 2C]; f32 biases, ``b_edge`` [2, 2C].  ``wp``, ``b_all``, ``b_edge``
     are :func:`fold_first_taps` of the layer's weights, folded once per
     checkpoint by the caller.  CUDA: the ``FIRST`` role of
-    ``csrc/wn_block_sm90.cu`` with :func:`sm90_plan` ``(role="first")``;
-    ``first_design("wn_layer_first", ...)`` runs the first design on the
-    same arguments."""
+    ``csrc/wn_block_sm90.cu`` with :func:`sm90_plan` ``(role="first")``."""
     if _on_cpu(x0, spect, start_k, start_b, wp, b_all, b_edge, w_cond,
                b_cond, w_rs, b_rs):
         return wn_layer_first_plain(x0, spect, start_k, start_b, wp, b_all,
@@ -478,105 +467,6 @@ def wn_layer_final(x, spect, w_in, b_in, w_cond, b_cond, w_eff, skip_acc,
     return out
 
 
-FIRST_DESIGNS = ("wn_layer_first", "wn_layer", "wn_layer_final",
-                 "wn_layer_first_dcond", "wn_layer_dcond",
-                 "wn_layer_final_dcond", "wn_layer_partial")
-
-
-def first_design(name: str, *args, n_valid: int | None = None,
-                 b_edge=None):
-    """The first CUDA design of the first, the standard, the final, the
-    ``dcond`` first, standard or final, or the partial layer
-    (``csrc/wn_block.cu``'s ``t2s_wn_layer_first`` / ``t2s_wn_layer`` /
-    ``t2s_wn_layer_final`` / ``t2s_wn_layer_first_dcond`` /
-    ``t2s_wn_layer_dcond`` / ``t2s_wn_layer_final_dcond`` /
-    ``t2s_wn_layer_partial``: 64-row blocks, ``mma.sync``, ``cp.async``),
-    kept so that the sm90 kernel can be timed and checked beside it on the
-    same inputs; no path calls it.  ``name`` is ``"wn_layer_first"``,
-    ``"wn_layer"``, ``"wn_layer_final"``, ``"wn_layer_first_dcond"``,
-    ``"wn_layer_dcond"``, ``"wn_layer_final_dcond"`` or
-    ``"wn_layer_partial"`` (with ``b_edge``, its layer-0 form: the first
-    design's ``PART_FIRST``) and the arguments are that wrapper's (CUDA
-    tensors, already checked by a call of the wrapper); the standard layers
-    update ``skip_acc`` in place.  It counts no launch."""
-    if name not in FIRST_DESIGNS:
-        raise ValueError(f"no first design of {name!r}")
-    if b_edge is not None and name != "wn_layer_partial":
-        raise ValueError(f"{name!r} takes no b_edge")
-    x, spect = args[0], args[1]
-    B, T, C = x.shape
-    n_valid = T if n_valid is None else int(n_valid)
-    lib = LIB.get()
-    if name in ("wn_layer_first", "wn_layer_first_dcond"):
-        C, d = args[2].shape[-1], int(args[-1])     # start_k [n_half, C]
-        x_out = torch.empty((B, T, C), dtype=torch.bfloat16, device=x.device)
-        skip = torch.empty_like(x_out)
-        n_half = x.shape[-1]
-        if name == "wn_layer_first":
-            (x0, spect, start_k, start_b, wp, b_all, b_edge, w_cond, b_cond,
-             w_rs, b_rs) = args[:-1]
-            _run(lib.t2s_wn_layer_first, x.device, x0.data_ptr(),
-                 spect.data_ptr(), wp.data_ptr(), b_all.data_ptr(),
-                 b_edge.data_ptr(), w_cond.data_ptr(), b_cond.data_ptr(),
-                 w_rs.data_ptr(), b_rs.data_ptr(), start_k.data_ptr(),
-                 start_b.data_ptr(), x_out.data_ptr(), skip.data_ptr(), B,
-                 T, n_valid, C, spect.shape[-1], n_half, d)
-        else:
-            x0, cond_all, start_k, start_b, wp, b_all, b_edge, w_rs, b_rs = \
-                args[:-1]
-            _run(lib.t2s_wn_layer_first_dcond, x.device, x0.data_ptr(),
-                 cond_all.data_ptr(), wp.data_ptr(), b_all.data_ptr(),
-                 b_edge.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(),
-                 start_k.data_ptr(), start_b.data_ptr(), x_out.data_ptr(),
-                 skip.data_ptr(), B, T, n_valid, C, cond_all.shape[-1], 0,
-                 n_half, d)
-        return x_out, skip
-    if name == "wn_layer_partial":
-        w_rs, d = args[6], args[7]
-        Cp, rs_out = w_rs.shape
-        out = torch.empty((B, T, rs_out), dtype=F32, device=x.device)
-        ptrs = [t.data_ptr() for t in args[:7]]
-        edge = None if b_edge is None else b_edge.data_ptr()
-        _run(lib.t2s_wn_layer_partial, x.device, *ptrs[:4], edge, *ptrs[4:],
-             out.data_ptr(), B, T, n_valid, C, Cp, spect.shape[-1], rs_out,
-             int(d))
-        return out
-    if name == "wn_layer_dcond":
-        cond_all, li, w_in, b_in, w_rs, b_rs, skip_acc, d = args[1:]
-        ld = cond_all.shape[-1]
-        x_out = torch.empty_like(x)
-        _run(lib.t2s_wn_layer_dcond, x.device, x.data_ptr(),
-             cond_all.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
-             w_rs.data_ptr(), b_rs.data_ptr(), skip_acc.data_ptr(),
-             x_out.data_ptr(), skip_acc.data_ptr(), B, T, n_valid, C, ld,
-             2 * C * int(li), w_rs.shape[-1], int(d))
-        return x_out, skip_acc
-    if name == "wn_layer_final_dcond":
-        cond_all, li, w_in, b_in, w_eff, skip_acc, w_end, b_eff, d = args[1:]
-        E = w_end.shape[-1]
-        out = torch.empty((B, T, E), dtype=F32, device=x.device)
-        _run(lib.t2s_wn_layer_final_dcond, x.device, x.data_ptr(),
-             cond_all.data_ptr(), w_in.data_ptr(), b_in.data_ptr(),
-             w_eff.data_ptr(), skip_acc.data_ptr(), w_end.data_ptr(),
-             b_eff.data_ptr(), out.data_ptr(), B, T, n_valid, C,
-             cond_all.shape[-1], 2 * C * int(li), E, int(d))
-        return out
-    M = spect.shape[-1]
-    ptrs = [t.data_ptr() for t in args[:-1]]
-    if name == "wn_layer":
-        skip_acc, w_rs = args[8], args[6]
-        x_out = torch.empty_like(x)
-        _run(lib.t2s_wn_layer, x.device, *ptrs, x_out.data_ptr(),
-             skip_acc.data_ptr(), B, T, n_valid, C, M, w_rs.shape[-1],
-             args[-1])
-        return x_out, skip_acc
-    E = args[8].shape[-1]
-    out = torch.empty((B, T, E), dtype=F32, device=x.device)
-    _run(lib.t2s_wn_layer_final, x.device, *ptrs, out.data_ptr(), B, T,
-         n_valid, C, M, E, args[-1])
-    return out
-
-
 def check_partial_dims(Cp: int, rs_out: int) -> None:
     """What the partial kernels need of a rank's share: whole gate-pair
     chunks of 64 columns, whole res/skip chunks of 128."""
@@ -600,8 +490,7 @@ def wn_layer_partial(x, spect, w_in, b_in, w_cond, b_cond, w_rs,
     and ``b_in`` are then :func:`fold_first_taps`'s wp and b_all of the
     rank's columns) its ``PART_FIRST`` role with ``sm90_plan(Cp, T, B,
     role="part_first")``: the rank-n_half taps as one K = 16 stage of the
-    in-act product.  ``first_design("wn_layer_partial", ..., b_edge=)``
-    runs the first design of either form."""
+    in-act product."""
     ts = [x, spect, w_in, b_in, w_cond, b_cond, w_rs]
     if b_edge is not None:
         ts.append(b_edge)

@@ -86,9 +86,7 @@ def wn_layer_first_dcond(x0, cond_all, start_k, start_b, wp, b_all, b_edge,
     """:func:`wn_layer_first` with pre-materialised conditioning: slice 0 of
     ``cond_all`` [B, T, 2C * L] bf16, read in place (row stride 2C * L), in
     place of ``spect``, ``w_cond`` and ``b_cond``.  CUDA: the sm90 kernel's
-    ``FIRST`` form with ``DCOND``; ``wn_block.first_design(
-    "wn_layer_first_dcond", ...)`` runs the first design on the same
-    arguments."""
+    ``FIRST`` form with ``DCOND``."""
     if _on_cpu(x0, cond_all, start_k, start_b, wp, b_all, b_edge, w_rs, b_rs):
         return wn_layer_first_dcond_plain(x0, cond_all, start_k, start_b, wp,
                                           b_all, b_edge, w_rs, b_rs,
@@ -127,8 +125,7 @@ def wn_layer_dcond(x, cond_all, cond_index: int, w_in, b_in, w_rs, b_rs,
     ``cond_index`` of ``cond_all`` [B, T, 2C * L] bf16, read in place.  The
     skip sum is updated IN PLACE on CUDA, as in :func:`wn_layer`
     (``wn_block_dcond.py:94`` aliases it the same way).  CUDA: the sm90
-    kernel; ``wn_block.first_design("wn_layer_dcond", ...)`` runs the first
-    design on the same arguments."""
+    kernel."""
     if _on_cpu(x, cond_all, w_in, b_in, w_rs, b_rs, skip_acc):
         return wn_layer_dcond_plain(x, cond_all, cond_index, w_in, b_in, w_rs,
                                     b_rs, skip_acc, dilation, n_valid)
@@ -169,8 +166,7 @@ def wn_layer_final_dcond(x, cond_all, cond_index: int, w_in, b_in, w_eff,
                          n_valid: int | None = None):
     """:func:`wn_layer_final` with pre-materialised conditioning: slice
     ``cond_index`` of ``cond_all`` [B, T, 2C * L] bf16, read in place.
-    CUDA: the sm90 kernel; ``wn_block.first_design("wn_layer_final_dcond",
-    ...)`` runs the first design on the same arguments."""
+    CUDA: the sm90 kernel."""
     if _on_cpu(x, cond_all, w_in, b_in, w_eff, skip_acc, w_end, b_eff):
         return wn_layer_final_dcond_plain(x, cond_all, cond_index, w_in, b_in,
                                           w_eff, skip_acc, w_end, b_eff,

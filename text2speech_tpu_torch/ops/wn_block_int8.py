@@ -17,8 +17,7 @@ serving kernels (``wn_layer_stream2_first_int8``, ``wn_layer_stream2_int8``,
 
 Weight layout.  The kernels take int8 weights OUTPUT-MAJOR, ``[N, K]`` with
 the contraction axis contiguous (``qw_in`` [3, 2C, C], ``qw_cond`` [2C, M],
-``qw_rs`` [2C, C]): the s8 ``mma`` wants four consecutive k of one column
-in a register, and the s8 ``wgmma`` takes B K-major only.
+``qw_rs`` [2C, C]): the s8 ``wgmma`` takes B K-major only.
 :func:`quantize_cols` itself keeps the JAX package's ``[..., K, N]``
 layout; :func:`to_output_major` transposes once, when the weights are
 prepared.  The plain versions take the same output-major
@@ -29,13 +28,11 @@ reference the CUDA kernels are checked against, and a wrapper that launches
 the kernel for CUDA tensors or raises; nothing falls back.  Every wrapper
 launches a role of ``csrc/wn_block_int8_sm90.cu`` (s8 ``wgmma``, TMA, two
 warpgroups on a 64-row tile; :func:`int8_sm90_plan` picks the tile per
-role); ``csrc/wn_block_int8.cu`` keeps the first design of all four roles
-(:func:`first_design`).  The plain versions are EXACT in their
-integer products without an integer matmul: s8 values cast to f32 multiply
-and add exactly while every partial sum stays below 2^24, which holds for
-K <= 1040 (K * 127 * 127 < 2^24).  So each tap and the conditioning are
-separate f32 products (TF32 off on a GPU), never one merged K = 3C + M
-product.
+role).  The plain versions are EXACT in their integer products without an
+integer matmul: s8 values cast to f32 multiply and add exactly while every
+partial sum stays below 2^24, which holds for K <= 1040 (K * 127 * 127 <
+2^24).  So each tap and the conditioning are separate f32 products (TF32
+off on a GPU), never one merged K = 3C + M product.
 
 Each wrapper counts its kernel launches in its ``launches`` attribute.
 """
@@ -53,12 +50,6 @@ from .wn_block import (F32, SM90_SMEM_LIMIT, _check, _check_dims,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-LIB = CudaLibrary("wn_block_int8", {
-    "t2s_wn_layer_first_int8": [_P] * 18 + [_I] * 7 + [_P],
-    "t2s_wn_layer_int8": [_P] * 18 + [_I] * 6 + [_P],
-    "t2s_wn_layer_final_int8": [_P] * 15 + [_I] * 7 + [_P],
-    "t2s_wn_layer_partial_int8": [_P] * 13 + [_I] * 8 + [_P],
-})
 LIB_SM90 = CudaLibrary("wn_block_int8_sm90", {
     "t2s_wn_layer_int8_sm90": [_P] * 17 + [_I] * 8 + [_P],
     "t2s_wn_layer_partial_int8_sm90": [_P] * 13 + [_I] * 10 + [_P],
@@ -330,8 +321,7 @@ def wn_layer_first_int8(x0, qspect, sspect, start_k, start_b, wp, b_all,
     [3, n_half, 2C]; int8 ``qspect`` [B, T, M], ``qw_cond`` [2C, M],
     ``qw_rs`` [2C, C] (output-major); f32 scales and biases.  Launches the
     ``FIRST`` role of ``csrc/wn_block_int8_sm90.cu`` with
-    :func:`int8_sm90_plan`; ``first_design("wn_layer_first_int8", ...)``
-    runs the first design on the same arguments."""
+    :func:`int8_sm90_plan`."""
     if _on_cpu(x0, qspect, sspect, start_k, start_b, wp, b_all, b_edge,
                qw_cond, sw_cond, b_cond, qw_rs, sw_rs, b_rs):
         return wn_layer_first_int8_plain(
@@ -354,32 +344,18 @@ def wn_layer_first_int8(x0, qspect, sspect, start_k, start_b, wp, b_all,
     ):
         _check(name, t, shape, dt)
     plan = int8_sm90_plan(C, T, B, role="first")
-    qx_out, sx_out, skip, x_new = _first_outputs(x0, C)
+    qx_out = torch.empty((B, T, C), dtype=I8, device=x0.device)
+    sx_out = torch.empty((B, T, 1), dtype=F32, device=x0.device)
+    skip = torch.empty((B, T, C), dtype=bf, device=x0.device)
+    x_new = torch.empty((B, T, C), dtype=F32, device=x0.device)  # scratch
     wn_layer_first_int8.launches += 1
     _run(LIB_SM90.get().t2s_wn_layer_first_int8_sm90, x0.device,
-         *_first_ptrs(x0, qspect, sspect, start_k, start_b, wp, b_all, b_edge,
-                      qw_cond, sw_cond, b_cond, qw_rs, sw_rs, b_rs, x_new,
-                      qx_out, sx_out, skip),
+         *[t.data_ptr() for t in (
+             x0, qspect, sspect, wp, b_all, b_edge, qw_cond, sw_cond, b_cond,
+             qw_rs, sw_rs, b_rs, start_k, start_b, x_new, qx_out, sx_out,
+             skip)],
          B, T, n_valid, C, M, n_half, dilation, plan["nc"], plan["stages"])
     return qx_out, sx_out, skip
-
-
-def _first_outputs(x0, C: int):
-    """The first layer's outputs (qx, sx, skip) and its x_new scratch."""
-    B, T, dev = x0.shape[0], x0.shape[1], x0.device
-    return (torch.empty((B, T, C), dtype=I8, device=dev),
-            torch.empty((B, T, 1), dtype=F32, device=dev),
-            torch.empty((B, T, C), dtype=torch.bfloat16, device=dev),
-            torch.empty((B, T, C), dtype=F32, device=dev))
-
-
-def _first_ptrs(x0, qspect, sspect, start_k, start_b, wp, b_all, b_edge,
-                qw_cond, sw_cond, b_cond, qw_rs, sw_rs, b_rs, x_new, qx_out,
-                sx_out, skip):
-    """The first layer's pointers in the order of both designs' C entries."""
-    return [t.data_ptr() for t in (
-        x0, qspect, sspect, wp, b_all, b_edge, qw_cond, sw_cond, b_cond,
-        qw_rs, sw_rs, b_rs, start_k, start_b, x_new, qx_out, sx_out, skip)]
 
 
 def wn_layer_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
@@ -425,58 +401,6 @@ def wn_layer_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
     return qx_out, sx_out, skip_acc
 
 
-def first_design(name: str, *args, n_valid: int | None = None):
-    """The first CUDA design of an int8 layer (``csrc/wn_block_int8.cu``'s
-    ``t2s_wn_layer_int8`` / ``t2s_wn_layer_partial_int8`` /
-    ``t2s_wn_layer_first_int8`` / ``t2s_wn_layer_final_int8``: 64-row
-    blocks, ``mma.sync`` s8, ``cp.async``), kept so that the sm90 kernel
-    can be timed and checked beside it on the same inputs; no path calls
-    it.  ``name`` is ``"wn_layer_int8"``, ``"wn_layer_partial_int8"``,
-    ``"wn_layer_first_int8"`` or ``"wn_layer_final_int8"`` and the
-    arguments are that wrapper's (CUDA tensors, already checked by a call
-    of the wrapper); the standard layer's ``skip_acc`` is updated in place.
-    It counts no launch."""
-    if name not in ("wn_layer_int8", "wn_layer_partial_int8",
-                    "wn_layer_first_int8", "wn_layer_final_int8"):
-        raise ValueError(f"no first design of {name!r}")
-    if name == "wn_layer_first_int8":
-        x0, start_k, d = args[0], args[3], int(args[14])
-        B, T, n_half = x0.shape
-        C, M = start_k.shape[-1], args[1].shape[-1]
-        n_valid = T if n_valid is None else int(n_valid)
-        qx_out, sx_out, skip, x_new = _first_outputs(x0, C)
-        _run(LIB.get().t2s_wn_layer_first_int8, x0.device,
-             *_first_ptrs(*args[:14], x_new, qx_out, sx_out, skip),
-             B, T, n_valid, C, M, n_half, d)
-        return qx_out, sx_out, skip
-    qx = args[0]
-    B, T, C = qx.shape
-    n_valid = T if n_valid is None else int(n_valid)
-    if name == "wn_layer_final_int8":
-        E = args[12].shape[-1]
-        out = torch.empty((B, T, E), dtype=F32, device=qx.device)
-        _run(LIB.get().t2s_wn_layer_final_int8, qx.device,
-             *[t.data_ptr() for t in args[:14]], out.data_ptr(), B, T,
-             n_valid, C, args[2].shape[-1], E, int(args[14]))
-        return out
-    if name == "wn_layer_partial_int8":
-        rs_out, Cp = args[10].shape
-        out = torch.empty((B, T, rs_out), dtype=F32, device=qx.device)
-        _run(LIB.get().t2s_wn_layer_partial_int8, qx.device,
-             *[t.data_ptr() for t in args[:12]], out.data_ptr(), B, T,
-             n_valid, C, Cp, args[2].shape[-1], rs_out, int(args[12]))
-        return out
-    sx, skip_acc = args[1], args[13]
-    qx_out = torch.empty_like(qx)
-    sx_out = torch.empty_like(sx)
-    x_new = torch.empty((B, T, C), dtype=F32, device=qx.device)  # scratch
-    _run(LIB.get().t2s_wn_layer_int8, qx.device,
-         *[t.data_ptr() for t in args[:14]], x_new.data_ptr(),
-         qx_out.data_ptr(), sx_out.data_ptr(), skip_acc.data_ptr(), B, T,
-         n_valid, C, args[2].shape[-1], int(args[14]))
-    return qx_out, sx_out, skip_acc
-
-
 def wn_layer_final_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
                         sw_cond, b_cond, w_eff, skip_acc, w_end, b_eff,
                         dilation: int, n_valid: int | None = None):
@@ -485,8 +409,7 @@ def wn_layer_final_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond,
     CUDA: taps and conditioning as :func:`wn_layer_int8`; ``w_eff`` and
     ``w_end`` [C, E <= 8] bf16, ``b_eff`` [E] f32, ``skip_acc`` bf16.
     Launches the ``FINAL`` role of ``csrc/wn_block_int8_sm90.cu`` with
-    :func:`int8_sm90_plan`; ``first_design("wn_layer_final_int8", ...)``
-    runs the first design on the same arguments."""
+    :func:`int8_sm90_plan`."""
     if _on_cpu(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond, sw_cond,
                b_cond, w_eff, skip_acc, w_end, b_eff):
         return wn_layer_final_int8_plain(
@@ -530,9 +453,7 @@ def wn_layer_partial_int8(qx, sx, qspect, sspect, qw_in, sw_in, b_in,
     C], ``qw_cond`` [2Cp, M], ``qw_rs`` [rs_out, Cp] (output-major); f32
     ``sx`` / ``sspect`` [B, T, 1], ``sw_in`` / ``b_in`` / ``sw_cond`` /
     ``b_cond`` [2Cp], ``sw_rs`` [rs_out].  Launches the ``PART`` form of
-    ``csrc/wn_block_int8_sm90.cu`` with :func:`int8_sm90_plan` of width Cp;
-    ``first_design("wn_layer_partial_int8", ...)`` runs the first design on
-    the same arguments."""
+    ``csrc/wn_block_int8_sm90.cu`` with :func:`int8_sm90_plan` of width Cp."""
     if _on_cpu(qx, sx, qspect, sspect, qw_in, sw_in, b_in, qw_cond, sw_cond,
                b_cond, qw_rs, sw_rs):
         return wn_layer_partial_int8_plain(

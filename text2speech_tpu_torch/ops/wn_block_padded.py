@@ -22,8 +22,7 @@ K chunk; its ``SPECT`` and ``PADDED`` roles, :func:`padded_tiles_plan`
 picks the ring's depth) for the first two, ``csrc/wn_block_padded_sm90.cu``
 (``wgmma``, TMA, one x window per K chunk; its ``STREAM`` and
 ``STREAM_FINAL`` roles, :func:`padded_sm90_plan` picks the ring depths) for
-the stream pair.  The first design of all four (``csrc/wn_block_padded.cu``,
-f32 FMAs) stays reachable through :func:`first_design`:
+the stream pair:
 
 * :func:`wn_layer_padded` (``:104 wn_layer_padded``): the layer's own 2C
   slice ``cond_index`` of a pre-materialized ``cond_p`` that already holds
@@ -39,8 +38,8 @@ f32 FMAs) stays reachable through :func:`first_design`:
 The JAX tile is 512 rows; the port's pad width is its own:
 :data:`BT_PAD` = 128, the largest dilation of the reference config
 (2^(L-1)), which also divides the smoke's T = 6400.  It is a layout
-constant, not a CUDA block's row tile (a first-design block covers 32
-rows, a block of either Hopper kernel 64).
+constant, not a CUDA block's row tile (a block of either Hopper kernel
+covers 64 rows).
 
 The plain versions of ``spect`` and ``stream`` are two implementations
 too: whole-array shifted matmuls against a walk over the pad tiles with a
@@ -62,12 +61,6 @@ BT_PAD = 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-LIB = CudaLibrary("wn_block_padded", {
-    "t2s_wn_padded": [_P] * 8 + [_I] * 9 + [_P],
-    "t2s_wn_spect": [_P] * 10 + [_I] * 8 + [_P],
-    "t2s_wn_stream": [_P] * 10 + [_I] * 8 + [_P],
-    "t2s_wn_stream_final": [_P] * 12 + [_I] * 7 + [_P],
-})
 LIB_SM90 = CudaLibrary("wn_block_padded_sm90", {
     "t2s_wn_stream_sm90": [_P] * 10 + [_I] * 10 + [_P],
     "t2s_wn_stream_final_sm90": [_P] * 12 + [_I] * 9 + [_P],
@@ -557,52 +550,6 @@ def wn_layer_stream_final(xp, spect_p, w_in, b_in, w_cond, b_cond, w_rs,
          b_rs.data_ptr(), skip_acc.data_ptr(), w_end.data_ptr(),
          b_end.data_ptr(), out.data_ptr(), B, Tp, bt, C, M, E, dilation,
          plan["nwin"], plan["nwst"])
-    return out
-
-
-FIRST_DESIGNS = ("wn_layer_padded", "wn_layer_spect", "wn_layer_stream",
-                 "wn_layer_stream_final")
-
-
-def first_design(name: str, *args, n_valid: int | None = None):
-    """The first CUDA design of the four padded layers
-    (``csrc/wn_block_padded.cu``'s ``t2s_wn_padded``, ``t2s_wn_spect``,
-    ``t2s_wn_stream`` and ``t2s_wn_stream_final``: f32 FMAs, 32-row
-    blocks), kept so that the Hopper kernels can be timed and checked
-    beside it on the same inputs; no path calls it.  ``name`` is one of
-    :data:`FIRST_DESIGNS` and the arguments are that wrapper's (CUDA
-    tensors, already checked by a call of the wrapper; ``bt`` is
-    :data:`BT_PAD`); the spect and stream layers update ``skip_acc`` in
-    place.  It counts no launch."""
-    if name not in FIRST_DESIGNS:
-        raise ValueError(f"no first design of {name!r}")
-    xp = args[0]
-    B, Tp, C = xp.shape
-    bt = BT_PAD
-    n_valid = Tp - 2 * bt if n_valid is None else int(n_valid)
-    lib = LIB.get()
-    if name == "wn_layer_padded":
-        cond_p, w_rs = args[1], args[4]
-        cond_index = int(args[7]) if len(args) > 7 else 0
-        x_out, skip = torch.empty_like(xp), torch.empty_like(xp)
-        _run(lib.t2s_wn_padded, xp.device, *(t.data_ptr() for t in args[:6]),
-             x_out.data_ptr(), skip.data_ptr(), B, Tp, bt, n_valid, C,
-             cond_p.shape[-1] // (2 * C), cond_index, w_rs.shape[-1],
-             int(args[6]))
-        return x_out, skip
-    M = args[1].shape[-1]
-    ptrs = [t.data_ptr() for t in args[:-1]]
-    if name in ("wn_layer_spect", "wn_layer_stream"):
-        skip_acc, w_rs = args[8], args[6]
-        x_out = torch.empty_like(xp)
-        fn = lib.t2s_wn_spect if name == "wn_layer_spect" else lib.t2s_wn_stream
-        _run(fn, xp.device, *ptrs, x_out.data_ptr(), B, Tp, bt, n_valid, C,
-             M, w_rs.shape[-1], int(args[-1]))
-        return x_out, skip_acc
-    E = args[9].shape[-1]
-    out = torch.empty((B, Tp, E), dtype=F32, device=xp.device)
-    _run(lib.t2s_wn_stream_final, xp.device, *ptrs, out.data_ptr(), B, Tp,
-         bt, C, M, E, int(args[-1]))
     return out
 
 
